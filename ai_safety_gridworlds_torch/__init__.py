@@ -1,0 +1,14 @@
+"""PyTorch / CUDA port of the AI Safety Gridworlds suite.
+
+The JAX package ``ai_safety_gridworlds_tpu`` is the reference; this package
+mirrors its sub-package and module layout (the counterpart of
+``ai_safety_gridworlds_tpu/ops/fused_firemaker.py`` is
+``ai_safety_gridworlds_torch/ops/fused_firemaker.py``) and keeps its packed
+``[rows, B]`` state interface, so a port state compares with a JAX state
+array by array. It imports ``torch`` and ``numpy``, never ``jax``.
+
+Ported so far: the fused ``firemaker_ex_ma`` rollout behind
+:class:`~ai_safety_gridworlds_torch.helpers.batched.BatchedEnv`, with a
+hand-written CUDA kernel for the card and a plain PyTorch version for CPU
+tensors. ``ROADMAP.md`` lists what is still to come.
+"""

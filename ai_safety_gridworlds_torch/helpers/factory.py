@@ -1,0 +1,26 @@
+"""Environment registry of the port.
+
+Port of ``get_raw_env`` from ``ai_safety_gridworlds_tpu/helpers/factory.py``
+for the environments ported so far; the stateful shells and adapters come
+with later slices (``ROADMAP.md``).
+"""
+
+from __future__ import annotations
+
+
+def _raw_registry() -> dict:
+    from ai_safety_gridworlds_torch.envs.firemaker_ex_ma import FiremakerExMa
+
+    return {"firemaker_ex_ma": FiremakerExMa}
+
+
+def get_raw_env(name, **kwargs):
+    """Instantiate the registered functional env, the object
+    ``ops.make_fused`` and :mod:`~ai_safety_gridworlds_torch.helpers.batched`
+    consume."""
+    registry = _raw_registry()
+    if name not in registry:
+        raise NotImplementedError(
+            f"environment {name!r} is not ported yet, see ROADMAP.md"
+        )
+    return registry[name](**kwargs)

@@ -1,0 +1,93 @@
+"""Carry packed states and kernel constants between the JAX package and the
+port, as numpy arrays.
+
+The JAX package's packed state (``init_packed`` output, or any state it
+reached) comes in with :func:`state_from_numpy` and goes back with
+:func:`state_to_numpy`; dtypes (``uint32`` keys included) are kept.
+:func:`busy_firemaker_state` makes a seeded mid-episode state to compare
+implementations from. :func:`assert_consts_equal` checks that a port kernel's ``consts`` equal the
+JAX kernel's key by key.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def state_from_numpy(S_np: dict, device) -> dict:
+    """numpy ``[rows, B]`` arrays -> contiguous tensors on ``device``."""
+    return {
+        k: torch.from_numpy(np.array(v, order="C")).to(device)
+        for k, v in S_np.items()
+    }
+
+
+def state_to_numpy(S: dict) -> dict:
+    """Tensors -> numpy arrays on the host, dtypes kept."""
+    return {k: v.detach().cpu().numpy() for k, v in S.items()}
+
+
+def busy_firemaker_state(fused, seed: int, batch: int, device) -> dict:
+    """A numpy-seeded mid-episode firemaker state on ``device``, for holding
+    two implementations of the step against each other away from
+    ``init_packed``: burning spreadable cells, a busy stop-button countdown
+    and external-fire count, visit counts, workshop flags and reward sums,
+    agents on random distinct free cells in every other lane, and draw
+    counters anywhere in uint32, every other lane within 64 of the wrap."""
+    rng = np.random.default_rng(seed)
+    S = state_to_numpy(fused.init_packed(seed, batch, "cpu"))
+    n, HW = fused.n, fused.HW
+    spreadable = fused.consts["spreadable"][:, 0] > 0.5
+    S["fire"] = (
+        (rng.random((HW, batch)) < 0.2) & spreadable[:, None]
+    ).astype(np.float32)
+    S["countdown"] = rng.integers(0, 5, (1, batch)).astype(np.int32)
+    S["ext_fires"] = rng.integers(0, 3, (1, batch)).astype(np.int32)
+    S["visits"] = rng.integers(0, 4, S["visits"].shape).astype(np.int32)
+    S["at_workshop"] = rng.integers(0, 2, (n, batch)).astype(np.float32)
+    S["stats_rewards"] = rng.integers(
+        -5, 6, S["stats_rewards"].shape
+    ).astype(np.float32)
+    S["t"] = (n * rng.integers(0, fused.max_iterations // n, (1, batch))).astype(
+        np.int32
+    )
+    ctr = rng.integers(0, 2**32, (1, batch), dtype=np.uint32)
+    ctr[:, ::2] = rng.integers(2**32 - 64, 2**32, (1, (batch + 1) // 2),
+                               dtype=np.uint32)
+    S["draw_ctr"] = ctr
+    free = np.flatnonzero(fused.consts["wall"][:, 0] < 0.5)
+    for b in range(0, batch, 2):
+        S["pos"][:, b] = rng.choice(free, size=n, replace=False)
+    for k in ("act_dir", "obs_dir"):
+        if k in S:
+            S[k] = rng.integers(0, 4, (n, batch)).astype(np.int32)
+    return state_from_numpy(S, device)
+
+
+def assert_consts_equal(port_consts: dict, jax_consts: dict) -> None:
+    """Raise ``AssertionError`` unless the two constant dicts hold the same
+    keys with equal shapes, dtypes and values.
+
+    The reference splits its log-survival matrix into bf16-exact
+    ``spread_logw_hi`` and a residual ``spread_logw_lo`` for the TPU's matrix
+    unit; the port keeps one float32 ``spread_logw``, compared with
+    ``hi + lo`` (exactly the float32 matrix)."""
+    ref = {k: np.asarray(v) for k, v in jax_consts.items()}
+    if "spread_logw_hi" in ref:
+        ref["spread_logw"] = (
+            ref.pop("spread_logw_hi") + ref.pop("spread_logw_lo")
+        )
+    if set(port_consts) != set(ref):
+        raise AssertionError(
+            f"const keys differ: port-only {sorted(set(port_consts) - set(ref))}, "
+            f"reference-only {sorted(set(ref) - set(port_consts))}"
+        )
+    for k, want in ref.items():
+        got = np.asarray(port_consts[k])
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(
+                f"const {k!r}: {got.dtype}{got.shape} vs {want.dtype}{want.shape}"
+            )
+        if not np.array_equal(got, want):
+            raise AssertionError(f"const {k!r} values differ")

@@ -1,0 +1,111 @@
+"""The port's routing: ``BatchedEnv`` / ``batched_rollout`` / ``make_fused``
+/ ``get_raw_env``, and the slice as a whole against the JAX package."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from ai_safety_gridworlds_torch import ops as tops
+from ai_safety_gridworlds_torch.envs.firemaker_ex_ma import FiremakerExMa as TEnv
+from ai_safety_gridworlds_torch.helpers import factory
+from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv, batched_rollout
+from ai_safety_gridworlds_torch.ops.fused_firemaker import FusedFiremaker as TF
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_cpu_batched_env_reports_plain_kernel_and_per_call_deltas():
+    env = BatchedEnv("firemaker_ex_ma", batch_size=32, seed=4, device="cpu",
+                     max_iterations=20)
+    assert env.kernel == "fused_torch"
+    assert isinstance(env.fused, TF)
+    first = env.rollout(15)
+    second = env.rollout(15)
+    # t advances 2 per step: episodes end at step 10, restart at step 11,
+    # end again at step 21.
+    assert first["episodes"] == 32 and second["episodes"] == 32
+    assert first["steps"] == second["steps"] == 15 * 32
+    assert first["kernel"] == "fused_torch"
+    total = env.state["stats_rewards"].to(torch.float64).sum(dim=-1).numpy()
+    np.testing.assert_array_equal(
+        first["sum_rewards"] + second["sum_rewards"], total
+    )
+    assert int(env.state["stats_episodes"].sum()) == 64
+
+
+def test_batched_env_slice_matches_jax_eager():
+    """The whole slice: registry -> make_fused -> init_packed -> rollout,
+    against the JAX product-form step run eagerly from the same seed."""
+    from ai_safety_gridworlds_tpu.envs.firemaker_ex_ma import FiremakerExMa
+    from ai_safety_gridworlds_tpu.ops.fused_firemaker import FusedFiremaker
+
+    env = BatchedEnv("firemaker_ex_ma", batch_size=16, seed=9, device="cpu",
+                     max_iterations=16)
+    stats = env.rollout(20)
+    jf = FusedFiremaker(FiremakerExMa(max_iterations=16), mxu_stencil=False)
+    jS = jf.init_packed(seed=9, batch=16)
+    for _ in range(20):
+        jS = jf.step_xla(jS)
+    for k in jf.STATE_FIELDS:
+        np.testing.assert_array_equal(
+            env.state[k].numpy(), np.asarray(jS[k]), err_msg=k
+        )
+    assert stats["episodes"] == int(np.asarray(jS["stats_episodes"]).sum())
+
+
+def test_batched_rollout_one_call():
+    stats = batched_rollout("firemaker_ex_ma", batch_size=8, n_steps=4,
+                            device="cpu", seed=1)
+    assert stats["kernel"] == "fused_torch" and stats["steps"] == 32
+    assert stats["sum_rewards"].shape == (TF(TEnv()).n * TF(TEnv()).D,)
+
+
+def test_unported_names_and_backends_raise():
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        BatchedEnv("boat_race", batch_size=8, device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        factory.get_raw_env("island_navigation_ex_ma")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tops.make_fused(type("Env", (), {"name": "aintelope_savanna"})())
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        BatchedEnv("firemaker_ex_ma", batch_size=8, device="cpu",
+                   backend="generic")
+    with pytest.raises(ValueError):
+        BatchedEnv("firemaker_ex_ma", batch_size=8, device="cpu",
+                   backend="bogus")
+    # An unsupported configuration of a ported env has no generic fallback.
+    with pytest.raises(NotImplementedError):
+        BatchedEnv("firemaker_ex_ma", batch_size=8, device="cpu",
+                   observation_direction_mode=2)
+
+
+def test_cuda_device_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the CPU-only case")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchedEnv("firemaker_ex_ma", batch_size=8)  # device="cuda" default
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        batched_rollout("firemaker_ex_ma", batch_size=8, n_steps=1,
+                        device="cuda")
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import sys\n"
+        "import ai_safety_gridworlds_torch.helpers.batched\n"
+        "import ai_safety_gridworlds_torch.ops.fused_firemaker\n"
+        "import ai_safety_gridworlds_torch.ops.interop\n"
+        "import ai_safety_gridworlds_torch.ops._cuda\n"
+        "from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv\n"
+        "BatchedEnv('firemaker_ex_ma', batch_size=4, device='cpu').rollout(2)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'ai_safety_gridworlds_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                   check=True, timeout=120)
