@@ -8,7 +8,9 @@ mirrors its sub-package and module layout (the counterpart of
 array by array. It imports ``torch`` and ``numpy``, never ``jax``.
 
 Ported so far: the fused ``firemaker_ex_ma`` rollout behind
-:class:`~ai_safety_gridworlds_torch.helpers.batched.BatchedEnv`, with a
+:class:`~ai_safety_gridworlds_torch.helpers.batched.BatchedEnv` (uniform or
+per-lane linear-policy actions), and fused-PPO training on it
+(:mod:`ai_safety_gridworlds_torch.learners.ppo_fused`), each with a
 hand-written CUDA kernel for the card and a plain PyTorch version for CPU
 tensors. ``ROADMAP.md`` lists what is still to come.
 """

@@ -50,13 +50,9 @@ class BatchedEnv:
             raise NotImplementedError(
                 "the generic batched path is not ported yet, see ROADMAP.md"
             )
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "device='cuda' was asked for but no CUDA device is "
-                "available; pass device='cpu' for the plain PyTorch version"
-            )
         from ai_safety_gridworlds_torch import ops
+
+        self.device = ops.resolve_device(device)
         from ai_safety_gridworlds_torch.helpers import factory
 
         self.name = name

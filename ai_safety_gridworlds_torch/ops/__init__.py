@@ -2,8 +2,22 @@
 CPU tensors.
 
 Port of ``ai_safety_gridworlds_tpu/ops/__init__.py``. Only the
-``firemaker_ex_ma`` kernel is ported so far.
+``firemaker_ex_ma`` kernels are ported so far.
 """
+
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises for CUDA without a card
+    (nothing falls back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' was asked for but no CUDA device is available; "
+            "pass device='cpu' for the plain PyTorch version"
+        )
+    return dev
 
 
 def make_fused(env):

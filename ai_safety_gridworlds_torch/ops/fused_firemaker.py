@@ -1,31 +1,37 @@
-"""Fused batched firemaker_ex_ma rollout: plain PyTorch body and CUDA kernel.
+"""Fused batched firemaker_ex_ma rollout and PPO collection: plain PyTorch
+body and CUDA kernels.
 
 Port of ``ai_safety_gridworlds_tpu/ops/fused_firemaker.py``. The whole
 multi-agent step (action draws, randomized agent order, every agent's
 sub-step -- move, stop button, workshop, fire spread, territory -- finalize
 and auto-reset) runs over the packed layout: batch lanes on the last axis,
 ``fire`` is ``[H*W, B]``, positions are flat cell indices ``[n_agents, B]``,
-scalars are ``[1, B]``.
+scalars are ``[1, B]``. Actions come from uniform draws, from per-lane
+linear policies (``set_policies``) or, in the PPO collection, from the MLP
+policy, all on the features of :meth:`FusedFiremaker._policy_feats`.
 
 Two implementations of the same step:
 
 * ``FusedFiremaker._step``, the plain PyTorch version, which mirrors the JAX
-  step body op for op. ``rollout`` runs it for CPU tensors; tests and the
-  on-card comparison run it anywhere through ``rollout_plain``/``step``.
-* :func:`fused_firemaker_rollout`, the wrapper of the hand-written CUDA
-  kernel ``csrc/fused_firemaker.cu`` (K1), which ``rollout`` launches for
-  CUDA tensors: one launch per call, every lane's state on chip for all
-  ``n_steps``.
+  step body op for op. ``rollout`` and ``rollout_collect`` run it for CPU
+  tensors; tests and the on-card comparison run it anywhere through
+  ``rollout_plain``/``rollout_collect_plain``/``step``.
+* The hand-written CUDA kernels of ``csrc/fused_firemaker.cu``, which
+  ``rollout`` and ``rollout_collect`` launch for CUDA tensors, one launch
+  per call with every lane's state on chip for all ``n_steps``:
+  :func:`fused_firemaker_rollout` (K1; uniform or linear-policy actions)
+  and :func:`fused_firemaker_collect` (K3; MLP actions and the streamed
+  trajectory).
 
 Deliberate deviation from the JAX package: the port's default stencil is
 the product form (``mxu_stencil=False``), where the reference defaults to
 the log-survival matmul form that suits the TPU's matrix unit. The product
-form is exact in float32 and is the form the CUDA kernel implements, so the
-kernel is bit-equal to the plain version and the plain version is
-bit-identical to the JAX step run eagerly. ``mxu_stencil=True`` keeps the
-log form in the plain version as one float32 ``[HW, HW] @ [HW, B]`` matmul
-(the bf16 hi/lo split of the reference was an MXU workaround); a CUDA
-rollout with it raises ``NotImplementedError``.
+form is exact in float32 and is the form the CUDA kernels implement, so K1
+is bit-equal to the plain version and the plain version is bit-identical to
+the JAX step run eagerly. ``mxu_stencil=True`` keeps the log form in the
+plain version as one float32 ``[HW, HW] @ [HW, B]`` matmul (the bf16 hi/lo
+split of the reference was an MXU workaround); a CUDA launch with it raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -48,8 +54,11 @@ from ai_safety_gridworlds_torch.ops.fused_base import (
     DEAD,
     FIRST,
     LAST,
+    MLP_KEYS,
     NONE,
+    POLICY_KEYS,
     FusedMaBase,
+    _f32,
 )
 from ai_safety_gridworlds_torch.ops.fused_island_ma import _table_sel
 
@@ -60,6 +69,7 @@ QUIT_R = int(TerminationReason.QUIT)
 NOOP = int(ActionsMo.NOOP)
 QUIT = int(ActionsMo.QUIT)
 UP_DIR = int(Directions.UP)
+_TENTH = _f32(0.1)
 
 # Reward constants, in the order the CUDA kernel indexes them.
 REWARD_KINDS = (
@@ -77,8 +87,9 @@ REWARD_KINDS = (
 class FusedFiremaker(FusedMaBase):
     """Packed batched firemaker with a single-kernel rollout."""
 
-    # Lanes per block of the CUDA kernel (one thread per lane).
+    # Lanes per block of the CUDA kernels (one thread per lane).
     DEFAULT_TILE = 32
+    POLICY_FEATURES = 6
 
     def __init__(self, env, mxu_stencil=False):
         self._mxu_stencil = bool(mxu_stencil)
@@ -278,11 +289,37 @@ class FusedFiremaker(FusedMaBase):
             prod = y if prod is None else prod * y
         return 1.0 - prod
 
-    def _step(self, S: dict, collect_draws: bool = False):
-        """One full MA step on packed tensors: the plain version of K1."""
+    def _policy_feats(self, pos, at_work, countdown, ext_fires, t):
+        """Per-agent [1, B] policy-feature rows, observed at the start of
+        the step after the auto-reset: normalised row and column, the
+        workshop flag, countdown / 10, external fires / 10 and
+        t / max_iterations."""
+        feats = []
+        for j in range(self.n):
+            pos_f, _ = self._pos_dir_feats(pos, None, j)
+            feats.append(pos_f + [
+                at_work[j : j + 1],
+                countdown.to(_F32) * _TENTH,
+                ext_fires.to(_F32) * _TENTH,
+                t.to(_F32) * _f32(1.0 / max(self.max_iterations, 1)),
+            ])
+        return feats
+
+    def feats_of(self, S):
+        return self._policy_feats(
+            S["pos"], S["at_workshop"], S["countdown"], S["ext_fires"],
+            S["t"],
+        )
+
+    def _step(self, S: dict, statics=None, collect_draws: bool = False):
+        """One full MA step on packed tensors: the plain version of K1 and
+        K3. ``statics`` holds the policy (``pol_*`` or ``mlp_*``
+        tensors); ``None`` reads the one installed by ``set_policies``."""
         n, D, HW, W = self.n, self.D, self.HW, self.w
         dev = S["t"].device
         c = self._on(dev)
+        if statics is None:
+            statics = self._all_statics(dev)
         key_hi, key_lo = S["key"][0:1], S["key"][1:2]
         iota_n = torch.arange(n, dtype=_I32, device=dev).view(n, 1)
         iota_hw = torch.arange(HW, dtype=_I32, device=dev).view(HW, 1)
@@ -307,8 +344,11 @@ class FusedFiremaker(FusedMaBase):
             obs_dir = torch.where(over, UP_DIR, S["obs_dir"])
 
         ctr0 = (S["draw_ctr"].to(torch.int64) * self.n_sites) & 0xFFFF_FFFF
-        actions, order = self._draw_actions_and_order(
-            S, over, reasons, ctr0, iota_n
+        feats = None
+        if "pol_w" in statics or "mlp_w1" in statics:
+            feats = self._policy_feats(pos, at_work, countdown, ext_fires, t)
+        actions, order, pol = self._draw_actions_and_order(
+            S, over, reasons, ctr0, iota_n, feats=feats, statics=statics
         )
 
         rewards = torch.zeros((n * D, actions.shape[1]), dtype=_F32, device=dev)
@@ -532,7 +572,7 @@ class FusedFiremaker(FusedMaBase):
                 "actions": actions,
                 "rewards": rewards,
                 "over": over,
-                "pol": None,
+                "pol": pol,
                 "slots": draws,
             }
         return out
@@ -542,10 +582,16 @@ class FusedFiremaker(FusedMaBase):
     def _rollout_kernel(self, S, n_steps, tile):
         return fused_firemaker_rollout(self, S, n_steps, tile)
 
+    def _collect_kernel(self, S, params, n_steps, tile):
+        return fused_firemaker_collect(self, S, params, n_steps, tile)
+
     def _kernel_static(self, device) -> "_FmParams":
-        """K1's parameter block with everything but the state pointers, B
-        and n_steps filled in; built once per device. Holds the static board
-        as cell bits ([HW] uint8 on ``device``, kept alive in the cache)."""
+        """The kernels' parameter block with everything static filled in:
+        the state, policy, MLP and trajectory pointers, B, n_steps and
+        hidden stay 0 and are set per call, so that a policy installed or
+        changed after the first launch reaches the next one. Built once per
+        device. Holds the static board as cell bits ([HW] uint8 on
+        ``device``, kept alive in the cache)."""
         cache = self._on(device)
         if "_k1_params" not in cache:
             bits = np.zeros(self.HW, np.uint8)
@@ -561,15 +607,27 @@ class FusedFiremaker(FusedMaBase):
         return cache["_k1_params"]
 
 
-# ------------------------------------------------------------ CUDA kernel
+# ------------------------------------------------------------ CUDA kernels
 
-_MAX_N, _MAX_D, _MAX_TERMS = 3, 8, 48
+_MAX_N, _MAX_D, _MAX_TERMS, _MAX_A = 3, 8, 48, 5
+# Shared memory a block may take on sm_90 (bytes).
+_MAX_SMEM = 232448
 
 
 class _FmState(ctypes.Structure):
     _fields_ = [
         (name, ctypes.c_void_p)
         for name in FusedFiremaker.BASE_FIELDS + ("act_dir", "obs_dir")
+    ]
+
+
+class _FmTraj(ctypes.Structure):
+    """K3's outputs: the trajectory records ``[T, rows, B]`` and boot."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p)
+        for name in ("feats", "action", "logp", "value", "reward", "done",
+                     "boot")
     ]
 
 
@@ -598,6 +656,16 @@ class _FmParams(ctypes.Structure):
         ("rv", (ctypes.c_float * _MAX_D) * len(REWARD_KINDS)),
         ("dir_tab", ((ctypes.c_int * 4) * 10) * 3),
         ("dir_to_action", _int_array(4)),
+        *[(k, ctypes.c_float) for k in (
+            "inv_w", "inv_hm1", "inv_wm1", "inv_maxit",
+        )],
+        ("pol_w", ctypes.c_void_p),
+        ("pol_b", ctypes.c_void_p),
+        ("pol_eps", ctypes.c_void_p),
+        ("pol_lanes", ctypes.c_int),
+        *[(k, ctypes.c_void_p) for k in MLP_KEYS],
+        ("hidden", ctypes.c_int),
+        ("traj", _FmTraj),
     ]
 
 
@@ -606,10 +674,11 @@ def _firemaker_lib():
     from ai_safety_gridworlds_torch.ops import _cuda
 
     lib = _cuda.load("fused_firemaker")
-    lib.fused_firemaker_rollout.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.fused_firemaker_rollout.restype = ctypes.c_int
+    for entry in (lib.fused_firemaker_rollout, lib.fused_firemaker_collect):
+        entry.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        entry.restype = ctypes.c_int
     lib.fm_params_size.restype = ctypes.c_int
     if lib.fm_params_size() != ctypes.sizeof(_FmParams):
         raise RuntimeError(
@@ -621,9 +690,10 @@ def _firemaker_lib():
 
 
 def _static_params(fused, cell_bits) -> _FmParams:
-    """K1's static parameter block: the board's cell bits, the stencil
-    terms in the reference's product order, reward vectors and direction
-    tables. The state pointers, B and n_steps are left at 0."""
+    """The static parameter block: the board's cell bits, the stencil
+    terms in the reference's product order, reward vectors, direction
+    tables and the policy features' float32 constants. The pointers, B,
+    n_steps and hidden are left at 0."""
     terms = []
     for dr, row in fused.spread_rows:
         for k, (dc, p_off) in enumerate(row):
@@ -658,24 +728,23 @@ def _static_params(fused, cell_bits) -> _FmParams:
                 p.dir_tab[m][a][d] = int(table[a, d])
     for d in range(4):
         p.dir_to_action[d] = int(DIR_TO_ACTION_MO[d])
+    # The features' reciprocals, rounded to float32 as the reference
+    # rounds them (fused_base._pos_dir_feats, _policy_feats).
+    p.inv_w = _f32(1.0 / fused.w)
+    p.inv_hm1 = _f32(1.0 / max(fused.h - 1, 1))
+    p.inv_wm1 = _f32(1.0 / max(fused.w - 1, 1))
+    p.inv_maxit = _f32(1.0 / max(fused.max_iterations, 1))
     return p
 
 
-def fused_firemaker_rollout(fused: FusedFiremaker, S: dict, n_steps: int,
-                            tile: int = FusedFiremaker.DEFAULT_TILE) -> dict:
-    """Advance a packed CUDA state ``n_steps`` steps with one launch of K1
-    (``csrc/fused_firemaker.cu``); returns a new state dict.
-
-    Checks every field's device, dtype, shape and contiguity and raises on
-    what the kernel does not take; CPU tensors take the plain version."""
-    if S["t"].device.type == "cpu":
-        return fused.rollout_plain(S, n_steps)
+def _check_launch(fused, S, n_steps, tile):
+    """The checks both kernels share; returns ``(device, B, n_steps)``."""
     device = S["t"].device
     if device.type != "cuda":
         raise NotImplementedError(f"no firemaker kernel for {device}")
     if fused._mxu_stencil:
         raise NotImplementedError(
-            "the CUDA kernel implements the product-form stencil only; "
+            "the CUDA kernels implement the product-form stencil only; "
             "build FusedFiremaker(env, mxu_stencil=False)"
         )
     B = S["t"].shape[1]
@@ -698,10 +767,34 @@ def fused_firemaker_rollout(fused: FusedFiremaker, S: dict, n_steps: int,
         raise ValueError(f"tile {tile} must be a multiple of 32 in [32, 256]")
     if not (1 <= fused.n <= _MAX_N and fused.D <= _MAX_D):
         raise ValueError(
-            f"K1 takes 1..{_MAX_N} agents and at most {_MAX_D} reward dims"
+            f"the kernels take 1..{_MAX_N} agents and at most {_MAX_D} "
+            "reward dims"
         )
     if B * max(fused.HW, fused.n * fused.D, fused.n * 5) >= 2**31:
         raise ValueError(f"batch {B} too large for 32-bit indexing")
+    return device, B, n_steps
+
+
+def _set_state(p, fused, S, out):
+    for name in fused.STATE_FIELDS:
+        setattr(p.inp, name, S[name].data_ptr())
+        setattr(p.out, name, out[name].data_ptr())
+
+
+def fused_firemaker_rollout(fused: FusedFiremaker, S: dict, n_steps: int,
+                            tile: int = FusedFiremaker.DEFAULT_TILE) -> dict:
+    """Advance a packed CUDA state ``n_steps`` steps with one launch of K1
+    (``csrc/fused_firemaker.cu``); returns a new state dict. The policy
+    installed by ``set_policies`` at the time of the call picks the
+    actions (K1's linear branch); without one the draws are uniform.
+
+    Checks every field's device, dtype, shape and contiguity and raises on
+    what the kernel does not take; CPU tensors take the plain version."""
+    if S["t"].device.type == "cpu":
+        return fused.rollout_plain(S, n_steps)
+    device, B, n_steps = _check_launch(fused, S, n_steps, tile)
+    statics = fused._all_statics(device)
+    fused._check_policy_batch(statics, B)
     out = {k: torch.empty_like(S[k]) for k in fused.STATE_FIELDS}
     if n_steps == 0:
         for k in out:
@@ -711,9 +804,11 @@ def fused_firemaker_rollout(fused: FusedFiremaker, S: dict, n_steps: int,
 
     lib = _firemaker_lib()
     p = _FmParams.from_buffer_copy(fused._kernel_static(device))
-    for name in fused.STATE_FIELDS:
-        setattr(p.inp, name, S[name].data_ptr())
-        setattr(p.out, name, out[name].data_ptr())
+    _set_state(p, fused, S, out)
+    if statics:
+        for k in POLICY_KEYS:
+            setattr(p, k, statics[k].data_ptr())
+        p.pol_lanes = statics["pol_w"].shape[1]
     p.B, p.n_steps = B, n_steps
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -726,3 +821,79 @@ def fused_firemaker_rollout(fused: FusedFiremaker, S: dict, n_steps: int,
 
 
 fused_firemaker_rollout.launches = 0
+
+
+def _collect_smem_bytes(fused: FusedFiremaker, hidden: int, tile: int) -> int:
+    """K3's shared memory per block: the MLP's weights as float32, then
+    the fire and source boards as bytes ``[HW, tile]`` and the cell bits."""
+    A = fused.amax - fused.amin + 1
+    n_w = hidden * fused.POLICY_FEATURES + hidden + (A + 1) * (hidden + 1)
+    return 4 * n_w + 2 * fused.HW * tile + fused.HW
+
+
+def fused_firemaker_collect(fused: FusedFiremaker, S: dict, params: dict,
+                            n_steps: int,
+                            tile: int = FusedFiremaker.DEFAULT_TILE):
+    """The PPO collection: ``n_steps`` steps under the MLP policy
+    ``params`` with one launch of K3 (``csrc/fused_firemaker.cu``).
+
+    Returns ``(S, traj, boot)`` as :meth:`FusedMaBase.rollout_collect`:
+    ``traj[name]`` is ``[n_steps, rows, B]``, ``boot`` is ``[n, B]``.
+    Checks the state as K1 does and each MLP tensor's device, dtype, shape
+    and contiguity (``mlp_w1`` [H, F], ``mlp_b1`` [H, 1], ``mlp_w2`` [A+1,
+    H], ``mlp_b2`` [A+1, 1], float32 on the state's device); CPU tensors
+    take the plain version."""
+    if S["t"].device.type == "cpu":
+        return fused.rollout_collect_plain(S, params, n_steps)
+    device, B, n_steps = _check_launch(fused, S, n_steps, tile)
+    A, F = fused.amax - fused.amin + 1, fused.POLICY_FEATURES
+    if A > _MAX_A:
+        raise ValueError(f"K3 takes at most {_MAX_A} actions, got {A}")
+    w1 = params.get("mlp_w1")
+    if w1 is None or w1.dim() != 2:
+        raise ValueError("mlp_w1 must be a [H, F] tensor")
+    H = w1.shape[0]
+    for k, shape in (("mlp_w1", (H, F)), ("mlp_b1", (H, 1)),
+                     ("mlp_w2", (A + 1, H)), ("mlp_b2", (A + 1, 1))):
+        v = params.get(k)
+        if v is None:
+            raise ValueError(f"missing MLP param {k!r}")
+        if v.device != device or v.dtype != _F32 or tuple(v.shape) != shape:
+            raise ValueError(
+                f"MLP param {k!r}: expected float32 {list(shape)} on "
+                f"{device}, got {v.dtype} {list(v.shape)} on {v.device}"
+            )
+        if not v.is_contiguous():
+            raise ValueError(f"MLP param {k!r} is not contiguous")
+    if H < 1 or _collect_smem_bytes(fused, H, tile) > _MAX_SMEM:
+        raise ValueError(
+            f"hidden {H} at tile {tile} does not fit K3's shared memory"
+        )
+    out = {k: torch.empty_like(S[k]) for k in fused.STATE_FIELDS}
+    traj = {
+        name: torch.empty((n_steps, rows, B), dtype=dtype, device=device)
+        for name, rows, dtype in fused._traj_layout()
+    }
+    boot = torch.empty((fused.n, B), dtype=_F32, device=device)
+    from ai_safety_gridworlds_torch.ops import _cuda
+
+    lib = _firemaker_lib()
+    p = _FmParams.from_buffer_copy(fused._kernel_static(device))
+    _set_state(p, fused, S, out)
+    for k in MLP_KEYS:
+        setattr(p, k, params[k].data_ptr())
+    for name in traj:
+        setattr(p.traj, name, traj[name].data_ptr())
+    p.traj.boot = boot.data_ptr()
+    p.B, p.n_steps, p.hidden = B, n_steps, H
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.fused_firemaker_collect(
+            ctypes.byref(p), fused.n, int(tile), stream
+        )
+    fused_firemaker_collect.launches += 1
+    _cuda.check(lib, err, "fused_firemaker_collect launch")
+    return out, traj, boot
+
+
+fused_firemaker_collect.launches = 0

@@ -5,7 +5,9 @@ The JAX package's packed state (``init_packed`` output, or any state it
 reached) comes in with :func:`state_from_numpy` and goes back with
 :func:`state_to_numpy`; dtypes (``uint32`` keys included) are kept.
 :func:`busy_firemaker_state` makes a seeded mid-episode state to compare
-implementations from. :func:`assert_consts_equal` checks that a port kernel's ``consts`` equal the
+implementations from. :func:`params_from_numpy` and :func:`params_to_numpy`
+carry the MLP policy's params, so that both packages run the same policy.
+:func:`assert_consts_equal` checks that a port kernel's ``consts`` equal the
 JAX kernel's key by key.
 """
 
@@ -13,6 +15,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ai_safety_gridworlds_torch.ops.fused_base import MLP_KEYS
 
 
 def state_from_numpy(S_np: dict, device) -> dict:
@@ -63,6 +67,21 @@ def busy_firemaker_state(fused, seed: int, batch: int, device) -> dict:
         if k in S:
             S[k] = rng.integers(0, 4, (n, batch)).astype(np.int32)
     return state_from_numpy(S, device)
+
+
+def params_from_numpy(p_np: dict, device) -> dict:
+    """MLP params as numpy (the JAX package's ``ppo_fused.init_params``
+    layout: ``mlp_w1`` [H, F], ``mlp_b1`` [H, 1], ``mlp_w2`` [A+1, H],
+    ``mlp_b2`` [A+1, 1]) -> contiguous float32 tensors on ``device``."""
+    return {
+        k: torch.from_numpy(np.array(p_np[k], np.float32, order="C")).to(device)
+        for k in MLP_KEYS
+    }
+
+
+def params_to_numpy(params: dict) -> dict:
+    """MLP param tensors -> float32 numpy arrays on the host."""
+    return {k: params[k].detach().cpu().numpy() for k in MLP_KEYS}
 
 
 def assert_consts_equal(port_consts: dict, jax_consts: dict) -> None:

@@ -21,10 +21,38 @@ Phases, in order; any failure exits non-zero before the last line:
    to 0 just before and read just after; then env-steps/s, the plain
    version's time at the same shape, and K1's time by lane count (4096,
    16384, 65536) and lane tile (32, 64, 128, 256);
-6. one JSON line of kernel results: ``kernels`` holds the main path's
-   kernel (K1) with its launches from phase 5; ``checked_off_path`` holds
-   K2, which the main path does not launch (K1 inlines the same PRF header),
-   with its phase-5 launches (0) and its phase-3 launches; then the card's
+6. K1's linear-policy branch (``set_policies``, the policy-search path)
+   against the plain rollout, exactly, over 200 steps from
+   ``init_packed(0, 4096)`` with numpy-seeded per-lane W, b and eps = 0.1;
+   then again after ``set_policies`` with new values (the parameter block
+   must not go stale);
+7. K3 ``fused_firemaker_collect`` against the plain collection at
+   B = 4096, T = 64, H = 64 with numpy-seeded MLP params: (a) teacher-forced,
+   one K3 step from each plain state -- state and feats/action/reward/done
+   equal except on lanes where a site-0 uniform lies within 1e-6 of a
+   cumulative softmax sum (at most 0.01% of lane-steps), logp, value and boot
+   within 1e-5; (b) free-running 64 steps from ``init_packed`` and from
+   ``interop.busy_firemaker_state``, at most 0.1% of lanes diverged;
+8. the training path: ``make_train_step(FusedFiremaker(FiremakerExMa()),
+   FusedPPOConfig(n_steps=64, n_epochs=2, n_minibatches=4),
+   device="cuda")`` at B = 4096, H = 64 (the configuration of ``bench.py``'s
+   fused-PPO line): one warm-up step, then 3 timed steps with the launch
+   counters set to 0 just before and read just after (K3 once per step);
+   training env-steps/s, K3's time per call, the plain collection's time and
+   the share of a step spent outside K3;
+9. the learning gate of ``tests/test_ppo_learning.py::
+   test_fused_ppo_learns_firemaker`` through K3: ``max_iterations=50``,
+   B = 64, 200 updates, then ``evaluate`` on 128 steps over 64 lanes; more
+   than 100 episodes, a return gain above 40 and a final return above 0;
+10. one JSON line of kernel results: ``kernels`` holds K1 with its launches
+   on the main path (phase 5) and on the policy-search check (phase 6), and
+   K3 with its launches on the training path (phase 8), each with its
+   largest error against its plain version, its times, its bound (the least
+   time the card could take: bytes over 3.35 TB/s or operations over
+   67 T/s, whichever is larger, counted from this run's inputs) and
+   ``library_ms`` (null: no single PyTorch call computes these functions);
+   ``checked_off_path`` holds K2, which no driven path launches (K1 and K3
+   inline the same PRF header), with its phase-3 launches; then the card's
    name and power limit and the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Needs one CUDA card.
@@ -59,6 +87,36 @@ K1_REPLACES = (
 K2_REPLACES = (
     "ai_safety_gridworlds_tpu/ops/prng.py:44 (hash_u32), :63 (uniform01)"
 )
+K3_REPLACES = (
+    "ai_safety_gridworlds_tpu/ops/fused_base.py:635 (_rollout_collect_pallas, "
+    "pallas_call :718) x :594 (_collect_step) x :196 (_mlp_policy_actions) x "
+    ":171 (_mlp_forward_agent) x :582 (_bootstrap_value) x "
+    "ai_safety_gridworlds_tpu/ops/fused_firemaker.py:373 (_step), :310 "
+    "(_policy_feats)"
+)
+POLICY_STEPS = 200
+COLLECT_STEPS = 64
+HIDDEN = 64
+TRAIN_CALLS = 3
+CDF_GAP = 1e-6
+MAX_EXEMPT_SHARE = 1e-4    # of teacher-forced lane-steps
+MAX_DIVERGED_SHARE = 1e-3  # of lanes after a free-running collection
+FLOAT_TOL = 1e-5           # logp, value and boot against the plain version
+
+# Bounds: the larger of the bytes a call must move over the H100's memory
+# rate and its operations over the peak rate of scalar float32 operations
+# outside the tensor cores (67 TFLOP/s, also taken for the int32 hash
+# arithmetic, which makes the bound a least time).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+# Operations per cell and acting sub-step, counted from fused_firemaker.cu:
+# the PRF hash (2 multiplies and 3 xors, two 8-operation murmur3
+# finalizers), uniform01 (shift, convert, scale), the draw and the
+# external-fire count.
+OPS_PER_CELL = 21 + 3 + 4
+# At each spreadable cell: 24 stencil terms of 4 operations (offset,
+# wrap-around, source test, multiply), 5 row products and 1 - prod.
+OPS_PER_STENCIL_CELL = 24 * 4 + 6
 
 
 def log(msg=""):
@@ -93,6 +151,35 @@ def cuda_ms(fn, reps, torch):
     return start.elapsed_time(end) / reps
 
 
+def state_words(fused):
+    """32-bit words per lane of the packed state."""
+    return sum(fused.field_spec(k)[0] for k in fused.STATE_FIELDS)
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by) of a call that moves ``n_bytes`` and does
+    ``n_ops`` operations."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = n_ops / PEAK_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def step_ops(fused, acting_substeps):
+    """Operations of the firemaker step for ``acting_substeps`` acting
+    agent sub-steps (every cell hashed, the stencil at every spreadable
+    cell)."""
+    n_spread = int((fused.consts["spreadable"] > 0.5).sum())
+    return acting_substeps * (
+        fused.HW * OPS_PER_CELL + n_spread * OPS_PER_STENCIL_CELL
+    )
+
+
+def mlp_ops(fused, hidden):
+    """Operations of one agent's MLP forward, softmax and draw in K3."""
+    A, F = fused.amax - fused.amin + 1, fused.POLICY_FEATURES
+    return 12 + hidden * (2 * F + 1 + 2 * (A + 1)) + 6 * A
+
+
 def main():
     import torch
 
@@ -103,11 +190,36 @@ def main():
 
     from ai_safety_gridworlds_torch.envs.firemaker_ex_ma import FiremakerExMa
     from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv
+    from ai_safety_gridworlds_torch.learners import ppo_fused
     from ai_safety_gridworlds_torch.ops import _cuda, interop, prng
     from ai_safety_gridworlds_torch.ops.fused_firemaker import (
         FusedFiremaker,
+        fused_firemaker_collect,
         fused_firemaker_rollout,
     )
+
+    def reset_counts():
+        fused_firemaker_rollout.launches = 0
+        fused_firemaker_collect.launches = 0
+        prng.prf_words.launches = 0
+
+    def counts():
+        return {
+            "fused_firemaker_rollout": fused_firemaker_rollout.launches,
+            "fused_firemaker_collect": fused_firemaker_collect.launches,
+            "prf_words": prng.prf_words.launches,
+        }
+
+    def lanes_differ(x, y, fields):
+        """Bool [B]: lanes where any of ``fields`` differs."""
+        out = None
+        for k in fields:
+            a, b = x[k], y[k]
+            if not a.is_floating_point():
+                a, b = a.to(torch.int64), b.to(torch.int64)
+            d = (a != b).any(dim=0)
+            out = d if out is None else out | d
+        return out
 
     dev = torch.device("cuda", 0)
     card = gpu_line()
@@ -221,8 +333,7 @@ def main():
     fused = env.fused
     S_start = {k: v.clone() for k, v in env.state.items()}
     torch.cuda.synchronize()
-    fused_firemaker_rollout.launches = 0
-    prng.prf_words.launches = 0
+    reset_counts()
     call_s, episodes = [], 0
     for call in range(MAIN_CALLS):
         t0 = time.perf_counter()
@@ -235,10 +346,7 @@ def main():
             fail(f"bad stats {stats}")
         if not np.isfinite(stats["sum_rewards"]).all():
             fail("non-finite reward sums")
-    launches = {
-        "fused_firemaker_rollout": fused_firemaker_rollout.launches,
-        "prf_words": prng.prf_words.launches,
-    }
+    launches = counts()
     log(f"launch counts over the main path: {launches}")
     if launches["fused_firemaker_rollout"] != MAIN_CALLS:
         fail("K1, the main path's kernel, was not launched once per call")
@@ -251,6 +359,15 @@ def main():
             f"{BATCH * MAIN_STEPS / s:.0f} env-steps/s  [{card}]")
 
     k1_ms = cuda_ms(lambda: fused.rollout(S_start, MAIN_STEPS), 3, torch)
+    S_end = fused.rollout(S_start, MAIN_STEPS)
+    # Acting sub-steps of the timed call: t counts them (no lane resets
+    # within rollout(256) from init_packed).
+    if int(S_end["stats_episodes"].sum()) != int(S_start["stats_episodes"].sum()):
+        fail("the timed K1 call crossed an episode end")
+    k1_acting = int((S_end["t"].to(torch.int64) - S_start["t"]).sum())
+    k1_bound_ms, k1_bound_by = bound(
+        2 * 4 * state_words(fused) * BATCH, step_ops(fused, k1_acting)
+    )
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fused.rollout_plain(S_start, MAIN_STEPS)
@@ -271,21 +388,251 @@ def main():
                 f"[{card}]")
         del S_b
 
-    # ---- 6. results
+
+    # ---- 6. K1's linear-policy branch
+    log("== 6. K1 linear-policy branch vs plain rollout")
+    fused = FusedFiremaker(FiremakerExMa())
+    A = fused.amax - fused.amin + 1
+    F = fused.POLICY_FEATURES
+    rng = np.random.default_rng(SEED)
+    S0 = fused.init_packed(SEED, BATCH, dev)
+    pol_launches = fused_firemaker_rollout.launches
+    finals = []
+    for rnd in range(2):
+        fused.set_policies(
+            rng.normal(size=(BATCH, A, F)).astype(np.float32),
+            rng.normal(size=(BATCH, A)).astype(np.float32), 0.1,
+        )
+        Sk = fused.rollout(S0, POLICY_STEPS)
+        Sp = fused.rollout_plain(S0, POLICY_STEPS)
+        diff = lanes_differ(Sk, Sp, fused.STATE_FIELDS)
+        if bool(diff.any()):
+            fail(f"K1 linear policy (round {rnd}): {int(diff.sum())} lanes differ")
+        finals.append(Sk)
+        log(f"K1 linear policy, round {rnd}: {POLICY_STEPS} steps equal in all "
+            f"{len(fused.STATE_FIELDS)} fields; reward sums "
+            f"{Sk['stats_rewards'].sum(dim=1).tolist()}")
+    if not bool(lanes_differ(finals[0], finals[1], ("pos",)).any()):
+        fail("the second policy changed nothing: the kernel read a stale policy")
+    pol_launches = fused_firemaker_rollout.launches - pol_launches
+    k1_linear_ms = cuda_ms(lambda: fused.rollout(S0, POLICY_STEPS), 3, torch)
+    fused.set_policies(None, None)
+    k1_uniform_ms = cuda_ms(lambda: fused.rollout(S0, POLICY_STEPS), 3, torch)
+    log(f"K1 rollout({POLICY_STEPS}) at B={BATCH}: linear policy "
+        f"{k1_linear_ms:.3f} ms, uniform {k1_uniform_ms:.3f} ms  [{card}]")
+
+    # ---- 7. K3 against the plain collection
+    log("== 7. K3 fused_firemaker_collect vs plain collection")
+    fused = FusedFiremaker(FiremakerExMa())
+    rng = np.random.default_rng(SEED + 1)
+    params = interop.params_from_numpy({
+        "mlp_w1": rng.normal(size=(HIDDEN, F)) / np.sqrt(F),
+        "mlp_b1": rng.normal(size=(HIDDEN, 1)) * 0.1,
+        "mlp_w2": rng.normal(size=(A + 1, HIDDEN)) * 0.3,
+        "mlp_b2": rng.normal(size=(A + 1, 1)) * 0.1,
+    }, dev)
+    S = interop.busy_firemaker_state(fused, SEED, BATCH, dev)
+    statics = fused._collect_statics(S, params)
+    exempt = flipped = 0
+    k3_err = 0.0
+    for k in range(COLLECT_STEPS):
+        Sk, tk, bk = fused.rollout_collect(S, params, 1)
+        Sp, rec, ex = fused._collect_step(S, statics)
+        bp = fused._bootstrap_value(Sp, statics)
+        gap = (ex["pol"]["cdf_gap"] < CDF_GAP).any(dim=0)
+        exempt += int(gap.sum())
+        keep = ~gap
+        bad = lanes_differ(Sk, Sp, fused.STATE_FIELDS)
+        bad |= lanes_differ({n: tk[n][0] for n in rec}, rec,
+                            ("feats", "action", "reward", "done"))
+        if bool((bad & keep).any()):
+            fail(f"K3 step {k}: {int((bad & keep).sum())} non-exempt lanes differ")
+        flipped += int((bad & gap).sum())
+        err = max(
+            float((tk["logp"][0] - rec["logp"]).abs()[:, keep].max()),
+            float((tk["value"][0] - rec["value"]).abs().max()),
+            float((bk - bp).abs()[:, keep].max()),
+        )
+        if err > FLOAT_TOL:
+            fail(f"K3 step {k}: logp/value/boot error {err} > {FLOAT_TOL}")
+        k3_err = max(k3_err, err)
+        S = Sp
+    lane_steps = BATCH * COLLECT_STEPS
+    log(f"K3 teacher-forced over {COLLECT_STEPS} steps: {exempt} exempt "
+        f"lane-steps of {lane_steps} (CDF margin < {CDF_GAP}), {flipped} of "
+        f"them differing; logp/value/boot max error {k3_err}")
+    if exempt > MAX_EXEMPT_SHARE * lane_steps:
+        fail(f"{exempt} exempt lane-steps exceed {MAX_EXEMPT_SHARE:.2%}")
+    diverged = {}
+    for start in ("init", "busy"):
+        if start == "init":
+            S0c = fused.init_packed(SEED, BATCH, dev)
+        else:
+            S0c = interop.busy_firemaker_state(fused, SEED + 2, BATCH, dev)
+        Sk, tk, bk = fused.rollout_collect(S0c, params, COLLECT_STEPS)
+        Sp, tp, bp = fused.rollout_collect_plain(S0c, params, COLLECT_STEPS)
+        d = lanes_differ(Sk, Sp, fused.STATE_FIELDS)
+        diverged[start] = int(d.sum())
+        same = ~d
+        log(f"K3 free-running {COLLECT_STEPS} steps from {start}: "
+            f"{diverged[start]} of {BATCH} lanes diverged "
+            f"({diverged[start] / BATCH:.4%}); logp max error on the others "
+            f"{float((tk['logp'] - tp['logp']).abs()[:, :, same].max())}, "
+            f"boot {float((bk - bp).abs()[:, same].max())}; actions "
+            f"{int((tk['action'] >= 0).sum())} drawn, reward sum "
+            f"{float(tk['reward'].sum())}")
+        if diverged[start] > MAX_DIVERGED_SHARE * BATCH:
+            fail(f"K3 free-running from {start}: too many lanes diverged")
+        for name in ("logp", "value", "feats", "reward"):
+            if not bool(torch.isfinite(tk[name]).all()):
+                fail(f"K3 trajectory {name} is not finite")
+
+    # ---- 8. the training path
+    log("== 8. training path: make_train_step(..., device='cuda'), "
+        f"B={BATCH}, H={HIDDEN}")
+    cfg = ppo_fused.FusedPPOConfig(n_steps=COLLECT_STEPS, n_epochs=2,
+                                   n_minibatches=4, hidden=HIDDEN)
+    fused = FusedFiremaker(FiremakerExMa())
+    state = ppo_fused.init_train_state(fused, BATCH, seed=SEED, config=cfg,
+                                       device="cuda")
+    train_step = ppo_fused.make_train_step(fused, cfg, device="cuda")
+    state, metrics = train_step(state)  # warm-up
+    torch.cuda.synchronize()
+    step_s = []
+    reset_counts()
+    for call in range(TRAIN_CALLS):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if fused_firemaker_collect.launches != call + 1:
+            fail("K3 did not launch once per train_step")
+    train_launches = counts()
+    log(f"launch counts over the training path: {train_launches}")
+    if (train_launches["fused_firemaker_collect"] != TRAIN_CALLS
+            or train_launches["fused_firemaker_rollout"] != 0):
+        fail("the training path did not run on K3 alone")
+    for k, v in metrics.items():
+        if not bool(torch.isfinite(v).all()):
+            fail(f"non-finite training metric {k}")
+    env_steps = COLLECT_STEPS * BATCH
+    for call, s_ in enumerate(step_s):
+        log(f"train_step {call}: {s_ * 1e3:.3f} ms host clock, "
+            f"{env_steps / s_:.0f} training env-steps/s  [{card}]")
+    params = {k: v.detach() for k, v in state.params.items()}
+    S_c = state.S
+    k3_ms = cuda_ms(lambda: fused.rollout_collect(S_c, params, COLLECT_STEPS),
+                    3, torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused.rollout_collect_plain(S_c, params, COLLECT_STEPS)
+    torch.cuda.synchronize()
+    k3_plain_ms = (time.perf_counter() - t0) * 1e3
+    step_ms = sorted(step_s)[len(step_s) // 2] * 1e3
+    log(f"K3 collect({COLLECT_STEPS}) at B={BATCH}, H={HIDDEN}: {k3_ms:.3f} ms; "
+        f"plain collection {k3_plain_ms:.3f} ms; median train_step "
+        f"{step_ms:.3f} ms, {1 - k3_ms / step_ms:.2%} of it outside K3 "
+        f"(GAE, {cfg.n_epochs * cfg.n_minibatches} minibatch updates, Adam)"
+        f"  [{card}]")
+    log("metrics of the last step: " + json.dumps(
+        {k: float(v) for k, v in metrics.items()}))
+    # Where the rest of a step goes: GAE (with the minibatch slicing), then
+    # the epochs of minibatch updates with Adam, on the last trajectory.
+    _, traj, boot = fused.rollout_collect(S_c, params, COLLECT_STEPS)
+    gae_ms = cuda_ms(lambda: ppo_fused._minibatches(traj, boot, cfg), 3, torch)
+    upd_ms = cuda_ms(lambda: ppo_fused._update_from_traj(
+        traj, boot, state.params, state.opt, ppo_fused._dims(fused), cfg), 3,
+        torch)
+    log(f"outside K3: GAE {gae_ms:.3f} ms, GAE + "
+        f"{cfg.n_epochs * cfg.n_minibatches} minibatch updates {upd_ms:.3f} ms"
+        f"  [{card}]")
+    # The device's busy time within one train_step, from torch.profiler's
+    # kernel records, against the median unprofiled step.
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, metrics = train_step(state)
+        torch.cuda.synchronize()
+    busy_us, k3_prof_us = 0.0, 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        busy_us += us
+        if "fm_collect_kernel" in ev.key:
+            k3_prof_us += us
+    if busy_us > 0:
+        log(f"profiler, one train_step: device busy {busy_us / 1e3:.3f} ms "
+            f"(K3 {k3_prof_us / 1e3:.3f} ms), idle share "
+            f"{1 - busy_us / 1e3 / step_ms:.2%} of the median step  [{card}]")
+    else:
+        log("profiler, one train_step: no device time recorded; device idle "
+            "share not measured")
+    k3_bytes = (2 * 4 * state_words(fused) * BATCH
+                + 4 * sum(r for _, r, _ in fused._traj_layout()) * env_steps
+                + 4 * fused.n * BATCH
+                + 4 * sum(v.numel() for v in params.values()))
+    # The timed calls run from the training state: count every lane-step
+    # (reset steps, where no agent acts, are under 1% at max_iterations
+    # 1000) for the step and the MLP of every agent.
+    k3_ops = (step_ops(fused, fused.n * env_steps)
+              + fused.n * env_steps * mlp_ops(fused, HIDDEN))
+    k3_bound_ms, k3_bound_by = bound(k3_bytes, k3_ops)
+
+    # ---- 9. the learning gate
+    log("== 9. learning gate: firemaker, max_iterations=50, B=64, 200 updates")
+    fused = FusedFiremaker(FiremakerExMa(max_iterations=50))
+    gcfg = ppo_fused.FusedPPOConfig(n_steps=32, n_epochs=2, n_minibatches=2,
+                                    hidden=32, lr=1e-3)
+    gstate = ppo_fused.init_train_state(fused, 64, seed=3, config=gcfg,
+                                        device="cuda")
+    gtrain = ppo_fused.make_train_step(fused, gcfg, device="cuda")
+    before = fused_firemaker_collect.launches
+    t0 = time.perf_counter()
+    ev0 = ppo_fused.evaluate(fused, gstate.params, n_steps=128, batch=64,
+                             seed=9, device="cuda")
+    for _ in range(200):
+        gstate, gm = gtrain(gstate)
+    ev1 = ppo_fused.evaluate(fused, gstate.params, n_steps=128, batch=64,
+                             seed=9, device="cuda")
+    r0, r1 = ev0["mean_episode_return"], ev1["mean_episode_return"]
+    log(f"r0 {r0}  r1 {r1}  episodes {ev0['episodes']} -> {ev1['episodes']}  "
+        f"({fused_firemaker_collect.launches - before} K3 launches, "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if not (ev0["episodes"] > 100 and ev1["episodes"] > 100):
+        fail("the learning gate saw too few episodes")
+    if not (r1 - r0 > 40.0 and r1 > 0.0):
+        fail(f"the learning gate failed: r0 {r0}, r1 {r1}")
+
+    # ---- 10. results
+    k2_bound_ms, k2_bound_by = bound(24 * n_words, 24 * n_words)
     kernels = [{
         "name": "fused_firemaker_rollout", "route": "cuda",
         "source": "ai_safety_gridworlds_torch/ops/csrc/fused_firemaker.cu",
         "replaces": K1_REPLACES,
         "launches": launches["fused_firemaker_rollout"],
+        "policy_search_launches": pol_launches,
         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+        "bound_ms": k1_bound_ms, "bound_by": k1_bound_by, "library_ms": None,
+    }, {
+        "name": "fused_firemaker_collect", "route": "cuda",
+        "source": "ai_safety_gridworlds_torch/ops/csrc/fused_firemaker.cu",
+        "replaces": K3_REPLACES,
+        "launches": train_launches["fused_firemaker_collect"],
+        "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
+        "bound_ms": k3_bound_ms, "bound_by": k3_bound_by, "library_ms": None,
+        "exempt_lane_steps": exempt, "flipped_lane_steps": flipped,
+        "diverged_lanes": diverged,
     }]
     checked_off_path = [{
         "name": "prf_words", "route": "cuda",
         "source": "ai_safety_gridworlds_torch/ops/csrc/prf_words.cu",
         "replaces": K2_REPLACES,
-        "launches": launches["prf_words"],
+        "launches": launches["prf_words"] + train_launches["prf_words"],
         "check_launches": k2_check_launches,
         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
+        "bound_ms": k2_bound_ms, "bound_by": k2_bound_by, "library_ms": None,
     }]
     log(json.dumps({"kernels": kernels, "checked_off_path": checked_off_path}))
     log(gpu_line())

@@ -100,10 +100,11 @@ def test_port_imports_without_jax():
         "import ai_safety_gridworlds_torch.ops.fused_firemaker\n"
         "import ai_safety_gridworlds_torch.ops.interop\n"
         "import ai_safety_gridworlds_torch.ops._cuda\n"
+        "import ai_safety_gridworlds_torch.learners.ppo_fused\n"
         "from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv\n"
         "BatchedEnv('firemaker_ex_ma', batch_size=4, device='cpu').rollout(2)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'ai_safety_gridworlds_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'ai_safety_gridworlds_tpu')]\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -5,8 +5,12 @@ fixture, never at import). On a machine with a card:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Tolerance 0 throughout: the kernels are built to be bit-equal to the plain
-versions (see ``ops/_cuda.py`` on ``--fmad=false``).
+Tolerance 0 for K1 and K2, which are built to be bit-equal to the plain
+versions (see ``ops/_cuda.py`` on ``--fmad=false``), with a linear policy
+too. K3 (the PPO collection) equals the plain collection in the integer
+state and records except on lanes whose site-0 uniform lies within 1e-6 of
+a cumulative softmax sum (``expf``/``logf`` may round differently from
+PyTorch's), and agrees within 1e-5 in logp, value and boot.
 """
 
 import numpy as np
@@ -15,9 +19,11 @@ import torch
 
 from ai_safety_gridworlds_torch.envs.firemaker_ex_ma import FiremakerExMa
 from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv
+from ai_safety_gridworlds_torch.learners import ppo_fused
 from ai_safety_gridworlds_torch.ops import interop, prng
 from ai_safety_gridworlds_torch.ops.fused_firemaker import (
     FusedFiremaker,
+    fused_firemaker_collect,
     fused_firemaker_rollout,
 )
 
@@ -31,9 +37,12 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _equal(a, b):
+def _equal(a, b, lanes=None):
+    """Exact equality, over the ``lanes`` mask of the last axis if given."""
     if not a.is_floating_point():
         a, b = a.to(torch.int64), b.to(torch.int64)
+    if lanes is not None:
+        a, b = a[..., lanes], b[..., lanes]
     return torch.equal(a, b)
 
 
@@ -107,3 +116,125 @@ def test_batched_env_on_the_card(dev):
     assert env.kernel == "fused_cuda"
     stats = env.rollout(15)
     assert stats["episodes"] == 256
+
+
+def _policy(fused, B, seed):
+    rng = np.random.default_rng(seed)
+    A, F = fused.amax - fused.amin + 1, fused.POLICY_FEATURES
+    return (rng.normal(size=(B, A, F)), rng.normal(size=(B, A)),
+            rng.uniform(0, 0.3, B))
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"action_direction_mode": 2, "observation_direction_mode": 1,
+         "max_iterations": 30},
+    {"amount_agents": 3, "max_iterations": 30},
+], ids=["default", "dirs", "three_agents"])
+def test_linear_policy_kernel_matches_plain_across_a_swap(dev, kw):
+    """K1's linear branch, then a new policy and a shared one installed
+    after the first launch, then removal: each reaches the next launch."""
+    fused = FusedFiremaker(FiremakerExMa(**kw))
+    B = 200
+    S0 = interop.busy_firemaker_state(fused, 3, B, dev)
+    A = fused.amax - fused.amin + 1
+    finals = []
+    for pol in (_policy(fused, B, 1), _policy(fused, B, 2),
+                (np.ones((A, 6)), np.arange(A, dtype=np.float32), 0.0)):
+        fused.set_policies(*pol)
+        Sk = fused.rollout(S0, 40)
+        Sp = fused.rollout_plain(S0, 40)
+        for k in fused.STATE_FIELDS:
+            assert _equal(Sk[k], Sp[k]), k
+        finals.append(Sk["pos"])
+    assert not torch.equal(finals[0], finals[1])
+    fused.set_policies(None, None)
+    Sk, Sp = fused.rollout(S0, 40), fused.rollout_plain(S0, 40)
+    for k in fused.STATE_FIELDS:
+        assert _equal(Sk[k], Sp[k]), k
+
+
+def _params(fused, dev, hidden=64, seed=0):
+    rng = np.random.default_rng(seed)
+    A, F = fused.amax - fused.amin + 1, fused.POLICY_FEATURES
+    return interop.params_from_numpy({
+        "mlp_w1": rng.normal(size=(hidden, F)) / np.sqrt(F),
+        "mlp_b1": rng.normal(size=(hidden, 1)) * 0.1,
+        "mlp_w2": rng.normal(size=(A + 1, hidden)) * 0.3,
+        "mlp_b2": rng.normal(size=(A + 1, 1)) * 0.1,
+    }, dev)
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"action_direction_mode": 1, "max_iterations": 12},
+    {"amount_agents": 3, "max_iterations": 12},
+], ids=["default", "dirs_reset", "three_agents"])
+def test_collect_kernel_matches_plain_teacher_forced(dev, kw):
+    fused = FusedFiremaker(FiremakerExMa(**kw))
+    B = 256
+    params = _params(fused, dev)
+    S = interop.busy_firemaker_state(fused, 4, B, dev)
+    statics = fused._collect_statics(S, params)
+    exempt = 0
+    for step in range(16):
+        before = fused_firemaker_collect.launches
+        Sk, tk, bk = fused.rollout_collect(S, params, 1)
+        assert fused_firemaker_collect.launches == before + 1
+        Sp, rec, ex = fused._collect_step(S, statics)
+        keep = ~(ex["pol"]["cdf_gap"] < 1e-6).any(dim=0)
+        exempt += int((~keep).sum())
+        for k in fused.STATE_FIELDS:
+            assert _equal(Sk[k], Sp[k], keep), (step, k)
+        for k in ("feats", "action", "reward", "done"):
+            assert _equal(tk[k][0], rec[k], keep), (step, k)
+        torch.testing.assert_close(tk["logp"][0][:, keep], rec["logp"][:, keep],
+                                   rtol=0, atol=1e-5)
+        torch.testing.assert_close(tk["value"][0], rec["value"], rtol=0,
+                                   atol=1e-5)
+        boot = fused._bootstrap_value(Sp, statics)
+        torch.testing.assert_close(bk[:, keep], boot[:, keep], rtol=0,
+                                   atol=1e-5)
+        S = Sp
+    assert exempt <= 2
+
+
+def test_collect_kernel_rejects_bad_params(dev):
+    fused = FusedFiremaker(FiremakerExMa())
+    S = fused.init_packed(0, 64, dev)
+    params = _params(fused, dev, hidden=16)
+    bad = [
+        {**params, "mlp_w1": params["mlp_w1"][:, :5].contiguous()},
+        {**params, "mlp_b1": params["mlp_b1"].double()},
+        {**params, "mlp_w2": params["mlp_w2"].cpu()},
+        {**params, "mlp_b2": params["mlp_b2"][:5].contiguous()},
+        {**params, "mlp_w2": params["mlp_w2"].t().contiguous().t()},
+        {k: v for k, v in params.items() if k != "mlp_b1"},
+    ]
+    before = fused_firemaker_collect.launches
+    for p in bad:
+        with pytest.raises(ValueError):
+            fused.rollout_collect(S, p, 2)
+    with pytest.raises(ValueError):
+        fused.rollout_collect(S, _params(fused, dev, hidden=20000), 2)
+    assert fused_firemaker_collect.launches == before
+    _, traj, boot = fused.rollout_collect(S, params, 0)
+    assert traj["action"].shape == (0, 2, 64) and boot.shape == (2, 64)
+
+
+def test_train_step_on_the_card_moves_the_params(dev):
+    fused = FusedFiremaker(FiremakerExMa(max_iterations=20))
+    config = ppo_fused.FusedPPOConfig(n_steps=16, n_epochs=2, n_minibatches=4,
+                                      hidden=32)
+    state = ppo_fused.init_train_state(fused, 256, seed=1, config=config,
+                                       device="cuda")
+    p0 = {k: v.detach().clone() for k, v in state.params.items()}
+    step = ppo_fused.make_train_step(fused, config, device="cuda")
+    before = fused_firemaker_collect.launches
+    state, metrics = step(state)
+    assert fused_firemaker_collect.launches == before + 1
+    assert state.update_idx == 1
+    for k, v in metrics.items():
+        assert bool(torch.isfinite(v).all()), k
+    moved = max(float((state.params[k].detach() - p0[k]).abs().max())
+                for k in p0)
+    assert moved > 0
+    assert state.S["t"].is_cuda
