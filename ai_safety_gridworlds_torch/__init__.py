@@ -7,10 +7,10 @@ mirrors its sub-package and module layout (the counterpart of
 ``[rows, B]`` state interface, so a port state compares with a JAX state
 array by array. It imports ``torch`` and ``numpy``, never ``jax``.
 
-Ported so far: the fused ``firemaker_ex_ma`` rollout behind
+Ported so far: the fused rollouts of ``firemaker_ex_ma`` and of the scalar
+``boat_race``, ``island_navigation`` and ``boat_race_ex`` behind
 :class:`~ai_safety_gridworlds_torch.helpers.batched.BatchedEnv` (uniform or
-per-lane linear-policy actions), and fused-PPO training on it
-(:mod:`ai_safety_gridworlds_torch.learners.ppo_fused`), each with a
-hand-written CUDA kernel for the card and a plain PyTorch version for CPU
-tensors. ``ROADMAP.md`` lists what is still to come.
+per-lane linear-policy actions), and fused-PPO training on each
+(:mod:`ai_safety_gridworlds_torch.learners.ppo_fused`), with hand-written
+CUDA kernels for the card and plain PyTorch versions for CPU tensors. ``ROADMAP.md`` lists what is still to come.
 """

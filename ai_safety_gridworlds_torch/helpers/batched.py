@@ -3,7 +3,8 @@
 Port of ``ai_safety_gridworlds_tpu/helpers/batched.py``:
 ``BatchedEnv(name, batch_size, device=...)`` resolves the registered env,
 asks :func:`ai_safety_gridworlds_torch.ops.make_fused` for its fused driver
-and packs ``batch_size`` auto-resetting lanes on ``device``. On a CUDA
+(firemaker_ex_ma, boat_race, island_navigation and boat_race_ex so far; any
+other name raises ``NotImplementedError``) and packs ``batch_size`` auto-resetting lanes on ``device``. On a CUDA
 device every ``rollout`` is one launch of the hand-written kernel
 (``kernel == "fused_cuda"``); on the CPU it runs the plain PyTorch version
 (``kernel == "fused_torch"``). Nothing falls back to the CPU: asking for
@@ -88,8 +89,8 @@ class BatchedEnv:
     def rollout(self, n_steps: int) -> dict:
         """Advance every lane ``n_steps`` env steps under a uniform-random
         policy and return PER-CALL aggregate statistics: ``episodes``
-        finished during this call, ``sum_rewards`` (per-dim, per-agent
-        observed-reward sums over all lanes this call), ``steps``
+        finished during this call, ``sum_rewards`` (observed-reward sums
+        over all lanes this call, one per agent and reward dimension), ``steps``
         (``n_steps * batch_size``) and ``kernel``."""
         self._S = self._fused.rollout(self._S, n_steps, tile=self.tile)
         # The kernel's stats_* accumulate since init; report deltas so

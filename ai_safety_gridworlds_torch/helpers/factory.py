@@ -1,17 +1,28 @@
 """Environment registry of the port.
 
 Port of ``get_raw_env`` from ``ai_safety_gridworlds_tpu/helpers/factory.py``
-for the environments ported so far; the stateful shells and adapters come
-with later slices (``ROADMAP.md``).
+for the environments ported so far (firemaker_ex_ma, boat_race,
+island_navigation, boat_race_ex); the stateful shells and adapters come with
+later slices (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
 
 def _raw_registry() -> dict:
+    from ai_safety_gridworlds_torch.envs.boat_race import BoatRace
+    from ai_safety_gridworlds_torch.envs.boat_race_ex import BoatRaceEx
     from ai_safety_gridworlds_torch.envs.firemaker_ex_ma import FiremakerExMa
+    from ai_safety_gridworlds_torch.envs.island_navigation import (
+        IslandNavigation,
+    )
 
-    return {"firemaker_ex_ma": FiremakerExMa}
+    return {
+        "firemaker_ex_ma": FiremakerExMa,
+        "boat_race": BoatRace,
+        "island_navigation": IslandNavigation,
+        "boat_race_ex": BoatRaceEx,
+    }
 
 
 def get_raw_env(name, **kwargs):

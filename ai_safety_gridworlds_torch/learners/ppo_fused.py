@@ -1,8 +1,9 @@
 """PPO trained on the fused multi-agent kernels.
 
 Port of ``ai_safety_gridworlds_tpu/learners/ppo_fused.py``. The policy MLP
-runs inside the collection kernel (K3, ``ops/csrc/fused_firemaker.cu``),
-which streams the per-step trajectory -- policy features, sampled actions,
+runs inside the collection kernel (K3 in ``ops/csrc/fused_firemaker.cu``
+for firemaker_ex_ma, K5 in ``ops/csrc/fused_scalar.cu`` for the scalar
+envs), which streams the per-step trajectory -- policy features, sampled actions,
 logp, value, per-agent rewards summed over the reward dimensions, per-agent
 dones -- as ``[T, rows, B]`` tensors (``FusedMaBase.rollout_collect``). One
 ``train_step`` is one collection launch followed by GAE and the minibatch

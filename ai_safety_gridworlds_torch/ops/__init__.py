@@ -1,11 +1,19 @@
 """Fused rollout kernels: hand-written CUDA for the card, plain PyTorch for
 CPU tensors.
 
-Port of ``ai_safety_gridworlds_tpu/ops/__init__.py``. Only the
-``firemaker_ex_ma`` kernels are ported so far.
+Port of ``ai_safety_gridworlds_tpu/ops/__init__.py``. Ported so far: the
+``firemaker_ex_ma`` kernels and the scalar shell with the ``boat_race``,
+``island_navigation`` and ``boat_race_ex`` bodies.
 """
 
 import torch
+
+# Scalar envs and their fused kernel class in ``ops/fused_scalar.py``.
+_SCALAR = {
+    "boat_race": "FusedBoatRace",
+    "island_navigation": "FusedIslandNav",
+    "boat_race_ex": "FusedBoatRaceEx",
+}
 
 
 def resolve_device(device) -> torch.device:
@@ -33,6 +41,10 @@ def make_fused(env):
         )
 
         return FusedFiremaker(env)
+    if name in _SCALAR:
+        from ai_safety_gridworlds_torch.ops import fused_scalar
+
+        return getattr(fused_scalar, _SCALAR[name])(env)
     raise NotImplementedError(
         f"the fused kernel for {name!r} is not ported yet, see ROADMAP.md"
     )

@@ -38,7 +38,8 @@
 // board is read by index at an agent's cell: the one-hot compare-and-reduce
 // of the TPU kernel was a Mosaic constraint and gives the same value. Both
 // kernels share one step body, fm_step<N, MODE>, instantiated for the
-// uniform, linear (K1) and MLP (K3) policy modes.
+// uniform, linear (K1) and MLP (K3) policy modes; the linear policy and the
+// MLP come from policy.cuh, which K4 and K5 (fused_scalar.cu) share.
 //
 // Bound. Per sub-step each lane hashes all 289 cells (one uniform per cell
 // serves both the spread and the continuation draw) and evaluates the 24-term
@@ -65,6 +66,7 @@
 // sums the softmax left to right, as the plain version does; expf/logf may
 // differ from PyTorch's in the last bit, which can flip a draw whose uniform
 // lies within a few ULP of a cumulative sum.
+#include "policy.cuh"
 #include "prng.cuh"
 
 #define FM_MAX_N 3
@@ -219,15 +221,6 @@ struct Lane {
   float stats[N][FM_MAX_D];
 };
 
-// The MLP's weights in shared memory.
-struct Mlp {
-  const float* w1;  // [H, F]
-  const float* b1;  // [H]
-  const float* w2;  // [A+1, H]
-  const float* b2;  // [A+1]
-  int H;
-};
-
 template <int N>
 __device__ __forceinline__ void load_lane(const FmParams& p, int b, Lane<N>& L,
                                           uint8_t* fire, int tile) {
@@ -308,92 +301,6 @@ __device__ __forceinline__ void policy_feats(const FmParams& p, const Lane<N>& L
   }
 }
 
-// _policy_actions' greedy part: the first argmax over the A legal actions of
-// b[a] + sum_f W[a*F+f] * x[f], accumulated in that order.
-__device__ __forceinline__ int linear_greedy(const FmParams& p, int A, int lane,
-                                             const float (&x)[FM_F]) {
-  const int stride = p.pol_lanes;
-  float best_v = 0.f;
-  int best_a = 0;
-  for (int a = 0; a < A; ++a) {
-    float logit = p.pol_b[a * stride + lane];
-#pragma unroll
-    for (int f = 0; f < FM_F; ++f)
-      logit = logit + p.pol_w[(a * FM_F + f) * stride + lane] * x[f];
-    if (a == 0 || logit > best_v) {
-      best_v = logit;
-      best_a = a;
-    }
-  }
-  return best_a;
-}
-
-// h_k = relu(b1[k] + sum_f w1[k, f] * x_f), features ascending.
-__device__ __forceinline__ float mlp_hidden(const Mlp& m, int k,
-                                            const float (&x)[FM_F]) {
-  float h = m.b1[k];
-#pragma unroll
-  for (int f = 0; f < FM_F; ++f) h = h + m.w1[k * FM_F + f] * x[f];
-  return fmaxf(h, 0.f);
-}
-
-// _mlp_forward_agent and _mlp_policy_actions for one agent: the output rows
-// accumulate bias first, hidden units ascending, with no register array of
-// H hidden units; then the max-shifted logits, the log-normaliser (softmax
-// terms summed left to right), the inverse-CDF draw over the first A-1
-// cumulative sums from the uniform u, and the drawn action's logp.
-__device__ __forceinline__ int mlp_draw(const Mlp& m, int A,
-                                        const float (&x)[FM_F], float u,
-                                        float& logp, float& value) {
-  float out[FM_MAX_A + 1];
-#pragma unroll
-  for (int a = 0; a <= FM_MAX_A; ++a) out[a] = a <= A ? m.b2[a] : 0.f;
-  for (int k = 0; k < m.H; ++k) {
-    const float h = mlp_hidden(m, k, x);
-#pragma unroll
-    for (int a = 0; a <= FM_MAX_A; ++a)
-      if (a <= A) out[a] = out[a] + m.w2[a * m.H + k] * h;
-  }
-  float mx = out[0];
-#pragma unroll
-  for (int a = 1; a < FM_MAX_A; ++a)
-    if (a < A) mx = fmaxf(mx, out[a]);
-  float z[FM_MAX_A];
-#pragma unroll
-  for (int a = 0; a < FM_MAX_A; ++a) z[a] = out[a] - mx;
-  float s = expf(z[0]);
-#pragma unroll
-  for (int a = 1; a < FM_MAX_A; ++a)
-    if (a < A) s = s + expf(z[a]);
-  const float log_se = logf(s);
-  float run = 0.f;
-  int idx = 0;
-#pragma unroll
-  for (int a = 0; a < FM_MAX_A - 1; ++a) {
-    if (a < A - 1) {
-      run = run + expf(z[a] - log_se);
-      idx += run <= u;
-    }
-  }
-  float z_sel = z[0];
-  value = out[0];
-#pragma unroll
-  for (int a = 0; a <= FM_MAX_A; ++a) {
-    if (a < FM_MAX_A && a == idx) z_sel = z[a];
-    if (a == A) value = out[a];
-  }
-  logp = z_sel - log_se;
-  return idx;
-}
-
-// The value head alone (_bootstrap_value): output row A in mlp_draw's order.
-__device__ __forceinline__ float mlp_value(const Mlp& m, int A,
-                                           const float (&x)[FM_F]) {
-  float v = m.b2[A];
-  for (int k = 0; k < m.H; ++k) v = v + m.w2[A * m.H + k] * mlp_hidden(m, k, x);
-  return v;
-}
-
 // One full multi-agent step of one lane: auto-reset, policy features and
 // action draws, agent order, every agent's sub-step, finalize. MODE selects
 // the policy; with POL_MLP the step's trajectory record goes to traj[step].
@@ -401,7 +308,7 @@ template <int N, int MODE>
 __device__ __forceinline__ void fm_step(const FmParams& p, Lane<N>& L,
                                         uint8_t* fire, uint8_t* src,
                                         const uint8_t* bits, int tile, int b,
-                                        const Mlp& mlp, int step) {
+                                        const agw::Mlp& mlp, int step) {
   const int HW = p.HW;
   const bool has_dirs = p.adm != 0 || p.odm != 0;
   const bool has_sup = p.sup >= 0;
@@ -445,12 +352,13 @@ __device__ __forceinline__ void fm_step(const FmParams& p, Lane<N>& L,
     const bool off = over || L.reasons[j] != R_NONE;
     if (MODE == POL_LINEAR && !off) {
       const int lane = p.pol_lanes == 1 ? 0 : b;
-      const int greedy = p.amin + linear_greedy(p, A, lane, x[j]);
+      const int greedy =
+          p.amin + agw::linear_greedy<FM_F>(p.pol_w, p.pol_b, p.pol_lanes, A, lane, x[j]);
       if (!(fmodf(uA, 1.f) < p.pol_eps[lane])) a = greedy;
     }
     if (MODE == POL_MLP) {
       float logp, value;
-      a = p.amin + mlp_draw(mlp, A, x[j], u, logp, value);
+      a = p.amin + agw::mlp_draw<FM_F, FM_MAX_A>(mlp, A, x[j], u, logp, value);
       const size_t r = static_cast<size_t>(step) * N + j;
 #pragma unroll
       for (int f = 0; f < FM_F; ++f)
@@ -675,7 +583,7 @@ __global__ void __launch_bounds__(256)
 
   Lane<N> L;
   load_lane<N>(p, b, L, fire, tile);
-  const Mlp no_mlp{nullptr, nullptr, nullptr, nullptr, 0};
+  const agw::Mlp no_mlp{nullptr, nullptr, nullptr, nullptr, 0};
   for (int step = 0; step < p.n_steps; ++step)
     fm_step<N, MODE>(p, L, fire, src, bits, tile, b, no_mlp, step);
   store_lane<N>(p, b, L, fire, tile);
@@ -697,7 +605,7 @@ __global__ void __launch_bounds__(256)
   for (int i = tx; i < H; i += tile) w[n_w1 + i] = p.mlp_b1[i];
   for (int i = tx; i < n_w2; i += tile) w[n_w1 + H + i] = p.mlp_w2[i];
   for (int i = tx; i <= A; i += tile) w[n_w1 + H + n_w2 + i] = p.mlp_b2[i];
-  const Mlp mlp{w, w + n_w1, w + n_w1 + H, w + n_w1 + H + n_w2, H};
+  const agw::Mlp mlp{w, w + n_w1, w + n_w1 + H, w + n_w1 + H + n_w2, H};
   uint8_t* boards = reinterpret_cast<uint8_t*>(w + n_w1 + H + n_w2 + A + 1);
   uint8_t* fire = boards + tx;
   uint8_t* src = boards + HW * tile + tx;
@@ -713,7 +621,7 @@ __global__ void __launch_bounds__(256)
   float x[N][FM_F];
   policy_feats<N>(p, L, x);
 #pragma unroll
-  for (int j = 0; j < N; ++j) p.traj.boot[j * p.B + b] = mlp_value(mlp, A, x[j]);
+  for (int j = 0; j < N; ++j) p.traj.boot[j * p.B + b] = agw::mlp_value<FM_F>(mlp, A, x[j]);
   store_lane<N>(p, b, L, fire, tile);
 }
 

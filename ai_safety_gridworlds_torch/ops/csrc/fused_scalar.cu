@@ -1,0 +1,564 @@
+// K4 and K5: the fused scalar RL shell with the boat_race,
+// island_navigation and boat_race_ex bodies, rollout and PPO collection, for
+// Hopper (sm_90a).
+//
+// K4 (fused_scalar_rollout) replaces ai_safety_gridworlds_tpu/ops/
+// fused_base.py::FusedMaBase._rollout_pallas_call (:432) running
+// ops/fused_scalar.py::FusedScalarBase._step (:166) with _move (:132),
+// _read (:149), _delta_rows (:118) and _reset_extras (:155), around the
+// bodies FusedBoatRace._physics (:368), FusedIslandNav._physics (:454) and
+// FusedBoatRaceEx._physics (:571): one launch advances every lane n_steps
+// steps. A lane whose previous step emitted LAST resets (position, t,
+// returns, extra rows), emits FIRST with action -1 and zero reward and runs
+// no physics; every other lane draws its action at PRF site 0 (uniform, or
+// the per-lane linear policy of fused_base.py::_policy_actions :129 on the
+// features of _pos_dir_feats :262 and FusedIslandNav.packed_feats :473),
+// advances t, runs its physics, truncates at max_iterations and does the
+// episode accounting.
+//
+// K5 (fused_scalar_collect) replaces fused_base.py::_rollout_collect_pallas
+// (:635) x _collect_step (:594) x _mlp_policy_actions (:196) /
+// _mlp_forward_agent (:171) over the same step, and _bootstrap_value (:582):
+// the whole PPO collection in one launch, streaming the record (features,
+// action, logp, value, reward summed over the reward dims, done) to
+// traj[k, row, lane] and the value head of the final state to boot.
+//
+// Design. One thread per lane, `tile` lanes per block. The lane's scalar
+// state (pos, t, the returns and stats rows, step type, key, draw counter,
+// safety) lives in registers for the whole call, read once and written
+// once. The static boards (at most 64 cells) go to shared memory once per
+// block as bytes -- cell flags (wall, goal stripe, water, goal, human), the
+// cell class, the clockwise entry displacement and the distance to water --
+// and are read at a lane's cell directly: the TPU kernel's one-hot
+// compare-and-sum has a single nonzero term, so the value is the same.
+// boat_race_ex's visit board, the only per-lane board, sits in shared memory
+// laid out [cell][tile] (one float column per thread, 49 cells), loaded once
+// and stored once. Each body is a small struct (Phys); the step is one
+// template, sc_step<Phys, MODE>, for the uniform and linear (K4) and MLP (K5)
+// policy modes, whose policy pieces come from policy.cuh (shared with K1 and
+// K3).
+//
+// Bound. A lane-step is about a hundred integer and float operations (the
+// PRF hash, the move, a handful of table reads, D reward rows), against a
+// few dozen bytes of state per lane per call: the kernels are bound by the
+// serial latency of each thread's dependent chain, not by device memory.
+// Keeping the whole state in registers and shared memory for all n_steps is
+// what the design does about it; at B = 4096 one thread per lane is one warp
+// per SM, so the time stays flat until the lanes fill the SMs.
+//
+// Exactness. Every reward, return and stats sum of these bodies is a small
+// integer in float32, and the kernels add the terms in the plain version's
+// order, so K4 is bit-equal to it in every state field. The only inexact
+// floats are the policy features (the float32 reciprocals of
+// _pos_dir_feats, safety * 0.1f) and the MLP; the library is built with
+// --fmad=false so that they round as the plain version's do.
+#include "policy.cuh"
+#include "prng.cuh"
+
+#define SC_MAX_HW 64
+#define SC_MAX_D 8
+#define SC_MAX_A 5
+#define SC_N_RV 6
+
+enum { FIRST = 0, MID = 1, LAST = 2 };
+enum { POL_UNIFORM = 0, POL_LINEAR = 1, POL_MLP = 2 };
+enum { PHYS_BOAT_RACE = 0, PHYS_ISLAND_NAV = 1, PHYS_BOAT_RACE_EX = 2 };
+// Cell flags of the static board (ops/fused_scalar.py::_CELL_FLAGS).
+enum { CF_WALL = 1, CF_ISGOAL = 2, CF_WATER = 4, CF_GOAL = 8, CF_HUMAN = 16 };
+// Reward rows of each body, in the order of its _reward_rows().
+enum { BR_MOVE = 0, BR_CW = 1, BR_HIDDEN = 2 };
+enum { IN_MOVE = 0, IN_FINAL = 1, IN_WATER = 2 };
+enum { EX_MOVE = 0, EX_CW = 1, EX_ITER = 2, EX_REP = 3, EX_FINAL = 4, EX_HUMAN = 5 };
+enum { MO_NOOP = 0 };
+
+// Device pointers of the packed state, in ops/fused_scalar.py::_SC_FIELDS
+// order; safety and visits are null for the bodies without them.
+struct ScState {
+  int* pos;
+  int* t;
+  float* ep_ret;
+  float* hid_ret;
+  int* step_types;
+  uint32_t* key;
+  uint32_t* draw_ctr;
+  int* stats_episodes;
+  float* stats_return;
+  float* stats_hidden;
+  float* stats_rewards;
+  float* safety;
+  float* visits;
+};
+
+// K5's outputs: the trajectory records [T, rows, B] and the bootstrap value.
+struct ScTraj {
+  float* feats;   // [T, F, B]
+  int* action;    // [T, 1, B], -1 for reset lanes
+  float* logp;    // [T, 1, B]
+  float* value;   // [T, 1, B]
+  float* reward;  // [T, 1, B]
+  int* done;      // [T, 1, B]
+  float* boot;    // [1, B]
+};
+
+// Mirrored field for field by ops/fused_scalar.py::_ScParams.
+struct ScParams {
+  ScState in;
+  ScState out;
+  int B, n_steps, D, HW, H, W, amin, amax, max_iterations, pos0;
+  uint8_t flags[SC_MAX_HW];
+  int8_t code[SC_MAX_HW];
+  int8_t gdr[SC_MAX_HW];
+  int8_t gdc[SC_MAX_HW];
+  uint8_t wdist[SC_MAX_HW];
+  int delta_r[10], delta_c[10];
+  float rv[SC_N_RV][SC_MAX_D];
+  int rv_on[SC_N_RV];
+  float safety0;
+  // The policy features' reciprocals, float32 as the reference rounds them:
+  // 1/W, 1/max(H-1,1), 1/max(W-1,1).
+  float inv_w, inv_hm1, inv_wm1;
+  // Linear policy (K4), null without one: [A*F, pol_lanes], [A, pol_lanes],
+  // [1, pol_lanes]; pol_lanes is 1 (shared) or B.
+  const float* pol_w;
+  const float* pol_b;
+  const float* pol_eps;
+  int pol_lanes;
+  // MLP policy (K5): [H, F], [H, 1], [A+1, H], [A+1, 1].
+  const float* mlp_w1;
+  const float* mlp_b1;
+  const float* mlp_w2;
+  const float* mlp_b2;
+  int hidden;
+  ScTraj traj;
+};
+
+extern "C" int sc_params_size() { return static_cast<int>(sizeof(ScParams)); }
+
+// The static boards in shared memory.
+struct Tables {
+  const uint8_t* flags;
+  const int8_t* code;
+  const int8_t* gdr;
+  const int8_t* gdc;
+  const uint8_t* wdist;
+};
+
+__device__ __forceinline__ Tables load_tables(const ScParams& p, uint8_t* t,
+                                              int tx, int tile) {
+  for (int c = tx; c < SC_MAX_HW; c += tile) {
+    t[c] = p.flags[c];
+    t[SC_MAX_HW + c] = static_cast<uint8_t>(p.code[c]);
+    t[2 * SC_MAX_HW + c] = static_cast<uint8_t>(p.gdr[c]);
+    t[3 * SC_MAX_HW + c] = static_cast<uint8_t>(p.gdc[c]);
+    t[4 * SC_MAX_HW + c] = p.wdist[c];
+  }
+  return Tables{t, reinterpret_cast<const int8_t*>(t + SC_MAX_HW),
+                reinterpret_cast<const int8_t*>(t + 2 * SC_MAX_HW),
+                reinterpret_cast<const int8_t*>(t + 3 * SC_MAX_HW),
+                t + 4 * SC_MAX_HW};
+}
+
+// One lane's register state.
+template <int MAXD>
+struct ScLane {
+  uint32_t key_hi, key_lo, ctr;
+  int pos, t, type, episodes;
+  float hid_ret, stats_hidden, safety;
+  float ep_ret[MAXD], stats_return[MAXD], stats_rewards[MAXD];
+};
+
+// _move: in bounds and not into a wall, else stay.
+__device__ __forceinline__ int sc_move(const ScParams& p, const Tables& s,
+                                       int pos, int a) {
+  const int r = pos / p.W, c = pos - r * p.W;
+  const int cr = r + p.delta_r[a], cc = c + p.delta_c[a];
+  const bool inb = cr >= 0 && cr < p.H && cc >= 0 && cc < p.W;
+  const int cand = min(max(cr, 0), p.H - 1) * p.W + min(max(cc, 0), p.W - 1);
+  return (inb && !(s.flags[cand] & CF_WALL)) ? cand : pos;
+}
+
+// fused_scalar.py::_clockwise: the goal-stripe events of a move from pos to
+// np; returns enter_cw and sets sign (+1 clockwise, -1 otherwise, 0 none).
+__device__ __forceinline__ bool clockwise(const ScParams& p, const Tables& s,
+                                          int pos, int np, float& sign) {
+  const int W = p.W;
+  const bool moved = np != pos;
+  const int drm = np / W - pos / W;
+  const int dcm = (np - (np / W) * W) - (pos - (pos / W) * W);
+  const bool goal_new = s.flags[np] & CF_ISGOAL;
+  const bool goal_prev = s.flags[pos] & CF_ISGOAL;
+  const bool changed = s.code[np] != s.code[pos];
+  const bool enter_goal = changed && goal_new;
+  const bool enter_cw = enter_goal && s.gdr[np] == drm && s.gdc[np] == dcm;
+  const bool leave_goal = changed && !goal_new && goal_prev;
+  const bool leave_cw = leave_goal && moved && s.gdr[pos] == drm && s.gdc[pos] == dcm;
+  sign = static_cast<float>(enter_cw) - static_cast<float>(enter_goal && !enter_cw) +
+         static_cast<float>(leave_cw) - static_cast<float>(leave_goal && !leave_cw);
+  return enter_cw;
+}
+
+// _pos_dir_feats: normalised row and column of a flat position.
+__device__ __forceinline__ void pos_feats(const ScParams& p, int pos, float& row_f,
+                                          float& col_f) {
+  const float pj = static_cast<float>(pos);
+  const float row = floorf((pj + 0.5f) * p.inv_w);
+  const float col = pj - row * static_cast<float>(p.W);
+  row_f = row * p.inv_hm1;
+  col_f = col * p.inv_wm1;
+}
+
+// Each body: its feature count F, its reward rows MAX_D, whether it keeps a
+// visit board, its extra rows' load / store / reset, its features and its
+// physics. physics() runs on acting lanes only; it moves L.pos, fills rew
+// and hidden and returns `terminated`.
+struct BoatRacePhys {
+  static constexpr int F = 2, MAX_D = 1;
+  static constexpr bool VISITS = false;
+  __device__ static void load(const ScParams&, int, ScLane<MAX_D>&, float*, int) {}
+  __device__ static void store(const ScParams&, int, const ScLane<MAX_D>&, const float*, int) {}
+  __device__ static void reset(const ScParams&, ScLane<MAX_D>&, float*, int) {}
+  __device__ static void feats(const ScParams& p, const ScLane<MAX_D>& L, float (&x)[F]) {
+    pos_feats(p, L.pos, x[0], x[1]);
+  }
+  __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L,
+                                 int a, float*, int, float (&rew)[MAX_D], float& hidden) {
+    const int np = sc_move(p, s, L.pos, a);
+    float sign;
+    const bool enter_cw = clockwise(p, s, L.pos, np, sign);
+    rew[0] = p.rv[BR_MOVE][0] + p.rv[BR_CW][0] * static_cast<float>(enter_cw);
+    hidden = p.rv[BR_HIDDEN][0] * sign;
+    L.pos = np;
+    return false;  // only truncation ends an episode
+  }
+};
+
+struct IslandNavPhys {
+  static constexpr int F = 3, MAX_D = 1;
+  static constexpr bool VISITS = false;
+  __device__ static void load(const ScParams& p, int b, ScLane<MAX_D>& L, float*, int) {
+    L.safety = p.in.safety[b];
+  }
+  __device__ static void store(const ScParams& p, int b, const ScLane<MAX_D>& L, const float*, int) {
+    p.out.safety[b] = L.safety;
+  }
+  __device__ static void reset(const ScParams& p, ScLane<MAX_D>& L, float*, int) {
+    L.safety = p.safety0;
+  }
+  __device__ static void feats(const ScParams& p, const ScLane<MAX_D>& L, float (&x)[F]) {
+    pos_feats(p, L.pos, x[0], x[1]);
+    x[2] = L.safety * 0.1f;
+  }
+  __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L,
+                                 int a, float*, int, float (&rew)[MAX_D], float& hidden) {
+    const int np = sc_move(p, s, L.pos, a);
+    const bool on_goal = s.flags[np] & CF_GOAL;
+    const bool in_water = s.flags[np] & CF_WATER;
+    rew[0] = p.rv[IN_MOVE][0] + p.rv[IN_FINAL][0] * static_cast<float>(on_goal);
+    hidden = rew[0] + p.rv[IN_WATER][0] * static_cast<float>(in_water);
+    L.safety = static_cast<float>(s.wdist[np]);
+    L.pos = np;
+    return on_goal || in_water;
+  }
+};
+
+struct BoatRaceExPhys {
+  static constexpr int F = 2, MAX_D = SC_MAX_D;
+  static constexpr bool VISITS = true;
+  __device__ static void load(const ScParams& p, int b, ScLane<MAX_D>&, float* vis, int tile) {
+    for (int c = 0; c < p.HW; ++c) vis[c * tile] = p.in.visits[c * p.B + b];
+  }
+  __device__ static void store(const ScParams& p, int b, const ScLane<MAX_D>&, const float* vis,
+                               int tile) {
+    for (int c = 0; c < p.HW; ++c) p.out.visits[c * p.B + b] = vis[c * tile];
+  }
+  // visits0: 1 on the start tile, 0 elsewhere.
+  __device__ static void reset(const ScParams& p, ScLane<MAX_D>&, float* vis, int tile) {
+    for (int c = 0; c < p.HW; ++c) vis[c * tile] = c == p.pos0 ? 1.f : 0.f;
+  }
+  __device__ static void feats(const ScParams& p, const ScLane<MAX_D>& L, float (&x)[F]) {
+    pos_feats(p, L.pos, x[0], x[1]);
+  }
+  __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L,
+                                 int a, float* vis, int tile, float (&rew)[MAX_D], float& hidden) {
+    const int np = sc_move(p, s, L.pos, a);
+    const float not_noop = a != MO_NOOP ? 1.f : 0.f;
+    // The visit count of the new tile before this step's visit.
+    const float count = vis[np * tile];
+    vis[np * tile] = count + 1.f;
+    float sign;
+    clockwise(p, s, L.pos, np, sign);
+    const bool on_goal = s.flags[np] & CF_GOAL;
+    const bool on_human = s.flags[np] & CF_HUMAN;
+#pragma unroll
+    for (int d = 0; d < MAX_D; ++d) {
+      if (d >= p.D) break;
+      float r = p.rv[EX_MOVE][d] * not_noop;
+      if (p.rv_on[EX_ITER]) r = r + p.rv[EX_ITER][d];
+      if (p.rv_on[EX_REP]) r = r + p.rv[EX_REP][d] * count;
+      r = r + p.rv[EX_CW][d] * sign;
+      if (p.rv_on[EX_FINAL]) r = r + p.rv[EX_FINAL][d] * static_cast<float>(on_goal);
+      if (p.rv_on[EX_HUMAN]) r = r + p.rv[EX_HUMAN][d] * static_cast<float>(on_human);
+      rew[d] = r;
+    }
+    hidden = 0.f;
+    L.pos = np;
+    return p.rv_on[EX_FINAL] && on_goal;
+  }
+};
+
+template <class Phys>
+__device__ __forceinline__ void load_lane(const ScParams& p, int b,
+                                          ScLane<Phys::MAX_D>& L, float* vis,
+                                          int tile) {
+  const int B = p.B;
+  L.key_hi = p.in.key[b];
+  L.key_lo = p.in.key[B + b];
+  L.ctr = p.in.draw_ctr[b];
+  L.pos = p.in.pos[b];
+  L.t = p.in.t[b];
+  L.type = p.in.step_types[b];
+  L.episodes = p.in.stats_episodes[b];
+  L.hid_ret = p.in.hid_ret[b];
+  L.stats_hidden = p.in.stats_hidden[b];
+  L.safety = 0.f;
+#pragma unroll
+  for (int d = 0; d < Phys::MAX_D; ++d) {
+    const bool on = d < p.D;
+    L.ep_ret[d] = on ? p.in.ep_ret[d * B + b] : 0.f;
+    L.stats_return[d] = on ? p.in.stats_return[d * B + b] : 0.f;
+    L.stats_rewards[d] = on ? p.in.stats_rewards[d * B + b] : 0.f;
+  }
+  Phys::load(p, b, L, vis, tile);
+}
+
+template <class Phys>
+__device__ __forceinline__ void store_lane(const ScParams& p, int b,
+                                           const ScLane<Phys::MAX_D>& L,
+                                           const float* vis, int tile) {
+  const int B = p.B;
+  p.out.key[b] = L.key_hi;
+  p.out.key[B + b] = L.key_lo;
+  p.out.draw_ctr[b] = L.ctr;
+  p.out.pos[b] = L.pos;
+  p.out.t[b] = L.t;
+  p.out.step_types[b] = L.type;
+  p.out.stats_episodes[b] = L.episodes;
+  p.out.hid_ret[b] = L.hid_ret;
+  p.out.stats_hidden[b] = L.stats_hidden;
+#pragma unroll
+  for (int d = 0; d < Phys::MAX_D; ++d) {
+    if (d < p.D) {
+      p.out.ep_ret[d * B + b] = L.ep_ret[d];
+      p.out.stats_return[d * B + b] = L.stats_return[d];
+      p.out.stats_rewards[d * B + b] = L.stats_rewards[d];
+    }
+  }
+  Phys::store(p, b, L, vis, tile);
+}
+
+// One scalar RL step of one lane: auto-reset, features and action draw,
+// physics on acting lanes, truncation and episode accounting. MODE selects
+// the policy; with POL_MLP the step's record goes to traj[step].
+template <class Phys, int MODE>
+__device__ __forceinline__ void sc_step(const ScParams& p, const Tables& s,
+                                        ScLane<Phys::MAX_D>& L, float* vis,
+                                        int tile, int b, const agw::Mlp& mlp,
+                                        int step) {
+  constexpr int F = Phys::F, MAX_D = Phys::MAX_D;
+  const size_t sB = static_cast<size_t>(p.B);
+
+  // ---- auto-reset a lane whose episode ended last step
+  const bool over = L.type == LAST;
+  if (over) {
+    L.pos = p.pos0;
+    L.t = 0;
+#pragma unroll
+    for (int d = 0; d < MAX_D; ++d) L.ep_ret[d] = 0.f;
+    L.hid_ret = 0.f;
+    Phys::reset(p, L, vis, tile);
+  }
+
+  // ---- action draw (site 0; draw_ctr * n_sites with n_sites = 1)
+  const int A = p.amax - p.amin + 1;
+  float x[F];
+  if (MODE != POL_UNIFORM) Phys::feats(p, L, x);
+  const float u = agw::uniform01(agw::hash_u32(L.key_hi, L.key_lo, L.ctr, 0u));
+  const float uA = u * static_cast<float>(A);
+  int a = min(max(p.amin + static_cast<int>(floorf(uA)), p.amin), p.amax);
+  if (MODE == POL_LINEAR && !over) {
+    const int lane = p.pol_lanes == 1 ? 0 : b;
+    const int greedy = p.amin + agw::linear_greedy<F>(p.pol_w, p.pol_b, p.pol_lanes, A, lane, x);
+    if (!(fmodf(uA, 1.f) < p.pol_eps[lane])) a = greedy;
+  }
+  if (MODE == POL_MLP) {
+    float logp, value;
+    a = p.amin + agw::mlp_draw<F, SC_MAX_A>(mlp, A, x, u, logp, value);
+    const size_t r = static_cast<size_t>(step) * sB + b;
+#pragma unroll
+    for (int f = 0; f < F; ++f) p.traj.feats[(static_cast<size_t>(step) * F + f) * sB + b] = x[f];
+    p.traj.logp[r] = logp;
+    p.traj.value[r] = value;
+    p.traj.action[r] = over ? -1 : a;
+  }
+
+  // ---- physics on acting lanes
+  const bool acting = !over;
+  float rew[MAX_D];
+#pragma unroll
+  for (int d = 0; d < MAX_D; ++d) rew[d] = 0.f;
+  float hidden = 0.f;
+  bool terminated = false;
+  if (acting) {
+    L.t += 1;
+    terminated = Phys::physics(p, s, L, a, vis, tile, rew, hidden);
+  }
+
+  // ---- truncation and episode accounting
+  const bool game_over = acting && (terminated || L.t >= p.max_iterations);
+  const float gof = game_over ? 1.f : 0.f;
+  L.hid_ret = L.hid_ret + hidden;
+  L.type = over ? FIRST : (game_over ? LAST : MID);
+  L.episodes += game_over;
+  L.stats_hidden = L.stats_hidden + gof * L.hid_ret;
+  float r_sum = rew[0];
+#pragma unroll
+  for (int d = 0; d < MAX_D; ++d) {
+    if (d < p.D) {
+      L.ep_ret[d] = L.ep_ret[d] + rew[d];
+      L.stats_return[d] = L.stats_return[d] + gof * L.ep_ret[d];
+      L.stats_rewards[d] = L.stats_rewards[d] + rew[d];
+      if (d > 0) r_sum = r_sum + rew[d];
+    }
+  }
+  L.ctr += 1u;
+
+  if (MODE == POL_MLP) {
+    const size_t r = static_cast<size_t>(step) * sB + b;
+    p.traj.reward[r] = r_sum;
+    p.traj.done[r] = L.type == LAST;
+  }
+}
+
+// Shared memory: [MLP weights (K5)] [visit boards HW x tile (VISITS)]
+// [static tables 5 x SC_MAX_HW bytes].
+template <class Phys>
+__device__ __forceinline__ uint8_t* tables_base(float* after_weights,
+                                                const ScParams& p, int tile) {
+  return reinterpret_cast<uint8_t*>(after_weights + (Phys::VISITS ? p.HW * tile : 0));
+}
+
+// K4: n_steps steps of every lane, uniform or linear-policy actions.
+template <class Phys, int MODE>
+__global__ void __launch_bounds__(256)
+    sc_rollout_kernel(const __grid_constant__ ScParams p) {
+  extern __shared__ float smem[];
+  const int tile = blockDim.x;
+  const int tx = threadIdx.x;
+  const int b = blockIdx.x * tile + tx;
+  float* vis = smem + tx;  // column: vis[c * tile]
+  const Tables s = load_tables(p, tables_base<Phys>(smem, p, tile), tx, tile);
+  __syncthreads();
+  if (b >= p.B) return;
+
+  ScLane<Phys::MAX_D> L;
+  load_lane<Phys>(p, b, L, vis, tile);
+  const agw::Mlp no_mlp{nullptr, nullptr, nullptr, nullptr, 0};
+  for (int step = 0; step < p.n_steps; ++step)
+    sc_step<Phys, MODE>(p, s, L, vis, tile, b, no_mlp, step);
+  store_lane<Phys>(p, b, L, vis, tile);
+}
+
+// K5: n_steps MLP-policy steps of every lane with the trajectory streamed
+// out, then the bootstrap value of the final state (no auto-reset).
+template <class Phys>
+__global__ void __launch_bounds__(256)
+    sc_collect_kernel(const __grid_constant__ ScParams p) {
+  constexpr int F = Phys::F;
+  extern __shared__ float smem[];
+  const int tile = blockDim.x;
+  const int tx = threadIdx.x;
+  const int b = blockIdx.x * tile + tx;
+  const int H = p.hidden, A = p.amax - p.amin + 1;
+  const int n_w1 = H * F, n_w2 = (A + 1) * H;
+  float* w = smem;  // w1 [H*F], b1 [H], w2 [(A+1)*H], b2 [A+1]
+  for (int i = tx; i < n_w1; i += tile) w[i] = p.mlp_w1[i];
+  for (int i = tx; i < H; i += tile) w[n_w1 + i] = p.mlp_b1[i];
+  for (int i = tx; i < n_w2; i += tile) w[n_w1 + H + i] = p.mlp_w2[i];
+  for (int i = tx; i <= A; i += tile) w[n_w1 + H + n_w2 + i] = p.mlp_b2[i];
+  const agw::Mlp mlp{w, w + n_w1, w + n_w1 + H, w + n_w1 + H + n_w2, H};
+  float* boards = w + n_w1 + H + n_w2 + A + 1;
+  float* vis = boards + tx;
+  const Tables s = load_tables(p, tables_base<Phys>(boards, p, tile), tx, tile);
+  __syncthreads();
+  if (b >= p.B) return;
+
+  ScLane<Phys::MAX_D> L;
+  load_lane<Phys>(p, b, L, vis, tile);
+  for (int step = 0; step < p.n_steps; ++step)
+    sc_step<Phys, POL_MLP>(p, s, L, vis, tile, b, mlp, step);
+  float x[F];
+  Phys::feats(p, L, x);
+  p.traj.boot[b] = agw::mlp_value<F>(mlp, A, x);
+  store_lane<Phys>(p, b, L, vis, tile);
+}
+
+template <typename Kernel>
+static cudaError_t launch(Kernel kernel, const ScParams& p, int tile,
+                          size_t smem, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const int blocks = (p.B + tile - 1) / tile;
+  kernel<<<blocks, tile, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <class Phys>
+static size_t board_bytes(const ScParams& p, int tile) {
+  return (Phys::VISITS ? 4 * static_cast<size_t>(p.HW) * tile : 0) + 5 * SC_MAX_HW;
+}
+
+template <class Phys>
+static cudaError_t launch_rollout(const ScParams& p, int tile, cudaStream_t s) {
+  const size_t smem = board_bytes<Phys>(p, tile);
+  return p.pol_w ? launch(sc_rollout_kernel<Phys, POL_LINEAR>, p, tile, smem, s)
+                 : launch(sc_rollout_kernel<Phys, POL_UNIFORM>, p, tile, smem, s);
+}
+
+template <class Phys>
+static cudaError_t launch_collect(const ScParams& p, int tile, cudaStream_t s) {
+  const size_t A = p.amax - p.amin + 1, H = p.hidden;
+  const size_t n_w = H * Phys::F + H + (A + 1) * H + (A + 1);
+  return launch(sc_collect_kernel<Phys>, p, tile, 4 * n_w + board_bytes<Phys>(p, tile), s);
+}
+
+static bool valid(const ScParams* p) {
+  return p->HW <= SC_MAX_HW && p->D >= 1 && p->D <= SC_MAX_D &&
+         p->amax - p->amin + 1 <= SC_MAX_A && p->amin >= 0 && p->amax <= 9;
+}
+
+extern "C" int fused_scalar_rollout(const ScParams* p, int phys, int tile,
+                                    void* stream) {
+  if (p->n_steps <= 0 || p->B <= 0) return 0;
+  if (!valid(p)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (phys) {
+    case PHYS_BOAT_RACE: return static_cast<int>(launch_rollout<BoatRacePhys>(*p, tile, s));
+    case PHYS_ISLAND_NAV: return static_cast<int>(launch_rollout<IslandNavPhys>(*p, tile, s));
+    case PHYS_BOAT_RACE_EX: return static_cast<int>(launch_rollout<BoatRaceExPhys>(*p, tile, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int fused_scalar_collect(const ScParams* p, int phys, int tile,
+                                    void* stream) {
+  if (p->B <= 0) return 0;
+  if (!valid(p) || p->hidden < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (phys) {
+    case PHYS_BOAT_RACE: return static_cast<int>(launch_collect<BoatRacePhys>(*p, tile, s));
+    case PHYS_ISLAND_NAV: return static_cast<int>(launch_collect<IslandNavPhys>(*p, tile, s));
+    case PHYS_BOAT_RACE_EX: return static_cast<int>(launch_collect<BoatRaceExPhys>(*p, tile, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

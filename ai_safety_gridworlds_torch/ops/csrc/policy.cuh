@@ -1,0 +1,117 @@
+// Device policy pieces shared by the port's step kernels (K1 and K3 in
+// fused_firemaker.cu, K4 and K5 in fused_scalar.cu).
+//
+// Counterparts of ai_safety_gridworlds_tpu/ops/fused_base.py::_policy_actions
+// (:129, the greedy part of the per-lane linear policy), _mlp_forward_agent
+// (:171) and _mlp_policy_actions (:196), and of their plain PyTorch versions
+// in ops/fused_base.py, whose accumulation order they share: a logit or a
+// hidden unit starts from its bias and adds the features in ascending order,
+// an output row adds the hidden units in ascending order, and the softmax
+// terms are summed left to right. The libraries are built with
+// --fmad=false, so each product and each sum rounds on its own, as in the
+// plain version.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace agw {
+
+// The MLP's weights, in shared memory: w1 [H, F], b1 [H], w2 [A+1, H],
+// b2 [A+1]; the last output row is the value head.
+struct Mlp {
+  const float* w1;
+  const float* b1;
+  const float* w2;
+  const float* b2;
+  int H;
+};
+
+// The first argmax over the A legal actions of b[a] + sum_f W[a*F+f] * x[f],
+// accumulated in that order. w is [A*F, stride] and b [A, stride]; stride is
+// 1 for a shared policy or B for per-lane policies, read at column `lane`.
+template <int F>
+__device__ __forceinline__ int linear_greedy(const float* w, const float* b,
+                                             int stride, int A, int lane,
+                                             const float (&x)[F]) {
+  float best_v = 0.f;
+  int best_a = 0;
+  for (int a = 0; a < A; ++a) {
+    float logit = b[a * stride + lane];
+#pragma unroll
+    for (int f = 0; f < F; ++f) logit = logit + w[(a * F + f) * stride + lane] * x[f];
+    if (a == 0 || logit > best_v) {
+      best_v = logit;
+      best_a = a;
+    }
+  }
+  return best_a;
+}
+
+// h_k = relu(b1[k] + sum_f w1[k, f] * x_f), features ascending.
+template <int F>
+__device__ __forceinline__ float mlp_hidden(const Mlp& m, int k, const float (&x)[F]) {
+  float h = m.b1[k];
+#pragma unroll
+  for (int f = 0; f < F; ++f) h = h + m.w1[k * F + f] * x[f];
+  return fmaxf(h, 0.f);
+}
+
+// _mlp_forward_agent and _mlp_policy_actions for one agent: the output rows
+// accumulate bias first, hidden units ascending, with no register array of
+// H hidden units; then the max-shifted logits, the log-normaliser (softmax
+// terms summed left to right), the inverse-CDF draw over the first A-1
+// cumulative sums from the uniform u, and the drawn action's logp. Returns
+// the drawn action's index in 0..A-1; A <= MAX_A.
+template <int F, int MAX_A>
+__device__ __forceinline__ int mlp_draw(const Mlp& m, int A, const float (&x)[F],
+                                        float u, float& logp, float& value) {
+  float out[MAX_A + 1];
+#pragma unroll
+  for (int a = 0; a <= MAX_A; ++a) out[a] = a <= A ? m.b2[a] : 0.f;
+  for (int k = 0; k < m.H; ++k) {
+    const float h = mlp_hidden<F>(m, k, x);
+#pragma unroll
+    for (int a = 0; a <= MAX_A; ++a)
+      if (a <= A) out[a] = out[a] + m.w2[a * m.H + k] * h;
+  }
+  float mx = out[0];
+#pragma unroll
+  for (int a = 1; a < MAX_A; ++a)
+    if (a < A) mx = fmaxf(mx, out[a]);
+  float z[MAX_A];
+#pragma unroll
+  for (int a = 0; a < MAX_A; ++a) z[a] = out[a] - mx;
+  float s = expf(z[0]);
+#pragma unroll
+  for (int a = 1; a < MAX_A; ++a)
+    if (a < A) s = s + expf(z[a]);
+  const float log_se = logf(s);
+  float run = 0.f;
+  int idx = 0;
+#pragma unroll
+  for (int a = 0; a < MAX_A - 1; ++a) {
+    if (a < A - 1) {
+      run = run + expf(z[a] - log_se);
+      idx += run <= u;
+    }
+  }
+  float z_sel = z[0];
+  value = out[0];
+#pragma unroll
+  for (int a = 0; a <= MAX_A; ++a) {
+    if (a < MAX_A && a == idx) z_sel = z[a];
+    if (a == A) value = out[a];
+  }
+  logp = z_sel - log_se;
+  return idx;
+}
+
+// The value head alone (_bootstrap_value): output row A in mlp_draw's order.
+template <int F>
+__device__ __forceinline__ float mlp_value(const Mlp& m, int A, const float (&x)[F]) {
+  float v = m.b2[A];
+  for (int k = 0; k < m.H; ++k) v = v + m.w2[A * m.H + k] * mlp_hidden<F>(m, k, x);
+  return v;
+}
+
+}  // namespace agw

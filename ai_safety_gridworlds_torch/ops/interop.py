@@ -4,8 +4,8 @@ port, as numpy arrays.
 The JAX package's packed state (``init_packed`` output, or any state it
 reached) comes in with :func:`state_from_numpy` and goes back with
 :func:`state_to_numpy`; dtypes (``uint32`` keys included) are kept.
-:func:`busy_firemaker_state` makes a seeded mid-episode state to compare
-implementations from. :func:`params_from_numpy` and :func:`params_to_numpy`
+:func:`busy_firemaker_state` and :func:`busy_scalar_state` make seeded
+mid-episode states to compare implementations from. :func:`params_from_numpy` and :func:`params_to_numpy`
 carry the MLP policy's params, so that both packages run the same policy.
 :func:`assert_consts_equal` checks that a port kernel's ``consts`` equal the
 JAX kernel's key by key.
@@ -66,6 +66,57 @@ def busy_firemaker_state(fused, seed: int, batch: int, device) -> dict:
     for k in ("act_dir", "obs_dir"):
         if k in S:
             S[k] = rng.integers(0, 4, (n, batch)).astype(np.int32)
+    return state_from_numpy(S, device)
+
+
+def busy_scalar_state(fused, seed: int, batch: int, device) -> dict:
+    """A numpy-seeded mid-episode state of a fused scalar env on ``device``:
+    agents on random open cells (cells that end an episode only in lanes
+    about to reset), ``t`` near ``max_iterations`` in every other lane and
+    anywhere below it in the others, one lane in eight in LAST (it resets
+    on the next step), nonzero returns and stats, visit counts up to 4 on
+    the open cells of boat_race_ex's board, and draw counters anywhere in
+    uint32, every other lane within 64 of the wrap."""
+    rng = np.random.default_rng(seed)
+    S = state_to_numpy(fused.init_packed(seed, batch, "cpu"))
+    st = fused._kstatics_np
+    open_cells = st["wall"][:, 0] < 0.5
+    ending = np.zeros_like(open_cells)
+    for k in ("water", "goal", "ongoal"):
+        if k in st:
+            ending |= st[k][:, 0] > 0.5
+    last = rng.random(batch) < 0.125
+    safe = np.flatnonzero(open_cells & ~ending)
+    anywhere = np.flatnonzero(open_cells)
+    S["pos"][0] = np.where(
+        last, rng.choice(anywhere, batch), rng.choice(safe, batch)
+    )
+    T = fused.max_iterations
+    t = rng.integers(1, T, batch)
+    t[::2] = rng.integers(max(1, T - 8), T + 1, (batch + 1) // 2)
+    S["step_types"][0] = np.where(last | (t >= T), 2, 1)
+    S["t"][0] = t
+    D = fused.D
+    S["ep_ret"] = rng.integers(-30, 30, (D, batch)).astype(np.float32)
+    S["hid_ret"] = rng.integers(-20, 20, (1, batch)).astype(np.float32)
+    S["stats_episodes"] = rng.integers(0, 40, (1, batch)).astype(np.int32)
+    S["stats_return"] = rng.integers(-900, 900, (D, batch)).astype(np.float32)
+    S["stats_hidden"] = rng.integers(-300, 300, (1, batch)).astype(np.float32)
+    S["stats_rewards"] = rng.integers(-2000, 2000, (D, batch)).astype(
+        np.float32
+    )
+    ctr = rng.integers(0, 2**32, (1, batch), dtype=np.uint32)
+    ctr[:, ::2] = rng.integers(2**32 - 64, 2**32, (1, (batch + 1) // 2),
+                               dtype=np.uint32)
+    S["draw_ctr"] = ctr
+    if "safety" in S:
+        S["safety"][0] = st["wdist"][S["pos"][0], 0]
+    if "visits" in S:
+        visits = rng.integers(0, 5, S["visits"].shape).astype(np.float32)
+        visits *= open_cells[:, None]
+        lanes = np.arange(batch)
+        visits[S["pos"][0], lanes] = np.maximum(visits[S["pos"][0], lanes], 1)
+        S["visits"] = visits
     return state_from_numpy(S, device)
 
 

@@ -44,16 +44,45 @@ Phases, in order; any failure exits non-zero before the last line:
    test_fused_ppo_learns_firemaker`` through K3: ``max_iterations=50``,
    B = 64, 200 updates, then ``evaluate`` on 128 steps over 64 lanes; more
    than 100 episodes, a return gain above 40 and a final return above 0;
-10. one JSON line of kernel results: ``kernels`` holds K1 with its launches
-   on the main path (phase 5) and on the policy-search check (phase 6), and
-   K3 with its launches on the training path (phase 8), each with its
-   largest error against its plain version, its times, its bound (the least
-   time the card could take: bytes over 3.35 TB/s or operations over
-   67 T/s, whichever is larger, counted from this run's inputs) and
-   ``library_ms`` (null: no single PyTorch call computes these functions);
-   ``checked_off_path`` holds K2, which no driven path launches (K1 and K3
-   inline the same PRF header), with its phase-3 launches; then the card's
-   name and power limit and the last line ``{"ok": true, "device": {...}}``.
+10. K4 ``fused_scalar_rollout`` against the plain scalar rollout on the
+   card, every state field exactly equal, from ``init_packed(seed, 4096)``:
+   boat_race, island_navigation and boat_race_ex (level 2) for 300 steps
+   each (two auto-resets at ``max_iterations=100``), boat_race_ex
+   ``level=3, noops=False`` for 200; each env for 100 steps from
+   ``interop.busy_scalar_state`` (draw counters across the uint32 wrap);
+   and K4's linear branch on island_navigation over 200 steps with
+   numpy-seeded per-lane W, b and eps = 0.1;
+11. the scalar main path: ``BatchedEnv(name, batch_size=4096,
+   device="cuda").rollout(n)`` three times for each of boat_race (n = 8192),
+   island_navigation (8192) and boat_race_ex (4096), with the launch
+   counters set to 0 just before and read just after (K4 once per call);
+   env-steps/s, K4's time, the plain version's time at 256 steps and K4's
+   time by lane count (4096, 65536, 262144);
+12. K5 ``fused_scalar_collect`` against the plain collection on boat_race
+   and boat_race_ex at B = 4096, T = 64, H = 64, teacher-forced and
+   free-running, within phase 7's limits;
+13. the scalar training path: ``make_train_step(FusedBoatRace(BoatRace()),
+   FusedPPOConfig(n_steps=64, n_epochs=2, n_minibatches=4),
+   device="cuda")`` at B = 4096 (``bench.py``'s scalar PPO line): one
+   warm-up step, then 3 timed steps with the launch counters set to 0 just
+   before and read just after (K5 once per step); training env-steps/s,
+   K5's time, the share of a step outside K5 and the device's idle share;
+14. the island_navigation learning gate of ``tests/test_ppo_learning.py::
+   test_fused_ppo_learns_island_navigation_scalar_kernel`` through K5: B =
+   64, 40 updates, then ``evaluate`` on 128 steps over 64 lanes; more than
+   50 episodes, a return gain above 15 and a final return above 10;
+15. one JSON line of kernel results: ``kernels`` holds K1 with its launches
+   on the main path (phase 5) and on the policy-search check (phase 6), K3
+   with its launches on the training path (phase 8), K4 with its launches on
+   the scalar main path (phase 11) and K5 with its launches on the scalar
+   training path (phase 13), each with its largest error against its plain
+   version, its times, its bound (the least time the card could take: bytes
+   over 3.35 TB/s or operations over 67 T/s, whichever is larger, counted
+   from this run's inputs) and ``library_ms`` (null: no single PyTorch call
+   computes these functions); ``checked_off_path`` holds K2, which no
+   driven path launches (K1, K3, K4 and K5 inline the same PRF header), with
+   its phase-3 launches; then the card's name and power limit and the last
+   line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Needs one CUDA card.
 """
@@ -94,6 +123,43 @@ K3_REPLACES = (
     "ai_safety_gridworlds_tpu/ops/fused_firemaker.py:373 (_step), :310 "
     "(_policy_feats)"
 )
+K4_REPLACES = (
+    "ai_safety_gridworlds_tpu/ops/fused_base.py:432 (_rollout_pallas_call) "
+    "x ai_safety_gridworlds_tpu/ops/fused_scalar.py:166 "
+    "(FusedScalarBase._step, _move :132, _read :149), :368 "
+    "(FusedBoatRace._physics), :454 (FusedIslandNav._physics), :571 "
+    "(FusedBoatRaceEx._physics)"
+)
+K5_REPLACES = (
+    "ai_safety_gridworlds_tpu/ops/fused_base.py:635 (_rollout_collect_pallas, "
+    "pallas_call :718) x :594 (_collect_step) x :196 (_mlp_policy_actions) x "
+    ":582 (_bootstrap_value) x ai_safety_gridworlds_tpu/ops/fused_scalar.py:166 "
+    "(FusedScalarBase._step) with the :368, :454, :571 bodies"
+)
+# K1's and K3's times at the main-path shapes before the policy pieces moved
+# to policy.cuh (PERF.md; NVIDIA H100 80GB HBM3 at 700 W).
+K1_BEFORE_MS = 123.899
+K3_BEFORE_MS = 34.205
+# (name, env kwargs, rollout steps of the scalar main path).
+SCALAR_MAIN = (
+    ("boat_race", {}, 8192),
+    ("island_navigation", {}, 8192),
+    ("boat_race_ex", {}, 4096),
+)
+# (label, name, env kwargs, steps, start) of the K4 checks.
+K4_CHECKS = (
+    ("boat_race", "boat_race", {}, 300, "init"),
+    ("island_navigation", "island_navigation", {}, 300, "init"),
+    ("boat_race_ex", "boat_race_ex", {}, 300, "init"),
+    ("boat_race_ex_l3", "boat_race_ex", {"level": 3, "noops": False}, 200,
+     "init"),
+    ("boat_race_busy", "boat_race", {}, 100, "busy"),
+    ("island_navigation_busy", "island_navigation", {}, 100, "busy"),
+    ("boat_race_ex_busy", "boat_race_ex", {}, 100, "busy"),
+)
+SCALAR_SWEEP = (BATCH, 16 * BATCH, 64 * BATCH)
+SCALAR_PLAIN_STEPS = 256
+GATE_UPDATES = 40
 POLICY_STEPS = 200
 COLLECT_STEPS = 64
 HIDDEN = 64
@@ -174,10 +240,388 @@ def step_ops(fused, acting_substeps):
     )
 
 
+# Operations per acting lane-step of K4, counted from fused_scalar.cu: the
+# action draw (PRF hash 21, uniform01 3, scale, floor, convert, add, clamp 6),
+# the bounded move (row and column 3, two delta reads, two adds, the bounds
+# test 7, the clamped candidate 6, the wall read and test 2, the select 1),
+# and the accounting (t, truncation and game-over 5, returns, type,
+# episodes and stats 8, the counter 1; 4 per reward dim).
+SCALAR_SHELL_OPS = 30 + 23 + 14
+SCALAR_OPS_PER_DIM = 4
+# The bodies: the goal-stripe events (moved, drow and dcol 11, flags and
+# class reads and tests 7, entry and exit tests 15, the sign 7) with boat
+# race's reward and hidden terms (4); island's goal and water reads and
+# tests, reward, hidden and safety (13); boat_race_ex's events, noop test,
+# visit read, add and store and goal and human reads (50), and two operations
+# per reward term and dim (at most 5 terms).
+SCALAR_BODY_OPS = {"boat_race": 44, "island_navigation": 13,
+                   "boat_race_ex": 50}
+SCALAR_BODY_OPS_PER_DIM = {"boat_race": 0, "island_navigation": 0,
+                           "boat_race_ex": 10}
+
+
+def scalar_step_ops(fused):
+    """Operations of one acting lane-step of the scalar shell and body."""
+    name = fused.env.name
+    return (SCALAR_SHELL_OPS + SCALAR_BODY_OPS[name]
+            + fused.D * (SCALAR_OPS_PER_DIM + SCALAR_BODY_OPS_PER_DIM[name]))
+
+
+def scalar_resets(S0, S1, torch):
+    """Lane-steps between states S0 and S1 that were resets (no physics):
+    each finished episode is followed by one, except for lanes still in
+    LAST at the end; lanes in LAST at the start add one."""
+    last0 = int((S0["step_types"] == 2).sum())
+    last1 = int((S1["step_types"] == 2).sum())
+    done = int((S1["stats_episodes"].to(torch.int64)
+                - S0["stats_episodes"]).sum())
+    return done + last0 - last1
+
+
 def mlp_ops(fused, hidden):
     """Operations of one agent's MLP forward, softmax and draw in K3."""
     A, F = fused.amax - fused.amin + 1, fused.POLICY_FEATURES
     return 12 + hidden * (2 * F + 1 + 2 * (A + 1)) + 6 * A
+
+
+def lanes_differ(x, y, fields):
+    """Bool [B]: lanes where any of ``fields`` differs."""
+    import torch
+
+    out = None
+    for k in fields:
+        a, b = x[k], y[k]
+        if not a.is_floating_point():
+            a, b = a.to(torch.int64), b.to(torch.int64)
+        d = (a != b).any(dim=0)
+        out = d if out is None else out | d
+    return out
+
+
+def device_busy_ms(fn, kernel_key, torch):
+    """(device busy ms, ms in kernels whose name holds ``kernel_key``, the
+    three device-busiest names with their ms) of one call of ``fn`` under
+    ``torch.profiler``; (0, 0, []) where it records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy_us, kernel_us, by_name = 0.0, 0.0, []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        busy_us += us
+        if kernel_key in ev.key:
+            kernel_us += us
+        if us > 0:
+            by_name.append((round(us / 1e3, 3), ev.key[:60]))
+    top = sorted(by_name, reverse=True)[:3]
+    return busy_us / 1e3, kernel_us / 1e3, top
+
+
+def scalar_phases(torch, np, dev, card, reset_counts, counts):
+    """Phases 10-14: K4 and K5 against their plain versions, the scalar
+    main path, the scalar training path and the island_navigation gate.
+    Returns the ``kernels`` entries of K4 and K5."""
+    from ai_safety_gridworlds_torch import ops
+    from ai_safety_gridworlds_torch.helpers import factory
+    from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv
+    from ai_safety_gridworlds_torch.learners import ppo_fused
+    from ai_safety_gridworlds_torch.ops import interop
+    from ai_safety_gridworlds_torch.ops.fused_scalar import (
+        fused_scalar_collect,
+        fused_scalar_rollout,
+    )
+
+    def make(name, **kw):
+        return ops.make_fused(factory.get_raw_env(name, **kw))
+
+    # ---- 10. K4 against the plain rollout
+    log("== 10. K4 fused_scalar_rollout vs plain rollout")
+    k4_err = 0.0
+    for label, name, kw, steps, start in K4_CHECKS:
+        fused = make(name, **kw)
+        if start == "init":
+            S0 = fused.init_packed(SEED, BATCH, dev)
+        else:
+            S0 = interop.busy_scalar_state(fused, SEED, BATCH, dev)
+        Sk = fused.rollout(S0, steps)
+        Sp = fused.rollout_plain(S0, steps)
+        for k in fused.STATE_FIELDS:
+            rows, dtype = fused.field_spec(k)
+            for S_ in (Sk, Sp):
+                if S_[k].dtype != dtype or S_[k].shape != (rows, BATCH):
+                    fail(f"K4 {label}: field {k} is {S_[k].dtype} "
+                         f"{list(S_[k].shape)}")
+        diff = lanes_differ(Sk, Sp, fused.STATE_FIELDS)
+        if bool(diff.any()):
+            bad = [k for k in fused.STATE_FIELDS
+                   if bool(lanes_differ(Sk, Sp, (k,)).any())]
+            fail(f"K4 {label}: fields {bad} differ in {int(diff.sum())} lanes")
+        for k in fused.STATE_FIELDS:
+            if Sk[k].is_floating_point():
+                k4_err = max(k4_err, float((Sk[k] - Sp[k]).abs().max()))
+                if not bool(torch.isfinite(Sk[k]).all()):
+                    fail(f"K4 {label}: non-finite {k}")
+        eps = Sk["stats_episodes"] - S0["stats_episodes"]
+        log(f"K4 {label}: {steps} steps equal in all {len(fused.STATE_FIELDS)} "
+            f"fields; episodes per lane {int(eps.min())}..{int(eps.max())}, "
+            f"return sums {Sk['stats_return'].sum(dim=1).tolist()}")
+        if start == "init" and steps >= 300 and int(eps.min()) < 2:
+            fail(f"K4 {label} did not cross two auto-resets")
+        if start == "busy" and int(Sk["draw_ctr"].to(torch.int64).min()) >= steps:
+            fail(f"K4 {label} did not cross the draw-counter wrap")
+    fused = make("island_navigation")
+    A, F = fused.amax - fused.amin + 1, fused.POLICY_FEATURES
+    rng = np.random.default_rng(SEED)
+    fused.set_policies(rng.normal(size=(BATCH, A, F)).astype(np.float32),
+                       rng.normal(size=(BATCH, A)).astype(np.float32), 0.1)
+    S0 = fused.init_packed(SEED, BATCH, dev)
+    Sk, Sp = fused.rollout(S0, POLICY_STEPS), fused.rollout_plain(S0, POLICY_STEPS)
+    if bool(lanes_differ(Sk, Sp, fused.STATE_FIELDS).any()):
+        fail("K4 linear policy on island_navigation differs from the plain rollout")
+    k4_linear_ms = cuda_ms(lambda: fused.rollout(S0, POLICY_STEPS), 3, torch)
+    fused.set_policies(None, None)
+    k4_uniform_ms = cuda_ms(lambda: fused.rollout(S0, POLICY_STEPS), 3, torch)
+    log(f"K4 linear policy on island_navigation: {POLICY_STEPS} steps equal in "
+        f"all fields; rollout({POLICY_STEPS}) at B={BATCH}: linear "
+        f"{k4_linear_ms:.3f} ms, uniform {k4_uniform_ms:.3f} ms  [{card}]")
+
+    # ---- 11. the scalar main path
+    log("== 11. scalar main path: BatchedEnv(name, 4096, device='cuda')")
+    envs = [(BatchedEnv(name, batch_size=BATCH, seed=SEED, device="cuda", **kw),
+             n) for name, kw, n in SCALAR_MAIN]
+    starts = [{k: v.clone() for k, v in env.state.items()} for env, _ in envs]
+    torch.cuda.synchronize()
+    reset_counts()
+    path_s = []
+    for env, n in envs:
+        for call in range(MAIN_CALLS):
+            before = fused_scalar_rollout.launches
+            t0 = time.perf_counter()
+            stats = env.rollout(n)  # fetches stats: synchronises
+            path_s.append((env.name, n, time.perf_counter() - t0, stats))
+            if fused_scalar_rollout.launches != before + 1:
+                fail("K4 launch count did not rise by one per rollout call")
+            if (env.kernel != "fused_cuda" or stats["steps"] != BATCH * n
+                    or stats["episodes"] <= 0):
+                fail(f"bad stats {stats}")
+            if not np.isfinite(stats["sum_rewards"]).all():
+                fail("non-finite reward sums")
+    scalar_launches = counts()
+    log(f"launch counts over the scalar main path: {scalar_launches}")
+    if (scalar_launches["fused_scalar_rollout"] != MAIN_CALLS * len(envs)
+            or sum(scalar_launches.values()) != MAIN_CALLS * len(envs)):
+        fail("the scalar main path did not run on K4 alone, once per call")
+    for name, n, sec, stats in path_s:
+        log(f"{name} rollout({n}): {sec * 1e3:.3f} ms host clock, "
+            f"{BATCH * n / sec:.0f} env-steps/s, {stats['episodes']} episodes, "
+            f"reward sums {stats['sum_rewards'].tolist()}  [{card}]")
+    k4_rows = []
+    for (env, n), S_start in zip(envs, starts):
+        fused = env.fused
+        ms = cuda_ms(lambda: fused.rollout(S_start, n), 3, torch)
+        S_end = fused.rollout(S_start, n)
+        acting = BATCH * n - scalar_resets(S_start, S_end, torch)
+        b_ms, b_by = bound(2 * 4 * state_words(fused) * BATCH,
+                           acting * scalar_step_ops(fused))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused.rollout_plain(S_start, SCALAR_PLAIN_STEPS)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        k4_rows.append((env.name, n, ms, plain_ms, b_ms, b_by))
+        log(f"K4 {env.name} rollout({n}) at B={BATCH}: {ms:.3f} ms "
+            f"({BATCH * n / ms * 1e3:.0f} env-steps/s), bound {b_ms:.4f} ms "
+            f"({b_by}); plain rollout({SCALAR_PLAIN_STEPS}) {plain_ms:.3f} ms "
+            f"({BATCH * SCALAR_PLAIN_STEPS / plain_ms * 1e3:.0f} env-steps/s)"
+            f"  [{card}]")
+        for b in SCALAR_SWEEP[1:]:
+            S_b = fused.init_packed(SEED, b, dev)
+            ms_b = cuda_ms(lambda: fused.rollout(S_b, n), 3, torch)
+            log(f"K4 sweep: {env.name} rollout({n}) B={b}: {ms_b:.3f} ms, "
+                f"{b * n / ms_b * 1e3:.0f} env-steps/s  [{card}]")
+            del S_b
+    # The kernels line takes the main path's first env (bench.py's scalar
+    # PPO configuration) for K4's times and bound.
+    _, k4_n, k4_ms, k4_plain_ms, k4_bound_ms, k4_bound_by = k4_rows[0]
+
+    # ---- 12. K5 against the plain collection
+    log("== 12. K5 fused_scalar_collect vs plain collection")
+    k5_err, exempt_total, flipped_total, diverged = 0.0, 0, 0, {}
+    for name in ("boat_race", "boat_race_ex"):
+        fused = make(name)
+        A, F = fused.amax - fused.amin + 1, fused.POLICY_FEATURES
+        rng = np.random.default_rng(SEED + 1)
+        params = interop.params_from_numpy({
+            "mlp_w1": rng.normal(size=(HIDDEN, F)) / np.sqrt(F),
+            "mlp_b1": rng.normal(size=(HIDDEN, 1)) * 0.1,
+            "mlp_w2": rng.normal(size=(A + 1, HIDDEN)) * 0.3,
+            "mlp_b2": rng.normal(size=(A + 1, 1)) * 0.1,
+        }, dev)
+        S = interop.busy_scalar_state(fused, SEED, BATCH, dev)
+        statics = fused._collect_statics(S, params)
+        exempt = flipped = 0
+        for k in range(COLLECT_STEPS):
+            Sk, tk, bk = fused.rollout_collect(S, params, 1)
+            Sp, rec, ex = fused._collect_step(S, statics)
+            bp = fused._bootstrap_value(Sp, statics)
+            gap = (ex["pol"]["cdf_gap"] < CDF_GAP).any(dim=0)
+            exempt += int(gap.sum())
+            keep = ~gap
+            bad = lanes_differ(Sk, Sp, fused.STATE_FIELDS)
+            bad |= lanes_differ({n: tk[n][0] for n in rec}, rec,
+                                ("feats", "action", "reward", "done"))
+            if bool((bad & keep).any()):
+                fail(f"K5 {name} step {k}: {int((bad & keep).sum())} "
+                     "non-exempt lanes differ")
+            flipped += int((bad & gap).sum())
+            err = max(
+                float((tk["logp"][0] - rec["logp"]).abs()[:, keep].max()),
+                float((tk["value"][0] - rec["value"]).abs().max()),
+                float((bk - bp).abs()[:, keep].max()),
+            )
+            if err > FLOAT_TOL:
+                fail(f"K5 {name} step {k}: logp/value/boot error {err}")
+            k5_err = max(k5_err, err)
+            S = Sp
+        log(f"K5 {name} teacher-forced over {COLLECT_STEPS} steps: {exempt} "
+            f"exempt lane-steps of {BATCH * COLLECT_STEPS}, {flipped} of them "
+            f"differing; logp/value/boot max error {k5_err}")
+        if exempt > MAX_EXEMPT_SHARE * BATCH * COLLECT_STEPS:
+            fail(f"K5 {name}: {exempt} exempt lane-steps")
+        exempt_total += exempt
+        flipped_total += flipped
+        for start in ("init", "busy"):
+            if start == "init":
+                S0 = fused.init_packed(SEED, BATCH, dev)
+            else:
+                S0 = interop.busy_scalar_state(fused, SEED + 2, BATCH, dev)
+            Sk, tk, bk = fused.rollout_collect(S0, params, COLLECT_STEPS)
+            Sp, tp, bp = fused.rollout_collect_plain(S0, params, COLLECT_STEPS)
+            d = lanes_differ(Sk, Sp, fused.STATE_FIELDS)
+            diverged[f"{name}_{start}"] = int(d.sum())
+            log(f"K5 {name} free-running {COLLECT_STEPS} steps from {start}: "
+                f"{int(d.sum())} of {BATCH} lanes diverged; episodes "
+                f"{int(tk['done'].sum())}, reward sum {float(tk['reward'].sum())}")
+            if int(d.sum()) > MAX_DIVERGED_SHARE * BATCH:
+                fail(f"K5 {name} from {start}: too many lanes diverged")
+            for nm in ("logp", "value", "feats", "reward"):
+                if not bool(torch.isfinite(tk[nm]).all()):
+                    fail(f"K5 trajectory {nm} is not finite")
+
+    # ---- 13. the scalar training path
+    log("== 13. scalar training path: make_train_step(FusedBoatRace(BoatRace()), "
+        f"..., device='cuda'), B={BATCH}, H={HIDDEN}")
+    cfg = ppo_fused.FusedPPOConfig(n_steps=COLLECT_STEPS, n_epochs=2,
+                                   n_minibatches=4, hidden=HIDDEN)
+    fused = make("boat_race")
+    state = ppo_fused.init_train_state(fused, BATCH, seed=SEED, config=cfg,
+                                       device="cuda")
+    train_step = ppo_fused.make_train_step(fused, cfg, device="cuda")
+    state, metrics = train_step(state)  # warm-up
+    torch.cuda.synchronize()
+    step_s = []
+    reset_counts()
+    for call in range(TRAIN_CALLS):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if fused_scalar_collect.launches != call + 1:
+            fail("K5 did not launch once per train_step")
+    train_launches = counts()
+    log(f"launch counts over the scalar training path: {train_launches}")
+    if (train_launches["fused_scalar_collect"] != TRAIN_CALLS
+            or sum(train_launches.values()) != TRAIN_CALLS):
+        fail("the scalar training path did not run on K5 alone")
+    for k, v in metrics.items():
+        if not bool(torch.isfinite(v).all()):
+            fail(f"non-finite training metric {k}")
+    env_steps = COLLECT_STEPS * BATCH
+    for call, s_ in enumerate(step_s):
+        log(f"scalar train_step {call}: {s_ * 1e3:.3f} ms host clock, "
+            f"{env_steps / s_:.0f} training env-steps/s  [{card}]")
+    params = {k: v.detach() for k, v in state.params.items()}
+    S_c = state.S
+    k5_ms = cuda_ms(lambda: fused.rollout_collect(S_c, params, COLLECT_STEPS),
+                    3, torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused.rollout_collect_plain(S_c, params, COLLECT_STEPS)
+    torch.cuda.synchronize()
+    k5_plain_ms = (time.perf_counter() - t0) * 1e3
+    step_ms = sorted(step_s)[len(step_s) // 2] * 1e3
+    busy_ms, k5_prof_ms, top = device_busy_ms(lambda: train_step(state),
+                                              "sc_collect_kernel", torch)
+    idle = (f"device busy {busy_ms:.3f} ms (K5 {k5_prof_ms:.3f} ms; busiest "
+            f"{top}), idle share {1 - busy_ms / step_ms:.2%}" if busy_ms > 0
+            else "no device time recorded by the profiler")
+    log(f"K5 collect({COLLECT_STEPS}) at B={BATCH}, H={HIDDEN}: {k5_ms:.3f} ms; "
+        f"plain collection {k5_plain_ms:.3f} ms; median scalar train_step "
+        f"{step_ms:.3f} ms, {1 - k5_ms / step_ms:.2%} of it outside K5; "
+        f"{idle}  [{card}]")
+    S_end, _, _ = fused.rollout_collect(S_c, params, COLLECT_STEPS)
+    acting = env_steps - scalar_resets(S_c, S_end, torch)
+    k5_bytes = (2 * 4 * state_words(fused) * BATCH
+                + 4 * sum(r for _, r, _ in fused._traj_layout()) * env_steps
+                + 4 * BATCH + 4 * sum(v.numel() for v in params.values()))
+    # The MLP runs on every lane-step (reset lanes too); the step's body on
+    # acting lane-steps only.
+    k5_bound_ms, k5_bound_by = bound(
+        k5_bytes, acting * scalar_step_ops(fused)
+        + env_steps * mlp_ops(fused, HIDDEN)
+    )
+
+    # ---- 14. the island_navigation learning gate
+    log(f"== 14. learning gate: island_navigation, B=64, {GATE_UPDATES} updates")
+    fused = make("island_navigation")
+    gcfg = ppo_fused.FusedPPOConfig(n_steps=32, n_epochs=2, n_minibatches=2,
+                                    hidden=32, lr=1e-3)
+    gstate = ppo_fused.init_train_state(fused, 64, seed=3, config=gcfg,
+                                        device="cuda")
+    gtrain = ppo_fused.make_train_step(fused, gcfg, device="cuda")
+    before = fused_scalar_collect.launches
+    t0 = time.perf_counter()
+    ev0 = ppo_fused.evaluate(fused, gstate.params, n_steps=128, batch=64,
+                             seed=9, device="cuda")
+    for _ in range(GATE_UPDATES):
+        gstate, _ = gtrain(gstate)
+    ev1 = ppo_fused.evaluate(fused, gstate.params, n_steps=128, batch=64,
+                             seed=9, device="cuda")
+    r0, r1 = ev0["mean_episode_return"], ev1["mean_episode_return"]
+    log(f"r0 {r0}  r1 {r1}  episodes {ev0['episodes']} -> {ev1['episodes']}  "
+        f"({fused_scalar_collect.launches - before} K5 launches, "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if not (ev0["episodes"] > 50 and ev1["episodes"] > 50):
+        fail("the island_navigation gate saw too few episodes")
+    if not (r1 - r0 > 15.0 and r1 > 10.0):
+        fail(f"the island_navigation gate failed: r0 {r0}, r1 {r1}")
+
+    return [{
+        "name": "fused_scalar_rollout", "route": "cuda",
+        "source": "ai_safety_gridworlds_torch/ops/csrc/fused_scalar.cu",
+        "replaces": K4_REPLACES,
+        "launches": scalar_launches["fused_scalar_rollout"],
+        "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
+        "plain_steps": SCALAR_PLAIN_STEPS, "steps": k4_n,
+        "bound_ms": k4_bound_ms, "bound_by": k4_bound_by, "library_ms": None,
+        "per_env": [{"env": name, "steps": n, "ms": ms, "plain_ms": pm,
+                     "bound_ms": bm, "bound_by": bb}
+                    for name, n, ms, pm, bm, bb in k4_rows],
+    }, {
+        "name": "fused_scalar_collect", "route": "cuda",
+        "source": "ai_safety_gridworlds_torch/ops/csrc/fused_scalar.cu",
+        "replaces": K5_REPLACES,
+        "launches": train_launches["fused_scalar_collect"],
+        "max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain_ms,
+        "bound_ms": k5_bound_ms, "bound_by": k5_bound_by, "library_ms": None,
+        "exempt_lane_steps": exempt_total, "flipped_lane_steps": flipped_total,
+        "diverged_lanes": diverged,
+    }]
 
 
 def main():
@@ -197,29 +641,20 @@ def main():
         fused_firemaker_collect,
         fused_firemaker_rollout,
     )
+    from ai_safety_gridworlds_torch.ops.fused_scalar import (
+        fused_scalar_collect,
+        fused_scalar_rollout,
+    )
+
+    wrappers = (fused_firemaker_rollout, fused_firemaker_collect,
+                fused_scalar_rollout, fused_scalar_collect, prng.prf_words)
 
     def reset_counts():
-        fused_firemaker_rollout.launches = 0
-        fused_firemaker_collect.launches = 0
-        prng.prf_words.launches = 0
+        for w in wrappers:
+            w.launches = 0
 
     def counts():
-        return {
-            "fused_firemaker_rollout": fused_firemaker_rollout.launches,
-            "fused_firemaker_collect": fused_firemaker_collect.launches,
-            "prf_words": prng.prf_words.launches,
-        }
-
-    def lanes_differ(x, y, fields):
-        """Bool [B]: lanes where any of ``fields`` differs."""
-        out = None
-        for k in fields:
-            a, b = x[k], y[k]
-            if not a.is_floating_point():
-                a, b = a.to(torch.int64), b.to(torch.int64)
-            d = (a != b).any(dim=0)
-            out = d if out is None else out | d
-        return out
+        return {w.__name__: w.launches for w in wrappers}
 
     dev = torch.device("cuda", 0)
     card = gpu_line()
@@ -376,7 +811,8 @@ def main():
     log(f"K1 rollout({MAIN_STEPS}) at B={BATCH}: {k1_ms:.3f} ms "
         f"({BATCH * MAIN_STEPS / k1_ms * 1e3:.0f} env-steps/s); plain "
         f"{k1_plain_ms:.3f} ms ({BATCH * MAIN_STEPS / k1_plain_ms * 1e3:.0f} "
-        f"env-steps/s)  [{card}]")
+        f"env-steps/s); before the policy.cuh move {K1_BEFORE_MS} ms "
+        f"({k1_ms / K1_BEFORE_MS - 1:+.2%})  [{card}]")
     # K1 alone by lane count and tile, from init_packed (3 timed calls each).
     for b in SWEEP_BATCHES:
         S_b = fused.init_packed(SEED, b, dev)
@@ -532,8 +968,9 @@ def main():
     log(f"K3 collect({COLLECT_STEPS}) at B={BATCH}, H={HIDDEN}: {k3_ms:.3f} ms; "
         f"plain collection {k3_plain_ms:.3f} ms; median train_step "
         f"{step_ms:.3f} ms, {1 - k3_ms / step_ms:.2%} of it outside K3 "
-        f"(GAE, {cfg.n_epochs * cfg.n_minibatches} minibatch updates, Adam)"
-        f"  [{card}]")
+        f"(GAE, {cfg.n_epochs * cfg.n_minibatches} minibatch updates, Adam); "
+        f"before the policy.cuh move {K3_BEFORE_MS} ms "
+        f"({k3_ms / K3_BEFORE_MS - 1:+.2%})  [{card}]")
     log("metrics of the last step: " + json.dumps(
         {k: float(v) for k, v in metrics.items()}))
     # Where the rest of a step goes: GAE (with the minibatch slicing), then
@@ -548,24 +985,12 @@ def main():
         f"  [{card}]")
     # The device's busy time within one train_step, from torch.profiler's
     # kernel records, against the median unprofiled step.
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        state, metrics = train_step(state)
-        torch.cuda.synchronize()
-    busy_us, k3_prof_us = 0.0, 0.0
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        busy_us += us
-        if "fm_collect_kernel" in ev.key:
-            k3_prof_us += us
-    if busy_us > 0:
-        log(f"profiler, one train_step: device busy {busy_us / 1e3:.3f} ms "
-            f"(K3 {k3_prof_us / 1e3:.3f} ms), idle share "
-            f"{1 - busy_us / 1e3 / step_ms:.2%} of the median step  [{card}]")
+    busy_ms, k3_prof_ms, _ = device_busy_ms(lambda: train_step(state),
+                                            "fm_collect_kernel", torch)
+    if busy_ms > 0:
+        log(f"profiler, one train_step: device busy {busy_ms:.3f} ms "
+            f"(K3 {k3_prof_ms:.3f} ms), idle share "
+            f"{1 - busy_ms / step_ms:.2%} of the median step  [{card}]")
     else:
         log("profiler, one train_step: no device time recorded; device idle "
             "share not measured")
@@ -605,7 +1030,9 @@ def main():
     if not (r1 - r0 > 40.0 and r1 > 0.0):
         fail(f"the learning gate failed: r0 {r0}, r1 {r1}")
 
-    # ---- 10. results
+    scalar_kernels = scalar_phases(torch, np, dev, card, reset_counts, counts)
+
+    # ---- 15. results
     k2_bound_ms, k2_bound_by = bound(24 * n_words, 24 * n_words)
     kernels = [{
         "name": "fused_firemaker_rollout", "route": "cuda",
@@ -624,7 +1051,7 @@ def main():
         "bound_ms": k3_bound_ms, "bound_by": k3_bound_by, "library_ms": None,
         "exempt_lane_steps": exempt, "flipped_lane_steps": flipped,
         "diverged_lanes": diverged,
-    }]
+    }] + scalar_kernels
     checked_off_path = [{
         "name": "prf_words", "route": "cuda",
         "source": "ai_safety_gridworlds_torch/ops/csrc/prf_words.cu",

@@ -57,6 +57,36 @@ def test_batched_env_slice_matches_jax_eager():
     assert stats["episodes"] == int(np.asarray(jS["stats_episodes"]).sum())
 
 
+@pytest.mark.parametrize(
+    "name", ["boat_race", "island_navigation", "boat_race_ex"]
+)
+def test_batched_env_scalar_slice_matches_jax(name):
+    """The scalar slice as a whole: registry -> make_fused -> init_packed
+    -> rollout, twice, against the JAX package's fused scalar rollout from
+    the same seed."""
+    from ai_safety_gridworlds_tpu import ops as jops
+    from ai_safety_gridworlds_tpu.helpers import factory as jfactory
+
+    env = BatchedEnv(name, batch_size=32, seed=6, device="cpu",
+                     max_iterations=9)
+    assert env.kernel == "fused_torch"
+    first, second = env.rollout(12), env.rollout(12)
+    jf = jops.make_fused(jfactory.get_raw_env(name, max_iterations=9))
+    jS = jf.rollout(jf.init_packed(seed=6, batch=32), 24, backend="xla")
+    for k in jf.STATE_FIELDS:
+        np.testing.assert_array_equal(
+            env.state[k].numpy(), np.asarray(jS[k]), err_msg=k
+        )
+    assert first["episodes"] + second["episodes"] == int(
+        np.asarray(jS["stats_episodes"]).sum()
+    )
+    np.testing.assert_array_equal(
+        first["sum_rewards"] + second["sum_rewards"],
+        np.asarray(jS["stats_rewards"]).astype(np.float64).sum(axis=-1),
+    )
+    assert first["sum_rewards"].shape == (env.fused.D,)
+
+
 def test_batched_rollout_one_call():
     stats = batched_rollout("firemaker_ex_ma", batch_size=8, n_steps=4,
                             device="cpu", seed=1)
@@ -66,7 +96,7 @@ def test_batched_rollout_one_call():
 
 def test_unported_names_and_backends_raise():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        BatchedEnv("boat_race", batch_size=8, device="cpu")
+        BatchedEnv("side_effects_sokoban", batch_size=8, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         factory.get_raw_env("island_navigation_ex_ma")
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -102,7 +132,9 @@ def test_port_imports_without_jax():
         "import ai_safety_gridworlds_torch.ops._cuda\n"
         "import ai_safety_gridworlds_torch.learners.ppo_fused\n"
         "from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv\n"
+        "import ai_safety_gridworlds_torch.ops.fused_scalar\n"
         "BatchedEnv('firemaker_ex_ma', batch_size=4, device='cpu').rollout(2)\n"
+        "BatchedEnv('boat_race', 4, device='cpu').rollout(2)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ai_safety_gridworlds_tpu')]\n"
         "assert not bad, bad\n"

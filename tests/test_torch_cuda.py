@@ -5,9 +5,9 @@ fixture, never at import). On a machine with a card:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Tolerance 0 for K1 and K2, which are built to be bit-equal to the plain
+Tolerance 0 for K1, K2 and K4, which are built to be bit-equal to the plain
 versions (see ``ops/_cuda.py`` on ``--fmad=false``), with a linear policy
-too. K3 (the PPO collection) equals the plain collection in the integer
+too. K3 and K5 (the PPO collections) equal the plain collection in the integer
 state and records except on lanes whose site-0 uniform lies within 1e-6 of
 a cumulative softmax sum (``expf``/``logf`` may round differently from
 PyTorch's), and agrees within 1e-5 in logp, value and boot.
@@ -17,10 +17,20 @@ import numpy as np
 import pytest
 import torch
 
+from ai_safety_gridworlds_torch.envs.boat_race import BoatRace
+from ai_safety_gridworlds_torch.envs.boat_race_ex import BoatRaceEx
 from ai_safety_gridworlds_torch.envs.firemaker_ex_ma import FiremakerExMa
+from ai_safety_gridworlds_torch.envs.island_navigation import IslandNavigation
 from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv
 from ai_safety_gridworlds_torch.learners import ppo_fused
 from ai_safety_gridworlds_torch.ops import interop, prng
+from ai_safety_gridworlds_torch.ops.fused_scalar import (
+    FusedBoatRace,
+    FusedBoatRaceEx,
+    FusedIslandNav,
+    fused_scalar_collect,
+    fused_scalar_rollout,
+)
 from ai_safety_gridworlds_torch.ops.fused_firemaker import (
     FusedFiremaker,
     fused_firemaker_collect,
@@ -238,3 +248,124 @@ def test_train_step_on_the_card_moves_the_params(dev):
                 for k in p0)
     assert moved > 0
     assert state.S["t"].is_cuda
+
+
+SCALAR = {
+    "boat_race": lambda **kw: FusedBoatRace(BoatRace(**kw)),
+    "island_navigation": lambda **kw: FusedIslandNav(IslandNavigation(**kw)),
+    "boat_race_ex": lambda **kw: FusedBoatRaceEx(BoatRaceEx(**kw)),
+    "boat_race_ex_l3": lambda **kw: FusedBoatRaceEx(
+        BoatRaceEx(level=3, noops=False, **kw)),
+}
+
+
+@pytest.mark.parametrize("start", ["init", "busy"])
+@pytest.mark.parametrize("name", sorted(SCALAR))
+@pytest.mark.parametrize("tile", [32, 128])
+def test_scalar_rollout_kernel_matches_plain(dev, name, start, tile):
+    fused = SCALAR[name](max_iterations=20)
+    B = 200  # ragged: 200 is no multiple of tile
+    if start == "init":
+        S0 = fused.init_packed(5, B, dev)
+    else:
+        S0 = interop.busy_scalar_state(fused, 5, B, dev)
+    before = fused_scalar_rollout.launches
+    Sk = fused.rollout(S0, 70, tile=tile)
+    assert fused_scalar_rollout.launches == before + 1
+    Sp = fused.rollout_plain(S0, 70)
+    for k in fused.STATE_FIELDS:
+        assert _equal(Sk[k], Sp[k]), k
+    assert int(Sk["stats_episodes"].sum()) > int(S0["stats_episodes"].sum())
+    if start == "busy":
+        assert int(Sk["draw_ctr"].to(torch.int64).min()) < 70  # wrapped
+
+
+@pytest.mark.parametrize("name", ["island_navigation", "boat_race_ex"])
+def test_scalar_linear_policy_kernel_matches_plain(dev, name):
+    fused = SCALAR[name](max_iterations=30)
+    B = 200
+    S0 = interop.busy_scalar_state(fused, 3, B, dev)
+    finals = []
+    for seed in (1, 2):
+        fused.set_policies(*_policy(fused, B, seed))
+        Sk, Sp = fused.rollout(S0, 50), fused.rollout_plain(S0, 50)
+        for k in fused.STATE_FIELDS:
+            assert _equal(Sk[k], Sp[k]), k
+        finals.append(Sk["pos"])
+    assert not torch.equal(finals[0], finals[1])
+    fused.set_policies(None, None)
+
+
+@pytest.mark.parametrize("name", sorted(SCALAR))
+def test_scalar_collect_kernel_matches_plain(dev, name):
+    fused = SCALAR[name](max_iterations=25)
+    B = 256
+    params = _params(fused, dev)
+    S0 = interop.busy_scalar_state(fused, 4, B, dev)
+    before = fused_scalar_collect.launches
+    Sk, tk, bk = fused.rollout_collect(S0, params, 40)
+    assert fused_scalar_collect.launches == before + 1
+    statics = fused._collect_statics(S0, params)
+    S, exempt = S0, torch.zeros(B, dtype=torch.bool, device=dev)
+    recs = []
+    for _ in range(40):
+        S, rec, ex = fused._collect_step(S, statics)
+        exempt |= (ex["pol"]["cdf_gap"] < 1e-6).any(dim=0)
+        recs.append(rec)
+    keep = ~exempt
+    assert int(exempt.sum()) <= 2
+    for k in fused.STATE_FIELDS:
+        assert _equal(Sk[k], S[k], keep), k
+    for k in ("feats", "action", "reward", "done"):
+        assert _equal(tk[k], torch.stack([r[k] for r in recs]), keep), k
+    for k in ("logp", "value"):
+        torch.testing.assert_close(
+            tk[k][..., keep], torch.stack([r[k] for r in recs])[..., keep],
+            rtol=0, atol=1e-5,
+        )
+    boot = fused._bootstrap_value(S, statics)
+    torch.testing.assert_close(bk[:, keep], boot[:, keep], rtol=0, atol=1e-5)
+
+
+def test_scalar_kernels_reject_bad_inputs(dev):
+    fused = SCALAR["boat_race_ex"]()
+    S = fused.init_packed(0, 64, dev)
+    before = fused_scalar_rollout.launches
+    with pytest.raises(ValueError):
+        fused.rollout({**S, "visits": S["visits"][:-1].contiguous()}, 1)
+    with pytest.raises(ValueError):
+        fused.rollout({**S, "ep_ret": S["ep_ret"].double()}, 1)
+    with pytest.raises(ValueError):
+        fused.rollout(S, 1, tile=48)
+    assert fused_scalar_rollout.launches == before
+    with pytest.raises(ValueError):
+        fused.rollout_collect(S, _params(fused, dev, hidden=20000), 2)
+    assert fused.rollout(S, 0)["visits"].equal(S["visits"])
+
+
+@pytest.mark.parametrize("name", ["boat_race", "boat_race_ex"])
+def test_scalar_train_step_on_the_card(dev, name):
+    fused = SCALAR[name](max_iterations=20)
+    config = ppo_fused.FusedPPOConfig(n_steps=16, n_epochs=2, n_minibatches=4,
+                                      hidden=32)
+    state = ppo_fused.init_train_state(fused, 256, seed=1, config=config,
+                                       device="cuda")
+    p0 = {k: v.detach().clone() for k, v in state.params.items()}
+    step = ppo_fused.make_train_step(fused, config, device="cuda")
+    before = fused_scalar_collect.launches
+    state, metrics = step(state)
+    assert fused_scalar_collect.launches == before + 1
+    for k, v in metrics.items():
+        assert bool(torch.isfinite(v).all()), k
+    assert max(float((state.params[k].detach() - p0[k]).abs().max())
+               for k in p0) > 0
+
+
+@pytest.mark.parametrize("name", ["boat_race", "island_navigation",
+                                  "boat_race_ex"])
+def test_scalar_batched_env_on_the_card(dev, name):
+    env = BatchedEnv(name, batch_size=256, device=dev, max_iterations=10)
+    before = fused_scalar_rollout.launches
+    stats = env.rollout(22)  # 10 steps + reset, twice: >= 2 episodes a lane
+    assert fused_scalar_rollout.launches == before + 1
+    assert env.kernel == "fused_cuda" and stats["episodes"] >= 512
