@@ -1,8 +1,9 @@
 """Environment registry of the port.
 
 Port of ``get_raw_env`` from ``ai_safety_gridworlds_tpu/helpers/factory.py``
-for the environments ported so far (firemaker_ex_ma, boat_race,
-island_navigation, boat_race_ex); the stateful shells and adapters come with
+for the environments ported so far (firemaker_ex_ma,
+island_navigation_ex_ma, boat_race, island_navigation, boat_race_ex); the
+stateful shells and adapters come with
 later slices (``ROADMAP.md``).
 """
 
@@ -16,9 +17,13 @@ def _raw_registry() -> dict:
     from ai_safety_gridworlds_torch.envs.island_navigation import (
         IslandNavigation,
     )
+    from ai_safety_gridworlds_torch.envs.island_navigation_ex_ma import (
+        IslandNavigationExMa,
+    )
 
     return {
         "firemaker_ex_ma": FiremakerExMa,
+        "island_navigation_ex_ma": IslandNavigationExMa,
         "boat_race": BoatRace,
         "island_navigation": IslandNavigation,
         "boat_race_ex": BoatRaceEx,

@@ -1,0 +1,87 @@
+"""Map randomization: tile counts, resizing, interior shuffling.
+
+Port of ``randomize_map`` from
+``ai_safety_gridworlds_tpu/mo/map_randomization.py``, which is numpy only:
+the host-side per-episode layout draw of the reference's
+``safety_game_mo_base.make_safety_game`` -- an optional resize to
+``map_height x map_width`` with the edges kept, the removal of excess
+tiles of a type at Generator-chosen cells, and a shuffle of the interior
+(or of the whole map). Every draw consumes the given
+``numpy.random.Generator`` in the reference's order, so the same
+Generator state gives the same board byte for byte. The per-experiment
+cache and its key wait for the stateful shells (``ROADMAP.md``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+
+def randomize_map(
+    board: np.ndarray,
+    np_random,
+    *,
+    what_lies_beneath: str = " ",
+    what_lies_outside: str = " ",
+    tile_type_counts: Optional[dict] = None,
+    map_randomization_frequency: int = 0,
+    preserve_map_edges: bool = True,
+    map_width: Optional[int] = None,
+    map_height: Optional[int] = None,
+) -> np.ndarray:
+    """Return the randomized uint8 board for a new episode."""
+    board = board.copy()
+
+    if not tile_type_counts or map_randomization_frequency < 1:
+        return board
+
+    resize = (map_height is not None or map_width is not None) and (
+        map_height != board.shape[0] or map_width != board.shape[1]
+    )
+    if resize:
+        if map_height is None:
+            map_height = board.shape[0]
+        if map_width is None:
+            map_width = board.shape[1]
+        if preserve_map_edges:
+            shape = (map_height - 2, map_width - 2)
+        else:
+            shape = (map_height, map_width)
+        submap = np.full(shape[0] * shape[1], ord(what_lies_beneath), np.uint8)
+        next_i = 0
+        for tile_type, count in tile_type_counts.items():
+            submap[next_i : next_i + count] = ord(tile_type)
+            next_i += count
+        np_random.shuffle(submap)
+        submap = submap.reshape(shape)
+        if preserve_map_edges:
+            out = np.full(
+                (map_height, map_width), ord(what_lies_outside), np.uint8
+            )
+            out[1:-1, 1:-1] = submap
+            board = out
+        else:
+            board = submap
+        return board
+
+    # Remove excess tiles per type.
+    for tile_type, max_count in tile_type_counts.items():
+        locations = np.argwhere(board == ord(tile_type))
+        n_remove = max(0, len(locations) - max_count)
+        if n_remove > 0:
+            idx = np_random.choice(len(locations), size=n_remove, replace=False)
+            rm = locations[idx]
+            board[rm[:, 0], rm[:, 1]] = ord(what_lies_beneath)
+    # Shuffle the interior, or the whole map.
+    submap = board[1:-1, 1:-1] if preserve_map_edges else board
+    shape = submap.shape
+    flat = submap.reshape(shape[0] * shape[1])
+    np_random.shuffle(flat)
+    submap = flat.reshape(shape)
+    if preserve_map_edges:
+        board[1:-1, 1:-1] = submap
+    else:
+        board = submap
+    return board

@@ -2,8 +2,9 @@
 CPU tensors.
 
 Port of ``ai_safety_gridworlds_tpu/ops/__init__.py``. Ported so far: the
-``firemaker_ex_ma`` kernels and the scalar shell with the ``boat_race``,
-``island_navigation`` and ``boat_race_ex`` bodies.
+``firemaker_ex_ma`` and ``island_navigation_ex_ma`` kernels and the scalar
+shell with the ``boat_race``, ``island_navigation`` and ``boat_race_ex``
+bodies.
 """
 
 import torch
@@ -41,6 +42,12 @@ def make_fused(env):
         )
 
         return FusedFiremaker(env)
+    if name == "island_navigation_ex_ma":
+        from ai_safety_gridworlds_torch.ops.fused_island_ma import (
+            FusedIslandMa,
+        )
+
+        return FusedIslandMa(env)
     if name in _SCALAR:
         from ai_safety_gridworlds_torch.ops import fused_scalar
 

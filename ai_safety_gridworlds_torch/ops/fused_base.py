@@ -332,6 +332,31 @@ class FusedMaBase:
             }
         return self._policy_dev[key]
 
+    # -------------------------------------------------------- layout pools
+
+    def _pool_select(self, statics, over, S):
+        """Per-episode layout selection for kernels with a host-drawn layout
+        pool (``init_packed(..., layout_pool=K)``).
+
+        Returns ``(pooled, ep_idx)``: ``pooled(base_key)`` resolves a static
+        board through a K-way select on ``ep_idx % K`` (reads the statics
+        directly when K == 1), and ``ep_idx`` is the per-lane episode
+        counter after this step's increment on ``over`` (``None`` when
+        K == 1), which the step puts in its output."""
+        K = getattr(self, "layout_pool", 1)
+        if K <= 1:
+            return (lambda base_key: statics[base_key]), None
+        ep_idx = torch.where(over, S["ep_idx"] + 1, S["ep_idx"])
+        li = torch.remainder(ep_idx, K)
+
+        def pooled(base_key):
+            v = statics[base_key]
+            for k in range(1, K):
+                v = torch.where(li == k, statics[f"{base_key}_p{k}"], v)
+            return v
+
+        return pooled, ep_idx
+
     def _check_policy_batch(self, statics, B):
         if "pol_w" in statics and statics["pol_w"].shape[1] not in (1, B):
             raise ValueError(
@@ -473,3 +498,62 @@ class FusedMaBase:
 def _f32(x: float) -> float:
     """``x`` rounded to float32, as a Python float."""
     return float(np.float32(x))
+
+
+# ------------------------------------------------- kernel wrappers' checks
+
+
+def check_kernel_state(fused, S: dict, n_steps, tile: int, max_rows: int):
+    """The input checks every kernel wrapper makes before a launch: each
+    state field's device (the device of ``S["t"]``), dtype, shape
+    (``fused.field_spec``) and contiguity, the step count, the lane tile (a
+    multiple of 32 in [32, 256]) and 32-bit indexing of ``max_rows`` rows
+    of B lanes. Raises ``ValueError``; returns ``(B, n_steps)``."""
+    device = S["t"].device
+    B = S["t"].shape[1]
+    for name in fused.STATE_FIELDS:
+        rows, dtype = fused.field_spec(name)
+        v = S.get(name)
+        if v is None:
+            raise ValueError(f"state field {name!r} missing")
+        if v.device != device or v.dtype != dtype or tuple(v.shape) != (rows, B):
+            raise ValueError(
+                f"state field {name!r}: expected {dtype} [{rows}, {B}] on "
+                f"{device}, got {v.dtype} {list(v.shape)} on {v.device}"
+            )
+        if not v.is_contiguous():
+            raise ValueError(f"state field {name!r} is not contiguous")
+    n_steps = int(n_steps)
+    if not 0 <= n_steps < 2**31:
+        raise ValueError(f"n_steps {n_steps} out of range")
+    if not (tile % 32 == 0 and 32 <= tile <= 256):
+        raise ValueError(f"tile {tile} must be a multiple of 32 in [32, 256]")
+    if B * max_rows >= 2**31:
+        raise ValueError(f"batch {B} too large for 32-bit indexing")
+    return B, n_steps
+
+
+def check_mlp_params(fused, params: dict, device) -> int:
+    """Checks each MLP tensor a collection kernel reads: ``mlp_w1`` [H, F],
+    ``mlp_b1`` [H, 1], ``mlp_w2`` [A+1, H], ``mlp_b2`` [A+1, 1], float32,
+    contiguous, on ``device``. Raises ``ValueError``; returns H."""
+    A, F = fused.amax - fused.amin + 1, fused.POLICY_FEATURES
+    w1 = params.get("mlp_w1")
+    if w1 is None or w1.dim() != 2:
+        raise ValueError("mlp_w1 must be a [H, F] tensor")
+    H = w1.shape[0]
+    for k, shape in (("mlp_w1", (H, F)), ("mlp_b1", (H, 1)),
+                     ("mlp_w2", (A + 1, H)), ("mlp_b2", (A + 1, 1))):
+        v = params.get(k)
+        if v is None:
+            raise ValueError(f"missing MLP param {k!r}")
+        if v.device != device or v.dtype != _F32 or tuple(v.shape) != shape:
+            raise ValueError(
+                f"MLP param {k!r}: expected float32 {list(shape)} on "
+                f"{device}, got {v.dtype} {list(v.shape)} on {v.device}"
+            )
+        if not v.is_contiguous():
+            raise ValueError(f"MLP param {k!r} is not contiguous")
+    if H < 1:
+        raise ValueError("the MLP needs at least one hidden unit")
+    return H

@@ -65,6 +65,8 @@ from ai_safety_gridworlds_torch.ops.fused_base import (
     POLICY_KEYS,
     FusedMaBase,
     _f32,
+    check_kernel_state,
+    check_mlp_params,
 )
 
 _I32 = torch.int32
@@ -701,31 +703,14 @@ def _check_launch(fused, S, n_steps, tile):
     device = S["t"].device
     if device.type != "cuda":
         raise NotImplementedError(f"no scalar kernel for {device}")
-    B = S["t"].shape[1]
-    for name in fused.STATE_FIELDS:
-        rows, dtype = fused.field_spec(name)
-        v = S.get(name)
-        if v is None:
-            raise ValueError(f"state field {name!r} missing")
-        if v.device != device or v.dtype != dtype or tuple(v.shape) != (rows, B):
-            raise ValueError(
-                f"state field {name!r}: expected {dtype} [{rows}, {B}] on "
-                f"{device}, got {v.dtype} {list(v.shape)} on {v.device}"
-            )
-        if not v.is_contiguous():
-            raise ValueError(f"state field {name!r} is not contiguous")
-    n_steps = int(n_steps)
-    if not 0 <= n_steps < 2**31:
-        raise ValueError(f"n_steps {n_steps} out of range")
-    if not (tile % 32 == 0 and 32 <= tile <= 256):
-        raise ValueError(f"tile {tile} must be a multiple of 32 in [32, 256]")
+    B, n_steps = check_kernel_state(
+        fused, S, n_steps, tile, max(fused.HW, fused.D, 2)
+    )
     if fused.D > _MAX_D or fused.amax - fused.amin + 1 > _MAX_A:
         raise ValueError(
             f"the kernels take at most {_MAX_D} reward dims and {_MAX_A} "
             "actions"
         )
-    if B * max(fused.HW, fused.D, 2) >= 2**31:
-        raise ValueError(f"batch {B} too large for 32-bit indexing")
     return device, B, n_steps
 
 
@@ -808,24 +793,8 @@ def fused_scalar_collect(fused: FusedScalarBase, S: dict, params: dict,
     if S["t"].device.type == "cpu":
         return fused.rollout_collect_plain(S, params, n_steps)
     device, B, n_steps = _check_launch(fused, S, n_steps, tile)
-    A, F = fused.amax - fused.amin + 1, fused.POLICY_FEATURES
-    w1 = params.get("mlp_w1")
-    if w1 is None or w1.dim() != 2:
-        raise ValueError("mlp_w1 must be a [H, F] tensor")
-    H = w1.shape[0]
-    for k, shape in (("mlp_w1", (H, F)), ("mlp_b1", (H, 1)),
-                     ("mlp_w2", (A + 1, H)), ("mlp_b2", (A + 1, 1))):
-        v = params.get(k)
-        if v is None:
-            raise ValueError(f"missing MLP param {k!r}")
-        if v.device != device or v.dtype != _F32 or tuple(v.shape) != shape:
-            raise ValueError(
-                f"MLP param {k!r}: expected float32 {list(shape)} on "
-                f"{device}, got {v.dtype} {list(v.shape)} on {v.device}"
-            )
-        if not v.is_contiguous():
-            raise ValueError(f"MLP param {k!r} is not contiguous")
-    if H < 1 or _smem_bytes(fused, tile, H) > _MAX_SMEM:
+    H = check_mlp_params(fused, params, device)
+    if _smem_bytes(fused, tile, H) > _MAX_SMEM:
         raise ValueError(
             f"hidden {H} at tile {tile} does not fit K5's shared memory"
         )

@@ -4,8 +4,9 @@ port, as numpy arrays.
 The JAX package's packed state (``init_packed`` output, or any state it
 reached) comes in with :func:`state_from_numpy` and goes back with
 :func:`state_to_numpy`; dtypes (``uint32`` keys included) are kept.
-:func:`busy_firemaker_state` and :func:`busy_scalar_state` make seeded
-mid-episode states to compare implementations from. :func:`params_from_numpy` and :func:`params_to_numpy`
+:func:`busy_firemaker_state`, :func:`busy_scalar_state` and
+:func:`busy_island_ma_state` make seeded mid-episode states to compare
+implementations from. :func:`params_from_numpy` and :func:`params_to_numpy`
 carry the MLP policy's params, so that both packages run the same policy.
 :func:`assert_consts_equal` checks that a port kernel's ``consts`` equal the
 JAX kernel's key by key.
@@ -117,6 +118,71 @@ def busy_scalar_state(fused, seed: int, batch: int, device) -> dict:
         lanes = np.arange(batch)
         visits[S["pos"][0], lanes] = np.maximum(visits[S["pos"][0], lanes], 1)
         S["visits"] = visits
+    return state_from_numpy(S, device)
+
+
+def busy_island_ma_state(fused, seed: int, batch: int, device) -> dict:
+    """A numpy-seeded mid-episode island_navigation_ex_ma state on
+    ``device``. It first calls ``fused.init_packed(seed, batch, "cpu",
+    layout_pool=fused.layout_pool)``, which draws the layouts (the same
+    ones as the JAX package's ``init_packed`` from that seed). Then: agents
+    on distinct random non-wall cells of their lane's current layout
+    (water, drink, food, gold and silver included) with their cached tile
+    values; satiations from -22 to 6, on both sides of the deficiency and
+    oversatiation thresholds and at the death limits; availabilities 0 to
+    20 with nonzero fractions; random facings, safety, visits and stats;
+    one lane in eight with a dead agent and one in eight with all agents
+    dead (it resets on the next step); ``t`` near ``max_iterations`` in
+    every other lane; draw counters anywhere in uint32, every other lane
+    within 64 of the wrap; and, with a layout pool, episode counters 0..5."""
+    rng = np.random.default_rng(seed)
+    S = state_to_numpy(fused.init_packed(seed, batch, "cpu",
+                                         layout_pool=fused.layout_pool))
+    n, K = fused.n, fused.layout_pool
+    st = fused._kstatics_np
+    if K > 1:
+        S["ep_idx"] = rng.integers(0, 6, (1, batch)).astype(np.int32)
+    for b in range(batch):
+        k = int(S["ep_idx"][0, b]) % K if K > 1 else 0
+        sfx = f"_p{k}" if k else ""
+        lane = b if st["wall" + sfx].shape[1] > 1 else 0
+        free = np.flatnonzero(st["wall" + sfx][:, lane] < 0.5)
+        S["pos"][:, b] = rng.choice(free, size=n, replace=False)
+        S["vcode"][:, b] = st["sboard" + sfx][S["pos"][:, b], lane]
+    S["safety"] = rng.integers(0, 6, (n, batch)).astype(np.int32)
+    for k in ("act_dir", "obs_dir"):
+        S[k] = rng.integers(0, 4, (n, batch)).astype(np.int32)
+    for k in ("drink_sat", "food_sat"):
+        S[k] = rng.integers(-22, 7, (n, batch)).astype(np.float32)
+    for k in ("drink_avail", "food_avail"):
+        S[k] = rng.integers(0, 21, (1, batch)).astype(np.float32)
+    for k in ("drink_frac", "food_frac"):
+        S[k] = rng.uniform(0.01, 0.99, (1, batch)).astype(np.float32)
+    S["visits"] = rng.integers(0, 5, S["visits"].shape).astype(np.int32)
+    S["stats_rewards"] = rng.integers(
+        -300, 300, S["stats_rewards"].shape
+    ).astype(np.float32)
+    S["stats_episodes"] = rng.integers(0, 30, (1, batch)).astype(np.int32)
+    T = fused.max_iterations
+    t = rng.integers(0, T, batch)
+    t[::2] = rng.integers(max(0, T - 4), T, (batch + 1) // 2)
+    S["t"][0] = t
+    # Step types and termination reasons: alive agents are MID, dead ones
+    # TERMINATED and LAST or DEAD; "one" lanes have one dead agent, "all"
+    # lanes only dead ones.
+    kind = rng.random(batch)
+    S["step_types"][:] = 1
+    S["reasons"][:] = -1
+    for b in np.flatnonzero(kind < 0.25):
+        dead = (np.arange(n) == rng.integers(0, n)) if kind[b] < 0.125 else (
+            np.ones(n, bool)
+        )
+        S["reasons"][dead, b] = 0
+        S["step_types"][dead, b] = rng.choice([2, 3], size=int(dead.sum()))
+    ctr = rng.integers(0, 2**32, (1, batch), dtype=np.uint32)
+    ctr[:, ::2] = rng.integers(2**32 - 64, 2**32, (1, (batch + 1) // 2),
+                               dtype=np.uint32)
+    S["draw_ctr"] = ctr
     return state_from_numpy(S, device)
 
 

@@ -71,18 +71,51 @@ Phases, in order; any failure exits non-zero before the last line:
    test_fused_ppo_learns_island_navigation_scalar_kernel`` through K5: B =
    64, 40 updates, then ``evaluate`` on 128 steps over 64 lanes; more than
    50 episodes, a return gain above 15 and a final return above 10;
-15. one JSON line of kernel results: ``kernels`` holds K1 with its launches
+15. K6 ``fused_island_ma_rollout`` against the plain island_navigation_ex_ma
+   rollout on the card, every state field exactly equal, at B = 4096: the
+   default config (level 9, two agents, ``max_iterations=100``) for 300
+   steps, the rich config of ``tests/test_fused_island_ma.py`` (level 3,
+   sustainability regrowth through ``expf``/``logf``, thirst death,
+   oversatiation, proportional rewards) for 300,
+   ``map_randomization_frequency=1, max_iterations=20`` with
+   ``layout_pool=3`` for 200 steps, 100 steps from
+   ``interop.busy_island_ma_state``, and K6's linear branch over 200 steps
+   with numpy-seeded per-lane W, b and eps = 0.1;
+16. the island main path: ``BatchedEnv("island_navigation_ex_ma",
+   batch_size=4096, device="cuda").rollout(256)`` three times with the
+   launch counters set to 0 just before and read just after (K6 once per
+   call); env-steps/s and the host's share of a call beside K6's time, the
+   plain version's time, the bound and K6's time by lane count (4096,
+   65536, 262144);
+17. K7 ``fused_island_ma_collect`` against the plain collection at B =
+   4096, T = 64, H = 64, teacher-forced and free-running, within phase 7's
+   limits;
+18. the island training path: ``make_train_step(FusedIslandMa(
+   IslandNavigationExMa()), FusedPPOConfig(n_steps=64, n_epochs=2,
+   n_minibatches=4), device="cuda")`` at B = 4096 (``bench.py``'s
+   ``ppo_island_ma_train`` line): one warm-up step, then 3 timed steps with
+   the launch counters set to 0 just before and read just after (K7 once
+   per step); training env-steps/s, K7's time, the share of a step outside
+   K7 and the device's idle share;
+19. the island_navigation_ex_ma learning gate of
+   ``tests/test_ppo_learning.py::test_fused_ppo_learns_island_ma`` through
+   K7: B = 64, 40 updates, then ``evaluate`` on 128 steps over 64 lanes;
+   more than 50 episodes, a return gain above 30 and a final return above
+   -10;
+20. one JSON line of kernel results: ``kernels`` holds K1 with its launches
    on the main path (phase 5) and on the policy-search check (phase 6), K3
    with its launches on the training path (phase 8), K4 with its launches on
-   the scalar main path (phase 11) and K5 with its launches on the scalar
-   training path (phase 13), each with its largest error against its plain
-   version, its times, its bound (the least time the card could take: bytes
-   over 3.35 TB/s or operations over 67 T/s, whichever is larger, counted
-   from this run's inputs) and ``library_ms`` (null: no single PyTorch call
-   computes these functions); ``checked_off_path`` holds K2, which no
-   driven path launches (K1, K3, K4 and K5 inline the same PRF header), with
-   its phase-3 launches; then the card's name and power limit and the last
-   line ``{"ok": true, "device": {...}}``.
+   the scalar main path (phase 11), K5 with its launches on the scalar
+   training path (phase 13), K6 with its launches on the island main path
+   (phase 16) and K7 with its launches on the island training path (phase
+   18), each with its largest error against its plain version, its times,
+   its bound (the least time the card could take: bytes over 3.35 TB/s or
+   operations over 67 T/s, whichever is larger, counted from this run's
+   inputs) and ``library_ms`` (null: no single PyTorch call computes these
+   functions); ``checked_off_path`` holds K2, which no driven path launches
+   (K1 and K3-K7 inline the same PRF header), with its phase-3 launches;
+   then the card's name and power limit and the last line ``{"ok": true,
+   "device": {...}}``.
 
 Imports nothing of JAX. Needs one CUDA card.
 """
@@ -158,6 +191,32 @@ K4_CHECKS = (
     ("boat_race_ex_busy", "boat_race_ex", {}, 100, "busy"),
 )
 SCALAR_SWEEP = (BATCH, 16 * BATCH, 64 * BATCH)
+K6_REPLACES = (
+    "ai_safety_gridworlds_tpu/ops/fused_base.py:432 (_rollout_pallas_call, "
+    "pallas_call :491) x ai_safety_gridworlds_tpu/ops/fused_island_ma.py:376 "
+    "(FusedIslandMa._step), :357 (_policy_feats) x "
+    "ai_safety_gridworlds_tpu/ops/fused_base.py:360 (_pool_select)"
+)
+K7_REPLACES = (
+    "ai_safety_gridworlds_tpu/ops/fused_base.py:635 (_rollout_collect_pallas, "
+    "pallas_call :718) x :594 (_collect_step) x :582 (_bootstrap_value) x "
+    "ai_safety_gridworlds_tpu/ops/fused_island_ma.py:376 (FusedIslandMa._step) "
+    "x ai_safety_gridworlds_tpu/ops/fused_base.py:360 (_pool_select)"
+)
+# tests/test_fused_island_ma.py's rich configuration.
+ISLAND_RICH = dict(level=3, sustainability_challenge=True,
+                   thirst_hunger_death=True, penalise_oversatiation=True,
+                   use_satiation_proportional_reward=True)
+# (label, env kwargs, layout pool, steps, start) of the K6 checks; "busy" is
+# interop.busy_island_ma_state(fused, SEED, BATCH).
+K6_CHECKS = (
+    ("default", {}, 1, 300, "init"),
+    ("rich", ISLAND_RICH, 1, 300, "init"),
+    ("pool3", {"map_randomization_frequency": 1, "max_iterations": 20}, 3, 200,
+     "init"),
+    ("busy", {}, 1, 100, "busy"),
+)
+ISLAND_SWEEP = (BATCH, 16 * BATCH, 64 * BATCH)
 SCALAR_PLAIN_STEPS = 256
 GATE_UPDATES = 40
 POLICY_STEPS = 200
@@ -298,6 +357,115 @@ def lanes_differ(x, y, fields):
     return out
 
 
+def rollout_equal(label, fused, Sk, Sp, torch):
+    """Fail unless the kernel's state ``Sk`` equals the plain version's
+    ``Sp`` in every field, both with each field's ``field_spec`` dtype and
+    shape, and every float field of ``Sk`` is finite (phases 4, 6, 10, 15).
+    Returns the largest float difference."""
+    B = Sp["t"].shape[1]
+    for k in fused.STATE_FIELDS:
+        rows, dtype = fused.field_spec(k)
+        for S_ in (Sk, Sp):
+            if S_[k].dtype != dtype or S_[k].shape != (rows, B):
+                fail(f"{label}: field {k} is {S_[k].dtype} {list(S_[k].shape)}")
+    diff = lanes_differ(Sk, Sp, fused.STATE_FIELDS)
+    if bool(diff.any()):
+        bad = [k for k in fused.STATE_FIELDS
+               if bool(lanes_differ(Sk, Sp, (k,)).any())]
+        fail(f"{label}: fields {bad} differ in {int(diff.sum())} lanes")
+    err = 0.0
+    for k in fused.STATE_FIELDS:
+        if Sk[k].is_floating_point():
+            err = max(err, float((Sk[k] - Sp[k]).abs().max()))
+            if not bool(torch.isfinite(Sk[k]).all()):
+                fail(f"{label}: non-finite {k}")
+    return err
+
+
+def seeded_params(fused, dev, np):
+    """numpy-seeded MLP params at H = HIDDEN, larger than init's so that the
+    draws depend on the features (phases 7, 12, 17)."""
+    from ai_safety_gridworlds_torch.ops import interop
+
+    A, F = fused.amax - fused.amin + 1, fused.POLICY_FEATURES
+    rng = np.random.default_rng(SEED + 1)
+    return interop.params_from_numpy({
+        "mlp_w1": rng.normal(size=(HIDDEN, F)) / np.sqrt(F),
+        "mlp_b1": rng.normal(size=(HIDDEN, 1)) * 0.1,
+        "mlp_w2": rng.normal(size=(A + 1, HIDDEN)) * 0.3,
+        "mlp_b2": rng.normal(size=(A + 1, 1)) * 0.1,
+    }, dev)
+
+
+def check_collect(label, fused, params, busy, dev, torch):
+    """A collection kernel against the plain collection (phases 7, 12, 17):
+    teacher-forced, one kernel step from each plain state for COLLECT_STEPS
+    steps from ``busy(SEED)``, then free-running COLLECT_STEPS steps from
+    ``init_packed`` and from ``busy(SEED + 2)``. A lane whose site-0 uniform
+    lies within CDF_GAP of a cumulative softmax sum is exempt (at most
+    MAX_EXEMPT_SHARE of the lane-steps); every other lane must agree in the
+    state and the integer records, logp/value/boot within FLOAT_TOL, and at
+    most MAX_DIVERGED_SHARE of the lanes may diverge free-running. Returns
+    (largest logp/value/boot error, exempt lane-steps, exempt ones that
+    differed, {start: diverged lanes})."""
+    S = busy(SEED)
+    statics = fused._collect_statics(S, params)
+    err_max, exempt, flipped = 0.0, 0, 0
+    for k in range(COLLECT_STEPS):
+        Sk, tk, bk = fused.rollout_collect(S, params, 1)
+        Sp, rec, ex = fused._collect_step(S, statics)
+        bp = fused._bootstrap_value(Sp, statics)
+        gap = (ex["pol"]["cdf_gap"] < CDF_GAP).any(dim=0)
+        exempt += int(gap.sum())
+        keep = ~gap
+        bad = lanes_differ(Sk, Sp, fused.STATE_FIELDS)
+        bad |= lanes_differ({n: tk[n][0] for n in rec}, rec,
+                            ("feats", "action", "reward", "done"))
+        if bool((bad & keep).any()):
+            fail(f"{label} step {k}: {int((bad & keep).sum())} non-exempt "
+                 "lanes differ")
+        flipped += int((bad & gap).sum())
+        err = max(
+            float((tk["logp"][0] - rec["logp"]).abs()[:, keep].max()),
+            float((tk["value"][0] - rec["value"]).abs().max()),
+            float((bk - bp).abs()[:, keep].max()),
+        )
+        if err > FLOAT_TOL:
+            fail(f"{label} step {k}: logp/value/boot error {err} > {FLOAT_TOL}")
+        err_max = max(err_max, err)
+        S = Sp
+    lane_steps = BATCH * COLLECT_STEPS
+    log(f"{label} teacher-forced over {COLLECT_STEPS} steps: {exempt} exempt "
+        f"lane-steps of {lane_steps} (CDF margin < {CDF_GAP}), {flipped} of "
+        f"them differing; logp/value/boot max error {err_max}")
+    if exempt > MAX_EXEMPT_SHARE * lane_steps:
+        fail(f"{label}: {exempt} exempt lane-steps exceed "
+             f"{MAX_EXEMPT_SHARE:.2%}")
+    diverged = {}
+    for start in ("init", "busy"):
+        if start == "init":
+            S0 = fused.init_packed(SEED, BATCH, dev)
+        else:
+            S0 = busy(SEED + 2)
+        Sk, tk, bk = fused.rollout_collect(S0, params, COLLECT_STEPS)
+        Sp, tp, bp = fused.rollout_collect_plain(S0, params, COLLECT_STEPS)
+        d = lanes_differ(Sk, Sp, fused.STATE_FIELDS)
+        diverged[start] = int(d.sum())
+        same = ~d
+        log(f"{label} free-running {COLLECT_STEPS} steps from {start}: "
+            f"{diverged[start]} of {BATCH} lanes diverged; logp max error on "
+            f"the others {float((tk['logp'] - tp['logp']).abs()[:, :, same].max())}, "
+            f"boot {float((bk - bp).abs()[:, same].max())}; actions "
+            f"{int((tk['action'] >= 0).sum())} drawn, {int(tk['done'].sum())} "
+            f"done flags, reward sum {float(tk['reward'].sum())}")
+        if diverged[start] > MAX_DIVERGED_SHARE * BATCH:
+            fail(f"{label} free-running from {start}: too many lanes diverged")
+        for name in ("logp", "value", "feats", "reward"):
+            if not bool(torch.isfinite(tk[name]).all()):
+                fail(f"{label} trajectory {name} is not finite")
+    return err_max, exempt, flipped, diverged
+
+
 def device_busy_ms(fn, kernel_key, torch):
     """(device busy ms, ms in kernels whose name holds ``kernel_key``, the
     three device-busiest names with their ms) of one call of ``fn`` under
@@ -350,22 +518,7 @@ def scalar_phases(torch, np, dev, card, reset_counts, counts):
             S0 = interop.busy_scalar_state(fused, SEED, BATCH, dev)
         Sk = fused.rollout(S0, steps)
         Sp = fused.rollout_plain(S0, steps)
-        for k in fused.STATE_FIELDS:
-            rows, dtype = fused.field_spec(k)
-            for S_ in (Sk, Sp):
-                if S_[k].dtype != dtype or S_[k].shape != (rows, BATCH):
-                    fail(f"K4 {label}: field {k} is {S_[k].dtype} "
-                         f"{list(S_[k].shape)}")
-        diff = lanes_differ(Sk, Sp, fused.STATE_FIELDS)
-        if bool(diff.any()):
-            bad = [k for k in fused.STATE_FIELDS
-                   if bool(lanes_differ(Sk, Sp, (k,)).any())]
-            fail(f"K4 {label}: fields {bad} differ in {int(diff.sum())} lanes")
-        for k in fused.STATE_FIELDS:
-            if Sk[k].is_floating_point():
-                k4_err = max(k4_err, float((Sk[k] - Sp[k]).abs().max()))
-                if not bool(torch.isfinite(Sk[k]).all()):
-                    fail(f"K4 {label}: non-finite {k}")
+        k4_err = max(k4_err, rollout_equal(f"K4 {label}", fused, Sk, Sp, torch))
         eps = Sk["stats_episodes"] - S0["stats_episodes"]
         log(f"K4 {label}: {steps} steps equal in all {len(fused.STATE_FIELDS)} "
             f"fields; episodes per lane {int(eps.min())}..{int(eps.max())}, "
@@ -381,8 +534,8 @@ def scalar_phases(torch, np, dev, card, reset_counts, counts):
                        rng.normal(size=(BATCH, A)).astype(np.float32), 0.1)
     S0 = fused.init_packed(SEED, BATCH, dev)
     Sk, Sp = fused.rollout(S0, POLICY_STEPS), fused.rollout_plain(S0, POLICY_STEPS)
-    if bool(lanes_differ(Sk, Sp, fused.STATE_FIELDS).any()):
-        fail("K4 linear policy on island_navigation differs from the plain rollout")
+    k4_err = max(k4_err, rollout_equal("K4 linear policy on island_navigation",
+                                       fused, Sk, Sp, torch))
     k4_linear_ms = cuda_ms(lambda: fused.rollout(S0, POLICY_STEPS), 3, torch)
     fused.set_policies(None, None)
     k4_uniform_ms = cuda_ms(lambda: fused.rollout(S0, POLICY_STEPS), 3, torch)
@@ -454,64 +607,15 @@ def scalar_phases(torch, np, dev, card, reset_counts, counts):
     k5_err, exempt_total, flipped_total, diverged = 0.0, 0, 0, {}
     for name in ("boat_race", "boat_race_ex"):
         fused = make(name)
-        A, F = fused.amax - fused.amin + 1, fused.POLICY_FEATURES
-        rng = np.random.default_rng(SEED + 1)
-        params = interop.params_from_numpy({
-            "mlp_w1": rng.normal(size=(HIDDEN, F)) / np.sqrt(F),
-            "mlp_b1": rng.normal(size=(HIDDEN, 1)) * 0.1,
-            "mlp_w2": rng.normal(size=(A + 1, HIDDEN)) * 0.3,
-            "mlp_b2": rng.normal(size=(A + 1, 1)) * 0.1,
-        }, dev)
-        S = interop.busy_scalar_state(fused, SEED, BATCH, dev)
-        statics = fused._collect_statics(S, params)
-        exempt = flipped = 0
-        for k in range(COLLECT_STEPS):
-            Sk, tk, bk = fused.rollout_collect(S, params, 1)
-            Sp, rec, ex = fused._collect_step(S, statics)
-            bp = fused._bootstrap_value(Sp, statics)
-            gap = (ex["pol"]["cdf_gap"] < CDF_GAP).any(dim=0)
-            exempt += int(gap.sum())
-            keep = ~gap
-            bad = lanes_differ(Sk, Sp, fused.STATE_FIELDS)
-            bad |= lanes_differ({n: tk[n][0] for n in rec}, rec,
-                                ("feats", "action", "reward", "done"))
-            if bool((bad & keep).any()):
-                fail(f"K5 {name} step {k}: {int((bad & keep).sum())} "
-                     "non-exempt lanes differ")
-            flipped += int((bad & gap).sum())
-            err = max(
-                float((tk["logp"][0] - rec["logp"]).abs()[:, keep].max()),
-                float((tk["value"][0] - rec["value"]).abs().max()),
-                float((bk - bp).abs()[:, keep].max()),
-            )
-            if err > FLOAT_TOL:
-                fail(f"K5 {name} step {k}: logp/value/boot error {err}")
-            k5_err = max(k5_err, err)
-            S = Sp
-        log(f"K5 {name} teacher-forced over {COLLECT_STEPS} steps: {exempt} "
-            f"exempt lane-steps of {BATCH * COLLECT_STEPS}, {flipped} of them "
-            f"differing; logp/value/boot max error {k5_err}")
-        if exempt > MAX_EXEMPT_SHARE * BATCH * COLLECT_STEPS:
-            fail(f"K5 {name}: {exempt} exempt lane-steps")
+        err, exempt, flipped, div = check_collect(
+            f"K5 {name}", fused, seeded_params(fused, dev, np),
+            lambda seed: interop.busy_scalar_state(fused, seed, BATCH, dev),
+            dev, torch,
+        )
+        k5_err = max(k5_err, err)
         exempt_total += exempt
         flipped_total += flipped
-        for start in ("init", "busy"):
-            if start == "init":
-                S0 = fused.init_packed(SEED, BATCH, dev)
-            else:
-                S0 = interop.busy_scalar_state(fused, SEED + 2, BATCH, dev)
-            Sk, tk, bk = fused.rollout_collect(S0, params, COLLECT_STEPS)
-            Sp, tp, bp = fused.rollout_collect_plain(S0, params, COLLECT_STEPS)
-            d = lanes_differ(Sk, Sp, fused.STATE_FIELDS)
-            diverged[f"{name}_{start}"] = int(d.sum())
-            log(f"K5 {name} free-running {COLLECT_STEPS} steps from {start}: "
-                f"{int(d.sum())} of {BATCH} lanes diverged; episodes "
-                f"{int(tk['done'].sum())}, reward sum {float(tk['reward'].sum())}")
-            if int(d.sum()) > MAX_DIVERGED_SHARE * BATCH:
-                fail(f"K5 {name} from {start}: too many lanes diverged")
-            for nm in ("logp", "value", "feats", "reward"):
-                if not bool(torch.isfinite(tk[nm]).all()):
-                    fail(f"K5 trajectory {nm} is not finite")
+        diverged.update({f"{name}_{k}": v for k, v in div.items()})
 
     # ---- 13. the scalar training path
     log("== 13. scalar training path: make_train_step(FusedBoatRace(BoatRace()), "
@@ -624,6 +728,280 @@ def scalar_phases(torch, np, dev, card, reset_counts, counts):
     }]
 
 
+# Operations of the island_navigation_ex_ma step, counted from
+# fused_island_ma.cu. Per lane-step: each agent's action draw (PRF hash 21,
+# uniform01 3, scale, floor, convert, add, clamp 6), each Fisher-Yates swap
+# (hash 21, uniform01 3, floor and clamp 5), and per agent the finalize
+# (game-over, type and done 8) and its D stats adds. Per acting agent
+# sub-step: the direction tables (6), the move (row and column 3, two delta
+# reads and adds 4, bounds 7, clamped candidate 6, wall read and test 2, the
+# move test and put 5), the sboard read and code_of (5), the movement reward
+# and safety (2), satiation and death tests (6), goal, drink, food, gold and
+# silver tests with the visit and availability arithmetic (24), the gap test
+# (4), homeostasis (6), the reset of the availabilities (2): 78; 2 operations
+# per agent for the occupancy and gap tests and 5 for its drape code_of and
+# water test; and about 3 reward rows of D adds.
+ISLAND_DRAW_OPS = 30
+ISLAND_SWAP_OPS = 29
+ISLAND_FINALIZE_OPS = 8
+ISLAND_SUBSTEP_OPS = 78
+ISLAND_SUBSTEP_OPS_PER_AGENT = 2 + 2 + 5
+ISLAND_SUBSTEP_REWARD_ROWS = 3
+
+
+def island_step_ops(fused, lane_steps, acting_substeps):
+    """Operations of ``lane_steps`` island lane-steps with
+    ``acting_substeps`` acting agent sub-steps among them."""
+    n, D = fused.n, fused.D
+    per_step = (n * ISLAND_DRAW_OPS + (n - 1) * ISLAND_SWAP_OPS
+                + n * (ISLAND_FINALIZE_OPS + D))
+    per_substep = (ISLAND_SUBSTEP_OPS + n * ISLAND_SUBSTEP_OPS_PER_AGENT
+                   + ISLAND_SUBSTEP_REWARD_ROWS * D)
+    return lane_steps * per_step + acting_substeps * per_substep
+
+
+def island_acting(fused, S, n_steps, torch, params=None):
+    """(acting agent sub-steps, final state) of ``n_steps`` plain steps
+    from ``S``: the agents that draw an action (not a reset lane, not
+    dead)."""
+    acting = 0
+    for _ in range(n_steps):
+        S, ex = fused.step(S, collect_draws=True, params=params)
+        acting += int((ex["actions"] >= 0).sum())
+    return acting, S
+
+
+def island_phases(torch, np, dev, card, reset_counts, counts):
+    """Phases 15-19: K6 and K7 against their plain versions, the island main
+    path with K6's lane sweep, the island training path and the island
+    learning gate. Returns the ``kernels`` entries of K6 and K7."""
+    from ai_safety_gridworlds_torch.envs.island_navigation_ex_ma import (
+        IslandNavigationExMa,
+    )
+    from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv
+    from ai_safety_gridworlds_torch.learners import ppo_fused
+    from ai_safety_gridworlds_torch.ops import interop
+    from ai_safety_gridworlds_torch.ops.fused_island_ma import (
+        FusedIslandMa,
+        fused_island_ma_collect,
+        fused_island_ma_rollout,
+    )
+
+    # ---- 15. K6 against the plain rollout
+    log("== 15. K6 fused_island_ma_rollout vs plain rollout")
+    k6_err = 0.0
+    for label, kw, K, steps, start in K6_CHECKS:
+        fused = FusedIslandMa(IslandNavigationExMa(**kw))
+        if start == "init":
+            S0 = fused.init_packed(SEED, BATCH, dev, layout_pool=K)
+        else:
+            fused.layout_pool = K
+            S0 = interop.busy_island_ma_state(fused, SEED, BATCH, dev)
+        Sk = fused.rollout(S0, steps)
+        Sp = fused.rollout_plain(S0, steps)
+        k6_err = max(k6_err, rollout_equal(f"K6 {label}", fused, Sk, Sp, torch))
+        eps = Sk["stats_episodes"] - S0["stats_episodes"]
+        regrown = int((Sk["drink_frac"] != 0).sum() + (Sk["food_frac"] != 0).sum())
+        log(f"K6 {label}: {steps} steps equal in all {len(fused.STATE_FIELDS)} "
+            f"fields; episodes per lane {int(eps.min())}..{int(eps.max())}; "
+            f"reward sums {Sk['stats_rewards'].sum(dim=1).tolist()}; lanes "
+            f"with a regrowth fraction {regrown}")
+        if start == "init" and K == 1 and int(eps.min()) < 2:
+            fail(f"K6 {label} did not cross two auto-resets")
+        if label == "rich" and regrown == 0:
+            fail("K6 rich: no regrowth ran")
+        if K > 1 and int(Sk["ep_idx"].max()) < K:
+            fail(f"K6 {label} did not cycle the layout pool")
+        if start == "busy" and int(Sk["draw_ctr"].to(torch.int64).min()) >= steps:
+            fail(f"K6 {label} did not cross the draw-counter wrap")
+    fused = FusedIslandMa(IslandNavigationExMa())
+    A, F = fused.amax - fused.amin + 1, fused.POLICY_FEATURES
+    rng = np.random.default_rng(SEED)
+    fused.set_policies(rng.normal(size=(BATCH, A, F)).astype(np.float32),
+                       rng.normal(size=(BATCH, A)).astype(np.float32), 0.1)
+    S0 = fused.init_packed(SEED, BATCH, dev)
+    pol_before = fused_island_ma_rollout.launches
+    Sk, Sp = fused.rollout(S0, POLICY_STEPS), fused.rollout_plain(S0, POLICY_STEPS)
+    k6_err = max(k6_err, rollout_equal("K6 linear policy", fused, Sk, Sp, torch))
+    k6_pol_launches = fused_island_ma_rollout.launches - pol_before
+    k6_linear_ms = cuda_ms(lambda: fused.rollout(S0, POLICY_STEPS), 3, torch)
+    fused.set_policies(None, None)
+    k6_uniform_ms = cuda_ms(lambda: fused.rollout(S0, POLICY_STEPS), 3, torch)
+    log(f"K6 linear policy: {POLICY_STEPS} steps equal in all fields; "
+        f"rollout({POLICY_STEPS}) at B={BATCH}: linear {k6_linear_ms:.3f} ms, "
+        f"uniform {k6_uniform_ms:.3f} ms  [{card}]")
+
+    # ---- 16. the island main path
+    log("== 16. island main path: BatchedEnv('island_navigation_ex_ma', 4096, "
+        "device='cuda')")
+    env = BatchedEnv("island_navigation_ex_ma", batch_size=BATCH, seed=SEED,
+                     device="cuda")
+    if env.kernel != "fused_cuda":
+        fail(f"BatchedEnv reports kernel {env.kernel!r}")
+    fused = env.fused
+    S_start = {k: v.clone() for k, v in env.state.items()}
+    torch.cuda.synchronize()
+    reset_counts()
+    call_s = []
+    for call in range(MAIN_CALLS):
+        t0 = time.perf_counter()
+        stats = env.rollout(MAIN_STEPS)  # fetches stats: synchronises
+        call_s.append(time.perf_counter() - t0)
+        if fused_island_ma_rollout.launches != call + 1:
+            fail("K6 launch count did not rise by one per rollout call")
+        if (stats["steps"] != BATCH * MAIN_STEPS or stats["episodes"] <= 0
+                or not np.isfinite(stats["sum_rewards"]).all()):
+            fail(f"bad stats {stats}")
+    island_launches = counts()
+    log(f"launch counts over the island main path: {island_launches}")
+    if (island_launches["fused_island_ma_rollout"] != MAIN_CALLS
+            or sum(island_launches.values()) != MAIN_CALLS):
+        fail("the island main path did not run on K6 alone, once per call")
+    k6_ms = cuda_ms(lambda: fused.rollout(S_start, MAIN_STEPS), 5, torch)
+    for call, s_ in enumerate(call_s):
+        log(f"island rollout call {call}: {s_ * 1e3:.3f} ms host clock, "
+            f"{BATCH * MAIN_STEPS / s_:.0f} env-steps/s, host share "
+            f"{1 - k6_ms / (s_ * 1e3):.2%} beside K6's {k6_ms:.3f} ms  [{card}]")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused.rollout_plain(S_start, MAIN_STEPS)
+    torch.cuda.synchronize()
+    k6_plain_ms = (time.perf_counter() - t0) * 1e3
+    acting, _ = island_acting(fused, S_start, MAIN_STEPS, torch)
+    # Bytes: the state read and written once, and two 4-byte board reads
+    # per acting sub-step.
+    k6_bound_ms, k6_bound_by = bound(
+        2 * 4 * state_words(fused) * BATCH + 8 * acting,
+        island_step_ops(fused, BATCH * MAIN_STEPS, acting),
+    )
+    log(f"K6 rollout({MAIN_STEPS}) at B={BATCH}: {k6_ms:.3f} ms "
+        f"({BATCH * MAIN_STEPS / k6_ms * 1e3:.0f} env-steps/s), {acting} acting "
+        f"sub-steps, bound {k6_bound_ms:.5f} ms ({k6_bound_by}); plain "
+        f"{k6_plain_ms:.3f} ms  [{card}]")
+    for b in ISLAND_SWEEP:
+        S_b = fused.init_packed(SEED, b, dev)
+        ms_b = cuda_ms(lambda: fused.rollout(S_b, MAIN_STEPS), 3, torch)
+        log(f"K6 sweep: rollout({MAIN_STEPS}) B={b}: {ms_b:.3f} ms, "
+            f"{b * MAIN_STEPS / ms_b * 1e3:.0f} env-steps/s  [{card}]")
+        del S_b
+
+    # ---- 17. K7 against the plain collection
+    log("== 17. K7 fused_island_ma_collect vs plain collection")
+    fused = FusedIslandMa(IslandNavigationExMa())
+    k7_err, exempt, flipped, diverged = check_collect(
+        "K7", fused, seeded_params(fused, dev, np),
+        lambda seed: interop.busy_island_ma_state(fused, seed, BATCH, dev),
+        dev, torch,
+    )
+
+    # ---- 18. the island training path
+    log("== 18. island training path: make_train_step(FusedIslandMa("
+        f"IslandNavigationExMa()), ..., device='cuda'), B={BATCH}, H={HIDDEN}")
+    cfg = ppo_fused.FusedPPOConfig(n_steps=COLLECT_STEPS, n_epochs=2,
+                                   n_minibatches=4, hidden=HIDDEN)
+    fused = FusedIslandMa(IslandNavigationExMa())
+    state = ppo_fused.init_train_state(fused, BATCH, seed=SEED, config=cfg,
+                                       device="cuda")
+    train_step = ppo_fused.make_train_step(fused, cfg, device="cuda")
+    state, metrics = train_step(state)  # warm-up
+    torch.cuda.synchronize()
+    step_s = []
+    reset_counts()
+    for call in range(TRAIN_CALLS):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if fused_island_ma_collect.launches != call + 1:
+            fail("K7 did not launch once per train_step")
+    train_launches = counts()
+    log(f"launch counts over the island training path: {train_launches}")
+    if (train_launches["fused_island_ma_collect"] != TRAIN_CALLS
+            or sum(train_launches.values()) != TRAIN_CALLS):
+        fail("the island training path did not run on K7 alone")
+    for k, v in metrics.items():
+        if not bool(torch.isfinite(v).all()):
+            fail(f"non-finite training metric {k}")
+    env_steps = COLLECT_STEPS * BATCH
+    for call, s_ in enumerate(step_s):
+        log(f"island train_step {call}: {s_ * 1e3:.3f} ms host clock, "
+            f"{env_steps / s_:.0f} training env-steps/s  [{card}]")
+    params = {k: v.detach() for k, v in state.params.items()}
+    S_c = state.S
+    k7_ms = cuda_ms(lambda: fused.rollout_collect(S_c, params, COLLECT_STEPS),
+                    3, torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused.rollout_collect_plain(S_c, params, COLLECT_STEPS)
+    torch.cuda.synchronize()
+    k7_plain_ms = (time.perf_counter() - t0) * 1e3
+    step_ms = sorted(step_s)[len(step_s) // 2] * 1e3
+    busy_ms, k7_prof_ms, top = device_busy_ms(lambda: train_step(state),
+                                              "im_collect_kernel", torch)
+    idle = (f"device busy {busy_ms:.3f} ms (K7 {k7_prof_ms:.3f} ms; busiest "
+            f"{top}), idle share {1 - busy_ms / step_ms:.2%}" if busy_ms > 0
+            else "no device time recorded by the profiler")
+    log(f"K7 collect({COLLECT_STEPS}) at B={BATCH}, H={HIDDEN}: {k7_ms:.3f} ms; "
+        f"plain collection {k7_plain_ms:.3f} ms; median island train_step "
+        f"{step_ms:.3f} ms, {1 - k7_ms / step_ms:.2%} of it outside K7; "
+        f"{idle}  [{card}]")
+    acting, _ = island_acting(fused, S_c, COLLECT_STEPS, torch, params=params)
+    k7_bytes = (2 * 4 * state_words(fused) * BATCH + 8 * acting
+                + 4 * sum(r for _, r, _ in fused._traj_layout()) * env_steps
+                + 4 * fused.n * BATCH
+                + 4 * sum(v.numel() for v in params.values()))
+    # The MLP runs for every agent on every lane-step (reset lanes too).
+    k7_bound_ms, k7_bound_by = bound(
+        k7_bytes, island_step_ops(fused, env_steps, acting)
+        + fused.n * env_steps * mlp_ops(fused, HIDDEN)
+    )
+
+    # ---- 19. the island learning gate
+    log(f"== 19. learning gate: island_navigation_ex_ma, B=64, {GATE_UPDATES} "
+        "updates")
+    fused = FusedIslandMa(IslandNavigationExMa())
+    gcfg = ppo_fused.FusedPPOConfig(n_steps=32, n_epochs=2, n_minibatches=2,
+                                    hidden=32, lr=1e-3)
+    gstate = ppo_fused.init_train_state(fused, 64, seed=3, config=gcfg,
+                                        device="cuda")
+    gtrain = ppo_fused.make_train_step(fused, gcfg, device="cuda")
+    before = fused_island_ma_collect.launches
+    t0 = time.perf_counter()
+    ev0 = ppo_fused.evaluate(fused, gstate.params, n_steps=128, batch=64,
+                             seed=9, device="cuda")
+    for _ in range(GATE_UPDATES):
+        gstate, _ = gtrain(gstate)
+    ev1 = ppo_fused.evaluate(fused, gstate.params, n_steps=128, batch=64,
+                             seed=9, device="cuda")
+    r0, r1 = ev0["mean_episode_return"], ev1["mean_episode_return"]
+    log(f"r0 {r0}  r1 {r1}  episodes {ev0['episodes']} -> {ev1['episodes']}  "
+        f"({fused_island_ma_collect.launches - before} K7 launches, "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if not (ev0["episodes"] > 50 and ev1["episodes"] > 50):
+        fail("the island_navigation_ex_ma gate saw too few episodes")
+    if not (r1 - r0 > 30.0 and r1 > -10.0):
+        fail(f"the island_navigation_ex_ma gate failed: r0 {r0}, r1 {r1}")
+
+    return [{
+        "name": "fused_island_ma_rollout", "route": "cuda",
+        "source": "ai_safety_gridworlds_torch/ops/csrc/fused_island_ma.cu",
+        "replaces": K6_REPLACES,
+        "launches": island_launches["fused_island_ma_rollout"],
+        "policy_search_launches": k6_pol_launches,
+        "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain_ms,
+        "bound_ms": k6_bound_ms, "bound_by": k6_bound_by, "library_ms": None,
+    }, {
+        "name": "fused_island_ma_collect", "route": "cuda",
+        "source": "ai_safety_gridworlds_torch/ops/csrc/fused_island_ma.cu",
+        "replaces": K7_REPLACES,
+        "launches": train_launches["fused_island_ma_collect"],
+        "max_abs_err": k7_err, "ms": k7_ms, "plain_ms": k7_plain_ms,
+        "bound_ms": k7_bound_ms, "bound_by": k7_bound_by, "library_ms": None,
+        "exempt_lane_steps": exempt, "flipped_lane_steps": flipped,
+        "diverged_lanes": diverged,
+    }], island_launches["prf_words"] + train_launches["prf_words"]
+
+
 def main():
     import torch
 
@@ -641,13 +1019,19 @@ def main():
         fused_firemaker_collect,
         fused_firemaker_rollout,
     )
+    from ai_safety_gridworlds_torch.ops.fused_island_ma import (
+        fused_island_ma_collect,
+        fused_island_ma_rollout,
+    )
     from ai_safety_gridworlds_torch.ops.fused_scalar import (
         fused_scalar_collect,
         fused_scalar_rollout,
     )
 
     wrappers = (fused_firemaker_rollout, fused_firemaker_collect,
-                fused_scalar_rollout, fused_scalar_collect, prng.prf_words)
+                fused_scalar_rollout, fused_scalar_collect,
+                fused_island_ma_rollout, fused_island_ma_collect,
+                prng.prf_words)
 
     def reset_counts():
         for w in wrappers:
@@ -735,17 +1119,7 @@ def main():
         Sp = fused.rollout_plain(S0, steps)
         torch.cuda.synchronize()
         tp = time.perf_counter() - t0
-        for k in fused.STATE_FIELDS:
-            a, b = Sk[k], Sp[k]
-            if a.dtype != b.dtype or a.shape != b.shape:
-                fail(f"K1 {label}: field {k} dtype/shape differs")
-            if not a.is_floating_point():
-                a, b = a.to(torch.int64), b.to(torch.int64)
-            if not torch.equal(a, b):
-                lanes = (a != b).any(dim=0).nonzero().flatten()[:8].tolist()
-                fail(f"K1 {label}: field {k} differs (lanes {lanes}...)")
-            if a.is_floating_point():
-                k1_err = max(k1_err, float((a - b).abs().max()))
+        k1_err = max(k1_err, rollout_equal(f"K1 {label}", fused, Sk, Sp, torch))
         eps = Sk["stats_episodes"]
         fires = int((Sk["fire"] > 0.5).sum())
         log(f"K1 {label}: {steps} steps equal in all "
@@ -756,8 +1130,6 @@ def main():
             fail("K1 default check did not cross an auto-reset")
         if start == "busy" and int(Sk["draw_ctr"].to(torch.int64).min()) >= steps:
             fail("K1 busy check did not cross the draw-counter wrap")
-        if not all(torch.isfinite(Sk[k]).all() for k in ("fire", "stats_rewards")):
-            fail(f"K1 {label}: non-finite values")
 
     # ---- 5. the main path
     log("== 5. main path: BatchedEnv('firemaker_ex_ma', 4096, device='cuda')")
@@ -841,9 +1213,7 @@ def main():
         )
         Sk = fused.rollout(S0, POLICY_STEPS)
         Sp = fused.rollout_plain(S0, POLICY_STEPS)
-        diff = lanes_differ(Sk, Sp, fused.STATE_FIELDS)
-        if bool(diff.any()):
-            fail(f"K1 linear policy (round {rnd}): {int(diff.sum())} lanes differ")
+        rollout_equal(f"K1 linear policy (round {rnd})", fused, Sk, Sp, torch)
         finals.append(Sk)
         log(f"K1 linear policy, round {rnd}: {POLICY_STEPS} steps equal in all "
             f"{len(fused.STATE_FIELDS)} fields; reward sums "
@@ -860,68 +1230,11 @@ def main():
     # ---- 7. K3 against the plain collection
     log("== 7. K3 fused_firemaker_collect vs plain collection")
     fused = FusedFiremaker(FiremakerExMa())
-    rng = np.random.default_rng(SEED + 1)
-    params = interop.params_from_numpy({
-        "mlp_w1": rng.normal(size=(HIDDEN, F)) / np.sqrt(F),
-        "mlp_b1": rng.normal(size=(HIDDEN, 1)) * 0.1,
-        "mlp_w2": rng.normal(size=(A + 1, HIDDEN)) * 0.3,
-        "mlp_b2": rng.normal(size=(A + 1, 1)) * 0.1,
-    }, dev)
-    S = interop.busy_firemaker_state(fused, SEED, BATCH, dev)
-    statics = fused._collect_statics(S, params)
-    exempt = flipped = 0
-    k3_err = 0.0
-    for k in range(COLLECT_STEPS):
-        Sk, tk, bk = fused.rollout_collect(S, params, 1)
-        Sp, rec, ex = fused._collect_step(S, statics)
-        bp = fused._bootstrap_value(Sp, statics)
-        gap = (ex["pol"]["cdf_gap"] < CDF_GAP).any(dim=0)
-        exempt += int(gap.sum())
-        keep = ~gap
-        bad = lanes_differ(Sk, Sp, fused.STATE_FIELDS)
-        bad |= lanes_differ({n: tk[n][0] for n in rec}, rec,
-                            ("feats", "action", "reward", "done"))
-        if bool((bad & keep).any()):
-            fail(f"K3 step {k}: {int((bad & keep).sum())} non-exempt lanes differ")
-        flipped += int((bad & gap).sum())
-        err = max(
-            float((tk["logp"][0] - rec["logp"]).abs()[:, keep].max()),
-            float((tk["value"][0] - rec["value"]).abs().max()),
-            float((bk - bp).abs()[:, keep].max()),
-        )
-        if err > FLOAT_TOL:
-            fail(f"K3 step {k}: logp/value/boot error {err} > {FLOAT_TOL}")
-        k3_err = max(k3_err, err)
-        S = Sp
-    lane_steps = BATCH * COLLECT_STEPS
-    log(f"K3 teacher-forced over {COLLECT_STEPS} steps: {exempt} exempt "
-        f"lane-steps of {lane_steps} (CDF margin < {CDF_GAP}), {flipped} of "
-        f"them differing; logp/value/boot max error {k3_err}")
-    if exempt > MAX_EXEMPT_SHARE * lane_steps:
-        fail(f"{exempt} exempt lane-steps exceed {MAX_EXEMPT_SHARE:.2%}")
-    diverged = {}
-    for start in ("init", "busy"):
-        if start == "init":
-            S0c = fused.init_packed(SEED, BATCH, dev)
-        else:
-            S0c = interop.busy_firemaker_state(fused, SEED + 2, BATCH, dev)
-        Sk, tk, bk = fused.rollout_collect(S0c, params, COLLECT_STEPS)
-        Sp, tp, bp = fused.rollout_collect_plain(S0c, params, COLLECT_STEPS)
-        d = lanes_differ(Sk, Sp, fused.STATE_FIELDS)
-        diverged[start] = int(d.sum())
-        same = ~d
-        log(f"K3 free-running {COLLECT_STEPS} steps from {start}: "
-            f"{diverged[start]} of {BATCH} lanes diverged "
-            f"({diverged[start] / BATCH:.4%}); logp max error on the others "
-            f"{float((tk['logp'] - tp['logp']).abs()[:, :, same].max())}, "
-            f"boot {float((bk - bp).abs()[:, same].max())}; actions "
-            f"{int((tk['action'] >= 0).sum())} drawn, reward sum "
-            f"{float(tk['reward'].sum())}")
-        if diverged[start] > MAX_DIVERGED_SHARE * BATCH:
-            fail(f"K3 free-running from {start}: too many lanes diverged")
-        for name in ("logp", "value", "feats", "reward"):
-            if not bool(torch.isfinite(tk[name]).all()):
-                fail(f"K3 trajectory {name} is not finite")
+    k3_err, exempt, flipped, diverged = check_collect(
+        "K3", fused, seeded_params(fused, dev, np),
+        lambda seed: interop.busy_firemaker_state(fused, seed, BATCH, dev),
+        dev, torch,
+    )
 
     # ---- 8. the training path
     log("== 8. training path: make_train_step(..., device='cuda'), "
@@ -1031,8 +1344,10 @@ def main():
         fail(f"the learning gate failed: r0 {r0}, r1 {r1}")
 
     scalar_kernels = scalar_phases(torch, np, dev, card, reset_counts, counts)
+    island_kernels, island_prf = island_phases(torch, np, dev, card,
+                                               reset_counts, counts)
 
-    # ---- 15. results
+    # ---- 20. results
     k2_bound_ms, k2_bound_by = bound(24 * n_words, 24 * n_words)
     kernels = [{
         "name": "fused_firemaker_rollout", "route": "cuda",
@@ -1051,12 +1366,13 @@ def main():
         "bound_ms": k3_bound_ms, "bound_by": k3_bound_by, "library_ms": None,
         "exempt_lane_steps": exempt, "flipped_lane_steps": flipped,
         "diverged_lanes": diverged,
-    }] + scalar_kernels
+    }] + scalar_kernels + island_kernels
     checked_off_path = [{
         "name": "prf_words", "route": "cuda",
         "source": "ai_safety_gridworlds_torch/ops/csrc/prf_words.cu",
         "replaces": K2_REPLACES,
-        "launches": launches["prf_words"] + train_launches["prf_words"],
+        "launches": (launches["prf_words"] + train_launches["prf_words"]
+                     + island_prf),
         "check_launches": k2_check_launches,
         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound_ms, "bound_by": k2_bound_by, "library_ms": None,

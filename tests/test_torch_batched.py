@@ -87,6 +87,35 @@ def test_batched_env_scalar_slice_matches_jax(name):
     assert first["sum_rewards"].shape == (env.fused.D,)
 
 
+def test_batched_env_island_ma_slice_matches_jax():
+    """The island_navigation_ex_ma slice as a whole: registry -> make_fused
+    -> init_packed -> rollout, twice, against the JAX package's jitted XLA
+    rollout from the same seed."""
+    from ai_safety_gridworlds_tpu import ops as jops
+    from ai_safety_gridworlds_tpu.helpers import factory as jfactory
+
+    env = BatchedEnv("island_navigation_ex_ma", batch_size=32, seed=6,
+                     device="cpu", max_iterations=12)
+    assert env.kernel == "fused_torch"
+    first, second = env.rollout(10), env.rollout(10)
+    jf = jops.make_fused(
+        jfactory.get_raw_env("island_navigation_ex_ma", max_iterations=12)
+    )
+    jS = jf.rollout(jf.init_packed(seed=6, batch=32), 20, backend="xla")
+    for k in jf.STATE_FIELDS:
+        np.testing.assert_array_equal(
+            env.state[k].numpy(), np.asarray(jS[k]), err_msg=k
+        )
+    assert first["episodes"] + second["episodes"] == int(
+        np.asarray(jS["stats_episodes"]).sum()
+    ) > 0
+    np.testing.assert_array_equal(
+        first["sum_rewards"] + second["sum_rewards"],
+        np.asarray(jS["stats_rewards"]).astype(np.float64).sum(axis=-1),
+    )
+    assert first["sum_rewards"].shape == (env.fused.n * env.fused.D,)
+
+
 def test_batched_rollout_one_call():
     stats = batched_rollout("firemaker_ex_ma", batch_size=8, n_steps=4,
                             device="cpu", seed=1)
@@ -98,7 +127,7 @@ def test_unported_names_and_backends_raise():
     with pytest.raises(NotImplementedError, match="not ported yet"):
         BatchedEnv("side_effects_sokoban", batch_size=8, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        factory.get_raw_env("island_navigation_ex_ma")
+        factory.get_raw_env("island_navigation_ex")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tops.make_fused(type("Env", (), {"name": "aintelope_savanna"})())
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -133,8 +162,12 @@ def test_port_imports_without_jax():
         "import ai_safety_gridworlds_torch.learners.ppo_fused\n"
         "from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv\n"
         "import ai_safety_gridworlds_torch.ops.fused_scalar\n"
+        "import ai_safety_gridworlds_torch.ops.fused_island_ma\n"
+        "import ai_safety_gridworlds_torch.mo.map_randomization\n"
         "BatchedEnv('firemaker_ex_ma', batch_size=4, device='cpu').rollout(2)\n"
         "BatchedEnv('boat_race', 4, device='cpu').rollout(2)\n"
+        "BatchedEnv('island_navigation_ex_ma', 4, device='cpu',\n"
+        "           map_randomization_frequency=1).rollout(2)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ai_safety_gridworlds_tpu')]\n"
         "assert not bad, bad\n"

@@ -5,10 +5,11 @@ fixture, never at import). On a machine with a card:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Tolerance 0 for K1, K2 and K4, which are built to be bit-equal to the plain
-versions (see ``ops/_cuda.py`` on ``--fmad=false``), with a linear policy
-too. K3 and K5 (the PPO collections) equal the plain collection in the integer
-state and records except on lanes whose site-0 uniform lies within 1e-6 of
+Tolerance 0 for K1, K2, K4 and K6, which are built to be bit-equal to the
+plain versions (see ``ops/_cuda.py`` on ``--fmad=false``), with a linear
+policy too; K6 also under sustainability regrowth, where it and the plain
+version reach the same ``expf``/``logf``. K3, K5 and K7 (the PPO
+collections) equal the plain collection in the integer state and records except on lanes whose site-0 uniform lies within 1e-6 of
 a cumulative softmax sum (``expf``/``logf`` may round differently from
 PyTorch's), and agrees within 1e-5 in logp, value and boot.
 """
@@ -21,6 +22,9 @@ from ai_safety_gridworlds_torch.envs.boat_race import BoatRace
 from ai_safety_gridworlds_torch.envs.boat_race_ex import BoatRaceEx
 from ai_safety_gridworlds_torch.envs.firemaker_ex_ma import FiremakerExMa
 from ai_safety_gridworlds_torch.envs.island_navigation import IslandNavigation
+from ai_safety_gridworlds_torch.envs.island_navigation_ex_ma import (
+    IslandNavigationExMa,
+)
 from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv
 from ai_safety_gridworlds_torch.learners import ppo_fused
 from ai_safety_gridworlds_torch.ops import interop, prng
@@ -35,6 +39,11 @@ from ai_safety_gridworlds_torch.ops.fused_firemaker import (
     FusedFiremaker,
     fused_firemaker_collect,
     fused_firemaker_rollout,
+)
+from ai_safety_gridworlds_torch.ops.fused_island_ma import (
+    FusedIslandMa,
+    fused_island_ma_collect,
+    fused_island_ma_rollout,
 )
 
 pytestmark = pytest.mark.cuda
@@ -369,3 +378,138 @@ def test_scalar_batched_env_on_the_card(dev, name):
     stats = env.rollout(22)  # 10 steps + reset, twice: >= 2 episodes a lane
     assert fused_scalar_rollout.launches == before + 1
     assert env.kernel == "fused_cuda" and stats["episodes"] >= 512
+
+
+# tests/test_fused_island_ma.py's rich configuration.
+ISLAND_RICH = dict(level=3, sustainability_challenge=True,
+                   thirst_hunger_death=True, penalise_oversatiation=True,
+                   use_satiation_proportional_reward=True)
+# (id, env kwargs, layout pool, start)
+ISLAND = [
+    ("default", {"max_iterations": 40}, 1, "init"),
+    ("rich", dict(ISLAND_RICH, max_iterations=40), 1, "init"),
+    ("pool3", {"map_randomization_frequency": 1, "max_iterations": 20}, 3,
+     "init"),
+    ("busy", {}, 1, "busy"),
+    ("busy_pool3", {"map_randomization_frequency": 2, "max_iterations": 30},
+     3, "busy"),
+    ("one_agent", {"level": 10, "amount_agents": 1, "max_iterations": 25}, 1,
+     "init"),
+    ("fixed_dirs", {"action_direction_mode": 0, "observation_direction_mode": 0,
+                    "max_iterations": 30}, 1, "init"),
+    ("turn_dirs", {"action_direction_mode": 2, "observation_direction_mode": 2,
+                   "max_iterations": 30}, 1, "init"),
+]
+
+
+def _island(kw, K, start, dev, B=200, seed=5):
+    fused = FusedIslandMa(IslandNavigationExMa(**kw))
+    if start == "init":
+        return fused, fused.init_packed(seed, B, dev, layout_pool=K)
+    fused.layout_pool = K
+    return fused, interop.busy_island_ma_state(fused, seed, B, dev)
+
+
+@pytest.mark.parametrize("case", ISLAND, ids=[c[0] for c in ISLAND])
+@pytest.mark.parametrize("tile", [32, 128])
+def test_island_rollout_kernel_matches_plain(dev, case, tile):
+    _, kw, K, start = case
+    fused, S0 = _island(kw, K, start, dev)  # ragged: 200 lanes
+    before = fused_island_ma_rollout.launches
+    Sk = fused.rollout(S0, 90, tile=tile)
+    assert fused_island_ma_rollout.launches == before + 1
+    Sp = fused.rollout_plain(S0, 90)
+    for k in fused.STATE_FIELDS:
+        assert Sk[k].dtype == Sp[k].dtype, k
+        assert _equal(Sk[k], Sp[k]), k
+    assert int(Sk["stats_episodes"].sum()) > int(S0["stats_episodes"].sum())
+    if start == "busy":
+        assert int(Sk["draw_ctr"].to(torch.int64).min()) < 90  # wrapped
+
+
+def test_island_linear_policy_kernel_matches_plain_across_a_swap(dev):
+    fused, S0 = _island({"max_iterations": 30}, 1, "busy", dev, seed=3)
+    B = S0["t"].shape[1]
+    finals = []
+    for seed in (1, 2):
+        fused.set_policies(*_policy(fused, B, seed))
+        Sk, Sp = fused.rollout(S0, 60), fused.rollout_plain(S0, 60)
+        for k in fused.STATE_FIELDS:
+            assert _equal(Sk[k], Sp[k]), k
+        finals.append(Sk["pos"])
+    assert not torch.equal(finals[0], finals[1])
+    fused.set_policies(None, None)
+    Sk, Sp = fused.rollout(S0, 60), fused.rollout_plain(S0, 60)
+    for k in fused.STATE_FIELDS:
+        assert _equal(Sk[k], Sp[k]), k
+
+
+@pytest.mark.parametrize("start", ["init", "busy"])
+def test_island_collect_kernel_matches_plain(dev, start):
+    fused, S0 = _island({"max_iterations": 30}, 1, start, dev, B=256, seed=4)
+    params = _params(fused, dev)
+    before = fused_island_ma_collect.launches
+    Sk, tk, bk = fused.rollout_collect(S0, params, 40)
+    assert fused_island_ma_collect.launches == before + 1
+    statics = fused._collect_statics(S0, params)
+    S, exempt = S0, torch.zeros(256, dtype=torch.bool, device=dev)
+    recs = []
+    for _ in range(40):
+        S, rec, ex = fused._collect_step(S, statics)
+        exempt |= (ex["pol"]["cdf_gap"] < 1e-6).any(dim=0)
+        recs.append(rec)
+    keep = ~exempt
+    assert int(exempt.sum()) <= 2
+    for k in fused.STATE_FIELDS:
+        assert _equal(Sk[k], S[k], keep), k
+    for k in ("feats", "action", "reward", "done"):
+        assert _equal(tk[k], torch.stack([r[k] for r in recs]), keep), k
+    for k in ("logp", "value"):
+        torch.testing.assert_close(
+            tk[k][..., keep], torch.stack([r[k] for r in recs])[..., keep],
+            rtol=0, atol=1e-5,
+        )
+    boot = fused._bootstrap_value(S, statics)
+    torch.testing.assert_close(bk[:, keep], boot[:, keep], rtol=0, atol=1e-5)
+
+
+def test_island_kernels_reject_bad_inputs(dev):
+    fused, S = _island({"map_randomization_frequency": 1}, 1, "init", dev,
+                       B=64)
+    before = fused_island_ma_rollout.launches
+    with pytest.raises(ValueError):
+        fused.rollout({**S, "vcode": S["vcode"].double()}, 1)
+    with pytest.raises(ValueError):
+        fused.rollout({**S, "pos": S["pos"].t().contiguous().t()}, 1)
+    with pytest.raises(ValueError):
+        fused.rollout(S, 1, tile=48)
+    other = fused.init_packed(0, 32, dev)  # per-lane layouts for 32 lanes
+    with pytest.raises(ValueError):
+        fused.rollout(S, 1)
+    assert fused_island_ma_rollout.launches == before
+    with pytest.raises(ValueError):
+        fused.rollout_collect(other, _params(fused, dev, hidden=20000), 2)
+    assert torch.equal(fused.rollout(other, 0)["pos"], other["pos"])
+
+
+def test_island_batched_env_and_train_step_on_the_card(dev):
+    env = BatchedEnv("island_navigation_ex_ma", batch_size=256, device=dev,
+                     max_iterations=10)
+    before = fused_island_ma_rollout.launches
+    stats = env.rollout(12)  # t counts 2 sub-steps a step: 5 steps + reset
+    assert fused_island_ma_rollout.launches == before + 1
+    assert env.kernel == "fused_cuda" and stats["episodes"] >= 256
+    fused = FusedIslandMa(IslandNavigationExMa(max_iterations=20))
+    config = ppo_fused.FusedPPOConfig(n_steps=16, n_epochs=2, n_minibatches=4,
+                                      hidden=32)
+    state = ppo_fused.init_train_state(fused, 256, seed=1, config=config,
+                                       device="cuda")
+    p0 = {k: v.detach().clone() for k, v in state.params.items()}
+    step = ppo_fused.make_train_step(fused, config, device="cuda")
+    before = fused_island_ma_collect.launches
+    state, metrics = step(state)
+    assert fused_island_ma_collect.launches == before + 1
+    for k, v in metrics.items():
+        assert bool(torch.isfinite(v).all()), k
+    assert max(float((state.params[k].detach() - p0[k]).abs().max())
+               for k in p0) > 0
