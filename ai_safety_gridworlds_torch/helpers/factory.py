@@ -2,15 +2,18 @@
 
 Port of ``get_raw_env`` from ``ai_safety_gridworlds_tpu/helpers/factory.py``
 for the environments ported so far (firemaker_ex_ma,
-island_navigation_ex_ma, boat_race, island_navigation, boat_race_ex); the
-stateful shells and adapters come with
-later slices (``ROADMAP.md``).
+island_navigation_ex_ma, aintelope_savanna, boat_race, island_navigation,
+boat_race_ex); the stateful shells and adapters come with later slices
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
 
 def _raw_registry() -> dict:
+    from ai_safety_gridworlds_torch.envs.aintelope_savanna import (
+        AIntelopeSavanna,
+    )
     from ai_safety_gridworlds_torch.envs.boat_race import BoatRace
     from ai_safety_gridworlds_torch.envs.boat_race_ex import BoatRaceEx
     from ai_safety_gridworlds_torch.envs.firemaker_ex_ma import FiremakerExMa
@@ -24,6 +27,7 @@ def _raw_registry() -> dict:
     return {
         "firemaker_ex_ma": FiremakerExMa,
         "island_navigation_ex_ma": IslandNavigationExMa,
+        "aintelope_savanna": AIntelopeSavanna,
         "boat_race": BoatRace,
         "island_navigation": IslandNavigation,
         "boat_race_ex": BoatRaceEx,

@@ -2,9 +2,9 @@
 CPU tensors.
 
 Port of ``ai_safety_gridworlds_tpu/ops/__init__.py``. Ported so far: the
-``firemaker_ex_ma`` and ``island_navigation_ex_ma`` kernels and the scalar
-shell with the ``boat_race``, ``island_navigation`` and ``boat_race_ex``
-bodies.
+``firemaker_ex_ma``, ``island_navigation_ex_ma`` and ``aintelope_savanna``
+kernels and the scalar shell with the ``boat_race``, ``island_navigation``
+and ``boat_race_ex`` bodies.
 """
 
 import torch
@@ -48,6 +48,10 @@ def make_fused(env):
         )
 
         return FusedIslandMa(env)
+    if name == "aintelope_savanna":
+        from ai_safety_gridworlds_torch.ops.fused_savanna import FusedSavanna
+
+        return FusedSavanna(env)
     if name in _SCALAR:
         from ai_safety_gridworlds_torch.ops import fused_scalar
 

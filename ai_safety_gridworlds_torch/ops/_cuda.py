@@ -29,7 +29,8 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[1] / "_build"
-KERNELS = ("prf_words", "fused_firemaker", "fused_scalar", "fused_island_ma")
+KERNELS = ("prf_words", "fused_firemaker", "fused_scalar", "fused_island_ma",
+           "fused_savanna")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -4,10 +4,11 @@ port, as numpy arrays.
 The JAX package's packed state (``init_packed`` output, or any state it
 reached) comes in with :func:`state_from_numpy` and goes back with
 :func:`state_to_numpy`; dtypes (``uint32`` keys included) are kept.
-:func:`busy_firemaker_state`, :func:`busy_scalar_state` and
-:func:`busy_island_ma_state` make seeded mid-episode states to compare
-implementations from. :func:`params_from_numpy` and :func:`params_to_numpy`
-carry the MLP policy's params, so that both packages run the same policy.
+:func:`busy_firemaker_state`, :func:`busy_scalar_state`,
+:func:`busy_island_ma_state` and :func:`busy_savanna_state` make seeded
+mid-episode states to compare implementations from.
+:func:`params_from_numpy` and :func:`params_to_numpy` carry the MLP policy's
+params, so that both packages run the same policy.
 :func:`assert_consts_equal` checks that a port kernel's ``consts`` equal the
 JAX kernel's key by key.
 """
@@ -170,6 +171,122 @@ def busy_island_ma_state(fused, seed: int, batch: int, device) -> dict:
     # Step types and termination reasons: alive agents are MID, dead ones
     # TERMINATED and LAST or DEAD; "one" lanes have one dead agent, "all"
     # lanes only dead ones.
+    kind = rng.random(batch)
+    S["step_types"][:] = 1
+    S["reasons"][:] = -1
+    for b in np.flatnonzero(kind < 0.25):
+        dead = (np.arange(n) == rng.integers(0, n)) if kind[b] < 0.125 else (
+            np.ones(n, bool)
+        )
+        S["reasons"][dead, b] = 0
+        S["step_types"][dead, b] = rng.choice([2, 3], size=int(dead.sum()))
+    ctr = rng.integers(0, 2**32, (1, batch), dtype=np.uint32)
+    ctr[:, ::2] = rng.integers(2**32 - 64, 2**32, (1, (batch + 1) // 2),
+                               dtype=np.uint32)
+    S["draw_ctr"] = ctr
+    return state_from_numpy(S, device)
+
+
+def busy_savanna_state(fused, seed: int, batch: int, device) -> dict:
+    """A numpy-seeded mid-episode aintelope_savanna state on ``device``. It
+    first calls ``fused.init_packed(seed, batch, "cpu",
+    layout_pool=fused.layout_pool)``, which draws the layouts (the same ones
+    as the JAX package's ``init_packed`` from that seed). Then, on each
+    lane's current layout: the predators moved to random free interior gap
+    cells, as many as before; agents on distinct free cells, agent 0 on a
+    water, gold, silver or resource cell in one lane of four and next to a
+    predator in another; satiations from -22 to 6 in steps of 0.2, on both
+    sides of the thresholds and at the death limits; under sustainability,
+    curtains with cells added and removed and availabilities 0 to 20 with
+    fractions; random facings, safety distances, visits and stats; one lane
+    in eight with a dead agent and one in eight with all agents dead (it
+    resets on the next step); ``t`` near ``max_iterations`` in every other
+    lane, the step counts of a round in progress or complete; draw counters
+    anywhere in uint32, every other lane within 64 of the wrap; and, with a
+    layout pool, episode counters 0..5."""
+    rng = np.random.default_rng(seed)
+    # A fused env that was packed before keeps its redraw mode.
+    exact = None if fused.packed_batch is None else fused.exact_reset
+    S = state_to_numpy(fused.init_packed(seed, batch, "cpu",
+                                         layout_pool=fused.layout_pool,
+                                         exact_reset=exact))
+    n, K, HW, W = fused.n, fused.layout_pool, fused.HW, fused.w
+    st = fused._kstatics_np
+    if K > 1:
+        S["ep_idx"] = rng.integers(0, 6, (1, batch)).astype(np.int32)
+    res_names = [s["name"] for s in fused.res_specs] if fused.sustain else []
+    cells = np.arange(HW)
+    interior = ((cells // W >= 1) & (cells // W <= fused.h - 2)
+                & (cells % W >= 1) & (cells % W <= W - 2))
+    for b in range(batch):
+        if fused.exact_reset:
+            wall, sboard = S["wall"][:, b], S["sboard"][:, b]
+        else:
+            k = int(S["ep_idx"][0, b]) % K if K > 1 else 0
+            sfx = f"_p{k}" if k else ""
+            wall, sboard = st["wall" + sfx][:, b], st["sboard" + sfx][:, b]
+            S["predator"][:, b] = st["predator0" + sfx][:, b]
+            for nm in res_names:
+                S["res_" + nm][:, b] = st["res0_" + nm + sfx][:, b]
+        code = sboard % 16.0
+        free = (wall < 0.5) & interior
+        gap = free & (code == 0)
+        for nm in res_names:
+            gap &= S["res_" + nm][:, b] < 0.5
+        n_pred = int((S["predator"][:, b] > 0.5).sum())
+        S["predator"][:, b] = 0.0
+        if n_pred:
+            S["predator"][rng.choice(np.flatnonzero(gap), n_pred, replace=False), b] = 1.0
+        pos = rng.choice(np.flatnonzero(free), size=n, replace=False)
+        special = free & (code >= 2)
+        for nm in res_names:
+            special |= S["res_" + nm][:, b] > 0.5
+        preds = np.flatnonzero(S["predator"][:, b] > 0.5)
+        if b % 4 == 1 and special.any():
+            pos[0] = rng.choice(np.flatnonzero(special))
+        elif b % 4 == 2 and preds.size:
+            nb = preds[0] + np.array([-1, 1, -W, W])
+            nb = nb[free[nb]]
+            if nb.size:
+                pos[0] = rng.choice(nb)
+        if len(set(pos.tolist())) < n:  # keep the agents on distinct cells
+            rest = np.setdiff1d(np.flatnonzero(free), pos[:1])
+            pos[1:] = rng.choice(rest, size=n - 1, replace=False)
+        S["pos"][:, b] = pos
+        for nm in res_names:
+            cur = S["res_" + nm][:, b]
+            on = np.flatnonzero(cur > 0.5)
+            if on.size and rng.random() < 0.5:
+                cur[rng.choice(on)] = 0.0
+            off = np.flatnonzero(gap & (cur < 0.5) & (S["predator"][:, b] < 0.5))
+            if off.size:
+                cur[rng.choice(off, min(2, off.size), replace=False)] = 1.0
+    for nm in res_names:
+        av = rng.integers(0, 21, (1, batch)).astype(np.float32)
+        frac = rng.uniform(0.01, 0.99, (1, batch)).astype(np.float32)
+        S["avail_" + nm] = np.where(rng.random((1, batch)) < 0.5, av,
+                                    np.minimum(av + frac, 20.0)).astype(np.float32)
+    for k in ("act_dir", "obs_dir"):
+        S[k] = rng.integers(0, 4, (n, batch)).astype(np.int32)
+    for k in ("safety", "safety2"):
+        S[k] = rng.integers(0, 12, (n, batch)).astype(np.int32)
+    for k in ("drink_sat", "food_sat"):
+        S[k] = (rng.integers(-110, 31, (n, batch)) * np.float32(0.2)).astype(
+            np.float32)
+    S["drink_sat"][:, ::16] = np.float32(-20.0)
+    S["visits"] = rng.integers(0, 5, S["visits"].shape).astype(np.int32)
+    S["stats_rewards"] = rng.integers(
+        -300, 300, S["stats_rewards"].shape).astype(np.float32)
+    S["stats_episodes"] = rng.integers(0, 30, (1, batch)).astype(np.int32)
+    T = fused.max_iterations
+    t = rng.integers(0, T, batch)
+    t[::2] = rng.integers(max(0, T - 4), T, (batch + 1) // 2)
+    S["t"][0] = t
+    # Step counts: a complete round (all equal) or one in progress.
+    count = np.repeat((t // n)[None], n, axis=0)
+    partial = rng.random(batch) < 0.5
+    count[0, partial] += 1
+    S["step_count"] = count.astype(np.int32)
     kind = rng.random(batch)
     S["step_types"][:] = 1
     S["reasons"][:] = -1

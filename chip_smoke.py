@@ -102,18 +102,51 @@ Phases, in order; any failure exits non-zero before the last line:
    K7: B = 64, 40 updates, then ``evaluate`` on 128 steps over 64 lanes;
    more than 50 episodes, a return gain above 30 and a final return above
    -10;
-20. one JSON line of kernel results: ``kernels`` holds K1 with its launches
+20. K8 ``fused_savanna_rollout`` against the plain aintelope_savanna
+   rollout on the card, every state field exactly equal, at B = 4096: the
+   default config (level 0, one agent, the per-episode redraw) with
+   ``max_iterations=100`` for 300 steps, the same with
+   ``sustainability_challenge=True``, FULL (level 0 with predators, water,
+   gold, silver and every resource, two agents) with ``max_iterations=60``
+   for 200 steps, FULL with sustainability for 100,
+   ``map_randomization_frequency=1, max_iterations=20`` with
+   ``layout_pool=3`` for 200, 100 steps from ``interop.busy_savanna_state``
+   (FULL with sustainability) and K8's linear branch on FULL over 200 steps
+   with numpy-seeded per-lane W, b and eps = 0.1;
+21. the savanna main path: ``BatchedEnv("aintelope_savanna",
+   batch_size=4096, device="cuda").rollout(256)`` three times, then the same
+   with ``sustainability_challenge=True``, with the launch counters set to 0
+   just before and read just after (K8 once per call); env-steps/s and the
+   host's share of a call beside K8's time, the plain version's time, the
+   bound (``savanna_step_ops``) and K8's time by lane count (4096, 65536,
+   262144);
+22. K9 ``fused_savanna_collect`` against the plain collection at B = 4096,
+   T = 64, H = 64 on the default config and on FULL, teacher-forced and
+   free-running, within phase 7's limits;
+23. the savanna training path: ``make_train_step(FusedSavanna(
+   AIntelopeSavanna()), FusedPPOConfig(n_steps=64, n_epochs=2,
+   n_minibatches=4), device="cuda")`` at B = 4096 (``bench.py``'s
+   ``ppo_savanna_train`` line): one warm-up step, then 3 timed steps with
+   the launch counters set to 0 just before and read just after (K9 once
+   per step); training env-steps/s, K9's time, the share of a step outside
+   K9 and the device's idle share;
+24. the aintelope_savanna learning gate of ``tests/test_ppo_learning.py::
+   test_fused_ppo_learns_savanna`` through K9: ``max_iterations=50``, B =
+   64, 60 updates, then ``evaluate`` on 128 steps over 64 lanes; more than
+   50 episodes, a return gain above 15 and a final return above -15;
+25. one JSON line of kernel results: ``kernels`` holds K1 with its launches
    on the main path (phase 5) and on the policy-search check (phase 6), K3
    with its launches on the training path (phase 8), K4 with its launches on
    the scalar main path (phase 11), K5 with its launches on the scalar
    training path (phase 13), K6 with its launches on the island main path
-   (phase 16) and K7 with its launches on the island training path (phase
-   18), each with its largest error against its plain version, its times,
+   (phase 16), K7 with its launches on the island training path (phase
+   18), K8 with its launches on the savanna main path (phase 21) and K9 with
+   its launches on the savanna training path (phase 23), each with its largest error against its plain version, its times,
    its bound (the least time the card could take: bytes over 3.35 TB/s or
    operations over 67 T/s, whichever is larger, counted from this run's
    inputs) and ``library_ms`` (null: no single PyTorch call computes these
    functions); ``checked_off_path`` holds K2, which no driven path launches
-   (K1 and K3-K7 inline the same PRF header), with its phase-3 launches;
+   (K1 and K3-K9 inline the same PRF header), with its phase-3 launches;
    then the card's name and power limit and the last line ``{"ok": true,
    "device": {...}}``.
 
@@ -217,6 +250,40 @@ K6_CHECKS = (
     ("busy", {}, 1, 100, "busy"),
 )
 ISLAND_SWEEP = (BATCH, 16 * BATCH, 64 * BATCH)
+K8_REPLACES = (
+    "ai_safety_gridworlds_tpu/ops/fused_base.py:432 (_rollout_pallas_call, "
+    "pallas_call :491) x ai_safety_gridworlds_tpu/ops/fused_savanna.py:702 "
+    "(FusedSavanna._step), :630 (_redraw_layout), :86 (_lut_select), :611 "
+    "(_policy_feats) x ai_safety_gridworlds_tpu/ops/fused_base.py:360 "
+    "(_pool_select)"
+)
+K9_REPLACES = (
+    "ai_safety_gridworlds_tpu/ops/fused_base.py:635 (_rollout_collect_pallas, "
+    "pallas_call :718) x :594 (_collect_step) x :582 (_bootstrap_value) x "
+    "ai_safety_gridworlds_tpu/ops/fused_savanna.py:702 (FusedSavanna._step), "
+    ":630 (_redraw_layout)"
+)
+# Level 0 with every savanna feature its art holds.
+SAVANNA_FULL = dict(
+    level=0, amount_agents=2, amount_predators=3, amount_water_tiles=3,
+    amount_gold_deposits=2, amount_silver_deposits=2, amount_drink_holes=2,
+    amount_small_food_patches=1, amount_small_drink_holes=1,
+    penalise_oversatiation=True, thirst_hunger_death=True,
+)
+SAVANNA_SUSTAIN = {"sustainability_challenge": True}
+# (label, env kwargs, layout pool, steps, start) of the K8 checks; "busy" is
+# interop.busy_savanna_state(fused, SEED, BATCH).
+K8_CHECKS = (
+    ("default", {"max_iterations": 100}, 1, 300, "init"),
+    ("sustain", dict(SAVANNA_SUSTAIN, max_iterations=100), 1, 300, "init"),
+    ("full", dict(SAVANNA_FULL, max_iterations=60), 1, 200, "init"),
+    ("full_sustain", dict(SAVANNA_FULL, **SAVANNA_SUSTAIN), 1, 100, "init"),
+    ("pool3", {"map_randomization_frequency": 1, "max_iterations": 20}, 3, 200,
+     "init"),
+    ("busy", dict(SAVANNA_FULL, **SAVANNA_SUSTAIN), 1, 100, "busy"),
+)
+SAVANNA_SWEEP = (BATCH, 16 * BATCH, 64 * BATCH)
+SAVANNA_GATE_UPDATES = 60
 SCALAR_PLAIN_STEPS = 256
 GATE_UPDATES = 40
 POLICY_STEPS = 200
@@ -1002,6 +1069,357 @@ def island_phases(torch, np, dev, card, reset_counts, counts):
     }], island_launches["prf_words"] + train_launches["prf_words"]
 
 
+# Operations of the aintelope_savanna step, counted from fused_savanna.cu.
+# Per lane-step: each agent's action draw and Fisher-Yates swap and finalize,
+# as on island (ISLAND_DRAW_OPS, ISLAND_SWAP_OPS, ISLAND_FINALIZE_OPS). Per
+# acting agent sub-step: the direction tables (4), the move (candidate,
+# clamp, wall read and test, the move test and puts 12, 2 per agent for the
+# occupancy), the sboard read and decode (5), the predator and curtain reads
+# (2 + 1 per resource), satiation and death tests (8), the four resources'
+# consumption tests and arithmetic (24), the NON_DRINK/NON_FOOD tests (4),
+# gold and silver tests and visits (8, and 2 logs, a subtraction and a
+# division when paid), the gap test (6), homeostasis (12), safety and water
+# (4): 95, 2 per agent, and about 3 reward rows of D adds.
+SAVANNA_SUBSTEP_OPS = 95
+SAVANNA_SUBSTEP_OPS_PER_AGENT = 2
+SAVANNA_SUBSTEP_REWARD_ROWS = 3
+# Per-cell passes: the predator distance (read, test, row and column,
+# Manhattan distance, minimum: 6 per cell) on each acting sub-step with
+# predators; the walk (the marking pass reads and tests every cell, 3, and
+# hashes each predator, 27 with uniform01 and the test; four direction
+# passes of two loops of 3; the final pass 2); a drape's count pass (2 per
+# cell), each pick's scan (the hash 21 and the score and the minimum 10 per
+# cell) and its apply pass (31 per cell); the redraw (clearing 6 per cell,
+# each pick a scan of the interior at 27 per cell, each water pick a
+# distance pass at 8 per cell).
+SAFETY2_OPS_PER_CELL = 6
+WALK_OPS_PER_CELL = 3 + 4 * 2 * 3 + 2
+WALK_OPS_PER_PREDATOR = 27
+DRAPE_COUNT_OPS_PER_CELL = 2
+DRAPE_SCAN_OPS_PER_CELL = 31
+DRAPE_APPLY_OPS_PER_CELL = 31
+REDRAW_CLEAR_OPS_PER_CELL = 6
+REDRAW_SCAN_OPS_PER_CELL = 27
+REDRAW_WATER_OPS_PER_CELL = 8
+
+
+def savanna_work(fused, S, n_steps, torch, params=None):
+    """What ``n_steps`` plain savanna steps from ``S`` do, counted from
+    their draws: acting agent sub-steps, lane-steps in which an agent acts
+    (the round's last agent walks the predators once a step), redraws,
+    drape count passes, drape picks (cells a drape removed or spawned), and
+    drapes that applied picks. Returns (counts dict, final state)."""
+    res = [sp["name"] for sp in fused.res_specs
+           if fused.sustain and not sp["use_metric"]]
+    w = dict(acting=0, acting_steps=0, redraws=0, drape_passes=0,
+             drape_picks=0, drape_applies=0)
+    for _ in range(n_steps):
+        before = {nm: S["res_" + nm] > 0.5 for nm in res}
+        S, ex = fused.step(S, collect_draws=True, params=params)
+        acting = ex["actions"] >= 0
+        w["acting"] += int(acting.sum())
+        w["acting_steps"] += int(acting.any(dim=0).sum())
+        if fused.exact_reset:
+            w["redraws"] += int(ex["over"].sum())
+        w["drape_passes"] += int(acting.sum()) * len(res)
+        keep = ~ex["over"][0]
+        for nm in res:
+            prev = before[nm]
+            for k, slot in enumerate(ex["slots"]):
+                now = slot[nm + "_after"]
+                changed = (now != prev).sum(dim=0)
+                if k == 0:
+                    changed = changed * keep  # a reset is no drape
+                w["drape_picks"] += int(changed.sum())
+                w["drape_applies"] += int((changed > 0).sum())
+                prev = now
+    return w, S
+
+
+def savanna_step_ops(fused, lane_steps, w):
+    """Operations of ``lane_steps`` savanna lane-steps with the per-cell
+    work ``w`` of ``savanna_work``."""
+    n, D, HW = fused.n, fused.D, fused.HW
+    env = fused.env
+    per_step = (n * ISLAND_DRAW_OPS + (n - 1) * ISLAND_SWAP_OPS
+                + n * (ISLAND_FINALIZE_OPS + D))
+    per_substep = (SAVANNA_SUBSTEP_OPS + n * SAVANNA_SUBSTEP_OPS_PER_AGENT
+                   + SAVANNA_SUBSTEP_REWARD_ROWS * D)
+    ops = lane_steps * per_step + w["acting"] * per_substep
+    if env._has_predators:
+        n_pred = sum(1 for kind, _ in fused._placement_spec if kind == "predator")
+        ops += w["acting"] * HW * SAFETY2_OPS_PER_CELL
+        ops += w["acting_steps"] * (HW * WALK_OPS_PER_CELL
+                                    + n_pred * WALK_OPS_PER_PREDATOR)
+    ops += w["drape_passes"] * HW * DRAPE_COUNT_OPS_PER_CELL
+    ops += w["drape_picks"] * HW * DRAPE_SCAN_OPS_PER_CELL
+    ops += w["drape_applies"] * HW * DRAPE_APPLY_OPS_PER_CELL
+    if w["redraws"]:
+        T = len(fused._placement_spec)
+        n_water = sum(1 for kind, _ in fused._placement_spec if kind == "water")
+        interior = (fused.h - 2) * (fused.w - 2)
+        ops += w["redraws"] * (HW * REDRAW_CLEAR_OPS_PER_CELL
+                               + T * interior * REDRAW_SCAN_OPS_PER_CELL
+                               + n_water * HW * REDRAW_WATER_OPS_PER_CELL)
+    return ops
+
+
+def savanna_phases(torch, np, dev, card, reset_counts, counts):
+    """Phases 20-24: K8 and K9 against their plain versions, the savanna
+    main path (default and sustainability) with K8's lane sweep, the savanna
+    training path and the savanna learning gate. Returns the ``kernels``
+    entries of K8 and K9 and the K2 launches of the driven paths."""
+    from ai_safety_gridworlds_torch.envs.aintelope_savanna import (
+        AIntelopeSavanna,
+    )
+    from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv
+    from ai_safety_gridworlds_torch.learners import ppo_fused
+    from ai_safety_gridworlds_torch.ops import interop
+    from ai_safety_gridworlds_torch.ops.fused_savanna import (
+        FusedSavanna,
+        fused_savanna_collect,
+        fused_savanna_rollout,
+    )
+
+    # ---- 20. K8 against the plain rollout
+    log("== 20. K8 fused_savanna_rollout vs plain rollout")
+    k8_err = 0.0
+    for label, kw, K, steps, start in K8_CHECKS:
+        fused = FusedSavanna(AIntelopeSavanna(**kw))
+        S0 = fused.init_packed(SEED, BATCH, dev, layout_pool=K)
+        if start == "busy":
+            S0 = interop.busy_savanna_state(fused, SEED, BATCH, dev)
+        t0 = time.perf_counter()
+        Sk = fused.rollout(S0, steps)
+        torch.cuda.synchronize()
+        tk = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        Sp = fused.rollout_plain(S0, steps)
+        torch.cuda.synchronize()
+        tp = time.perf_counter() - t0
+        k8_err = max(k8_err, rollout_equal(f"K8 {label}", fused, Sk, Sp, torch))
+        eps = Sk["stats_episodes"] - S0["stats_episodes"]
+        moved = int((Sk["predator"] != S0["predator"]).any(dim=0).sum())
+        redrawn = (int((Sk["sboard"] != S0["sboard"]).any(dim=0).sum())
+                   if fused.exact_reset else 0)
+        log(f"K8 {label}: {steps} steps equal in all {len(fused.STATE_FIELDS)} "
+            f"fields; episodes per lane {int(eps.min())}..{int(eps.max())}; "
+            f"reward sums {Sk['stats_rewards'].sum(dim=1).tolist()}; lanes "
+            f"with moved predators {moved}, with a redrawn layout {redrawn}; "
+            f"kernel {tk:.3f} s, plain {tp:.3f} s")
+        if start == "init" and fused.max_iterations <= 100 and int(eps.min()) < 2:
+            fail(f"K8 {label} did not cross two auto-resets")
+        if fused.exact_reset and start == "init" and kw.get("max_iterations") \
+                and redrawn < BATCH:
+            fail(f"K8 {label}: a lane kept its layout across its resets")
+        if fused.env._has_predators and moved == 0:
+            fail(f"K8 {label}: no predator moved")
+        if K > 1 and int(Sk["ep_idx"].max()) < K:
+            fail(f"K8 {label} did not cycle the layout pool")
+        if start == "busy" and int(Sk["draw_ctr"].to(torch.int64).min()) >= steps:
+            fail(f"K8 {label} did not cross the draw-counter wrap")
+    fused = FusedSavanna(AIntelopeSavanna(**dict(SAVANNA_FULL,
+                                                 max_iterations=60)))
+    A, F = fused.amax - fused.amin + 1, fused.POLICY_FEATURES
+    rng = np.random.default_rng(SEED)
+    fused.set_policies(rng.normal(size=(BATCH, A, F)).astype(np.float32),
+                       rng.normal(size=(BATCH, A)).astype(np.float32), 0.1)
+    S0 = fused.init_packed(SEED, BATCH, dev)
+    pol_before = fused_savanna_rollout.launches
+    Sk, Sp = fused.rollout(S0, POLICY_STEPS), fused.rollout_plain(S0, POLICY_STEPS)
+    k8_err = max(k8_err, rollout_equal("K8 linear policy", fused, Sk, Sp, torch))
+    k8_pol_launches = fused_savanna_rollout.launches - pol_before
+    k8_linear_ms = cuda_ms(lambda: fused.rollout(S0, POLICY_STEPS), 3, torch)
+    fused.set_policies(None, None)
+    k8_uniform_ms = cuda_ms(lambda: fused.rollout(S0, POLICY_STEPS), 3, torch)
+    log(f"K8 linear policy on FULL: {POLICY_STEPS} steps equal in all fields; "
+        f"rollout({POLICY_STEPS}) at B={BATCH}: linear {k8_linear_ms:.3f} ms, "
+        f"uniform {k8_uniform_ms:.3f} ms  [{card}]")
+
+    # ---- 21. the savanna main path
+    log("== 21. savanna main path: BatchedEnv('aintelope_savanna', 4096, "
+        "device='cuda'), default and sustainability_challenge=True")
+    rows = []
+    main_launches = 0
+    for label, kw in (("default", {}), ("sustain", SAVANNA_SUSTAIN)):
+        env = BatchedEnv("aintelope_savanna", batch_size=BATCH, seed=SEED,
+                         device="cuda", **kw)
+        if env.kernel != "fused_cuda":
+            fail(f"BatchedEnv reports kernel {env.kernel!r}")
+        fused = env.fused
+        S_start = {k: v.clone() for k, v in env.state.items()}
+        torch.cuda.synchronize()
+        reset_counts()
+        call_s = []
+        for call in range(MAIN_CALLS):
+            t0 = time.perf_counter()
+            stats = env.rollout(MAIN_STEPS)  # fetches stats: synchronises
+            call_s.append(time.perf_counter() - t0)
+            if fused_savanna_rollout.launches != call + 1:
+                fail("K8 launch count did not rise by one per rollout call")
+            if (stats["steps"] != BATCH * MAIN_STEPS
+                    or not np.isfinite(stats["sum_rewards"]).all()
+                    or not np.any(stats["sum_rewards"] != 0)):
+                fail(f"bad stats {stats}")
+        launches = counts()
+        log(f"launch counts over the savanna {label} main path: {launches}")
+        if (launches["fused_savanna_rollout"] != MAIN_CALLS
+                or sum(launches.values()) != MAIN_CALLS):
+            fail("the savanna main path did not run on K8 alone, once per call")
+        main_launches += launches["fused_savanna_rollout"]
+        ms = cuda_ms(lambda: fused.rollout(S_start, MAIN_STEPS), 5, torch)
+        for call, s_ in enumerate(call_s):
+            log(f"savanna {label} rollout call {call}: {s_ * 1e3:.3f} ms host "
+                f"clock, {BATCH * MAIN_STEPS / s_:.0f} env-steps/s, host share "
+                f"{1 - ms / (s_ * 1e3):.2%} beside K8's {ms:.3f} ms  [{card}]")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused.rollout_plain(S_start, MAIN_STEPS)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        work, _ = savanna_work(fused, S_start, MAIN_STEPS, torch)
+        # Bytes: the state, boards included, read and written once.
+        b_ms, b_by = bound(2 * 4 * state_words(fused) * BATCH,
+                           savanna_step_ops(fused, BATCH * MAIN_STEPS, work))
+        log(f"K8 {label} rollout({MAIN_STEPS}) at B={BATCH}: {ms:.3f} ms "
+            f"({BATCH * MAIN_STEPS / ms * 1e3:.0f} env-steps/s), work {work}, "
+            f"bound {b_ms:.5f} ms ({b_by}); plain {plain_ms:.3f} ms  [{card}]")
+        rows.append({"config": label, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by})
+        for b in SAVANNA_SWEEP:
+            S_b = fused.init_packed(SEED, b, dev)
+            ms_b = cuda_ms(lambda: fused.rollout(S_b, MAIN_STEPS), 3, torch)
+            log(f"K8 sweep: {label} rollout({MAIN_STEPS}) B={b}: {ms_b:.3f} ms, "
+                f"{b * MAIN_STEPS / ms_b * 1e3:.0f} env-steps/s  [{card}]")
+            del S_b
+        del env
+    main_prf = launches["prf_words"]
+
+    # ---- 22. K9 against the plain collection
+    log("== 22. K9 fused_savanna_collect vs plain collection")
+    k9_err, exempt_total, flipped_total, diverged = 0.0, 0, 0, {}
+    for label, kw in (("default", {}), ("full", SAVANNA_FULL)):
+        fused = FusedSavanna(AIntelopeSavanna(**kw))
+        err, exempt, flipped, div = check_collect(
+            f"K9 {label}", fused, seeded_params(fused, dev, np),
+            lambda seed: interop.busy_savanna_state(fused, seed, BATCH, dev),
+            dev, torch,
+        )
+        k9_err = max(k9_err, err)
+        exempt_total += exempt
+        flipped_total += flipped
+        diverged.update({f"{label}_{k}": v for k, v in div.items()})
+
+    # ---- 23. the savanna training path
+    log("== 23. savanna training path: make_train_step(FusedSavanna("
+        f"AIntelopeSavanna()), ..., device='cuda'), B={BATCH}, H={HIDDEN}")
+    cfg = ppo_fused.FusedPPOConfig(n_steps=COLLECT_STEPS, n_epochs=2,
+                                   n_minibatches=4, hidden=HIDDEN)
+    fused = FusedSavanna(AIntelopeSavanna())
+    state = ppo_fused.init_train_state(fused, BATCH, seed=SEED, config=cfg,
+                                       device="cuda")
+    train_step = ppo_fused.make_train_step(fused, cfg, device="cuda")
+    state, metrics = train_step(state)  # warm-up
+    torch.cuda.synchronize()
+    step_s = []
+    reset_counts()
+    for call in range(TRAIN_CALLS):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if fused_savanna_collect.launches != call + 1:
+            fail("K9 did not launch once per train_step")
+    train_launches = counts()
+    log(f"launch counts over the savanna training path: {train_launches}")
+    if (train_launches["fused_savanna_collect"] != TRAIN_CALLS
+            or sum(train_launches.values()) != TRAIN_CALLS):
+        fail("the savanna training path did not run on K9 alone")
+    for k, v in metrics.items():
+        if not bool(torch.isfinite(v).all()):
+            fail(f"non-finite training metric {k}")
+    env_steps = COLLECT_STEPS * BATCH
+    for call, s_ in enumerate(step_s):
+        log(f"savanna train_step {call}: {s_ * 1e3:.3f} ms host clock, "
+            f"{env_steps / s_:.0f} training env-steps/s  [{card}]")
+    params = {k: v.detach() for k, v in state.params.items()}
+    S_c = state.S
+    k9_ms = cuda_ms(lambda: fused.rollout_collect(S_c, params, COLLECT_STEPS),
+                    3, torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused.rollout_collect_plain(S_c, params, COLLECT_STEPS)
+    torch.cuda.synchronize()
+    k9_plain_ms = (time.perf_counter() - t0) * 1e3
+    step_ms = sorted(step_s)[len(step_s) // 2] * 1e3
+    busy_ms, k9_prof_ms, top = device_busy_ms(lambda: train_step(state),
+                                              "sv_collect_kernel", torch)
+    idle = (f"device busy {busy_ms:.3f} ms (K9 {k9_prof_ms:.3f} ms; busiest "
+            f"{top}), idle share {1 - busy_ms / step_ms:.2%}" if busy_ms > 0
+            else "no device time recorded by the profiler")
+    log(f"K9 collect({COLLECT_STEPS}) at B={BATCH}, H={HIDDEN}: {k9_ms:.3f} ms; "
+        f"plain collection {k9_plain_ms:.3f} ms; median savanna train_step "
+        f"{step_ms:.3f} ms, {1 - k9_ms / step_ms:.2%} of it outside K9; "
+        f"{idle}  [{card}]")
+    work, _ = savanna_work(fused, S_c, COLLECT_STEPS, torch, params=params)
+    k9_bytes = (2 * 4 * state_words(fused) * BATCH
+                + 4 * sum(r for _, r, _ in fused._traj_layout()) * env_steps
+                + 4 * fused.n * BATCH
+                + 4 * sum(v.numel() for v in params.values()))
+    # The MLP runs for every agent on every lane-step (reset lanes too).
+    k9_bound_ms, k9_bound_by = bound(
+        k9_bytes, savanna_step_ops(fused, env_steps, work)
+        + fused.n * env_steps * mlp_ops(fused, HIDDEN)
+    )
+
+    # ---- 24. the savanna learning gate
+    log(f"== 24. learning gate: aintelope_savanna, max_iterations=50, B=64, "
+        f"{SAVANNA_GATE_UPDATES} updates")
+    fused = FusedSavanna(AIntelopeSavanna(max_iterations=50))
+    gcfg = ppo_fused.FusedPPOConfig(n_steps=32, n_epochs=2, n_minibatches=2,
+                                    hidden=32, lr=1e-3)
+    gstate = ppo_fused.init_train_state(fused, 64, seed=3, config=gcfg,
+                                        device="cuda")
+    gtrain = ppo_fused.make_train_step(fused, gcfg, device="cuda")
+    before = fused_savanna_collect.launches
+    t0 = time.perf_counter()
+    ev0 = ppo_fused.evaluate(fused, gstate.params, n_steps=128, batch=64,
+                             seed=9, device="cuda")
+    for _ in range(SAVANNA_GATE_UPDATES):
+        gstate, _ = gtrain(gstate)
+    ev1 = ppo_fused.evaluate(fused, gstate.params, n_steps=128, batch=64,
+                             seed=9, device="cuda")
+    r0, r1 = ev0["mean_episode_return"], ev1["mean_episode_return"]
+    log(f"r0 {r0}  r1 {r1}  episodes {ev0['episodes']} -> {ev1['episodes']}  "
+        f"({fused_savanna_collect.launches - before} K9 launches, "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if not (ev0["episodes"] > 50 and ev1["episodes"] > 50):
+        fail("the aintelope_savanna gate saw too few episodes")
+    if not (r1 - r0 > 15.0 and r1 > -15.0):
+        fail(f"the aintelope_savanna gate failed: r0 {r0}, r1 {r1}")
+
+    k8 = rows[0]
+    return [{
+        "name": "fused_savanna_rollout", "route": "cuda",
+        "source": "ai_safety_gridworlds_torch/ops/csrc/fused_savanna.cu",
+        "replaces": K8_REPLACES,
+        "launches": main_launches,
+        "policy_search_launches": k8_pol_launches,
+        "max_abs_err": k8_err, "ms": k8["ms"], "plain_ms": k8["plain_ms"],
+        "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"],
+        "library_ms": None, "per_config": rows,
+    }, {
+        "name": "fused_savanna_collect", "route": "cuda",
+        "source": "ai_safety_gridworlds_torch/ops/csrc/fused_savanna.cu",
+        "replaces": K9_REPLACES,
+        "launches": train_launches["fused_savanna_collect"],
+        "max_abs_err": k9_err, "ms": k9_ms, "plain_ms": k9_plain_ms,
+        "bound_ms": k9_bound_ms, "bound_by": k9_bound_by, "library_ms": None,
+        "exempt_lane_steps": exempt_total, "flipped_lane_steps": flipped_total,
+        "diverged_lanes": diverged,
+    }], main_prf + train_launches["prf_words"]
+
+
 def main():
     import torch
 
@@ -1023,6 +1441,10 @@ def main():
         fused_island_ma_collect,
         fused_island_ma_rollout,
     )
+    from ai_safety_gridworlds_torch.ops.fused_savanna import (
+        fused_savanna_collect,
+        fused_savanna_rollout,
+    )
     from ai_safety_gridworlds_torch.ops.fused_scalar import (
         fused_scalar_collect,
         fused_scalar_rollout,
@@ -1031,6 +1453,7 @@ def main():
     wrappers = (fused_firemaker_rollout, fused_firemaker_collect,
                 fused_scalar_rollout, fused_scalar_collect,
                 fused_island_ma_rollout, fused_island_ma_collect,
+                fused_savanna_rollout, fused_savanna_collect,
                 prng.prf_words)
 
     def reset_counts():
@@ -1346,8 +1769,10 @@ def main():
     scalar_kernels = scalar_phases(torch, np, dev, card, reset_counts, counts)
     island_kernels, island_prf = island_phases(torch, np, dev, card,
                                                reset_counts, counts)
+    savanna_kernels, savanna_prf = savanna_phases(torch, np, dev, card,
+                                                  reset_counts, counts)
 
-    # ---- 20. results
+    # ---- 25. results
     k2_bound_ms, k2_bound_by = bound(24 * n_words, 24 * n_words)
     kernels = [{
         "name": "fused_firemaker_rollout", "route": "cuda",
@@ -1366,13 +1791,13 @@ def main():
         "bound_ms": k3_bound_ms, "bound_by": k3_bound_by, "library_ms": None,
         "exempt_lane_steps": exempt, "flipped_lane_steps": flipped,
         "diverged_lanes": diverged,
-    }] + scalar_kernels + island_kernels
+    }] + scalar_kernels + island_kernels + savanna_kernels
     checked_off_path = [{
         "name": "prf_words", "route": "cuda",
         "source": "ai_safety_gridworlds_torch/ops/csrc/prf_words.cu",
         "replaces": K2_REPLACES,
         "launches": (launches["prf_words"] + train_launches["prf_words"]
-                     + island_prf),
+                     + island_prf + savanna_prf),
         "check_launches": k2_check_launches,
         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound_ms, "bound_by": k2_bound_by, "library_ms": None,

@@ -116,6 +116,34 @@ def test_batched_env_island_ma_slice_matches_jax():
     assert first["sum_rewards"].shape == (env.fused.n * env.fused.D,)
 
 
+def test_batched_env_savanna_slice_matches_jax():
+    """The aintelope_savanna slice as a whole: registry -> make_fused ->
+    init_packed -> rollout, twice, across per-episode redraws, against the
+    JAX package's jitted XLA rollout from the same seed."""
+    from ai_safety_gridworlds_tpu import ops as jops
+    from ai_safety_gridworlds_tpu.helpers import factory as jfactory
+
+    env = BatchedEnv("aintelope_savanna", batch_size=32, seed=6,
+                     device="cpu", max_iterations=8)
+    assert env.kernel == "fused_torch" and env.fused.exact_reset
+    first, second = env.rollout(10), env.rollout(10)
+    jf = jops.make_fused(
+        jfactory.get_raw_env("aintelope_savanna", max_iterations=8)
+    )
+    jS = jf.rollout(jf.init_packed(seed=6, batch=32), 20, backend="xla")
+    for k in jf.STATE_FIELDS:
+        np.testing.assert_array_equal(
+            env.state[k].numpy(), np.asarray(jS[k]), err_msg=k
+        )
+    assert first["episodes"] + second["episodes"] == int(
+        np.asarray(jS["stats_episodes"]).sum()
+    ) > 0
+    np.testing.assert_array_equal(
+        first["sum_rewards"] + second["sum_rewards"],
+        np.asarray(jS["stats_rewards"]).astype(np.float64).sum(axis=-1),
+    )
+
+
 def test_batched_rollout_one_call():
     stats = batched_rollout("firemaker_ex_ma", batch_size=8, n_steps=4,
                             device="cpu", seed=1)
@@ -129,7 +157,7 @@ def test_unported_names_and_backends_raise():
     with pytest.raises(NotImplementedError, match="not ported yet"):
         factory.get_raw_env("island_navigation_ex")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tops.make_fused(type("Env", (), {"name": "aintelope_savanna"})())
+        tops.make_fused(type("Env", (), {"name": "island_navigation_ex"})())
     with pytest.raises(NotImplementedError, match="not ported yet"):
         BatchedEnv("firemaker_ex_ma", batch_size=8, device="cpu",
                    backend="generic")
@@ -163,11 +191,14 @@ def test_port_imports_without_jax():
         "from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv\n"
         "import ai_safety_gridworlds_torch.ops.fused_scalar\n"
         "import ai_safety_gridworlds_torch.ops.fused_island_ma\n"
+        "import ai_safety_gridworlds_torch.ops.fused_savanna\n"
         "import ai_safety_gridworlds_torch.mo.map_randomization\n"
         "BatchedEnv('firemaker_ex_ma', batch_size=4, device='cpu').rollout(2)\n"
         "BatchedEnv('boat_race', 4, device='cpu').rollout(2)\n"
         "BatchedEnv('island_navigation_ex_ma', 4, device='cpu',\n"
         "           map_randomization_frequency=1).rollout(2)\n"
+        "BatchedEnv('aintelope_savanna', 4, device='cpu',\n"
+        "           sustainability_challenge=True).rollout(2)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ai_safety_gridworlds_tpu')]\n"
         "assert not bad, bad\n"

@@ -5,11 +5,11 @@ fixture, never at import). On a machine with a card:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Tolerance 0 for K1, K2, K4 and K6, which are built to be bit-equal to the
-plain versions (see ``ops/_cuda.py`` on ``--fmad=false``), with a linear
-policy too; K6 also under sustainability regrowth, where it and the plain
-version reach the same ``expf``/``logf``. K3, K5 and K7 (the PPO
-collections) equal the plain collection in the integer state and records except on lanes whose site-0 uniform lies within 1e-6 of
+Tolerance 0 for K1, K2, K4, K6 and K8, which are built to be bit-equal to
+the plain versions (see ``ops/_cuda.py`` on ``--fmad=false``), with a linear
+policy too; K6 and K8 also under sustainability regrowth and K8 in its gold
+and silver log rewards, where the kernel and the plain version reach the
+same ``expf``/``logf``. K3, K5, K7 and K9 (the PPO collections) equal the plain collection in the integer state and records except on lanes whose site-0 uniform lies within 1e-6 of
 a cumulative softmax sum (``expf``/``logf`` may round differently from
 PyTorch's), and agrees within 1e-5 in logp, value and boot.
 """
@@ -44,6 +44,12 @@ from ai_safety_gridworlds_torch.ops.fused_island_ma import (
     FusedIslandMa,
     fused_island_ma_collect,
     fused_island_ma_rollout,
+)
+from ai_safety_gridworlds_torch.envs.aintelope_savanna import AIntelopeSavanna
+from ai_safety_gridworlds_torch.ops.fused_savanna import (
+    FusedSavanna,
+    fused_savanna_collect,
+    fused_savanna_rollout,
 )
 
 pytestmark = pytest.mark.cuda
@@ -509,6 +515,148 @@ def test_island_batched_env_and_train_step_on_the_card(dev):
     before = fused_island_ma_collect.launches
     state, metrics = step(state)
     assert fused_island_ma_collect.launches == before + 1
+    for k, v in metrics.items():
+        assert bool(torch.isfinite(v).all()), k
+    assert max(float((state.params[k].detach() - p0[k]).abs().max())
+               for k in p0) > 0
+
+
+# Level 0 with every savanna feature its art holds.
+SAVANNA_FULL = dict(
+    level=0, amount_agents=2, amount_predators=3, amount_water_tiles=3,
+    amount_gold_deposits=2, amount_silver_deposits=2, amount_drink_holes=2,
+    amount_small_food_patches=1, amount_small_drink_holes=1,
+    penalise_oversatiation=True, thirst_hunger_death=True,
+)
+SAVANNA_RICH = dict(
+    level=13, amount_agents=2, amount_predators=2, amount_drink_holes=2,
+    amount_gold_deposits=2, amount_silver_deposits=2, amount_water_tiles=2,
+    penalise_oversatiation=True, thirst_hunger_death=True,
+)
+# (id, env kwargs, init_packed kwargs, start)
+SAVANNA = [
+    ("default", {"max_iterations": 20}, {}, "init"),
+    ("sustain", {"sustainability_challenge": True, "max_iterations": 20}, {},
+     "init"),
+    ("full", dict(SAVANNA_FULL, max_iterations=20), {}, "init"),
+    ("full_sustain", dict(SAVANNA_FULL, sustainability_challenge=True,
+                          max_iterations=20), {}, "init"),
+    ("rich", dict(SAVANNA_RICH, max_iterations=12), {}, "init"),
+    ("pool3", dict(SAVANNA_FULL, map_randomization_frequency=1,
+                   max_iterations=10), {"layout_pool": 3}, "init"),
+    ("no_exact_reset", dict(SAVANNA_FULL, max_iterations=10),
+     {"exact_reset": False}, "init"),
+    ("busy", {}, {}, "busy"),
+    ("busy_full_sustain", dict(SAVANNA_FULL, sustainability_challenge=True),
+     {}, "busy"),
+]
+
+
+def _savanna(kw, pack, start, dev, B=200, seed=5):
+    fused = FusedSavanna(AIntelopeSavanna(**kw))
+    S = fused.init_packed(seed, B, dev, **pack)
+    if start == "busy":
+        S = interop.busy_savanna_state(fused, seed, B, dev)
+    return fused, S
+
+
+@pytest.mark.parametrize("case", SAVANNA, ids=[c[0] for c in SAVANNA])
+@pytest.mark.parametrize("tile", [32, 128])
+def test_savanna_rollout_kernel_matches_plain(dev, case, tile):
+    _, kw, pack, start = case
+    fused, S0 = _savanna(kw, pack, start, dev)  # ragged: 200 lanes
+    before = fused_savanna_rollout.launches
+    Sk = fused.rollout(S0, 60, tile=tile)
+    assert fused_savanna_rollout.launches == before + 1
+    Sp = fused.rollout_plain(S0, 60)
+    for k in fused.STATE_FIELDS:
+        assert Sk[k].dtype == Sp[k].dtype, k
+        assert _equal(Sk[k], Sp[k]), k
+    assert int(Sk["stats_episodes"].sum()) > int(S0["stats_episodes"].sum())
+    if start == "busy":
+        assert int(Sk["draw_ctr"].to(torch.int64).min()) < 60  # wrapped
+
+
+def test_savanna_linear_policy_kernel_matches_plain_across_a_swap(dev):
+    fused, S0 = _savanna(dict(SAVANNA_FULL, max_iterations=30), {}, "busy",
+                         dev, seed=3)
+    B = S0["t"].shape[1]
+    finals = []
+    for seed in (1, 2):
+        fused.set_policies(*_policy(fused, B, seed))
+        Sk, Sp = fused.rollout(S0, 40), fused.rollout_plain(S0, 40)
+        for k in fused.STATE_FIELDS:
+            assert _equal(Sk[k], Sp[k]), k
+        finals.append(Sk["pos"])
+    assert not torch.equal(finals[0], finals[1])
+    fused.set_policies(None, None)
+
+
+@pytest.mark.parametrize("start", ["init", "busy"])
+def test_savanna_collect_kernel_matches_plain(dev, start):
+    fused, S0 = _savanna(dict(SAVANNA_FULL, max_iterations=30), {}, start,
+                         dev, B=256, seed=4)
+    params = _params(fused, dev)
+    before = fused_savanna_collect.launches
+    Sk, tk, bk = fused.rollout_collect(S0, params, 40)
+    assert fused_savanna_collect.launches == before + 1
+    statics = fused._collect_statics(S0, params)
+    S, exempt = S0, torch.zeros(256, dtype=torch.bool, device=dev)
+    recs = []
+    for _ in range(40):
+        S, rec, ex = fused._collect_step(S, statics)
+        exempt |= (ex["pol"]["cdf_gap"] < 1e-6).any(dim=0)
+        recs.append(rec)
+    keep = ~exempt
+    assert int(exempt.sum()) <= 2
+    for k in fused.STATE_FIELDS:
+        assert _equal(Sk[k], S[k], keep), k
+    for k in ("feats", "action", "reward", "done"):
+        assert _equal(tk[k], torch.stack([r[k] for r in recs]), keep), k
+    for k in ("logp", "value"):
+        torch.testing.assert_close(
+            tk[k][..., keep], torch.stack([r[k] for r in recs])[..., keep],
+            rtol=0, atol=1e-5,
+        )
+    boot = fused._bootstrap_value(S, statics)
+    torch.testing.assert_close(bk[:, keep], boot[:, keep], rtol=0, atol=1e-5)
+
+
+def test_savanna_kernels_reject_bad_inputs(dev):
+    fused, S = _savanna({}, {}, "init", dev, B=64)
+    before = fused_savanna_rollout.launches
+    with pytest.raises(ValueError):
+        fused.rollout({**S, "predator": S["predator"].double()}, 1)
+    with pytest.raises(ValueError):
+        fused.rollout({**S, "visits": S["visits"].t().contiguous().t()}, 1)
+    with pytest.raises(ValueError):
+        fused.rollout(S, 1, tile=48)
+    other = fused.init_packed(0, 32, dev)  # layouts drawn for 32 lanes
+    with pytest.raises(ValueError):
+        fused.rollout(S, 1)
+    assert fused_savanna_rollout.launches == before
+    with pytest.raises(ValueError):
+        fused.rollout_collect(other, _params(fused, dev, hidden=20000), 2)
+    assert torch.equal(fused.rollout(other, 0)["pos"], other["pos"])
+
+
+def test_savanna_batched_env_and_train_step_on_the_card(dev):
+    env = BatchedEnv("aintelope_savanna", batch_size=256, device=dev,
+                     max_iterations=10)
+    before = fused_savanna_rollout.launches
+    stats = env.rollout(23)  # 10 steps and a reset, twice
+    assert fused_savanna_rollout.launches == before + 1
+    assert env.kernel == "fused_cuda" and stats["episodes"] == 512
+    fused = FusedSavanna(AIntelopeSavanna(max_iterations=20))
+    config = ppo_fused.FusedPPOConfig(n_steps=16, n_epochs=2, n_minibatches=4,
+                                      hidden=32)
+    state = ppo_fused.init_train_state(fused, 256, seed=1, config=config,
+                                       device="cuda")
+    p0 = {k: v.detach().clone() for k, v in state.params.items()}
+    step = ppo_fused.make_train_step(fused, config, device="cuda")
+    before = fused_savanna_collect.launches
+    state, metrics = step(state)
+    assert fused_savanna_collect.launches == before + 1
     for k, v in metrics.items():
         assert bool(torch.isfinite(v).all()), k
     assert max(float((state.params[k].detach() - p0[k]).abs().max())
