@@ -4,8 +4,9 @@ Port of ``ai_safety_gridworlds_tpu/helpers/batched.py``:
 ``BatchedEnv(name, batch_size, device=...)`` resolves the registered env,
 asks :func:`ai_safety_gridworlds_torch.ops.make_fused` for its fused driver
 (firemaker_ex_ma, island_navigation_ex_ma, aintelope_savanna, boat_race,
-island_navigation and boat_race_ex so far; any other name raises
-``NotImplementedError``) and packs
+island_navigation, boat_race_ex, island_navigation_ex, absent_supervisor,
+distributional_shift, safe_interruptibility and safe_interruptibility_ex so
+far; any other name raises ``NotImplementedError``) and packs
 ``batch_size`` auto-resetting lanes on ``device``. On a CUDA
 device every ``rollout`` is one launch of the hand-written kernel
 (``kernel == "fused_cuda"``); on the CPU it runs the plain PyTorch version

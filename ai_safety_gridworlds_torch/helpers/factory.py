@@ -3,25 +3,41 @@
 Port of ``get_raw_env`` from ``ai_safety_gridworlds_tpu/helpers/factory.py``
 for the environments ported so far (firemaker_ex_ma,
 island_navigation_ex_ma, aintelope_savanna, boat_race, island_navigation,
-boat_race_ex); the stateful shells and adapters come with later slices
-(``ROADMAP.md``).
+boat_race_ex, island_navigation_ex, absent_supervisor, distributional_shift,
+safe_interruptibility, safe_interruptibility_ex); the stateful shells and
+adapters come with later slices (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
 
 def _raw_registry() -> dict:
+    from ai_safety_gridworlds_torch.envs.absent_supervisor import (
+        AbsentSupervisor,
+    )
     from ai_safety_gridworlds_torch.envs.aintelope_savanna import (
         AIntelopeSavanna,
     )
     from ai_safety_gridworlds_torch.envs.boat_race import BoatRace
     from ai_safety_gridworlds_torch.envs.boat_race_ex import BoatRaceEx
+    from ai_safety_gridworlds_torch.envs.distributional_shift import (
+        DistributionalShift,
+    )
     from ai_safety_gridworlds_torch.envs.firemaker_ex_ma import FiremakerExMa
     from ai_safety_gridworlds_torch.envs.island_navigation import (
         IslandNavigation,
     )
+    from ai_safety_gridworlds_torch.envs.island_navigation_ex import (
+        IslandNavigationEx,
+    )
     from ai_safety_gridworlds_torch.envs.island_navigation_ex_ma import (
         IslandNavigationExMa,
+    )
+    from ai_safety_gridworlds_torch.envs.safe_interruptibility import (
+        SafeInterruptibility,
+    )
+    from ai_safety_gridworlds_torch.envs.safe_interruptibility_ex import (
+        SafeInterruptibilityEx,
     )
 
     return {
@@ -31,6 +47,11 @@ def _raw_registry() -> dict:
         "boat_race": BoatRace,
         "island_navigation": IslandNavigation,
         "boat_race_ex": BoatRaceEx,
+        "island_navigation_ex": IslandNavigationEx,
+        "absent_supervisor": AbsentSupervisor,
+        "distributional_shift": DistributionalShift,
+        "safe_interruptibility": SafeInterruptibility,
+        "safe_interruptibility_ex": SafeInterruptibilityEx,
     }
 
 

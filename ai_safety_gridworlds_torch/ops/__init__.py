@@ -3,8 +3,10 @@ CPU tensors.
 
 Port of ``ai_safety_gridworlds_tpu/ops/__init__.py``. Ported so far: the
 ``firemaker_ex_ma``, ``island_navigation_ex_ma`` and ``aintelope_savanna``
-kernels and the scalar shell with the ``boat_race``, ``island_navigation``
-and ``boat_race_ex`` bodies.
+kernels and the scalar shell with the ``boat_race``, ``island_navigation``,
+``boat_race_ex``, ``island_navigation_ex``, ``absent_supervisor``,
+``distributional_shift``, ``safe_interruptibility`` and
+``safe_interruptibility_ex`` bodies.
 """
 
 import torch
@@ -14,6 +16,11 @@ _SCALAR = {
     "boat_race": "FusedBoatRace",
     "island_navigation": "FusedIslandNav",
     "boat_race_ex": "FusedBoatRaceEx",
+    "island_navigation_ex": "FusedIslandNavEx",
+    "absent_supervisor": "FusedAbsentSupervisor",
+    "distributional_shift": "FusedDistributionalShift",
+    "safe_interruptibility": "FusedSafeInterruptibility",
+    "safe_interruptibility_ex": "FusedSafeInterruptibilityEx",
 }
 
 

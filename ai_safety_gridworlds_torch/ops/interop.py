@@ -73,26 +73,50 @@ def busy_firemaker_state(fused, seed: int, batch: int, device) -> dict:
 
 def busy_scalar_state(fused, seed: int, batch: int, device) -> dict:
     """A numpy-seeded mid-episode state of a fused scalar env on ``device``:
-    agents on random open cells (cells that end an episode only in lanes
-    about to reset), ``t`` near ``max_iterations`` in every other lane and
-    anywhere below it in the others, one lane in eight in LAST (it resets
-    on the next step), nonzero returns and stats, visit counts up to 4 on
-    the open cells of boat_race_ex's board, and draw counters anywhere in
-    uint32, every other lane within 64 of the wrap."""
+    agents on random open cells (cells that end an episode -- goal, water,
+    any lava layout -- only in lanes about to reset), ``t`` near
+    ``max_iterations`` in every other lane and anywhere below it in the
+    others, one lane in eight in LAST (it resets on the next step), nonzero
+    returns and stats, visit counts up to 4 (on the open cells of
+    boat_race_ex's board; in island_navigation_ex's five counters), and draw
+    counters anywhere in uint32, every other lane within 64 of the wrap.
+    island_navigation_ex also gets satiations from -22 to 6 (both sides of
+    the thresholds and at the death limits) and availabilities 0 to 20 with
+    fractions in (0, 1); the bodies with per-episode draws get episode
+    values the env can draw (the supervisor, a lava layout, the
+    interruption), and safe_interruptibility one lane in eight on the
+    interruption tile and, with a button, one in eight on the button with
+    ``pressed`` set at random."""
     rng = np.random.default_rng(seed)
     S = state_to_numpy(fused.init_packed(seed, batch, "cpu"))
     st = fused._kstatics_np
     open_cells = st["wall"][:, 0] < 0.5
     ending = np.zeros_like(open_cells)
-    for k in ("water", "goal", "ongoal"):
+    for k in ("water", "goal", "ongoal", "lava0", "lava1", "lava2"):
         if k in st:
             ending |= st[k][:, 0] > 0.5
+    if "sboard" in st:  # island_navigation_ex: water (2) and goal (3) codes
+        code = st["sboard"][:, 0] % 16.0
+        ending |= (code == 2.0) | (code == 3.0)
     last = rng.random(batch) < 0.125
     safe = np.flatnonzero(open_cells & ~ending)
     anywhere = np.flatnonzero(open_cells)
     S["pos"][0] = np.where(
         last, rng.choice(anywhere, batch), rng.choice(safe, batch)
     )
+    if "should" in S:
+        lanes = rng.random(batch)
+        S["pos"][0] = np.where(lanes < 0.125, fused.int_flat, S["pos"][0])
+        if fused.button_flat >= 0:
+            S["pos"][0] = np.where((lanes >= 0.125) & (lanes < 0.25),
+                                   fused.button_flat, S["pos"][0])
+            S["pressed"] = (rng.random((1, batch)) < 0.5).astype(np.float32)
+        p = fused.env.interruption_probability
+        S["should"] = (rng.random((1, batch)) <= p).astype(np.float32)
+    if "sup" in S and fused.fixed_sup is None:
+        S["sup"] = (rng.random((1, batch)) < 0.5).astype(np.float32)
+    if "level" in S and fused.env.is_testing and fused.env.level_choice is None:
+        S["level"] = rng.integers(1, 3, (1, batch)).astype(np.int32)
     T = fused.max_iterations
     t = rng.integers(1, T, batch)
     t[::2] = rng.integers(max(1, T - 8), T + 1, (batch + 1) // 2)
@@ -111,9 +135,18 @@ def busy_scalar_state(fused, seed: int, batch: int, device) -> dict:
     ctr[:, ::2] = rng.integers(2**32 - 64, 2**32, (1, (batch + 1) // 2),
                                dtype=np.uint32)
     S["draw_ctr"] = ctr
-    if "safety" in S:
+    if "sboard" in st:
+        S["safety"][0] = np.floor(st["sboard"][S["pos"][0], 0] / 16.0)
+        for k in ("drink_sat", "food_sat"):
+            S[k] = rng.integers(-22, 7, (1, batch)).astype(np.float32)
+        for k in ("drink_avail", "food_avail"):
+            S[k] = rng.integers(0, 21, (1, batch)).astype(np.float32)
+        for k in ("drink_frac", "food_frac"):
+            S[k] = rng.uniform(0.01, 0.99, (1, batch)).astype(np.float32)
+        S["visits"] = rng.integers(0, 5, (5, batch)).astype(np.float32)
+    elif "safety" in S:
         S["safety"][0] = st["wdist"][S["pos"][0], 0]
-    if "visits" in S:
+    if fused.VISIT_BOARD:
         visits = rng.integers(0, 5, S["visits"].shape).astype(np.float32)
         visits *= open_cells[:, None]
         lanes = np.arange(batch)

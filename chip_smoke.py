@@ -134,11 +134,40 @@ Phases, in order; any failure exits non-zero before the last line:
    test_fused_ppo_learns_savanna`` through K9: ``max_iterations=50``, B =
    64, 60 updates, then ``evaluate`` on 128 steps over 64 lanes; more than
    50 episodes, a return gain above 15 and a final return above -15;
-25. one JSON line of kernel results: ``kernels`` holds K1 with its launches
+25. K4 against the plain scalar rollout on the new bodies, every state field
+   exactly equal, at B = 4096: island_navigation_ex's default config (level
+   9, sustainability regrowth through ``expf``/``logf``) for 300 steps
+   (auto-resets at ``max_iterations=100``), its full config of ``bench.py:
+   348-355`` (level 3, thirst death, oversatiation, proportional rewards) for
+   300, ``level=4, sustainability_challenge=False`` for 200 and 100 steps
+   from ``interop.busy_scalar_state``; absent_supervisor,
+   ``distributional_shift(is_testing=True)``, ``safe_interruptibility(level=0,
+   interruption_probability=1.0)`` and safe_interruptibility_ex (the bodies
+   with the per-episode draw at PRF site 1) for 300 steps from init and 100
+   from a busy state across the uint32 wrap of the doubled draw counter; and
+   K4's linear branch on island_navigation_ex over 200 steps;
+26. the new scalar main paths: ``BatchedEnv(name, batch_size=4096,
+   device="cuda").rollout(4096)`` three times for island_navigation_ex (default
+   and full) and each body with a reset draw, with the launch counters set to
+   0 just before and read just after each path (K4 once per call);
+   env-steps/s and the host's share of a call beside K4's time, the bound
+   (``scalar_step_ops`` and the reset draws), the plain version's time at
+   256 steps, and K4's time by lane count (4096, 65536, 262144) on
+   island_navigation_ex;
+27. K5 against the plain collection on island_navigation_ex and
+   absent_supervisor at B = 4096, T = 64, H = 64, teacher-forced and
+   free-running, within phase 7's limits;
+28. the island_navigation_ex training path: ``make_train_step(
+   FusedIslandNavEx(IslandNavigationEx()), FusedPPOConfig(n_steps=64,
+   n_epochs=2, n_minibatches=4), device="cuda")`` at B = 4096: one warm-up
+   step, then 3 timed steps with the launch counters set to 0 just before
+   and read just after (K5 once per step); training env-steps/s, K5's time,
+   the share of a step outside K5 and the device's idle share;
+29. one JSON line of kernel results: ``kernels`` holds K1 with its launches
    on the main path (phase 5) and on the policy-search check (phase 6), K3
    with its launches on the training path (phase 8), K4 with its launches on
-   the scalar main path (phase 11), K5 with its launches on the scalar
-   training path (phase 13), K6 with its launches on the island main path
+   the scalar main paths (phases 11 and 26, by path and env), K5 with its
+   launches on the scalar training paths (phases 13 and 28), K6 with its launches on the island main path
    (phase 16), K7 with its launches on the island training path (phase
    18), K8 with its launches on the savanna main path (phase 21) and K9 with
    its launches on the savanna training path (phase 23), each with its largest error against its plain version, its times,
@@ -192,15 +221,19 @@ K3_REPLACES = (
 K4_REPLACES = (
     "ai_safety_gridworlds_tpu/ops/fused_base.py:432 (_rollout_pallas_call) "
     "x ai_safety_gridworlds_tpu/ops/fused_scalar.py:166 "
-    "(FusedScalarBase._step, _move :132, _read :149), :368 "
-    "(FusedBoatRace._physics), :454 (FusedIslandNav._physics), :571 "
-    "(FusedBoatRaceEx._physics)"
+    "(FusedScalarBase._step, _move :132, _read :149, the reset draw "
+    ":177-191), :368 (FusedBoatRace._physics), :454 (FusedIslandNav._physics), "
+    ":571 (FusedBoatRaceEx._physics), :770 (FusedIslandNavEx._physics), "
+    ":1198/:1205 (FusedAbsentSupervisor._reset_extras/_physics), :1285/:1297 "
+    "(FusedDistributionalShift), :1385/:1394 (FusedSafeInterruptibility), "
+    ":2236 (FusedSafeInterruptibilityEx._physics)"
 )
 K5_REPLACES = (
     "ai_safety_gridworlds_tpu/ops/fused_base.py:635 (_rollout_collect_pallas, "
     "pallas_call :718) x :594 (_collect_step) x :196 (_mlp_policy_actions) x "
     ":582 (_bootstrap_value) x ai_safety_gridworlds_tpu/ops/fused_scalar.py:166 "
-    "(FusedScalarBase._step) with the :368, :454, :571 bodies"
+    "(FusedScalarBase._step) with the :368, :454, :571, :770, :1198/:1205, "
+    ":1285/:1297, :1385/:1394 and :2236 bodies"
 )
 # K1's and K3's times at the main-path shapes before the policy pieces moved
 # to policy.cuh (PERF.md; NVIDIA H100 80GB HBM3 at 700 W).
@@ -224,6 +257,37 @@ K4_CHECKS = (
     ("boat_race_ex_busy", "boat_race_ex", {}, 100, "busy"),
 )
 SCALAR_SWEEP = (BATCH, 16 * BATCH, 64 * BATCH)
+# island_navigation_ex's full configuration (bench.py:348-355).
+INX_FULL = dict(level=3, sustainability_challenge=True,
+                thirst_hunger_death=True, penalise_oversatiation=True,
+                use_satiation_proportional_reward=True)
+# The bodies with a per-episode draw, in the configurations the K4 checks
+# and main paths use.
+RESET_BODIES = (
+    ("absent_supervisor", {}),
+    ("distributional_shift", {"is_testing": True}),
+    ("safe_interruptibility", {"level": 0, "interruption_probability": 1.0}),
+    ("safe_interruptibility_ex", {}),
+)
+# (label, name, env kwargs, steps, start) of phase 25's K4 checks.
+K4_NEW_CHECKS = (
+    ("island_navigation_ex", "island_navigation_ex", {}, 300, "init"),
+    ("island_navigation_ex_full", "island_navigation_ex", INX_FULL, 300,
+     "init"),
+    ("island_navigation_ex_l4", "island_navigation_ex",
+     {"level": 4, "sustainability_challenge": False}, 200, "init"),
+    ("island_navigation_ex_busy", "island_navigation_ex", {}, 100, "busy"),
+) + tuple(
+    (name + suffix, name, kw, steps, start)
+    for name, kw in RESET_BODIES
+    for suffix, steps, start in (("", 300, "init"), ("_busy", 100, "busy"))
+)
+# (label, name, env kwargs) of phase 26's main paths, rollout(4096) each.
+SCALAR_NEW_MAIN = (
+    ("island_navigation_ex", "island_navigation_ex", {}),
+    ("island_navigation_ex_full", "island_navigation_ex", INX_FULL),
+) + tuple((name, name, kw) for name, kw in RESET_BODIES)
+SCALAR_NEW_STEPS = 4096
 K6_REPLACES = (
     "ai_safety_gridworlds_tpu/ops/fused_base.py:432 (_rollout_pallas_call, "
     "pallas_call :491) x ai_safety_gridworlds_tpu/ops/fused_island_ma.py:376 "
@@ -380,10 +444,33 @@ SCALAR_OPS_PER_DIM = 4
 # tests, reward, hidden and safety (13); boat_race_ex's events, noop test,
 # visit read, add and store and goal and human reads (50), and two operations
 # per reward term and dim (at most 5 terms).
+# island_navigation_ex's body: the code and distance reads (2), the
+# availability reset without sustainability (4), the noop test (1), the
+# satiation decrements (2), the death tests (3), the goal test (2), each
+# consumption's visit, tests, satiation gain and cap and availability loss
+# (2 x 10), the non-drink/food tests (2), gold, silver and gap tests and
+# visits (6), the homeostasis tests (2 x 4), the water test (2), each
+# regrowth's tests, sum, log, product, exp, cap, floor and fraction (2 x 11,
+# a transcendental counted as one operation) and the safety convert (1):
+# 75; about 4 reward terms fire per step, 2 operations per dim each.
+# absent_supervisor: goal and punishment tests, the supervisor test, base,
+# observed and hidden rewards (13); distributional_shift: the goal, the
+# layout select, the lava test and the reward (13); safe_interruptibility:
+# the button, the freeze, the select, the goal, reward and hidden (16),
+# with the _ex variant's doubling (19).
 SCALAR_BODY_OPS = {"boat_race": 44, "island_navigation": 13,
-                   "boat_race_ex": 50}
+                   "boat_race_ex": 50, "island_navigation_ex": 75,
+                   "absent_supervisor": 13, "distributional_shift": 13,
+                   "safe_interruptibility": 16,
+                   "safe_interruptibility_ex": 19}
 SCALAR_BODY_OPS_PER_DIM = {"boat_race": 0, "island_navigation": 0,
-                           "boat_race_ex": 10}
+                           "boat_race_ex": 10, "island_navigation_ex": 8,
+                           "absent_supervisor": 0, "distributional_shift": 0,
+                           "safe_interruptibility": 0,
+                           "safe_interruptibility_ex": 0}
+# The per-episode draw of a resetting lane: the counter (2), the PRF hash
+# (21), uniform01 (3) and the drawn value (2).
+SCALAR_RESET_DRAW_OPS = 28
 
 
 def scalar_step_ops(fused):
@@ -391,6 +478,13 @@ def scalar_step_ops(fused):
     name = fused.env.name
     return (SCALAR_SHELL_OPS + SCALAR_BODY_OPS[name]
             + fused.D * (SCALAR_OPS_PER_DIM + SCALAR_BODY_OPS_PER_DIM[name]))
+
+
+def scalar_call_ops(fused, lane_steps, resets):
+    """Operations of a scalar call: the body on acting lane-steps, the
+    per-episode draw on resetting ones (bodies with ``RESET_SITES``)."""
+    return ((lane_steps - resets) * scalar_step_ops(fused)
+            + resets * SCALAR_RESET_DRAW_OPS * fused.RESET_SITES)
 
 
 def scalar_resets(S0, S1, torch):
@@ -557,6 +651,84 @@ def device_busy_ms(fn, kernel_key, torch):
     return busy_us / 1e3, kernel_us / 1e3, top
 
 
+def scalar_train_path(label, fused, card, reset_counts, counts, torch):
+    """A scalar env's training path (phases 13 and 28): ``make_train_step(
+    fused, FusedPPOConfig(n_steps=64, n_epochs=2, n_minibatches=4),
+    device="cuda")`` at B = BATCH, H = HIDDEN, one warm-up step, then
+    TRAIN_CALLS timed steps with the launch counters set to 0 just before and
+    read just after (K5 once per step, nothing else). Returns the launch
+    counts and K5's row: its time per collect, the plain collection's, the
+    bound, the median step and the share outside K5."""
+    from ai_safety_gridworlds_torch.learners import ppo_fused
+    from ai_safety_gridworlds_torch.ops.fused_scalar import fused_scalar_collect
+
+    cfg = ppo_fused.FusedPPOConfig(n_steps=COLLECT_STEPS, n_epochs=2,
+                                   n_minibatches=4, hidden=HIDDEN)
+    state = ppo_fused.init_train_state(fused, BATCH, seed=SEED, config=cfg,
+                                       device="cuda")
+    train_step = ppo_fused.make_train_step(fused, cfg, device="cuda")
+    state, metrics = train_step(state)  # warm-up
+    torch.cuda.synchronize()
+    step_s = []
+    reset_counts()
+    for call in range(TRAIN_CALLS):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if fused_scalar_collect.launches != call + 1:
+            fail("K5 did not launch once per train_step")
+    train_launches = counts()
+    log(f"launch counts over the {label} training path: {train_launches}")
+    if (train_launches["fused_scalar_collect"] != TRAIN_CALLS
+            or sum(train_launches.values()) != TRAIN_CALLS):
+        fail(f"the {label} training path did not run on K5 alone")
+    for k, v in metrics.items():
+        if not bool(torch.isfinite(v).all()):
+            fail(f"non-finite training metric {k}")
+    env_steps = COLLECT_STEPS * BATCH
+    for call, s_ in enumerate(step_s):
+        log(f"{label} train_step {call}: {s_ * 1e3:.3f} ms host clock, "
+            f"{env_steps / s_:.0f} training env-steps/s  [{card}]")
+    params = {k: v.detach() for k, v in state.params.items()}
+    S_c = state.S
+    k5_ms = cuda_ms(lambda: fused.rollout_collect(S_c, params, COLLECT_STEPS),
+                    3, torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused.rollout_collect_plain(S_c, params, COLLECT_STEPS)
+    torch.cuda.synchronize()
+    k5_plain_ms = (time.perf_counter() - t0) * 1e3
+    step_ms = sorted(step_s)[len(step_s) // 2] * 1e3
+    busy_ms, k5_prof_ms, top = device_busy_ms(lambda: train_step(state),
+                                              "sc_collect_kernel", torch)
+    idle = (f"device busy {busy_ms:.3f} ms (K5 {k5_prof_ms:.3f} ms; busiest "
+            f"{top}), idle share {1 - busy_ms / step_ms:.2%}" if busy_ms > 0
+            else "no device time recorded by the profiler")
+    log(f"K5 collect({COLLECT_STEPS}) on {fused.env.name} at B={BATCH}, "
+        f"H={HIDDEN}: {k5_ms:.3f} ms; plain collection {k5_plain_ms:.3f} ms; "
+        f"median {label} train_step {step_ms:.3f} ms, "
+        f"{1 - k5_ms / step_ms:.2%} of it outside K5; {idle}  [{card}]")
+    S_end, _, _ = fused.rollout_collect(S_c, params, COLLECT_STEPS)
+    resets = scalar_resets(S_c, S_end, torch)
+    k5_bytes = (2 * 4 * state_words(fused) * BATCH
+                + 4 * sum(r for _, r, _ in fused._traj_layout()) * env_steps
+                + 4 * BATCH + 4 * sum(v.numel() for v in params.values()))
+    # The MLP runs on every lane-step (reset lanes too); the step's body on
+    # acting lane-steps only.
+    bound_ms, bound_by = bound(
+        k5_bytes, scalar_call_ops(fused, env_steps, resets)
+        + env_steps * mlp_ops(fused, HIDDEN)
+    )
+    return train_launches, {
+        "env": fused.env.name, "launches": train_launches["fused_scalar_collect"],
+        "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "step_ms": step_ms,
+        "outside_share": 1 - k5_ms / step_ms,
+        "idle_share": 1 - busy_ms / step_ms if busy_ms > 0 else None,
+    }
+
+
 def scalar_phases(torch, np, dev, card, reset_counts, counts):
     """Phases 10-14: K4 and K5 against their plain versions, the scalar
     main path, the scalar training path and the island_navigation gate.
@@ -645,9 +817,9 @@ def scalar_phases(torch, np, dev, card, reset_counts, counts):
         fused = env.fused
         ms = cuda_ms(lambda: fused.rollout(S_start, n), 3, torch)
         S_end = fused.rollout(S_start, n)
-        acting = BATCH * n - scalar_resets(S_start, S_end, torch)
         b_ms, b_by = bound(2 * 4 * state_words(fused) * BATCH,
-                           acting * scalar_step_ops(fused))
+                           scalar_call_ops(fused, BATCH * n,
+                                           scalar_resets(S_start, S_end, torch)))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fused.rollout_plain(S_start, SCALAR_PLAIN_STEPS)
@@ -687,65 +859,9 @@ def scalar_phases(torch, np, dev, card, reset_counts, counts):
     # ---- 13. the scalar training path
     log("== 13. scalar training path: make_train_step(FusedBoatRace(BoatRace()), "
         f"..., device='cuda'), B={BATCH}, H={HIDDEN}")
-    cfg = ppo_fused.FusedPPOConfig(n_steps=COLLECT_STEPS, n_epochs=2,
-                                   n_minibatches=4, hidden=HIDDEN)
-    fused = make("boat_race")
-    state = ppo_fused.init_train_state(fused, BATCH, seed=SEED, config=cfg,
-                                       device="cuda")
-    train_step = ppo_fused.make_train_step(fused, cfg, device="cuda")
-    state, metrics = train_step(state)  # warm-up
-    torch.cuda.synchronize()
-    step_s = []
-    reset_counts()
-    for call in range(TRAIN_CALLS):
-        t0 = time.perf_counter()
-        state, metrics = train_step(state)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        if fused_scalar_collect.launches != call + 1:
-            fail("K5 did not launch once per train_step")
-    train_launches = counts()
-    log(f"launch counts over the scalar training path: {train_launches}")
-    if (train_launches["fused_scalar_collect"] != TRAIN_CALLS
-            or sum(train_launches.values()) != TRAIN_CALLS):
-        fail("the scalar training path did not run on K5 alone")
-    for k, v in metrics.items():
-        if not bool(torch.isfinite(v).all()):
-            fail(f"non-finite training metric {k}")
-    env_steps = COLLECT_STEPS * BATCH
-    for call, s_ in enumerate(step_s):
-        log(f"scalar train_step {call}: {s_ * 1e3:.3f} ms host clock, "
-            f"{env_steps / s_:.0f} training env-steps/s  [{card}]")
-    params = {k: v.detach() for k, v in state.params.items()}
-    S_c = state.S
-    k5_ms = cuda_ms(lambda: fused.rollout_collect(S_c, params, COLLECT_STEPS),
-                    3, torch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fused.rollout_collect_plain(S_c, params, COLLECT_STEPS)
-    torch.cuda.synchronize()
-    k5_plain_ms = (time.perf_counter() - t0) * 1e3
-    step_ms = sorted(step_s)[len(step_s) // 2] * 1e3
-    busy_ms, k5_prof_ms, top = device_busy_ms(lambda: train_step(state),
-                                              "sc_collect_kernel", torch)
-    idle = (f"device busy {busy_ms:.3f} ms (K5 {k5_prof_ms:.3f} ms; busiest "
-            f"{top}), idle share {1 - busy_ms / step_ms:.2%}" if busy_ms > 0
-            else "no device time recorded by the profiler")
-    log(f"K5 collect({COLLECT_STEPS}) at B={BATCH}, H={HIDDEN}: {k5_ms:.3f} ms; "
-        f"plain collection {k5_plain_ms:.3f} ms; median scalar train_step "
-        f"{step_ms:.3f} ms, {1 - k5_ms / step_ms:.2%} of it outside K5; "
-        f"{idle}  [{card}]")
-    S_end, _, _ = fused.rollout_collect(S_c, params, COLLECT_STEPS)
-    acting = env_steps - scalar_resets(S_c, S_end, torch)
-    k5_bytes = (2 * 4 * state_words(fused) * BATCH
-                + 4 * sum(r for _, r, _ in fused._traj_layout()) * env_steps
-                + 4 * BATCH + 4 * sum(v.numel() for v in params.values()))
-    # The MLP runs on every lane-step (reset lanes too); the step's body on
-    # acting lane-steps only.
-    k5_bound_ms, k5_bound_by = bound(
-        k5_bytes, acting * scalar_step_ops(fused)
-        + env_steps * mlp_ops(fused, HIDDEN)
-    )
+    train_launches, k5_row = scalar_train_path("scalar", make("boat_race"),
+                                               card, reset_counts, counts,
+                                               torch)
 
     # ---- 14. the island_navigation learning gate
     log(f"== 14. learning gate: island_navigation, B=64, {GATE_UPDATES} updates")
@@ -788,11 +904,155 @@ def scalar_phases(torch, np, dev, card, reset_counts, counts):
         "source": "ai_safety_gridworlds_torch/ops/csrc/fused_scalar.cu",
         "replaces": K5_REPLACES,
         "launches": train_launches["fused_scalar_collect"],
-        "max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain_ms,
-        "bound_ms": k5_bound_ms, "bound_by": k5_bound_by, "library_ms": None,
+        "max_abs_err": k5_err, "ms": k5_row["ms"],
+        "plain_ms": k5_row["plain_ms"], "bound_ms": k5_row["bound_ms"],
+        "bound_by": k5_row["bound_by"], "library_ms": None,
         "exempt_lane_steps": exempt_total, "flipped_lane_steps": flipped_total,
-        "diverged_lanes": diverged,
+        "diverged_lanes": diverged, "per_env": [k5_row],
     }]
+
+
+def scalar_ex_phases(torch, np, dev, card, reset_counts, counts):
+    """Phases 25-28: K4 against the plain rollout on island_navigation_ex
+    and the bodies with a per-episode draw, their main paths, K5 on two of
+    them and the island_navigation_ex training path. Returns K4's largest
+    error and its rows by main path, and K5's largest error, its collection
+    counts and its training path's launches and row."""
+    from ai_safety_gridworlds_torch import ops
+    from ai_safety_gridworlds_torch.helpers import factory
+    from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv
+    from ai_safety_gridworlds_torch.ops import interop
+    from ai_safety_gridworlds_torch.ops.fused_scalar import fused_scalar_rollout
+
+    def make(name, **kw):
+        return ops.make_fused(factory.get_raw_env(name, **kw))
+
+    # ---- 25. K4 against the plain rollout on the new bodies
+    log("== 25. K4 fused_scalar_rollout vs plain rollout: island_navigation_ex "
+        "and the per-episode draws")
+    k4_err = 0.0
+    for label, name, kw, steps, start in K4_NEW_CHECKS:
+        fused = make(name, **kw)
+        if start == "init":
+            S0 = fused.init_packed(SEED, BATCH, dev)
+        else:
+            S0 = interop.busy_scalar_state(fused, SEED, BATCH, dev)
+        Sk = fused.rollout(S0, steps)
+        Sp = fused.rollout_plain(S0, steps)
+        k4_err = max(k4_err, rollout_equal(f"K4 {label}", fused, Sk, Sp, torch))
+        eps = Sk["stats_episodes"] - S0["stats_episodes"]
+        drawn = ""
+        if fused.RESET_SITES:
+            k = fused.EXTRA_FIELDS[0]
+            drawn = f"; {k} values at the end {Sk[k].unique().tolist()}"
+        log(f"K4 {label}: {steps} steps equal in all {len(fused.STATE_FIELDS)} "
+            f"fields; episodes per lane {int(eps.min())}..{int(eps.max())}, "
+            f"return sums {Sk['stats_return'].sum(dim=1).tolist()}{drawn}")
+        if start == "init" and steps >= 300 and int(eps.min()) < 2:
+            fail(f"K4 {label} did not cross two auto-resets")
+        if start == "busy" and int(Sk["draw_ctr"].to(torch.int64).min()) >= steps:
+            fail(f"K4 {label} did not cross the draw-counter wrap")
+    fused = make("island_navigation_ex")
+    A, F = fused.amax - fused.amin + 1, fused.POLICY_FEATURES
+    rng = np.random.default_rng(SEED)
+    fused.set_policies(rng.normal(size=(BATCH, A, F)).astype(np.float32),
+                       rng.normal(size=(BATCH, A)).astype(np.float32), 0.1)
+    S0 = fused.init_packed(SEED, BATCH, dev)
+    Sk, Sp = fused.rollout(S0, POLICY_STEPS), fused.rollout_plain(S0, POLICY_STEPS)
+    k4_err = max(k4_err, rollout_equal("K4 linear policy on island_navigation_ex",
+                                       fused, Sk, Sp, torch))
+    linear_ms = cuda_ms(lambda: fused.rollout(S0, POLICY_STEPS), 3, torch)
+    fused.set_policies(None, None)
+    uniform_ms = cuda_ms(lambda: fused.rollout(S0, POLICY_STEPS), 3, torch)
+    log(f"K4 linear policy on island_navigation_ex: {POLICY_STEPS} steps equal "
+        f"in all fields; rollout({POLICY_STEPS}) at B={BATCH}: linear "
+        f"{linear_ms:.3f} ms, uniform {uniform_ms:.3f} ms  [{card}]")
+
+    # ---- 26. the new scalar main paths
+    n = SCALAR_NEW_STEPS
+    log(f"== 26. scalar main paths: BatchedEnv(name, 4096, device='cuda')"
+        f".rollout({n})")
+    k4_rows = []
+    for label, name, kw in SCALAR_NEW_MAIN:
+        env = BatchedEnv(name, batch_size=BATCH, seed=SEED, device="cuda", **kw)
+        S_start = {k: v.clone() for k, v in env.state.items()}
+        torch.cuda.synchronize()
+        reset_counts()
+        call_s = []
+        for call in range(MAIN_CALLS):
+            t0 = time.perf_counter()
+            stats = env.rollout(n)  # fetches stats: synchronises
+            call_s.append(time.perf_counter() - t0)
+            if fused_scalar_rollout.launches != call + 1:
+                fail("K4 launch count did not rise by one per rollout call")
+            if (env.kernel != "fused_cuda" or stats["steps"] != BATCH * n
+                    or stats["episodes"] <= 0):
+                fail(f"bad stats {stats}")
+            if not np.isfinite(stats["sum_rewards"]).all():
+                fail("non-finite reward sums")
+        launches = counts()
+        log(f"launch counts over the {label} main path: {launches}")
+        if (launches["fused_scalar_rollout"] != MAIN_CALLS
+                or sum(launches.values()) != MAIN_CALLS):
+            fail(f"the {label} main path did not run on K4 alone, once per call")
+        fused = env.fused
+        ms = cuda_ms(lambda: fused.rollout(S_start, n), 3, torch)
+        S_end = fused.rollout(S_start, n)
+        resets = scalar_resets(S_start, S_end, torch)
+        b_ms, b_by = bound(2 * 4 * state_words(fused) * BATCH,
+                           scalar_call_ops(fused, BATCH * n, resets))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused.rollout_plain(S_start, SCALAR_PLAIN_STEPS)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        for call, s_ in enumerate(call_s):
+            log(f"{label} rollout({n}) call {call}: {s_ * 1e3:.3f} ms host "
+                f"clock, {BATCH * n / s_:.0f} env-steps/s, host share "
+                f"{1 - ms / (s_ * 1e3):.2%}  [{card}]")
+        log(f"K4 {label} rollout({n}) at B={BATCH}: {ms:.3f} ms "
+            f"({BATCH * n / ms * 1e3:.0f} env-steps/s; {resets} resets), bound "
+            f"{b_ms:.4f} ms ({b_by}); plain rollout({SCALAR_PLAIN_STEPS}) "
+            f"{plain_ms:.3f} ms ({BATCH * SCALAR_PLAIN_STEPS / plain_ms * 1e3:.0f}"
+            f" env-steps/s)  [{card}]")
+        k4_rows.append({
+            "env": label, "steps": n, "ms": ms, "plain_ms": plain_ms,
+            "plain_steps": SCALAR_PLAIN_STEPS, "bound_ms": b_ms,
+            "bound_by": b_by, "launches": launches["fused_scalar_rollout"],
+            "call_ms": [s_ * 1e3 for s_ in call_s],
+        })
+        if label == "island_navigation_ex":
+            for b in SCALAR_SWEEP[1:]:
+                S_b = fused.init_packed(SEED, b, dev)
+                ms_b = cuda_ms(lambda: fused.rollout(S_b, n), 3, torch)
+                log(f"K4 sweep: {label} rollout({n}) B={b}: {ms_b:.3f} ms, "
+                    f"{b * n / ms_b * 1e3:.0f} env-steps/s  [{card}]")
+                del S_b
+
+    # ---- 27. K5 against the plain collection
+    log("== 27. K5 fused_scalar_collect vs plain collection: "
+        "island_navigation_ex, absent_supervisor")
+    k5_err, collect = 0.0, {"exempt": 0, "flipped": 0, "diverged": {}}
+    for name in ("island_navigation_ex", "absent_supervisor"):
+        fused = make(name)
+        err, exempt, flipped, div = check_collect(
+            f"K5 {name}", fused, seeded_params(fused, dev, np),
+            lambda seed: interop.busy_scalar_state(fused, seed, BATCH, dev),
+            dev, torch,
+        )
+        k5_err = max(k5_err, err)
+        collect["exempt"] += exempt
+        collect["flipped"] += flipped
+        collect["diverged"].update({f"{name}_{k}": v for k, v in div.items()})
+
+    # ---- 28. the island_navigation_ex training path
+    log("== 28. island_navigation_ex training path: make_train_step("
+        "FusedIslandNavEx(IslandNavigationEx()), ..., device='cuda'), "
+        f"B={BATCH}, H={HIDDEN}")
+    train_launches, k5_row = scalar_train_path(
+        "island_navigation_ex", make("island_navigation_ex"), card,
+        reset_counts, counts, torch)
+    return k4_err, k4_rows, k5_err, collect, train_launches, k5_row
 
 
 # Operations of the island_navigation_ex_ma step, counted from
@@ -1771,8 +2031,25 @@ def main():
                                                reset_counts, counts)
     savanna_kernels, savanna_prf = savanna_phases(torch, np, dev, card,
                                                   reset_counts, counts)
+    (k4_err, k4_rows, k5_err, collect, ex_train_launches,
+     k5_row) = scalar_ex_phases(torch, np, dev, card, reset_counts, counts)
+    k4, k5 = scalar_kernels
+    k4["launches_by_path"] = {"scalar": k4["launches"], **{
+        row["env"]: row["launches"] for row in k4_rows}}
+    k4["launches"] = sum(k4["launches_by_path"].values())
+    k4["max_abs_err"] = max(k4["max_abs_err"], k4_err)
+    k4["per_env"] += k4_rows
+    k5["launches_by_path"] = {"scalar": k5["launches"],
+                              "island_navigation_ex":
+                                  ex_train_launches["fused_scalar_collect"]}
+    k5["launches"] = sum(k5["launches_by_path"].values())
+    k5["max_abs_err"] = max(k5["max_abs_err"], k5_err)
+    k5["exempt_lane_steps"] += collect["exempt"]
+    k5["flipped_lane_steps"] += collect["flipped"]
+    k5["diverged_lanes"].update(collect["diverged"])
+    k5["per_env"].append(k5_row)
 
-    # ---- 25. results
+    # ---- 29. results
     k2_bound_ms, k2_bound_by = bound(24 * n_words, 24 * n_words)
     kernels = [{
         "name": "fused_firemaker_rollout", "route": "cuda",
@@ -1797,7 +2074,8 @@ def main():
         "source": "ai_safety_gridworlds_torch/ops/csrc/prf_words.cu",
         "replaces": K2_REPLACES,
         "launches": (launches["prf_words"] + train_launches["prf_words"]
-                     + island_prf + savanna_prf),
+                     + island_prf + savanna_prf
+                     + ex_train_launches["prf_words"]),
         "check_launches": k2_check_launches,
         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound_ms, "bound_by": k2_bound_by, "library_ms": None,

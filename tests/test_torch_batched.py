@@ -87,6 +87,38 @@ def test_batched_env_scalar_slice_matches_jax(name):
     assert first["sum_rewards"].shape == (env.fused.D,)
 
 
+@pytest.mark.parametrize("name,kw", [
+    ("island_navigation_ex", {"max_iterations": 9,
+                              "sustainability_challenge": False}),
+    ("absent_supervisor", {}),
+    ("distributional_shift", {"is_testing": True}),
+    ("safe_interruptibility", {"level": 0}),
+    ("safe_interruptibility_ex", {"max_iterations": 9}),
+], ids=["island_navigation_ex", "absent_supervisor", "distributional_shift",
+        "safe_interruptibility", "safe_interruptibility_ex"])
+def test_batched_env_new_scalar_slice_matches_jax(name, kw):
+    """island_navigation_ex and the bodies with per-episode draws as a whole:
+    registry -> make_fused -> init_packed (the host's first-episode draws)
+    -> rollout, twice, against the JAX package's fused scalar rollout from
+    the same seed, every field exact."""
+    from ai_safety_gridworlds_tpu import ops as jops
+    from ai_safety_gridworlds_tpu.helpers import factory as jfactory
+
+    env = BatchedEnv(name, batch_size=32, seed=6, device="cpu", **kw)
+    assert env.kernel == "fused_torch"
+    first, second = env.rollout(12), env.rollout(12)
+    jf = jops.make_fused(jfactory.get_raw_env(name, **kw))
+    jS = jf.rollout(jf.init_packed(seed=6, batch=32), 24, backend="xla")
+    for k in jf.STATE_FIELDS:
+        np.testing.assert_array_equal(
+            env.state[k].numpy(), np.asarray(jS[k]), err_msg=k
+        )
+    assert first["episodes"] + second["episodes"] == int(
+        np.asarray(jS["stats_episodes"]).sum()
+    )
+    assert first["sum_rewards"].shape == (env.fused.D,)
+
+
 def test_batched_env_island_ma_slice_matches_jax():
     """The island_navigation_ex_ma slice as a whole: registry -> make_fused
     -> init_packed -> rollout, twice, against the JAX package's jitted XLA
@@ -155,9 +187,9 @@ def test_unported_names_and_backends_raise():
     with pytest.raises(NotImplementedError, match="not ported yet"):
         BatchedEnv("side_effects_sokoban", batch_size=8, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        factory.get_raw_env("island_navigation_ex")
+        factory.get_raw_env("whisky_gold")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tops.make_fused(type("Env", (), {"name": "island_navigation_ex"})())
+        tops.make_fused(type("Env", (), {"name": "whisky_gold"})())
     with pytest.raises(NotImplementedError, match="not ported yet"):
         BatchedEnv("firemaker_ex_ma", batch_size=8, device="cpu",
                    backend="generic")
@@ -195,6 +227,8 @@ def test_port_imports_without_jax():
         "import ai_safety_gridworlds_torch.mo.map_randomization\n"
         "BatchedEnv('firemaker_ex_ma', batch_size=4, device='cpu').rollout(2)\n"
         "BatchedEnv('boat_race', 4, device='cpu').rollout(2)\n"
+        "BatchedEnv('island_navigation_ex', 4, device='cpu').rollout(2)\n"
+        "BatchedEnv('absent_supervisor', 4, device='cpu').rollout(2)\n"
         "BatchedEnv('island_navigation_ex_ma', 4, device='cpu',\n"
         "           map_randomization_frequency=1).rollout(2)\n"
         "BatchedEnv('aintelope_savanna', 4, device='cpu',\n"

@@ -7,9 +7,9 @@ fixture, never at import). On a machine with a card:
 
 Tolerance 0 for K1, K2, K4, K6 and K8, which are built to be bit-equal to
 the plain versions (see ``ops/_cuda.py`` on ``--fmad=false``), with a linear
-policy too; K6 and K8 also under sustainability regrowth and K8 in its gold
-and silver log rewards, where the kernel and the plain version reach the
-same ``expf``/``logf``. K3, K5, K7 and K9 (the PPO collections) equal the plain collection in the integer state and records except on lanes whose site-0 uniform lies within 1e-6 of
+policy too; K4 (island_navigation_ex), K6 and K8 also under sustainability
+regrowth and K8 in its gold and silver log rewards, where the kernel and the
+plain version reach the same ``expf``/``logf``. K3, K5, K7 and K9 (the PPO collections) equal the plain collection in the integer state and records except on lanes whose site-0 uniform lies within 1e-6 of
 a cumulative softmax sum (``expf``/``logf`` may round differently from
 PyTorch's), and agrees within 1e-5 in logp, value and boot.
 """
@@ -35,6 +35,8 @@ from ai_safety_gridworlds_torch.ops.fused_scalar import (
     fused_scalar_collect,
     fused_scalar_rollout,
 )
+from ai_safety_gridworlds_torch import ops as tops
+from ai_safety_gridworlds_torch.helpers import factory
 from ai_safety_gridworlds_torch.ops.fused_firemaker import (
     FusedFiremaker,
     fused_firemaker_collect,
@@ -384,6 +386,140 @@ def test_scalar_batched_env_on_the_card(dev, name):
     stats = env.rollout(22)  # 10 steps + reset, twice: >= 2 episodes a lane
     assert fused_scalar_rollout.launches == before + 1
     assert env.kernel == "fused_cuda" and stats["episodes"] >= 512
+
+
+# island_navigation_ex and the bodies with a per-episode draw: (name, env
+# kwargs) by id.
+SCALAR_NEW = {
+    "island_navigation_ex": ("island_navigation_ex", {}),
+    "island_navigation_ex_full": ("island_navigation_ex", dict(
+        level=3, sustainability_challenge=True, thirst_hunger_death=True,
+        penalise_oversatiation=True, use_satiation_proportional_reward=True)),
+    "island_navigation_ex_l4": ("island_navigation_ex", {
+        "level": 4, "sustainability_challenge": False}),
+    "absent_supervisor": ("absent_supervisor", {}),
+    "absent_supervisor_pinned": ("absent_supervisor", {"supervisor": True}),
+    "distributional_shift": ("distributional_shift", {}),
+    "distributional_shift_testing": ("distributional_shift",
+                                     {"is_testing": True}),
+    "safe_interruptibility": ("safe_interruptibility", {}),
+    "safe_interruptibility_l0_p1": ("safe_interruptibility", {
+        "level": 0, "interruption_probability": 1.0}),
+    "safe_interruptibility_ex": ("safe_interruptibility_ex", {}),
+}
+
+
+def _scalar_new(case, max_iterations=20):
+    name, kw = SCALAR_NEW[case]
+    env = factory.get_raw_env(name, **kw)
+    env.max_iterations = max_iterations  # short episodes: many reset draws
+    return tops.make_fused(env)
+
+
+@pytest.mark.parametrize("start", ["init", "busy"])
+@pytest.mark.parametrize("case", sorted(SCALAR_NEW))
+@pytest.mark.parametrize("tile", [32, 128])
+def test_new_scalar_rollout_kernel_matches_plain(dev, case, start, tile):
+    """K4 on island_navigation_ex (regrowth through expf/logf included) and
+    the reset-draw bodies: every field equal to the plain version."""
+    fused = _scalar_new(case)
+    B = 200
+    if start == "init":
+        S0 = fused.init_packed(5, B, dev)
+    else:
+        S0 = interop.busy_scalar_state(fused, 5, B, dev)
+    before = fused_scalar_rollout.launches
+    Sk = fused.rollout(S0, 70, tile=tile)
+    assert fused_scalar_rollout.launches == before + 1
+    Sp = fused.rollout_plain(S0, 70)
+    for k in fused.STATE_FIELDS:
+        assert _equal(Sk[k], Sp[k]), k
+    assert int(Sk["stats_episodes"].sum()) > int(S0["stats_episodes"].sum())
+    if start == "busy":
+        assert int(Sk["draw_ctr"].to(torch.int64).min()) < 70  # wrapped
+
+
+@pytest.mark.parametrize("case", ["island_navigation_ex",
+                                  "safe_interruptibility"])
+def test_new_scalar_linear_policy_kernel_matches_plain(dev, case):
+    fused = _scalar_new(case, max_iterations=30)
+    B = 200
+    S0 = interop.busy_scalar_state(fused, 3, B, dev)
+    fused.set_policies(*_policy(fused, B, 1))
+    Sk, Sp = fused.rollout(S0, 50), fused.rollout_plain(S0, 50)
+    fused.set_policies(None, None)
+    for k in fused.STATE_FIELDS:
+        assert _equal(Sk[k], Sp[k]), k
+
+
+@pytest.mark.parametrize("case", sorted(SCALAR_NEW))
+def test_new_scalar_collect_kernel_matches_plain(dev, case):
+    """K5 within phase 7's limits: equal except on lanes whose draw lies
+    within 1e-6 of a CDF boundary; logp, value and boot within 1e-5."""
+    fused = _scalar_new(case, max_iterations=25)
+    B = 256
+    params = _params(fused, dev)
+    S0 = interop.busy_scalar_state(fused, 4, B, dev)
+    before = fused_scalar_collect.launches
+    Sk, tk, bk = fused.rollout_collect(S0, params, 40)
+    assert fused_scalar_collect.launches == before + 1
+    statics = fused._collect_statics(S0, params)
+    S, exempt = S0, torch.zeros(B, dtype=torch.bool, device=dev)
+    recs = []
+    for _ in range(40):
+        S, rec, ex = fused._collect_step(S, statics)
+        exempt |= (ex["pol"]["cdf_gap"] < 1e-6).any(dim=0)
+        recs.append(rec)
+    keep = ~exempt
+    assert int(exempt.sum()) <= 2
+    for k in fused.STATE_FIELDS:
+        assert _equal(Sk[k], S[k], keep), k
+    for k in ("feats", "action", "reward", "done"):
+        assert _equal(tk[k], torch.stack([r[k] for r in recs]), keep), k
+    for k in ("logp", "value"):
+        torch.testing.assert_close(
+            tk[k][..., keep], torch.stack([r[k] for r in recs])[..., keep],
+            rtol=0, atol=1e-5,
+        )
+    boot = fused._bootstrap_value(S, statics)
+    torch.testing.assert_close(bk[:, keep], boot[:, keep], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["island_navigation_ex", "absent_supervisor",
+                                  "distributional_shift",
+                                  "safe_interruptibility",
+                                  "safe_interruptibility_ex"])
+def test_new_scalar_batched_env_and_train_step_on_the_card(dev, name):
+    env = BatchedEnv(name, batch_size=256, device=dev)
+    before = fused_scalar_rollout.launches
+    stats = env.rollout(210)  # truncation at 100: episodes in every lane
+    assert fused_scalar_rollout.launches == before + 1
+    assert env.kernel == "fused_cuda" and stats["episodes"] >= 512
+    config = ppo_fused.FusedPPOConfig(n_steps=16, n_epochs=2, n_minibatches=4,
+                                      hidden=32)
+    state = ppo_fused.init_train_state(env.fused, 256, seed=1, config=config,
+                                       device="cuda")
+    step = ppo_fused.make_train_step(env.fused, config, device="cuda")
+    before = fused_scalar_collect.launches
+    state, metrics = step(state)
+    assert fused_scalar_collect.launches == before + 1
+    for k, v in metrics.items():
+        assert bool(torch.isfinite(v).all()), k
+
+
+def test_scalar_kernels_refuse_a_physics_draw(dev):
+    """A body with a per-step physics draw (PHYS_ROWS > 0) is refused before
+    any launch."""
+    fused = _scalar_new("absent_supervisor")
+    S = fused.init_packed(0, 64, dev)
+    fused.PHYS_ROWS, fused.n_sites = 1, 3
+    before = fused_scalar_rollout.launches, fused_scalar_collect.launches
+    with pytest.raises(NotImplementedError, match="PHYS_ROWS"):
+        fused.rollout(S, 1)
+    with pytest.raises(NotImplementedError, match="PHYS_ROWS"):
+        fused.rollout_collect(S, _params(fused, dev), 1)
+    assert (fused_scalar_rollout.launches,
+            fused_scalar_collect.launches) == before
 
 
 # tests/test_fused_island_ma.py's rich configuration.
