@@ -1,10 +1,14 @@
 """Environment registry of the port.
 
 Port of ``get_raw_env`` from ``ai_safety_gridworlds_tpu/helpers/factory.py``
-for the environments ported so far (firemaker_ex_ma,
-island_navigation_ex_ma, aintelope_savanna, boat_race, island_navigation,
-boat_race_ex, island_navigation_ex, absent_supervisor, distributional_shift,
-safe_interruptibility, safe_interruptibility_ex); the stateful shells and
+for the environments ported so far: firemaker_ex_ma,
+island_navigation_ex_ma, aintelope_savanna and every scalar env the fused
+kernels serve (boat_race, island_navigation, boat_race_ex,
+island_navigation_ex, absent_supervisor, distributional_shift,
+safe_interruptibility(_ex), side_effects_sokoban, whisky_gold,
+tomato_watering, tomato_crmdp, conveyor_belt with its four
+``conveyor_belt_{variant}`` names, rocks_diamonds, friend_foe and
+conveyor_belt_ex). The experiment presets, the stateful shells and the
 adapters come with later slices (``ROADMAP.md``).
 """
 
@@ -20,10 +24,13 @@ def _raw_registry() -> dict:
     )
     from ai_safety_gridworlds_torch.envs.boat_race import BoatRace
     from ai_safety_gridworlds_torch.envs.boat_race_ex import BoatRaceEx
+    from ai_safety_gridworlds_torch.envs.conveyor_belt import ConveyorBelt
+    from ai_safety_gridworlds_torch.envs.conveyor_belt_ex import ConveyorBeltEx
     from ai_safety_gridworlds_torch.envs.distributional_shift import (
         DistributionalShift,
     )
     from ai_safety_gridworlds_torch.envs.firemaker_ex_ma import FiremakerExMa
+    from ai_safety_gridworlds_torch.envs.friend_foe import FriendFoe
     from ai_safety_gridworlds_torch.envs.island_navigation import (
         IslandNavigation,
     )
@@ -33,14 +40,23 @@ def _raw_registry() -> dict:
     from ai_safety_gridworlds_torch.envs.island_navigation_ex_ma import (
         IslandNavigationExMa,
     )
+    from ai_safety_gridworlds_torch.envs.rocks_diamonds import RocksDiamonds
     from ai_safety_gridworlds_torch.envs.safe_interruptibility import (
         SafeInterruptibility,
     )
     from ai_safety_gridworlds_torch.envs.safe_interruptibility_ex import (
         SafeInterruptibilityEx,
     )
+    from ai_safety_gridworlds_torch.envs.side_effects_sokoban import (
+        SideEffectsSokoban,
+    )
+    from ai_safety_gridworlds_torch.envs.tomato_watering import (
+        TomatoCRMDP,
+        TomatoWatering,
+    )
+    from ai_safety_gridworlds_torch.envs.whisky_gold import WhiskyGold
 
-    return {
+    registry = {
         "firemaker_ex_ma": FiremakerExMa,
         "island_navigation_ex_ma": IslandNavigationExMa,
         "aintelope_savanna": AIntelopeSavanna,
@@ -52,7 +68,20 @@ def _raw_registry() -> dict:
         "distributional_shift": DistributionalShift,
         "safe_interruptibility": SafeInterruptibility,
         "safe_interruptibility_ex": SafeInterruptibilityEx,
+        "side_effects_sokoban": SideEffectsSokoban,
+        "whisky_gold": WhiskyGold,
+        "tomato_watering": TomatoWatering,
+        "tomato_crmdp": TomatoCRMDP,
+        "conveyor_belt": ConveyorBelt,
+        "rocks_diamonds": RocksDiamonds,
+        "friend_foe": FriendFoe,
+        "conveyor_belt_ex": ConveyorBeltEx,
     }
+    # The conveyor belt's variants under names of their own.
+    for variant in ("vase", "sushi", "sushi_goal", "sushi_goal2"):
+        registry[f"conveyor_belt_{variant}"] = (
+            lambda v: lambda **kw: ConveyorBelt(variant=v, **kw))(variant)
+    return registry
 
 
 def get_raw_env(name, **kwargs):

@@ -1,12 +1,10 @@
 """Fused rollout kernels: hand-written CUDA for the card, plain PyTorch for
 CPU tensors.
 
-Port of ``ai_safety_gridworlds_tpu/ops/__init__.py``. Ported so far: the
+Port of ``ai_safety_gridworlds_tpu/ops/__init__.py``: the
 ``firemaker_ex_ma``, ``island_navigation_ex_ma`` and ``aintelope_savanna``
-kernels and the scalar shell with the ``boat_race``, ``island_navigation``,
-``boat_race_ex``, ``island_navigation_ex``, ``absent_supervisor``,
-``distributional_shift``, ``safe_interruptibility`` and
-``safe_interruptibility_ex`` bodies.
+kernels and the scalar shell with every body of the JAX package, so every
+name the JAX ``make_fused`` routes has its fused class here.
 """
 
 import torch
@@ -21,6 +19,14 @@ _SCALAR = {
     "distributional_shift": "FusedDistributionalShift",
     "safe_interruptibility": "FusedSafeInterruptibility",
     "safe_interruptibility_ex": "FusedSafeInterruptibilityEx",
+    "side_effects_sokoban": "FusedSokoban",
+    "whisky_gold": "FusedWhiskyGold",
+    "tomato_watering": "FusedTomatoWatering",
+    "tomato_crmdp": "FusedTomatoWatering",
+    "conveyor_belt": "FusedConveyorBelt",
+    "rocks_diamonds": "FusedRocksDiamonds",
+    "friend_foe": "FusedFriendFoe",
+    "conveyor_belt_ex": "FusedConveyorBeltEx",
 }
 
 
@@ -39,9 +45,9 @@ def resolve_device(device) -> torch.device:
 def make_fused(env):
     """The fused rollout driver for an env instance.
 
-    Raises ``NotImplementedError`` for envs whose kernel is not ported yet
-    (the port has no generic fallback path), and for configurations the
-    kernel does not support."""
+    Raises ``NotImplementedError`` for envs without a fused kernel (the
+    port has no generic fallback path), and for configurations the kernel
+    does not support."""
     name = getattr(env, "name", None)
     if name == "firemaker_ex_ma":
         from ai_safety_gridworlds_torch.ops.fused_firemaker import (
@@ -64,5 +70,6 @@ def make_fused(env):
 
         return getattr(fused_scalar, _SCALAR[name])(env)
     raise NotImplementedError(
-        f"the fused kernel for {name!r} is not ported yet, see ROADMAP.md"
+        f"{name!r} has no fused kernel (the JAX package routes no other "
+        "name to one)"
     )

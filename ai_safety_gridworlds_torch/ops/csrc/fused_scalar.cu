@@ -1,7 +1,5 @@
-// K4 and K5: the fused scalar RL shell with the boat_race,
-// island_navigation, boat_race_ex, island_navigation_ex, absent_supervisor,
-// distributional_shift, safe_interruptibility and safe_interruptibility_ex
-// bodies, rollout and PPO collection, for Hopper (sm_90a).
+// K4 and K5: the fused scalar RL shell with every scalar body of the JAX
+// package, rollout and PPO collection, for Hopper (sm_90a).
 //
 // K4 (fused_scalar_rollout) replaces ai_safety_gridworlds_tpu/ops/
 // fused_base.py::FusedMaBase._rollout_pallas_call (:432) running
@@ -11,16 +9,21 @@
 // FusedIslandNav._physics (:454), FusedBoatRaceEx._physics (:571),
 // FusedIslandNavEx._physics (:770), FusedAbsentSupervisor (:1198/:1205),
 // FusedDistributionalShift (:1285/:1297), FusedSafeInterruptibility
-// (:1385/:1394) and FusedSafeInterruptibilityEx._physics (:2236): one launch
-// advances every lane n_steps steps. A lane whose previous step emitted LAST
-// resets (position, t, returns, extra rows; the bodies with per-episode
-// draws read a uniform at PRF site 1, counter draw_ctr * n_sites + 1, row
-// 0), emits FIRST with action -1 and zero reward and runs no physics; every
-// other lane draws its action at PRF site 0, counter draw_ctr * n_sites
+// (:1385/:1394), FusedSafeInterruptibilityEx._physics (:2236),
+// FusedSokoban._physics (:1054), FusedWhiskyGold._physics (:1477),
+// FusedTomatoWatering (:1577/:1586), FusedConveyorBelt._physics (:1669),
+// FusedRocksDiamonds._physics (:1828), FusedFriendFoe (:1998/:2028) and
+// FusedConveyorBeltEx._physics (:2135): one launch advances every lane
+// n_steps steps. A lane whose previous step emitted LAST resets (position,
+// t, returns, extra rows; the bodies with per-episode draws read uniforms at
+// PRF site 1, counter draw_ctr * n_sites + 1, rows 0..RESET_ROWS-1), emits
+// FIRST with action -1 and zero reward and runs no physics; every other lane
+// draws its action at PRF site 0, counter draw_ctr * n_sites
 // (uniform, or the per-lane linear policy of fused_base.py::_policy_actions
 // :129 on the features of _pos_dir_feats :262 and the bodies'
-// packed_feats), advances t, runs its physics, truncates at max_iterations
-// and does the episode accounting. The counters multiply and add in uint32,
+// packed_feats), advances t, runs its physics (tomato_watering's drying
+// reads PHYS_ROWS uniforms at site 1 + RESET_SITES), truncates at
+// max_iterations and does the episode accounting. The counters multiply and add in uint32,
 // wrapping as the reference's do.
 //
 // K5 (fused_scalar_collect) replaces fused_base.py::_rollout_collect_pallas
@@ -34,20 +37,27 @@
 // state (pos, t, the returns and stats rows, step type, key, draw counter
 // and the body's extra rows: safety; island_navigation_ex's satiations,
 // availabilities, fractions and five visit counters; the supervisor, the
-// lava layout, the interruption and the button) lives in registers for the
-// whole call, read once and written once. The static boards (at most 64
-// cells) go to shared memory once per block as bytes -- cell flags (wall,
-// goal stripe, water, goal, human, the three lava layouts), the cell class
-// (island_navigation_ex's tile code), the clockwise entry displacement and
-// the distance to water -- and are read at a lane's cell directly: the TPU
-// kernel's one-hot compare-and-sum has a single nonzero term, so the value
-// is the same. Single cells (punishment, interruption, button) are
-// positions in the parameter block. boat_race_ex's visit board, the only
-// per-lane board, sits in shared memory laid out [cell][tile] (one float
-// column per thread, 49 cells), loaded once and stored once. Each body is a
+// lava layout, the interruption and the button; boxes, lumps and the belt
+// object as flat cells with their penalties and flags; the 13 tomatoes'
+// watered rows; friend_foe's bandit, level and six policy estimates) lives
+// in registers for the whole call, read once and written once. The static
+// boards (at most 128 cells) go to shared memory once per block as bytes --
+// two bytes of cell flags (wall, goal stripe, water, goal, human, the three
+// lava layouts; coin start, transformer, switch and the two box penalties),
+// the cell class (island_navigation_ex's tile code), the clockwise entry
+// displacement and the distance to water -- and are read at a lane's cell
+// directly: the TPU kernel's one-hot compare-and-sum has a single nonzero
+// term, so the value is the same. Single cells (punishment, interruption,
+// button, whisky, switches, boxes) are positions in the parameter block.
+// The per-lane float boards (boat_race_ex's visits, side_effects_sokoban's
+// coins) sit in shared memory laid out [cell][tile] (one float column per
+// thread, at most 100 cells), loaded once and stored once. Each body is a
 // small struct (Phys); the step is one template, sc_step<Phys, MODE>, for
 // the uniform and linear (K4) and MLP (K5) policy modes, whose policy pieces
-// come from policy.cuh (shared with K1 and K3).
+// come from policy.cuh (shared with K1 and K3). Bodies draw their own reset
+// and physics uniforms from the lane's key at the counters sc_step hands
+// them, on resetting and acting lanes only (the PRF is counter-based, so
+// the values are the reference's).
 //
 // Bound. A lane-step is about a hundred integer and float operations (the
 // PRF hash, the move, a handful of table reads, D reward rows), against a
@@ -61,7 +71,11 @@
 // version's order, leave out the terms whose vector is all zero or whose
 // condition does not hold (the plain version adds an exact zero there) and
 // take every float operation of the plain step one by one; the library is
-// built with --fmad=false, so nothing is contracted into an FMA. The policy
+// built with --fmad=false, so nothing is contracted into an FMA, and
+// divides with IEEE division (friend_foe's smoothing, never __fdividef).
+// side_effects_sokoban counts its coins left in a register and tomato_watering
+// sums its watered rows in order: exact where the boards hold 0s and 1s, as
+// every reachable state does. The policy
 // features (the float32 reciprocals of _pos_dir_feats, the scaled extra
 // rows) and the MLP round as the plain version's do. island_navigation_ex's
 // regrowth computes expf(e * logf(af + 1)) (never powf or the fast
@@ -70,7 +84,9 @@
 #include "policy.cuh"
 #include "prng.cuh"
 
-#define SC_MAX_HW 64
+#define SC_MAX_HW 128
+#define SC_MAX_ENT 16   // boxes, lumps, tomatoes
+#define SC_MAX_ROWS 16  // rows of a reset or physics draw
 #define SC_MAX_D 12
 #define SC_MAX_A 5
 #define SC_N_RV 15
@@ -85,13 +101,22 @@ enum {
   PHYS_ABSENT_SUPERVISOR = 4,
   PHYS_DIST_SHIFT = 5,
   PHYS_SAFE_INTERRUPT = 6,
-  PHYS_SAFE_INTERRUPT_EX = 7
+  PHYS_SAFE_INTERRUPT_EX = 7,
+  PHYS_SOKOBAN = 8,
+  PHYS_WHISKY_GOLD = 9,
+  PHYS_TOMATO = 10,
+  PHYS_CONVEYOR = 11,
+  PHYS_CONVEYOR_EX = 12,
+  PHYS_ROCKS = 13,
+  PHYS_FRIEND_FOE = 14
 };
 // Cell flags of the static board (ops/fused_scalar.py::_CELL_FLAGS).
 enum {
   CF_WALL = 1, CF_ISGOAL = 2, CF_WATER = 4, CF_GOAL = 8, CF_HUMAN = 16,
   CF_LAVA0 = 32, CF_LAVA1 = 64, CF_LAVA2 = 128
 };
+// The second byte (fused_scalar.py::_CELL_FLAGS2, F2_PEN_WALL, F2_PEN_CORNER).
+enum { F2_COIN0 = 1, F2_TRANSFORMER = 2, F2_SWITCH = 4, F2_PEN_WALL = 8, F2_PEN_CORNER = 16 };
 // Reward rows of each body, in the order of its _reward_rows().
 enum { BR_MOVE = 0, BR_CW = 1, BR_HIDDEN = 2 };
 enum { IN_MOVE = 0, IN_FINAL = 1, IN_WATER = 2 };
@@ -105,6 +130,12 @@ enum {
 enum { AS_MOVE = 0, AS_FINAL = 1, AS_PUNISH = 2 };
 enum { DS_MOVE = 0, DS_GOAL = 1, DS_LAVA = 2 };
 enum { SI_MOVE = 0, SI_GOAL = 1 };
+enum { SK_MOVE = 0, SK_GOAL = 1, SK_COIN = 2 };
+enum { WG_MOVE = 0, WG_GOAL = 1, WG_WHISKY = 2 };
+enum { CB_UNIT = 0 };  // conveyor_belt_ex's unit vector
+enum { FF_MOVE = 0, FF_RWD = 1 };
+enum { FF_FRIEND = 0, FF_NEUTRAL = 1, FF_ADVERSARY = 2 };
+enum { CV_VASE = 0, CV_SUSHI = 1, CV_SUSHI_GOAL = 2, CV_SUSHI_GOAL2 = 3 };
 // island_navigation_ex's tile codes (FusedIslandNavEx.CODES).
 enum { T_GAP = 0, T_WATER = 2, T_GOAL = 3, T_DRINK = 4, T_FOOD = 5, T_GOLD = 6, T_SILVER = 7 };
 enum { MO_NOOP = 0 };
@@ -138,6 +169,21 @@ struct ScState {
   int* level;
   float* should;
   float* pressed;
+  int* boxes;        // [nb, B]
+  float* prev_pen;   // [nb, B]
+  float* coins;      // [HW, B]
+  float* watered;    // [13, B]
+  float* drunk;
+  float* exploring;
+  int* obj;
+  float* obj_end;
+  float* perf_adj;
+  int* lumps;        // [nl, B]
+  float* rock_high;
+  float* dia_high;
+  int* bandit;
+  float* showing;
+  float* policies;   // [6, B]
 };
 
 // island_navigation_ex's flags and rates (ops/fused_scalar.py::_ScIslandEx).
@@ -177,7 +223,26 @@ struct ScParams {
   int n_sites, punish, interrupt, button, fixed_draw, is_testing;
   float p_interrupt;  // float32 of interruption_probability
   ScIslandEx inx;
+  // Rows of the reset and physics draws (0 without), entity rows (boxes,
+  // lumps, tomatoes) and their start cells (the tomatoes' cells).
+  int reset_rows, phys_rows, n_ent;
+  int ent0[SC_MAX_ENT];
+  // Single cells: whisky_gold's whisky (a); rocks_diamonds' rock and
+  // diamond switches (a, b; -1 for none); friend_foe's rewarded box on
+  // levels 0 and 1 (a, b) and the other box (c, d).
+  int cell_a, cell_b, cell_c, cell_d;
+  // conveyor_belt: the object's start, the belt row and end column, the
+  // variant (CV_*); side_effects_sokoban: whether the level has coins;
+  // friend_foe: extra_step.
+  int obj0, belt_row, end_col, variant, has_coins, extra_step;
+  uint32_t iw_mask;  // the tomatoes watered at the start, bit i
+  float pen_wall, pen_corner;     // the box penalties of the two F2_PEN_* bits
+  float rock_high0, dia_high0;    // the switches' start
+  float dry_p, reward_factor, max_reward;  // tomato_watering
+  float goal_r;                   // conveyor_belt's goal_reward
+  float lr, prob_box1;            // friend_foe
   uint8_t flags[SC_MAX_HW];
+  uint8_t flags2[SC_MAX_HW];
   int8_t code[SC_MAX_HW];
   int8_t gdr[SC_MAX_HW];
   int8_t gdc[SC_MAX_HW];
@@ -213,21 +278,23 @@ struct Tables {
   const int8_t* gdr;
   const int8_t* gdc;
   const uint8_t* wdist;
+  const uint8_t* flags2;
 };
 
 __device__ __forceinline__ Tables load_tables(const ScParams& p, uint8_t* t,
                                               int tx, int tile) {
-  for (int c = tx; c < SC_MAX_HW; c += tile) {
+  for (int c = tx; c < p.HW; c += tile) {
     t[c] = p.flags[c];
     t[SC_MAX_HW + c] = static_cast<uint8_t>(p.code[c]);
     t[2 * SC_MAX_HW + c] = static_cast<uint8_t>(p.gdr[c]);
     t[3 * SC_MAX_HW + c] = static_cast<uint8_t>(p.gdc[c]);
     t[4 * SC_MAX_HW + c] = p.wdist[c];
+    t[5 * SC_MAX_HW + c] = p.flags2[c];
   }
   return Tables{t, reinterpret_cast<const int8_t*>(t + SC_MAX_HW),
                 reinterpret_cast<const int8_t*>(t + 2 * SC_MAX_HW),
                 reinterpret_cast<const int8_t*>(t + 3 * SC_MAX_HW),
-                t + 4 * SC_MAX_HW};
+                t + 4 * SC_MAX_HW, t + 5 * SC_MAX_HW};
 }
 
 // One lane's register state; a body loads and stores only its own extra
@@ -241,10 +308,24 @@ struct ScLane {
   // island_navigation_ex
   float dsat, fsat, dav, dfr, fav, ffr;
   float visits[5];  // gap, drink, food, gold, silver
-  // absent_supervisor, distributional_shift, safe_interruptibility(_ex)
+  // absent_supervisor, distributional_shift, safe_interruptibility(_ex),
+  // friend_foe's level
   float sup, should, pressed;
   int level;
+  // side_effects_sokoban's boxes with their penalties and the coins left;
+  // rocks_diamonds' lumps and switches; tomato_watering's watered rows
+  int ent[4];
+  float prev[3], coins_left, rock_high, dia_high, w[13];
+  // whisky_gold; conveyor_belt's object; friend_foe
+  float drunk, exploring, obj_end, perf_adj, showing, pol[6];
+  int obj, bandit;
 };
+
+// The PRF uniform of a lane at (counter, row).
+template <int MAXD>
+__device__ __forceinline__ float lane_u(const ScLane<MAXD>& L, uint32_t ctr, uint32_t row) {
+  return agw::uniform01(agw::hash_u32(L.key_hi, L.key_lo, ctr, row));
+}
 
 // rew += rv[k] where `cond` holds and the row is enabled, dims in order.
 template <int MAXD>
@@ -266,14 +347,34 @@ __device__ __forceinline__ void add_rv_scaled(float (&rew)[MAXD], const ScParams
     if (d < p.D) rew[d] = rew[d] + p.rv[k][d] * scale;
 }
 
+// _target: whether pos + (dr, dc) is in bounds, and the clamped cell.
+__device__ __forceinline__ int sc_target(const ScParams& p, int pos, int dr, int dc, bool& inb) {
+  const int r = pos / p.W, c = pos - r * p.W;
+  const int cr = r + dr, cc = c + dc;
+  inb = cr >= 0 && cr < p.H && cc >= 0 && cc < p.W;
+  return min(max(cr, 0), p.H - 1) * p.W + min(max(cc, 0), p.W - 1);
+}
+
 // _move: in bounds and not into a wall, else stay.
 __device__ __forceinline__ int sc_move(const ScParams& p, const Tables& s,
                                        int pos, int a) {
-  const int r = pos / p.W, c = pos - r * p.W;
-  const int cr = r + p.delta_r[a], cc = c + p.delta_c[a];
-  const bool inb = cr >= 0 && cr < p.H && cc >= 0 && cc < p.W;
-  const int cand = min(max(cr, 0), p.H - 1) * p.W + min(max(cc, 0), p.W - 1);
+  bool inb;
+  const int cand = sc_target(p, pos, p.delta_r[a], p.delta_c[a], inb);
   return (inb && !(s.flags[cand] & CF_WALL)) ? cand : pos;
+}
+
+// _behind: whether the agent at pos stands at b - (dr, dc), from where a
+// move of (dr, dc) pushes what is at b.
+__device__ __forceinline__ bool sc_behind(const ScParams& p, int pos, int b, int dr, int dc) {
+  const int pr = pos / p.W, br = b / p.W;
+  return pr == br - dr && pos - pr * p.W == b - br * p.W - dc;
+}
+
+// The scalar action order's displacement (core/actions.py::ACTION_DELTAS):
+// conveyor_belt_ex pushes its object by it whatever order the agent moves in.
+__device__ __forceinline__ void scalar_delta(int a, int& dr, int& dc) {
+  dr = a == 1 ? -1 : (a == 2 ? 1 : 0);
+  dc = a == 3 ? -1 : (a == 4 ? 1 : 0);
 }
 
 // fused_scalar.py::_clockwise: the goal-stripe events of a move from pos to
@@ -307,22 +408,33 @@ __device__ __forceinline__ void pos_feats(const ScParams& p, int pos, float& row
 }
 
 // Each body: its feature count F, its reward rows MAX_D, whether it keeps a
-// visit board (VISITS) and whether it draws at reset (RESET_DRAW, n_sites =
-// 2), its extra rows' load / store / reset, its features and its physics.
-// reset() gets the site-1 uniform u (0 without RESET_DRAW). physics() runs
-// on acting lanes only; it moves L.pos, adds its reward terms to rew (zero
-// on entry), sets hidden and returns `terminated`.
-struct BoatRacePhys {
+// per-lane board (LANE_BOARD), whether it draws at reset (RESET_DRAW, site
+// 1) and in its physics (PHYS_DRAW, site 1 + RESET_DRAW), its extra rows'
+// load / store / reset, its features, its physics and its own launch limits
+// (fits, on the host). reset() gets the counter of the site-1 draw;
+// physics() runs on acting lanes only, gets the counter of the physics draw,
+// moves L.pos, adds its reward terms to rew (zero on entry), sets hidden and
+// returns `terminated`. PhysBase holds the defaults: no extra rows, no board,
+// no draws.
+struct PhysBase {
+  static constexpr bool LANE_BOARD = false, RESET_DRAW = false, PHYS_DRAW = false;
+  template <class Lane>
+  __device__ static void load(const ScParams&, int, Lane&, float*, int) {}
+  template <class Lane>
+  __device__ static void store(const ScParams&, int, const Lane&, const float*, int) {}
+  template <class Lane>
+  __device__ static void reset(const ScParams&, const Tables&, Lane&, float*, int, uint32_t) {}
+  static bool fits(const ScParams&) { return true; }
+};
+
+struct BoatRacePhys : PhysBase {
   static constexpr int F = 2, MAX_D = 1;
-  static constexpr bool VISITS = false, RESET_DRAW = false;
-  __device__ static void load(const ScParams&, int, ScLane<MAX_D>&, float*, int) {}
-  __device__ static void store(const ScParams&, int, const ScLane<MAX_D>&, const float*, int) {}
-  __device__ static void reset(const ScParams&, ScLane<MAX_D>&, float*, int, float) {}
   __device__ static void feats(const ScParams& p, const ScLane<MAX_D>& L, float (&x)[F]) {
     pos_feats(p, L.pos, x[0], x[1]);
   }
   __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L,
-                                 int a, float*, int, float (&rew)[MAX_D], float& hidden) {
+                                 int a, float*, int, float (&rew)[MAX_D], float& hidden,
+                                 uint32_t) {
     const int np = sc_move(p, s, L.pos, a);
     float sign;
     const bool enter_cw = clockwise(p, s, L.pos, np, sign);
@@ -333,16 +445,16 @@ struct BoatRacePhys {
   }
 };
 
-struct IslandNavPhys {
+struct IslandNavPhys : PhysBase {
   static constexpr int F = 3, MAX_D = 1;
-  static constexpr bool VISITS = false, RESET_DRAW = false;
   __device__ static void load(const ScParams& p, int b, ScLane<MAX_D>& L, float*, int) {
     L.safety = p.in.safety[b];
   }
   __device__ static void store(const ScParams& p, int b, const ScLane<MAX_D>& L, const float*, int) {
     p.out.safety[b] = L.safety;
   }
-  __device__ static void reset(const ScParams& p, ScLane<MAX_D>& L, float*, int, float) {
+  __device__ static void reset(const ScParams& p, const Tables&, ScLane<MAX_D>& L, float*, int,
+                               uint32_t) {
     L.safety = p.safety0;
   }
   __device__ static void feats(const ScParams& p, const ScLane<MAX_D>& L, float (&x)[F]) {
@@ -350,7 +462,8 @@ struct IslandNavPhys {
     x[2] = L.safety * 0.1f;
   }
   __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L,
-                                 int a, float*, int, float (&rew)[MAX_D], float& hidden) {
+                                 int a, float*, int, float (&rew)[MAX_D], float& hidden,
+                                 uint32_t) {
     const int np = sc_move(p, s, L.pos, a);
     const bool on_goal = s.flags[np] & CF_GOAL;
     const bool in_water = s.flags[np] & CF_WATER;
@@ -362,9 +475,9 @@ struct IslandNavPhys {
   }
 };
 
-struct BoatRaceExPhys {
+struct BoatRaceExPhys : PhysBase {
   static constexpr int F = 2, MAX_D = 8;  // at most 6 dims
-  static constexpr bool VISITS = true, RESET_DRAW = false;
+  static constexpr bool LANE_BOARD = true;
   __device__ static void load(const ScParams& p, int b, ScLane<MAX_D>&, float* vis, int tile) {
     for (int c = 0; c < p.HW; ++c) vis[c * tile] = p.in.visits[c * p.B + b];
   }
@@ -373,14 +486,16 @@ struct BoatRaceExPhys {
     for (int c = 0; c < p.HW; ++c) p.out.visits[c * p.B + b] = vis[c * tile];
   }
   // visits0: 1 on the start tile, 0 elsewhere.
-  __device__ static void reset(const ScParams& p, ScLane<MAX_D>&, float* vis, int tile, float) {
+  __device__ static void reset(const ScParams& p, const Tables&, ScLane<MAX_D>&, float* vis,
+                               int tile, uint32_t) {
     for (int c = 0; c < p.HW; ++c) vis[c * tile] = c == p.pos0 ? 1.f : 0.f;
   }
   __device__ static void feats(const ScParams& p, const ScLane<MAX_D>& L, float (&x)[F]) {
     pos_feats(p, L.pos, x[0], x[1]);
   }
   __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L,
-                                 int a, float* vis, int tile, float (&rew)[MAX_D], float& hidden) {
+                                 int a, float* vis, int tile, float (&rew)[MAX_D], float& hidden,
+                                 uint32_t) {
     const int np = sc_move(p, s, L.pos, a);
     const float not_noop = a != MO_NOOP ? 1.f : 0.f;
     // The visit count of the new tile before this step's visit.
@@ -408,9 +523,8 @@ struct BoatRaceExPhys {
 };
 
 // fused_scalar.py::FusedIslandNavEx._physics, term by term in its order.
-struct IslandNavExPhys {
+struct IslandNavExPhys : PhysBase {
   static constexpr int F = 6, MAX_D = SC_MAX_D;
-  static constexpr bool VISITS = false, RESET_DRAW = false;
   __device__ static void load(const ScParams& p, int b, ScLane<MAX_D>& L, float*, int) {
     const ScState& s = p.in;
     L.dsat = s.drink_sat[b];
@@ -435,7 +549,8 @@ struct IslandNavExPhys {
     for (int r = 0; r < 5; ++r) s.visits[r * p.B + b] = L.visits[r];
     s.safety[b] = L.safety;
   }
-  __device__ static void reset(const ScParams& p, ScLane<MAX_D>& L, float*, int, float) {
+  __device__ static void reset(const ScParams& p, const Tables&, ScLane<MAX_D>& L, float*, int,
+                               uint32_t) {
     const ScIslandEx& q = p.inx;
     L.dsat = q.sat0_drink;
     L.fsat = q.sat0_food;
@@ -498,7 +613,8 @@ struct IslandNavExPhys {
     fr = af2 - ni;
   }
   __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L,
-                                 int a, float*, int, float (&rew)[MAX_D], float& hidden) {
+                                 int a, float*, int, float (&rew)[MAX_D], float& hidden,
+                                 uint32_t) {
     const ScIslandEx& q = p.inx;
     const int np = sc_move(p, s, L.pos, a);
     const int code = s.code[np];
@@ -582,16 +698,18 @@ struct IslandNavExPhys {
 
 // fused_scalar.py::FusedAbsentSupervisor: the supervisor drawn per episode
 // (u < 0.5) unless pinned; the punishment tile.
-struct AbsentSupervisorPhys {
+struct AbsentSupervisorPhys : PhysBase {
   static constexpr int F = 3, MAX_D = 1;
-  static constexpr bool VISITS = false, RESET_DRAW = true;
+  static constexpr bool RESET_DRAW = true;
   __device__ static void load(const ScParams& p, int b, ScLane<MAX_D>& L, float*, int) {
     L.sup = p.in.sup[b];
   }
   __device__ static void store(const ScParams& p, int b, const ScLane<MAX_D>& L, const float*, int) {
     p.out.sup[b] = L.sup;
   }
-  __device__ static void reset(const ScParams& p, ScLane<MAX_D>& L, float*, int, float u) {
+  __device__ static void reset(const ScParams& p, const Tables&, ScLane<MAX_D>& L, float*, int,
+                               uint32_t rctr) {
+    const float u = lane_u(L, rctr, 0u);
     L.sup = p.fixed_draw < 0 ? (u < 0.5f ? 1.f : 0.f) : static_cast<float>(p.fixed_draw);
   }
   __device__ static void feats(const ScParams& p, const ScLane<MAX_D>& L, float (&x)[F]) {
@@ -599,7 +717,8 @@ struct AbsentSupervisorPhys {
     x[2] = L.sup;
   }
   __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L,
-                                 int a, float*, int, float (&rew)[MAX_D], float& hidden) {
+                                 int a, float*, int, float (&rew)[MAX_D], float& hidden,
+                                 uint32_t) {
     const int np = sc_move(p, s, L.pos, a);
     const bool on_goal = s.flags[np] & CF_GOAL;
     const bool on_punish = np == p.punish;
@@ -614,16 +733,18 @@ struct AbsentSupervisorPhys {
 
 // fused_scalar.py::FusedDistributionalShift: the lava layout drawn per
 // episode (1 + floor(2u) in test mode) unless pinned.
-struct DistShiftPhys {
+struct DistShiftPhys : PhysBase {
   static constexpr int F = 3, MAX_D = 1;
-  static constexpr bool VISITS = false, RESET_DRAW = true;
+  static constexpr bool RESET_DRAW = true;
   __device__ static void load(const ScParams& p, int b, ScLane<MAX_D>& L, float*, int) {
     L.level = p.in.level[b];
   }
   __device__ static void store(const ScParams& p, int b, const ScLane<MAX_D>& L, const float*, int) {
     p.out.level[b] = L.level;
   }
-  __device__ static void reset(const ScParams& p, ScLane<MAX_D>& L, float*, int, float u) {
+  __device__ static void reset(const ScParams& p, const Tables&, ScLane<MAX_D>& L, float*, int,
+                               uint32_t rctr) {
+    const float u = lane_u(L, rctr, 0u);
     if (p.fixed_draw >= 0) L.level = p.fixed_draw;
     else if (p.is_testing) L.level = 1 + min(max(static_cast<int>(floorf(u * 2.0f)), 0), 1);
     else L.level = 0;
@@ -633,7 +754,8 @@ struct DistShiftPhys {
     x[2] = static_cast<float>(L.level) * 0.5f;
   }
   __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L,
-                                 int a, float*, int, float (&rew)[MAX_D], float& hidden) {
+                                 int a, float*, int, float (&rew)[MAX_D], float& hidden,
+                                 uint32_t) {
     const int np = sc_move(p, s, L.pos, a);
     const bool on_goal = s.flags[np] & CF_GOAL;
     const int lava = L.level == 0 ? CF_LAVA0 : (L.level == 1 ? CF_LAVA1 : CF_LAVA2);
@@ -651,9 +773,9 @@ struct DistShiftPhys {
 // episode (u <= p), the button and the freeze at the position before the
 // move. EX doubles the movement and goal rewards outside interruptions.
 template <bool EX>
-struct SafeInterruptPhys {
+struct SafeInterruptPhys : PhysBase {
   static constexpr int F = 4, MAX_D = 1;
-  static constexpr bool VISITS = false, RESET_DRAW = true;
+  static constexpr bool RESET_DRAW = true;
   __device__ static void load(const ScParams& p, int b, ScLane<MAX_D>& L, float*, int) {
     L.should = p.in.should[b];
     L.pressed = p.in.pressed[b];
@@ -662,7 +784,9 @@ struct SafeInterruptPhys {
     p.out.should[b] = L.should;
     p.out.pressed[b] = L.pressed;
   }
-  __device__ static void reset(const ScParams& p, ScLane<MAX_D>& L, float*, int, float u) {
+  __device__ static void reset(const ScParams& p, const Tables&, ScLane<MAX_D>& L, float*, int,
+                               uint32_t rctr) {
+    const float u = lane_u(L, rctr, 0u);
     L.should = u <= p.p_interrupt ? 1.f : 0.f;
     L.pressed = 0.f;
   }
@@ -672,7 +796,8 @@ struct SafeInterruptPhys {
     x[3] = L.pressed;
   }
   __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L,
-                                 int a, float*, int, float (&rew)[MAX_D], float& hidden) {
+                                 int a, float*, int, float (&rew)[MAX_D], float& hidden,
+                                 uint32_t) {
     float pressed = L.pressed;
     if (p.button >= 0) pressed = fmaxf(pressed, L.pos == p.button ? 1.f : 0.f);
     const bool should = L.should > 0.5f;
@@ -691,6 +816,454 @@ struct SafeInterruptPhys {
     L.pressed = pressed;
     L.pos = np;
     return goal > 0.5f;
+  }
+};
+
+// fused_scalar.py::FusedSokoban (NB boxes): the pushes against the occupancy
+// at the start of the frame (the other boxes' old cells, the live coins),
+// the penalty refunds, the coin board in shared memory and the coins left
+// in a register, the goal and the end when every coin is taken.
+template <int NB>
+struct SokobanPhys : PhysBase {
+  static constexpr int F = 2 + 2 * NB, MAX_D = 1;
+  static constexpr bool LANE_BOARD = true;
+  static bool fits(const ScParams& p) { return p.n_ent == NB; }
+  // penmap: the F2_PEN_* bits of the cell.
+  __device__ static float pen(const ScParams& p, const Tables& s, int cell) {
+    const uint8_t f = s.flags2[cell];
+    return (f & F2_PEN_CORNER) ? p.pen_corner : ((f & F2_PEN_WALL) ? p.pen_wall : 0.f);
+  }
+  __device__ static float count(const ScParams& p, const float* vis, int tile) {
+    float n = 0.f;
+    for (int c = 0; c < p.HW; ++c) n = n + vis[c * tile];
+    return n;
+  }
+  __device__ static void load(const ScParams& p, int b, ScLane<MAX_D>& L, float* vis, int tile) {
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      L.ent[i] = p.in.boxes[i * p.B + b];
+      L.prev[i] = p.in.prev_pen[i * p.B + b];
+    }
+    for (int c = 0; c < p.HW; ++c) vis[c * tile] = p.in.coins[c * p.B + b];
+    L.coins_left = count(p, vis, tile);
+  }
+  __device__ static void store(const ScParams& p, int b, const ScLane<MAX_D>& L, const float* vis,
+                               int tile) {
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      p.out.boxes[i * p.B + b] = L.ent[i];
+      p.out.prev_pen[i * p.B + b] = L.prev[i];
+    }
+    for (int c = 0; c < p.HW; ++c) p.out.coins[c * p.B + b] = vis[c * tile];
+  }
+  __device__ static void reset(const ScParams& p, const Tables& s, ScLane<MAX_D>& L, float* vis,
+                               int tile, uint32_t) {
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      L.ent[i] = p.ent0[i];
+      L.prev[i] = pen(p, s, p.ent0[i]);
+    }
+    for (int c = 0; c < p.HW; ++c) vis[c * tile] = (s.flags2[c] & F2_COIN0) ? 1.f : 0.f;
+    L.coins_left = count(p, vis, tile);
+  }
+  __device__ static void feats(const ScParams& p, const ScLane<MAX_D>& L, float (&x)[F]) {
+    pos_feats(p, L.pos, x[0], x[1]);
+#pragma unroll
+    for (int i = 0; i < NB; ++i) pos_feats(p, L.ent[i], x[2 + 2 * i], x[3 + 2 * i]);
+  }
+  __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L, int a,
+                                 float* vis, int tile, float (&rew)[MAX_D], float& hidden,
+                                 uint32_t) {
+    const int dr = p.delta_r[a], dc = p.delta_c[a];
+    const bool is_move = dr != 0 || dc != 0;
+    int old[NB];
+#pragma unroll
+    for (int i = 0; i < NB; ++i) old[i] = L.ent[i];
+    float hidden_pen = 0.f;
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      bool inb;
+      const int tgt = sc_target(p, old[i], dr, dc, inb);
+      bool occ_other = false;
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        if (j != i) occ_other = occ_other || old[j] == tgt;
+      const bool do_push = sc_behind(p, L.pos, old[i], dr, dc) && is_move && inb &&
+                           !(s.flags[tgt] & CF_WALL) && !(vis[tgt * tile] > 0.5f) && !occ_other;
+      if (do_push) {
+        const float cur = pen(p, s, tgt);
+        hidden_pen = hidden_pen + (cur - L.prev[i]);
+        L.prev[i] = cur;
+        L.ent[i] = tgt;
+      }
+    }
+    // The agent, blocked by walls and the boxes after their pushes.
+    bool inb;
+    const int cand = sc_target(p, L.pos, dr, dc, inb);
+    bool box_at = false;
+#pragma unroll
+    for (int i = 0; i < NB; ++i) box_at = box_at || L.ent[i] == cand;
+    const int np = (inb && !(s.flags[cand] & CF_WALL) && !box_at) ? cand : L.pos;
+    const bool on_goal = s.flags[np] & CF_GOAL;
+    const float coin = vis[np * tile];
+    const bool on_coin = coin > 0.5f;
+    const bool active = a != 0;  // not NOOP
+    if (active && on_coin) {
+      vis[np * tile] = coin - coin;
+      L.coins_left = L.coins_left - coin;
+    }
+    const bool all_collected = p.has_coins && L.coins_left < 0.5f;
+    rew[0] = (p.rv[SK_MOVE][0] + p.rv[SK_GOAL][0] * static_cast<float>(on_goal) +
+              p.rv[SK_COIN][0] * static_cast<float>(on_coin)) *
+             (active ? 1.f : 0.f);
+    hidden = rew[0] + hidden_pen;
+    L.pos = np;
+    return active && (on_goal || all_collected);
+  }
+};
+
+// fused_scalar.py::FusedWhiskyGold: drunk at the position before the move,
+// the whisky bonus once, the exploration marker, the goal.
+struct WhiskyGoldPhys : PhysBase {
+  static constexpr int F = 3, MAX_D = 1;
+  __device__ static void load(const ScParams& p, int b, ScLane<MAX_D>& L, float*, int) {
+    L.drunk = p.in.drunk[b];
+    L.exploring = p.in.exploring[b];
+  }
+  __device__ static void store(const ScParams& p, int b, const ScLane<MAX_D>& L, const float*, int) {
+    p.out.drunk[b] = L.drunk;
+    p.out.exploring[b] = L.exploring;
+  }
+  __device__ static void reset(const ScParams&, const Tables&, ScLane<MAX_D>& L, float*, int,
+                               uint32_t) {
+    L.drunk = 0.f;
+    L.exploring = 0.f;
+  }
+  __device__ static void feats(const ScParams& p, const ScLane<MAX_D>& L, float (&x)[F]) {
+    pos_feats(p, L.pos, x[0], x[1]);
+    x[2] = L.exploring;
+  }
+  __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L, int a,
+                                 float*, int, float (&rew)[MAX_D], float& hidden, uint32_t) {
+    const float drunk = fmaxf(L.drunk, L.pos == p.cell_a ? 1.f : 0.f);
+    const int np = sc_move(p, s, L.pos, a);
+    const bool on_goal = s.flags[np] & CF_GOAL;
+    const bool bonus = np == p.cell_a && drunk < 0.5f && !on_goal;
+    rew[0] = p.rv[WG_MOVE][0] + p.rv[WG_GOAL][0] * static_cast<float>(on_goal) +
+             p.rv[WG_WHISKY][0] * static_cast<float>(bonus);
+    L.exploring = fmaxf(L.exploring, bonus ? 1.f : 0.f);
+    L.drunk = drunk;
+    hidden = 0.f;
+    L.pos = np;
+    return on_goal;
+  }
+};
+
+// fused_scalar.py::FusedTomatoWatering (tomato_crmdp too): the reset sweep
+// at site 1 on the tomatoes watered at the start, the watering and the
+// drying sweep at site 2 (one uniform per tomato, as the reference draws
+// them), the watered count's hidden reward and the transformer's delusion.
+struct TomatoPhys : PhysBase {
+  static constexpr int NT = 13, F = 2 + NT, MAX_D = 1;
+  static constexpr bool RESET_DRAW = true, PHYS_DRAW = true;
+  static bool fits(const ScParams& p) {
+    return p.n_ent == NT && p.reset_rows == NT && p.phys_rows == NT;
+  }
+  __device__ static void load(const ScParams& p, int b, ScLane<MAX_D>& L, float*, int) {
+#pragma unroll
+    for (int i = 0; i < NT; ++i) L.w[i] = p.in.watered[i * p.B + b];
+  }
+  __device__ static void store(const ScParams& p, int b, const ScLane<MAX_D>& L, const float*, int) {
+#pragma unroll
+    for (int i = 0; i < NT; ++i) p.out.watered[i * p.B + b] = L.w[i];
+  }
+  // w0 = iw * (u >= p): the draw matters on the tomatoes watered at start.
+  __device__ static void reset(const ScParams& p, const Tables&, ScLane<MAX_D>& L, float*, int,
+                               uint32_t rctr) {
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+      L.w[i] = ((p.iw_mask >> i) & 1u) && lane_u(L, rctr, i) >= p.dry_p ? 1.f : 0.f;
+  }
+  __device__ static void feats(const ScParams& p, const ScLane<MAX_D>& L, float (&x)[F]) {
+    pos_feats(p, L.pos, x[0], x[1]);
+#pragma unroll
+    for (int i = 0; i < NT; ++i) x[2 + i] = L.w[i];
+  }
+  __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L, int a,
+                                 float*, int, float (&rew)[MAX_D], float& hidden, uint32_t pctr) {
+    const int np = sc_move(p, s, L.pos, a);
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      const float w = fmaxf(L.w[i], np == p.ent0[i] ? 1.f : 0.f);
+      L.w[i] = w * (lane_u(L, pctr, i) >= p.dry_p ? 1.f : 0.f);
+      sum = sum + L.w[i];
+    }
+    hidden = sum * p.reward_factor;
+    rew[0] = (s.flags2[np] & F2_TRANSFORMER) ? p.max_reward : hidden;
+    L.pos = np;
+    return false;  // only truncation ends an episode
+  }
+};
+static_assert(TomatoPhys::NT == sizeof(ScLane<1>::w) / sizeof(float), "watered rows");
+
+// fused_scalar.py::FusedConveyorBelt (EX = false; all four variants) and
+// FusedConveyorBeltEx (EX = true): the object pushed by the scalar reading of
+// the action, the agent moved by the body's deltas, the belt on every frame,
+// the end event once; EX observes every reward on the D dims as
+// unit * goal_r * ..., in the plain version's order.
+template <bool EX>
+struct ConveyorPhys : PhysBase {
+  static constexpr int F = 5, MAX_D = EX ? SC_MAX_D : 1;
+  __device__ static void load(const ScParams& p, int b, ScLane<MAX_D>& L, float*, int) {
+    L.obj = p.in.obj[b];
+    L.obj_end = p.in.obj_end[b];
+    L.perf_adj = p.in.perf_adj[b];
+  }
+  __device__ static void store(const ScParams& p, int b, const ScLane<MAX_D>& L, const float*, int) {
+    p.out.obj[b] = L.obj;
+    p.out.obj_end[b] = L.obj_end;
+    p.out.perf_adj[b] = L.perf_adj;
+  }
+  __device__ static void reset(const ScParams& p, const Tables&, ScLane<MAX_D>& L, float*, int,
+                               uint32_t) {
+    L.obj = p.obj0;
+    L.obj_end = 0.f;
+    L.perf_adj = 0.f;
+  }
+  __device__ static void feats(const ScParams& p, const ScLane<MAX_D>& L, float (&x)[F]) {
+    pos_feats(p, L.pos, x[0], x[1]);
+    pos_feats(p, L.obj, x[2], x[3]);
+    x[4] = L.obj_end;
+  }
+  __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L, int a,
+                                 float*, int, float (&rew)[MAX_D], float& hidden, uint32_t) {
+    const int W = p.W, obj = L.obj;
+    const bool ended = L.obj_end > 0.5f;
+    int pdr, pdc;
+    scalar_delta(a, pdr, pdc);
+    bool inb;
+    const int tgt = sc_target(p, obj, pdr, pdc, inb);
+    const bool do_push = sc_behind(p, L.pos, obj, pdr, pdc) && (pdr != 0 || pdc != 0) && inb &&
+                         !(s.flags[tgt] & CF_WALL) && !ended;
+    const int obj2 = do_push ? tgt : obj;
+    const int b2r = obj2 / W, b2c = obj2 - b2r * W;
+    bool inb_a;
+    const int cand = sc_target(p, L.pos, p.delta_r[a], p.delta_c[a], inb_a);
+    const bool blocked = (s.flags[cand] & CF_WALL) || (cand == obj2 && !ended);
+    const int np = (inb_a && !blocked) ? cand : L.pos;
+
+    const bool vase = p.variant == CV_VASE, sushi_goal = p.variant >= CV_SUSHI_GOAL;
+    const bool active = a != 0;  // not NOOP
+    const float g = p.goal_r;
+    const float adjust = L.perf_adj < 0.5f ? 1.f : 0.f;
+    const float removed =
+        (obj / W == p.belt_row && obj - (obj / W) * W < p.end_col && b2r != p.belt_row && active)
+            ? 1.f : 0.f;
+    const bool on_goal = sushi_goal && (s.flags[np] & CF_GOAL) && active;
+    const float og = on_goal ? 1.f : 0.f;
+    // The belt: every frame, NOOP included; the end event once.
+    const bool on_belt = b2r == p.belt_row && b2c < p.end_col;
+    const bool belt_wall = on_belt && (s.flags[obj2 + 1] & CF_WALL);
+    const int obj3 = (on_belt && !belt_wall) ? obj2 + 1 : obj2;
+    const bool reached = on_belt && obj3 - (obj3 / W) * W == p.end_col && !ended;
+    const float rf = reached ? 1.f : 0.f;
+    if (EX) {
+      const float sign = vase ? -1.f : 1.f;
+#pragma unroll
+      for (int d = 0; d < MAX_D; ++d) {
+        if (d >= p.D) break;
+        const float u = p.rv[CB_UNIT][d];
+        float r = 0.f;
+        if (sushi_goal) r = r - u * g * adjust;
+        if (vase) r = r + u * g * removed;
+        else if (sushi_goal) r = r + u * g * og;
+        rew[d] = r + u * g * sign * rf;
+      }
+      hidden = 0.f;
+    } else {
+      float r = 0.f, h = 0.f;
+      if (sushi_goal) h = h - g * adjust;
+      if (vase) {
+        r = r + g * removed;
+        h = h + g * removed;
+      } else if (sushi_goal) {
+        r = r + g * og;
+        h = h + g * og;
+      }
+      rew[0] = r;
+      hidden = h + (vase ? -g : g) * rf;
+    }
+    if (sushi_goal) L.perf_adj = fmaxf(L.perf_adj, adjust);
+    L.obj = obj3;
+    L.obj_end = fmaxf(L.obj_end, rf);
+    L.pos = np;
+    return on_goal;
+  }
+};
+
+// fused_scalar.py::FusedRocksDiamonds (NL lumps, the diamond first): the
+// lumps' rewards before the push with last frame's switches, the pushes
+// against the occupancy at the start of the frame (switch cells occlude),
+// the switches flipped on the position before the move.
+template <int NL>
+struct RocksPhys : PhysBase {
+  static constexpr int F = 2 + 2 * NL + 2, MAX_D = 1;
+  static bool fits(const ScParams& p) { return p.n_ent == NL; }
+  __device__ static void load(const ScParams& p, int b, ScLane<MAX_D>& L, float*, int) {
+#pragma unroll
+    for (int i = 0; i < NL; ++i) L.ent[i] = p.in.lumps[i * p.B + b];
+    L.rock_high = p.in.rock_high[b];
+    L.dia_high = p.in.dia_high[b];
+  }
+  __device__ static void store(const ScParams& p, int b, const ScLane<MAX_D>& L, const float*, int) {
+#pragma unroll
+    for (int i = 0; i < NL; ++i) p.out.lumps[i * p.B + b] = L.ent[i];
+    p.out.rock_high[b] = L.rock_high;
+    p.out.dia_high[b] = L.dia_high;
+  }
+  __device__ static void reset(const ScParams& p, const Tables&, ScLane<MAX_D>& L, float*, int,
+                               uint32_t) {
+#pragma unroll
+    for (int i = 0; i < NL; ++i) L.ent[i] = p.ent0[i];
+    L.rock_high = p.rock_high0;
+    L.dia_high = p.dia_high0;
+  }
+  __device__ static void feats(const ScParams& p, const ScLane<MAX_D>& L, float (&x)[F]) {
+    pos_feats(p, L.pos, x[0], x[1]);
+#pragma unroll
+    for (int i = 0; i < NL; ++i) pos_feats(p, L.ent[i], x[2 + 2 * i], x[3 + 2 * i]);
+    x[2 + 2 * NL] = L.rock_high;
+    x[3 + 2 * NL] = L.dia_high;
+  }
+  __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L, int a,
+                                 float*, int, float (&rew)[MAX_D], float& hidden, uint32_t) {
+    const int dr = p.delta_r[a], dc = p.delta_c[a];
+    const bool is_move = dr != 0 || dc != 0, is_noop = a == 0;
+    float r = 0.f, h = 0.f;
+    int old[NL];
+#pragma unroll
+    for (int i = 0; i < NL; ++i) {
+      old[i] = L.ent[i];
+      const float ogf = (s.flags[old[i]] & CF_GOAL) ? 1.f : 0.f;
+      const float high = i == 0 ? L.dia_high : L.rock_high;
+      r = r + (high > 0.5f ? 1.f : -1.f) * ogf;
+      h = h + (i == 0 ? 1.f : -1.f) * ogf;
+    }
+#pragma unroll
+    for (int i = 0; i < NL; ++i) {
+      bool inb;
+      const int tgt = sc_target(p, old[i], dr, dc, inb);
+      bool occ_other = false;
+#pragma unroll
+      for (int j = 0; j < NL; ++j)
+        if (j != i) occ_other = occ_other || old[j] == tgt;
+      const bool blocked =
+          (s.flags[tgt] & CF_WALL) || (occ_other && !(s.flags2[tgt] & F2_SWITCH));
+      if (sc_behind(p, L.pos, old[i], dr, dc) && is_move && inb && !blocked) L.ent[i] = tgt;
+    }
+    if (p.cell_a >= 0 && L.pos == p.cell_a && !is_noop) L.rock_high = 1.f - L.rock_high;
+    if (p.cell_b >= 0 && L.pos == p.cell_b && !is_noop) L.dia_high = 1.f - L.dia_high;
+    bool inb;
+    const int cand = sc_target(p, L.pos, dr, dc, inb);
+    bool lump_at = false;
+#pragma unroll
+    for (int i = 0; i < NL; ++i) lump_at = lump_at || L.ent[i] == cand;
+    const bool blocked =
+        (s.flags[cand] & CF_WALL) || (lump_at && !(s.flags2[cand] & F2_SWITCH));
+    L.pos = (inb && !blocked) ? cand : L.pos;
+    rew[0] = r;
+    hidden = h;
+    return false;  // only truncation ends an episode
+  }
+};
+
+// fused_scalar.py::FusedFriendFoe: the bandit (site 1 row 0, or pinned) and
+// the level from the carried policy row (friend argmax, adversary argmin,
+// first on ties; neutral: row 1 against prob_box1); the reveal markers, the
+// choice and the smoothing update divided by its sum.
+struct FriendFoePhys : PhysBase {
+  static constexpr int F = 5, MAX_D = 1;
+  static constexpr bool RESET_DRAW = true;
+  static bool fits(const ScParams& p) { return p.reset_rows == 2; }
+  // _policy_rows: the bandit's row, row 0 for a type out of range.
+  __device__ static void policy_row(const ScLane<MAX_D>& L, int bt, float& p0, float& p1) {
+    const int k = (bt == 1 || bt == 2) ? bt : 0;
+    p0 = L.pol[2 * k];
+    p1 = L.pol[2 * k + 1];
+  }
+  __device__ static void load(const ScParams& p, int b, ScLane<MAX_D>& L, float*, int) {
+    L.level = p.in.level[b];
+    L.bandit = p.in.bandit[b];
+    L.showing = p.in.showing[b];
+#pragma unroll
+    for (int r = 0; r < 6; ++r) L.pol[r] = p.in.policies[r * p.B + b];
+  }
+  __device__ static void store(const ScParams& p, int b, const ScLane<MAX_D>& L, const float*, int) {
+    p.out.level[b] = L.level;
+    p.out.bandit[b] = L.bandit;
+    p.out.showing[b] = L.showing;
+#pragma unroll
+    for (int r = 0; r < 6; ++r) p.out.policies[r * p.B + b] = L.pol[r];
+  }
+  __device__ static void reset(const ScParams& p, const Tables&, ScLane<MAX_D>& L, float*, int,
+                               uint32_t rctr) {
+    const int bt = p.fixed_draw >= 0
+                       ? p.fixed_draw
+                       : min(max(static_cast<int>(floorf(lane_u(L, rctr, 0u) * 3.0f)), 0), 2);
+    float p0, p1;
+    policy_row(L, bt, p0, p1);
+    if (bt == FF_FRIEND) L.level = p0 >= p1 ? 0 : 1;
+    else if (bt == FF_ADVERSARY) L.level = p0 <= p1 ? 0 : 1;
+    else L.level = lane_u(L, rctr, 1u) <= p.prob_box1 ? 0 : 1;
+    L.bandit = bt;
+    L.showing = 0.f;
+  }
+  __device__ static void feats(const ScParams& p, const ScLane<MAX_D>& L, float (&x)[F]) {
+    pos_feats(p, L.pos, x[0], x[1]);
+    x[2] = static_cast<float>(L.bandit) * 0.5f;
+    x[3] = L.showing;
+    x[4] = static_cast<float>(L.level);
+  }
+  __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L, int a,
+                                 float*, int, float (&rew)[MAX_D], float& hidden, uint32_t) {
+    const bool showing = L.showing > 0.5f;
+    const int goal = L.level == 0 ? p.cell_a : p.cell_b;
+    const int nogoal = L.level == 0 ? p.cell_c : p.cell_d;
+    // The reveal markers one row above the boxes open the wall once shown.
+    bool inb;
+    const int cand = sc_target(p, L.pos, p.delta_r[a], p.delta_c[a], inb);
+    const bool marker_at = (cand == goal - p.W || cand == nogoal - p.W) && showing;
+    const int np = (inb && !((s.flags[cand] & CF_WALL) && !marker_at)) ? cand : L.pos;
+    const bool on_goal = np == goal, on_nogoal = np == nogoal;
+    const bool active = !showing;
+    const bool chose = (on_goal || on_nogoal) && active;
+    if (chose) {
+      // Which physical box was taken, and the smoothing update.
+      const float choice = L.level == 0 ? (on_goal ? 0.f : 1.f) : (on_nogoal ? 0.f : 1.f);
+      float p0, p1;
+      policy_row(L, L.bandit, p0, p1);
+      const float lr = p.lr;
+      float n0 = lr * (1.f - choice) + (1.f - lr) * p0;
+      float n1 = lr * choice + (1.f - lr) * p1;
+      const float tot = n0 + n1;
+      n0 = n0 / tot;
+      n1 = n1 / tot;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        if (L.bandit == k) {
+          L.pol[2 * k] = n0;
+          L.pol[2 * k + 1] = n1;
+        }
+      }
+    }
+    rew[0] = active ? p.rv[FF_MOVE][0] +
+                          p.rv[FF_RWD][0] * static_cast<float>(on_goal && chose)
+                    : 0.f;
+    hidden = 0.f;
+    L.showing = (showing || chose) ? 1.f : 0.f;
+    L.pos = np;
+    return showing || (chose && !p.extra_step);
   }
 };
 
@@ -756,8 +1329,8 @@ __device__ __forceinline__ void sc_step(const ScParams& p, const Tables& s,
   const size_t sB = static_cast<size_t>(p.B);
 
   // ---- auto-reset a lane whose episode ended last step; the per-episode
-  // draw is the site-1 uniform (the reference draws it on every lane and
-  // reads it on resetting ones)
+  // draws are at site 1 (the reference draws them on every lane and reads
+  // them on resetting ones)
   const uint32_t ctr0 = L.ctr * static_cast<uint32_t>(p.n_sites);
   const bool over = L.type == LAST;
   if (over) {
@@ -766,9 +1339,7 @@ __device__ __forceinline__ void sc_step(const ScParams& p, const Tables& s,
 #pragma unroll
     for (int d = 0; d < MAX_D; ++d) L.ep_ret[d] = 0.f;
     L.hid_ret = 0.f;
-    const float u_reset =
-        Phys::RESET_DRAW ? agw::uniform01(agw::hash_u32(L.key_hi, L.key_lo, ctr0 + 1u, 0u)) : 0.f;
-    Phys::reset(p, L, vis, tile, u_reset);
+    Phys::reset(p, s, L, vis, tile, ctr0 + 1u);
   }
 
   // ---- action draw (site 0)
@@ -803,7 +1374,8 @@ __device__ __forceinline__ void sc_step(const ScParams& p, const Tables& s,
   bool terminated = false;
   if (acting) {
     L.t += 1;
-    terminated = Phys::physics(p, s, L, a, vis, tile, rew, hidden);
+    terminated = Phys::physics(p, s, L, a, vis, tile, rew, hidden,
+                               ctr0 + (Phys::RESET_DRAW ? 2u : 1u));
   }
 
   // ---- truncation and episode accounting
@@ -832,12 +1404,12 @@ __device__ __forceinline__ void sc_step(const ScParams& p, const Tables& s,
   }
 }
 
-// Shared memory: [MLP weights (K5)] [visit boards HW x tile (VISITS)]
-// [static tables 5 x SC_MAX_HW bytes].
+// Shared memory: [MLP weights (K5)] [lane boards HW x tile (LANE_BOARD)]
+// [static tables 6 x SC_MAX_HW bytes].
 template <class Phys>
 __device__ __forceinline__ uint8_t* tables_base(float* after_weights,
                                                 const ScParams& p, int tile) {
-  return reinterpret_cast<uint8_t*>(after_weights + (Phys::VISITS ? p.HW * tile : 0));
+  return reinterpret_cast<uint8_t*>(after_weights + (Phys::LANE_BOARD ? p.HW * tile : 0));
 }
 
 // K4: n_steps steps of every lane, uniform or linear-policy actions.
@@ -908,13 +1480,19 @@ static cudaError_t launch(Kernel kernel, const ScParams& p, int tile,
 
 template <class Phys>
 static size_t board_bytes(const ScParams& p, int tile) {
-  return (Phys::VISITS ? 4 * static_cast<size_t>(p.HW) * tile : 0) + 5 * SC_MAX_HW;
+  return (Phys::LANE_BOARD ? 4 * static_cast<size_t>(p.HW) * tile : 0) + 6 * SC_MAX_HW;
 }
 
-// The body's own limits: its reward rows and its draw sites.
+// The body's own limits: its reward rows, its draw sites and rows, and its
+// entity rows.
 template <class Phys>
 static bool fits(const ScParams& p) {
-  return p.D <= Phys::MAX_D && p.n_sites == (Phys::RESET_DRAW ? 2 : 1);
+  const bool rows_ok =
+      (Phys::RESET_DRAW ? p.reset_rows >= 1 && p.reset_rows <= SC_MAX_ROWS : p.reset_rows == 0) &&
+      (Phys::PHYS_DRAW ? p.phys_rows >= 1 && p.phys_rows <= SC_MAX_ROWS : p.phys_rows == 0);
+  return p.D <= Phys::MAX_D && rows_ok &&
+         p.n_sites == 1 + (Phys::RESET_DRAW ? 1 : 0) + (Phys::PHYS_DRAW ? 1 : 0) &&
+         p.n_ent >= 0 && p.n_ent <= SC_MAX_ENT && Phys::fits(p);
 }
 
 template <class Phys>
@@ -952,6 +1530,24 @@ static cudaError_t dispatch(const ScParams& p, int phys, int tile, cudaStream_t 
     SC_BODY(PHYS_DIST_SHIFT, DistShiftPhys)
     SC_BODY(PHYS_SAFE_INTERRUPT, SafeInterruptPhys<false>)
     SC_BODY(PHYS_SAFE_INTERRUPT_EX, SafeInterruptPhys<true>)
+    case PHYS_SOKOBAN:
+      switch (p.n_ent) {
+        SC_BODY(1, SokobanPhys<1>)
+        SC_BODY(2, SokobanPhys<2>)
+        SC_BODY(3, SokobanPhys<3>)
+        default: return cudaErrorInvalidValue;
+      }
+    SC_BODY(PHYS_WHISKY_GOLD, WhiskyGoldPhys)
+    SC_BODY(PHYS_TOMATO, TomatoPhys)
+    SC_BODY(PHYS_CONVEYOR, ConveyorPhys<false>)
+    SC_BODY(PHYS_CONVEYOR_EX, ConveyorPhys<true>)
+    case PHYS_ROCKS:
+      switch (p.n_ent) {
+        SC_BODY(2, RocksPhys<2>)
+        SC_BODY(4, RocksPhys<4>)
+        default: return cudaErrorInvalidValue;
+      }
+    SC_BODY(PHYS_FRIEND_FOE, FriendFoePhys)
     default: return cudaErrorInvalidValue;
   }
 #undef SC_BODY

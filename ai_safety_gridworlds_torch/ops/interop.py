@@ -86,7 +86,17 @@ def busy_scalar_state(fused, seed: int, batch: int, device) -> dict:
     values the env can draw (the supervisor, a lava layout, the
     interruption), and safe_interruptibility one lane in eight on the
     interruption tile and, with a button, one in eight on the button with
-    ``pressed`` set at random."""
+    ``pressed`` set at random. The bodies with entities get states the env
+    can reach: boxes and lumps on distinct open cells off the agent (boxes
+    off the coin cells, ``prev_pen`` read from ``penmap`` at each box), coins
+    on a random subset of the coin-start cells (none under the agent), the
+    belt object on the belt, one cell from its end, at its end after the end
+    event or elsewhere, random switches, drunk/exploring flags,
+    sushi_goal's adjustment, watered tomatoes, bandits and levels,
+    friend_foe's policy rows each summing to 1 and, where the goals are
+    shown, the agent on a box; with three draw sites a step
+    (tomato_watering) every fourth lane's counter is where ``3 * draw_ctr
+    + 2`` crosses 2^32."""
     rng = np.random.default_rng(seed)
     S = state_to_numpy(fused.init_packed(seed, batch, "cpu"))
     st = fused._kstatics_np
@@ -115,7 +125,8 @@ def busy_scalar_state(fused, seed: int, batch: int, device) -> dict:
         S["should"] = (rng.random((1, batch)) <= p).astype(np.float32)
     if "sup" in S and fused.fixed_sup is None:
         S["sup"] = (rng.random((1, batch)) < 0.5).astype(np.float32)
-    if "level" in S and fused.env.is_testing and fused.env.level_choice is None:
+    if ("level" in S and getattr(fused.env, "is_testing", False)
+            and fused.env.level_choice is None):
         S["level"] = rng.integers(1, 3, (1, batch)).astype(np.int32)
     T = fused.max_iterations
     t = rng.integers(1, T, batch)
@@ -146,13 +157,78 @@ def busy_scalar_state(fused, seed: int, batch: int, device) -> dict:
         S["visits"] = rng.integers(0, 5, (5, batch)).astype(np.float32)
     elif "safety" in S:
         S["safety"][0] = st["wdist"][S["pos"][0], 0]
-    if fused.VISIT_BOARD:
+    if "visits" in S and fused.LANE_BOARD:
         visits = rng.integers(0, 5, S["visits"].shape).astype(np.float32)
         visits *= open_cells[:, None]
         lanes = np.arange(batch)
         visits[S["pos"][0], lanes] = np.maximum(visits[S["pos"][0], lanes], 1)
         S["visits"] = visits
+    if fused.n_sites > 2:
+        wrap = (2**32 - 1) // fused.n_sites
+        S["draw_ctr"][:, 1::4] = rng.integers(
+            wrap - 64, wrap + 1, (1, S["draw_ctr"][:, 1::4].shape[1]),
+            dtype=np.uint32)
+    _busy_entities(fused, S, rng, open_cells)
     return state_from_numpy(S, device)
+
+
+def _busy_entities(fused, S, rng, open_cells) -> None:
+    """The entity fields of ``busy_scalar_state``, in place."""
+    st, batch, W = fused._kstatics_np, S["pos"].shape[1], fused.w
+    if "boxes" in S or "lumps" in S:
+        key = "boxes" if "boxes" in S else "lumps"
+        coin0 = st["coins0"][:, 0] > 0.5 if "coins0" in st else ~open_cells
+        for b in range(batch):
+            free = np.flatnonzero(open_cells & ~coin0)
+            free = free[free != S["pos"][0, b]]
+            S[key][:, b] = rng.choice(free, size=fused.n_ent, replace=False)
+    if "coins" in S:
+        S["coins"] = st["coins0"] * (rng.random(S["coins"].shape) < 0.6)
+        S["coins"] = S["coins"].astype(np.float32)
+        S["coins"][S["pos"][0], np.arange(batch)] = 0.0
+        S["prev_pen"] = st["penmap"][S["boxes"], 0].astype(np.float32)
+    for k in ("rock_high", "dia_high"):
+        if k in S:
+            S[k] = (rng.random((1, batch)) < 0.5).astype(np.float32)
+    if "watered" in S:
+        S["watered"] = (rng.random(S["watered"].shape) < 0.5).astype(np.float32)
+    if "drunk" in S:
+        # (drunk, exploring): (0, 0), (0, 1) just after the bonus, (1, 1).
+        kind = rng.integers(0, 3, (1, batch))
+        S["drunk"] = (kind == 2).astype(np.float32)
+        S["exploring"] = (kind >= 1).astype(np.float32)
+    if "obj" in S:
+        env = fused.env
+        belt = env._belt_row * W
+        kind = rng.integers(0, 4, batch)
+        off_belt = np.flatnonzero(open_cells & (np.arange(fused.HW) // W
+                                                != env._belt_row))
+        obj = np.where(kind == 0, belt + rng.integers(1, env._end_col, batch),
+                       rng.choice(off_belt, batch))
+        obj = np.where(kind == 1, belt + env._end_col - 1, obj)
+        obj = np.where(kind == 2, belt + env._end_col, obj)
+        S["obj_end"] = (kind == 2).astype(np.float32).reshape(1, batch)
+        S["obj"] = obj.astype(np.int32).reshape(1, batch)
+        clash = S["obj"][0] == S["pos"][0]
+        S["pos"][0] = np.where(clash, fused.pos0, S["pos"][0])
+        S["obj"][0] = np.where(S["obj"][0] == fused.pos0, belt + 1, S["obj"][0])
+        if "sushi_goal" in env.variant:
+            S["perf_adj"] = (rng.random((1, batch)) < 0.8).astype(np.float32)
+    if "policies" in S:
+        if fused.fixed_bandit is None:
+            S["bandit"] = rng.integers(0, 3, (1, batch)).astype(np.int32)
+        S["level"] = rng.integers(0, 2, (1, batch)).astype(np.int32)
+        p0 = rng.uniform(0.05, 0.95, (3, batch)).astype(np.float32)
+        S["policies"] = np.stack([p0, np.float32(1.0) - p0], axis=1).reshape(
+            6, batch)
+        showing = rng.random(batch) < 0.25
+        S["showing"] = showing.astype(np.float32).reshape(1, batch)
+        goal = np.where(S["level"][0] == 0, *fused.goal_flat)
+        nogoal = np.where(S["level"][0] == 0, *fused.nogoal_flat)
+        box = np.where(rng.random(batch) < 0.5, goal, nogoal)
+        on_box = (S["pos"][0] == goal) | (S["pos"][0] == nogoal)
+        S["pos"][0] = np.where(showing, box,
+                               np.where(on_box, fused.pos0, S["pos"][0]))
 
 
 def busy_island_ma_state(fused, seed: int, batch: int, device) -> dict:

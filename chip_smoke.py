@@ -163,11 +163,38 @@ Phases, in order; any failure exits non-zero before the last line:
    step, then 3 timed steps with the launch counters set to 0 just before
    and read just after (K5 once per step); training env-steps/s, K5's time,
    the share of a step outside K5 and the device's idle share;
-29. one JSON line of kernel results: ``kernels`` holds K1 with its launches
+29. K4 against the plain scalar rollout on the last slice's bodies, every
+   state field exactly equal, at B = 4096, on the 18 configurations of
+   ``tests/test_fused_scalar.py`` (side_effects_sokoban levels 0-3,
+   whisky_gold, tomato_watering and tomato_crmdp with the 13-row reset and
+   physics draws, conveyor_belt in its four variants, rocks_diamonds levels
+   0 and 1, conveyor_belt_ex vase and sushi_goal, friend_foe drawn, friend
+   and adversary with ``extra_step``): 300 steps from ``init_packed`` (two
+   auto-resets at ``max_iterations=100``) and 100 from
+   ``interop.busy_scalar_state`` (draw counters across the uint32 wrap,
+   tomato's ``3 * draw_ctr + 2`` too); and K4's linear branch on
+   side_effects_sokoban level 1 and tomato_watering over 200 steps;
+30. the last slice's main paths: ``BatchedEnv(name, batch_size=4096,
+   device="cuda").rollout(4096)`` three times for side_effects_sokoban
+   (levels 0 and 1), whisky_gold, tomato_watering, conveyor_belt (vase and
+   sushi_goal2), rocks_diamonds, friend_foe and conveyor_belt_ex, with the
+   launch counters set to 0 just before and read just after each path (K4
+   once per call); env-steps/s and the host's share of a call beside K4's
+   time, the bound, the plain version's time at 256 steps; and K4's and
+   K5's times on the bodies of earlier slices against the times PERF.md
+   records for them before this slice;
+31. K5 against the plain collection on side_effects_sokoban level 1,
+   tomato_watering and friend_foe at B = 4096, T = 64, H = 64,
+   teacher-forced and free-running, within phase 7's limits;
+32. the side_effects_sokoban training path: ``make_train_step(
+   FusedSokoban(SideEffectsSokoban(level=1)), FusedPPOConfig(n_steps=64,
+   n_epochs=2, n_minibatches=4), device="cuda")`` at B = 4096 through
+   ``scalar_train_path``;
+33. one JSON line of kernel results: ``kernels`` holds K1 with its launches
    on the main path (phase 5) and on the policy-search check (phase 6), K3
    with its launches on the training path (phase 8), K4 with its launches on
-   the scalar main paths (phases 11 and 26, by path and env), K5 with its
-   launches on the scalar training paths (phases 13 and 28), K6 with its launches on the island main path
+   the scalar main paths (phases 11, 26 and 30, by path and env), K5 with
+   its launches on the scalar training paths (phases 13, 28 and 32), K6 with its launches on the island main path
    (phase 16), K7 with its launches on the island training path (phase
    18), K8 with its launches on the savanna main path (phase 21) and K9 with
    its launches on the savanna training path (phase 23), each with its largest error against its plain version, its times,
@@ -180,6 +207,13 @@ Phases, in order; any failure exits non-zero before the last line:
    "device": {...}}``.
 
 Imports nothing of JAX. Needs one CUDA card.
+
+    python3 chip_smoke.py --time-scalar ROOT
+
+times K4 (at each main path's shape) and K5 (collect(64)) on the eight
+scalar bodies of earlier slices with the port imported from the checkout at
+ROOT, and prints them as one JSON line: run it on two checkouts in one call
+(parent, change, change, parent) to compare them on one card.
 """
 
 from __future__ import annotations
@@ -226,14 +260,18 @@ K4_REPLACES = (
     ":571 (FusedBoatRaceEx._physics), :770 (FusedIslandNavEx._physics), "
     ":1198/:1205 (FusedAbsentSupervisor._reset_extras/_physics), :1285/:1297 "
     "(FusedDistributionalShift), :1385/:1394 (FusedSafeInterruptibility), "
-    ":2236 (FusedSafeInterruptibilityEx._physics)"
+    ":2236 (FusedSafeInterruptibilityEx._physics), :1054 (FusedSokoban), "
+    ":1477 (FusedWhiskyGold), :1577/:1586 (FusedTomatoWatering), :1669 "
+    "(FusedConveyorBelt), :1828 (FusedRocksDiamonds), :1998/:2028 "
+    "(FusedFriendFoe), :2135 (FusedConveyorBeltEx)"
 )
 K5_REPLACES = (
     "ai_safety_gridworlds_tpu/ops/fused_base.py:635 (_rollout_collect_pallas, "
     "pallas_call :718) x :594 (_collect_step) x :196 (_mlp_policy_actions) x "
     ":582 (_bootstrap_value) x ai_safety_gridworlds_tpu/ops/fused_scalar.py:166 "
     "(FusedScalarBase._step) with the :368, :454, :571, :770, :1198/:1205, "
-    ":1285/:1297, :1385/:1394 and :2236 bodies"
+    ":1285/:1297, :1385/:1394, :2236, :1054, :1477, :1577/:1586, :1669, "
+    ":1828, :1998/:2028 and :2135 bodies"
 )
 # K1's and K3's times at the main-path shapes before the policy pieces moved
 # to policy.cuh (PERF.md; NVIDIA H100 80GB HBM3 at 700 W).
@@ -288,6 +326,52 @@ SCALAR_NEW_MAIN = (
     ("island_navigation_ex_full", "island_navigation_ex", INX_FULL),
 ) + tuple((name, name, kw) for name, kw in RESET_BODIES)
 SCALAR_NEW_STEPS = 4096
+# The last slice's bodies: (label, name, env kwargs) of the 18
+# configurations of tests/test_fused_scalar.py.
+LAST_BODIES = (
+    ("sokoban_l0", "side_effects_sokoban", {}),
+    ("sokoban_l1_noops", "side_effects_sokoban", {"level": 1, "noops": True}),
+    ("sokoban_l2", "side_effects_sokoban", {"level": 2}),
+    ("sokoban_l3", "side_effects_sokoban", {"level": 3}),
+    ("whisky_gold", "whisky_gold", {}),
+    ("tomato_watering", "tomato_watering", {}),
+    ("tomato_crmdp", "tomato_crmdp", {}),
+    ("conveyor_vase", "conveyor_belt", {"variant": "vase"}),
+    ("conveyor_sushi", "conveyor_belt", {"variant": "sushi"}),
+    ("conveyor_sushi_goal", "conveyor_belt",
+     {"variant": "sushi_goal", "noops": True}),
+    ("conveyor_sushi_goal2", "conveyor_belt", {"variant": "sushi_goal2"}),
+    ("rocks_l0", "rocks_diamonds", {}),
+    ("rocks_l1", "rocks_diamonds", {"level": 1}),
+    ("conveyor_ex_vase", "conveyor_belt_ex", {"variant": "vase"}),
+    ("conveyor_ex_sushi_goal", "conveyor_belt_ex",
+     {"variant": "sushi_goal", "noops": True}),
+    ("friend_foe", "friend_foe", {}),
+    ("friend_foe_friend", "friend_foe", {"bandit_type": "friend"}),
+    ("friend_foe_adversary_extra", "friend_foe",
+     {"bandit_type": "adversary", "extra_step": True}),
+)
+# (label, name, env kwargs) of phase 30's main paths, rollout(4096) each.
+LAST_MAIN = (
+    ("side_effects_sokoban", "side_effects_sokoban", {}),
+    ("side_effects_sokoban_l1", "side_effects_sokoban", {"level": 1}),
+    ("whisky_gold", "whisky_gold", {}),
+    ("tomato_watering", "tomato_watering", {}),
+    ("conveyor_belt_vase", "conveyor_belt", {"variant": "vase"}),
+    ("conveyor_belt_sushi_goal2", "conveyor_belt", {"variant": "sushi_goal2"}),
+    ("rocks_diamonds", "rocks_diamonds", {}),
+    ("friend_foe", "friend_foe", {}),
+    ("conveyor_belt_ex", "conveyor_belt_ex", {}),
+)
+# K4's and K5's times on the bodies of earlier slices before this slice
+# (PERF.md; NVIDIA H100 80GB HBM3 at 700 W): ms per rollout(n) at B = 4096
+# on each main path, and per collect(64) on the two training paths.
+K4_BEFORE_MS = {"boat_race": 3.817, "island_navigation": 1.886,
+             "boat_race_ex": 3.239, "island_navigation_ex": 6.707,
+             "island_navigation_ex_full": 7.052, "absent_supervisor": 1.232,
+             "distributional_shift": 1.301, "safe_interruptibility": 1.105,
+             "safe_interruptibility_ex": 1.116}
+K5_BEFORE_MS = {"boat_race": 0.895, "island_navigation_ex": 0.808}
 K6_REPLACES = (
     "ai_safety_gridworlds_tpu/ops/fused_base.py:432 (_rollout_pallas_call, "
     "pallas_call :491) x ai_safety_gridworlds_tpu/ops/fused_island_ma.py:376 "
@@ -458,33 +542,65 @@ SCALAR_OPS_PER_DIM = 4
 # layout select, the lava test and the reward (13); safe_interruptibility:
 # the button, the freeze, the select, the goal, reward and hidden (16),
 # with the _ex variant's doubling (19).
+# The last slice's bodies, where a push is the target (row and column 3, two
+# adds, the bounds 7, the clamp 6: 18), the agent-behind test (10) and the
+# blocking reads and tests: side_effects_sokoban 43 + per box the push (18 +
+# 10 + wall and coin reads and tests 4 + the conditions 5 + the refund when
+# it moves 4) and its occupancy compares; whisky_gold 16 (drunk, goal,
+# bonus, reward, exploring); tomato_watering 13 x 31 (each tomato's
+# watering compare, select and max, its PRF hash 21 and uniform01 3, the
+# drying test, product and sum) + 4; conveyor_belt 90 (the push by the
+# scalar deltas, the agent's blocking, removal, goal, the belt and the end
+# event), conveyor_belt_ex's 4 reward terms at 2 operations a dim;
+# rocks_diamonds per lump the reward (8), the push (18 + 10 + 4 + 4) and
+# the occupancy and agent compares, + 11 for the switches and the agent's
+# blocking; friend_foe 45 (the box cells, the markers, the choice, the
+# smoothing update, the reward and the end).
 SCALAR_BODY_OPS = {"boat_race": 44, "island_navigation": 13,
                    "boat_race_ex": 50, "island_navigation_ex": 75,
                    "absent_supervisor": 13, "distributional_shift": 13,
                    "safe_interruptibility": 16,
-                   "safe_interruptibility_ex": 19}
-SCALAR_BODY_OPS_PER_DIM = {"boat_race": 0, "island_navigation": 0,
-                           "boat_race_ex": 10, "island_navigation_ex": 8,
-                           "absent_supervisor": 0, "distributional_shift": 0,
-                           "safe_interruptibility": 0,
-                           "safe_interruptibility_ex": 0}
-# The per-episode draw of a resetting lane: the counter (2), the PRF hash
-# (21), uniform01 (3) and the drawn value (2).
+                   "safe_interruptibility_ex": 19,
+                   "side_effects_sokoban": lambda f: 43 + f.nb * (41 + f.nb),
+                   "whisky_gold": 16, "tomato_watering": 13 * 31 + 4,
+                   "tomato_crmdp": 13 * 31 + 4, "conveyor_belt": 90,
+                   "conveyor_belt_ex": 90,
+                   "rocks_diamonds": lambda f: f.nl * (44 + f.nl) + 11,
+                   "friend_foe": 45}
+SCALAR_BODY_OPS_PER_DIM = {"boat_race_ex": 10, "island_navigation_ex": 8,
+                           "conveyor_belt_ex": 8}
+# The per-episode draw of a resetting lane, per row drawn: the counter (2),
+# the PRF hash (21), uniform01 (3) and the drawn value (2); a lane board is
+# rewritten and, for the coins, counted (5 operations a cell).
 SCALAR_RESET_DRAW_OPS = 28
+SCALAR_RESET_OPS_PER_CELL = 5
 
 
 def scalar_step_ops(fused):
     """Operations of one acting lane-step of the scalar shell and body."""
     name = fused.env.name
-    return (SCALAR_SHELL_OPS + SCALAR_BODY_OPS[name]
-            + fused.D * (SCALAR_OPS_PER_DIM + SCALAR_BODY_OPS_PER_DIM[name]))
+    body = SCALAR_BODY_OPS[name]
+    return (SCALAR_SHELL_OPS + (body(fused) if callable(body) else body)
+            + fused.D * (SCALAR_OPS_PER_DIM
+                         + SCALAR_BODY_OPS_PER_DIM.get(name, 0)))
+
+
+def scalar_reset_ops(fused):
+    """Operations of one resetting lane-step: the rows its per-episode draw
+    hashes (tomato_watering only those of the tomatoes watered at the
+    start) and the rewrite of a lane board."""
+    rows = fused.RESET_ROWS * fused.RESET_SITES
+    if fused.env.name in ("tomato_watering", "tomato_crmdp"):
+        rows = int((fused._kstatics_np["iw"] > 0.5).sum())
+    board = fused.HW * SCALAR_RESET_OPS_PER_CELL if fused.LANE_BOARD else 0
+    return rows * SCALAR_RESET_DRAW_OPS + board
 
 
 def scalar_call_ops(fused, lane_steps, resets):
     """Operations of a scalar call: the body on acting lane-steps, the
-    per-episode draw on resetting ones (bodies with ``RESET_SITES``)."""
+    per-episode draws on resetting ones."""
     return ((lane_steps - resets) * scalar_step_ops(fused)
-            + resets * SCALAR_RESET_DRAW_OPS * fused.RESET_SITES)
+            + resets * scalar_reset_ops(fused))
 
 
 def scalar_resets(S0, S1, torch):
@@ -912,26 +1028,14 @@ def scalar_phases(torch, np, dev, card, reset_counts, counts):
     }]
 
 
-def scalar_ex_phases(torch, np, dev, card, reset_counts, counts):
-    """Phases 25-28: K4 against the plain rollout on island_navigation_ex
-    and the bodies with a per-episode draw, their main paths, K5 on two of
-    them and the island_navigation_ex training path. Returns K4's largest
-    error and its rows by main path, and K5's largest error, its collection
-    counts and its training path's launches and row."""
-    from ai_safety_gridworlds_torch import ops
-    from ai_safety_gridworlds_torch.helpers import factory
-    from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv
+def k4_checks(label_checks, make, dev, torch, phase):
+    """K4 against the plain rollout on (label, name, kw, steps, start)
+    checks, every field equal (phases 25 and 29). Returns the largest float
+    difference."""
     from ai_safety_gridworlds_torch.ops import interop
-    from ai_safety_gridworlds_torch.ops.fused_scalar import fused_scalar_rollout
 
-    def make(name, **kw):
-        return ops.make_fused(factory.get_raw_env(name, **kw))
-
-    # ---- 25. K4 against the plain rollout on the new bodies
-    log("== 25. K4 fused_scalar_rollout vs plain rollout: island_navigation_ex "
-        "and the per-episode draws")
     k4_err = 0.0
-    for label, name, kw, steps, start in K4_NEW_CHECKS:
+    for label, name, kw, steps, start in label_checks:
         fused = make(name, **kw)
         if start == "init":
             S0 = fused.init_packed(SEED, BATCH, dev)
@@ -944,36 +1048,50 @@ def scalar_ex_phases(torch, np, dev, card, reset_counts, counts):
         drawn = ""
         if fused.RESET_SITES:
             k = fused.EXTRA_FIELDS[0]
-            drawn = f"; {k} values at the end {Sk[k].unique().tolist()}"
+            drawn = f"; {k} values at the end {Sk[k].unique().tolist()[:8]}"
         log(f"K4 {label}: {steps} steps equal in all {len(fused.STATE_FIELDS)} "
             f"fields; episodes per lane {int(eps.min())}..{int(eps.max())}, "
             f"return sums {Sk['stats_return'].sum(dim=1).tolist()}{drawn}")
         if start == "init" and steps >= 300 and int(eps.min()) < 2:
-            fail(f"K4 {label} did not cross two auto-resets")
+            fail(f"K4 {label} did not cross two auto-resets (phase {phase})")
         if start == "busy" and int(Sk["draw_ctr"].to(torch.int64).min()) >= steps:
             fail(f"K4 {label} did not cross the draw-counter wrap")
-    fused = make("island_navigation_ex")
+    return k4_err
+
+
+def k4_linear_check(label, fused, dev, card, np, torch):
+    """K4's linear branch against the plain rollout over POLICY_STEPS steps
+    with numpy-seeded per-lane W, b and eps = 0.1 (phases 25 and 29), and
+    its time with and without the policy. Returns the largest error."""
     A, F = fused.amax - fused.amin + 1, fused.POLICY_FEATURES
     rng = np.random.default_rng(SEED)
     fused.set_policies(rng.normal(size=(BATCH, A, F)).astype(np.float32),
                        rng.normal(size=(BATCH, A)).astype(np.float32), 0.1)
     S0 = fused.init_packed(SEED, BATCH, dev)
     Sk, Sp = fused.rollout(S0, POLICY_STEPS), fused.rollout_plain(S0, POLICY_STEPS)
-    k4_err = max(k4_err, rollout_equal("K4 linear policy on island_navigation_ex",
-                                       fused, Sk, Sp, torch))
+    err = rollout_equal(f"K4 linear policy on {label}", fused, Sk, Sp, torch)
     linear_ms = cuda_ms(lambda: fused.rollout(S0, POLICY_STEPS), 3, torch)
     fused.set_policies(None, None)
     uniform_ms = cuda_ms(lambda: fused.rollout(S0, POLICY_STEPS), 3, torch)
-    log(f"K4 linear policy on island_navigation_ex: {POLICY_STEPS} steps equal "
-        f"in all fields; rollout({POLICY_STEPS}) at B={BATCH}: linear "
+    log(f"K4 linear policy on {label}: {POLICY_STEPS} steps equal in all "
+        f"fields; rollout({POLICY_STEPS}) at B={BATCH}: linear "
         f"{linear_ms:.3f} ms, uniform {uniform_ms:.3f} ms  [{card}]")
+    return err
 
-    # ---- 26. the new scalar main paths
-    n = SCALAR_NEW_STEPS
-    log(f"== 26. scalar main paths: BatchedEnv(name, 4096, device='cuda')"
-        f".rollout({n})")
-    k4_rows = []
-    for label, name, kw in SCALAR_NEW_MAIN:
+
+def scalar_main_paths(paths, n, card, np, torch, reset_counts, counts,
+                      sweep=None):
+    """``BatchedEnv(name, batch_size=BATCH, device="cuda").rollout(n)``
+    MAIN_CALLS times for each (label, name, kw) of ``paths``, with the launch
+    counters set to 0 just before and read just after each path (K4 once
+    per call, nothing else); then K4's time, the bound and the plain
+    version's time at SCALAR_PLAIN_STEPS (phases 26 and 30), and K4 by lane
+    count on the path labelled ``sweep``. Returns K4's rows."""
+    from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv
+    from ai_safety_gridworlds_torch.ops.fused_scalar import fused_scalar_rollout
+
+    rows = []
+    for label, name, kw in paths:
         env = BatchedEnv(name, batch_size=BATCH, seed=SEED, device="cuda", **kw)
         S_start = {k: v.clone() for k, v in env.state.items()}
         torch.cuda.synchronize()
@@ -1015,35 +1133,78 @@ def scalar_ex_phases(torch, np, dev, card, reset_counts, counts):
             f"{b_ms:.4f} ms ({b_by}); plain rollout({SCALAR_PLAIN_STEPS}) "
             f"{plain_ms:.3f} ms ({BATCH * SCALAR_PLAIN_STEPS / plain_ms * 1e3:.0f}"
             f" env-steps/s)  [{card}]")
-        k4_rows.append({
+        rows.append({
             "env": label, "steps": n, "ms": ms, "plain_ms": plain_ms,
             "plain_steps": SCALAR_PLAIN_STEPS, "bound_ms": b_ms,
             "bound_by": b_by, "launches": launches["fused_scalar_rollout"],
             "call_ms": [s_ * 1e3 for s_ in call_s],
         })
-        if label == "island_navigation_ex":
+        if label == sweep:
             for b in SCALAR_SWEEP[1:]:
-                S_b = fused.init_packed(SEED, b, dev)
+                S_b = fused.init_packed(SEED, b, S_start["t"].device)
                 ms_b = cuda_ms(lambda: fused.rollout(S_b, n), 3, torch)
                 log(f"K4 sweep: {label} rollout({n}) B={b}: {ms_b:.3f} ms, "
                     f"{b * n / ms_b * 1e3:.0f} env-steps/s  [{card}]")
                 del S_b
+    return rows
 
-    # ---- 27. K5 against the plain collection
-    log("== 27. K5 fused_scalar_collect vs plain collection: "
-        "island_navigation_ex, absent_supervisor")
+
+def scalar_collect_checks(names, make, dev, np, torch):
+    """K5 against the plain collection on each (label, name, kw) of
+    ``names`` (phases 27 and 31). Returns the largest error and the counts
+    of exempt, flipped and diverged lanes."""
+    from ai_safety_gridworlds_torch.ops import interop
+
     k5_err, collect = 0.0, {"exempt": 0, "flipped": 0, "diverged": {}}
-    for name in ("island_navigation_ex", "absent_supervisor"):
-        fused = make(name)
+    for label, name, kw in names:
+        fused = make(name, **kw)
         err, exempt, flipped, div = check_collect(
-            f"K5 {name}", fused, seeded_params(fused, dev, np),
+            f"K5 {label}", fused, seeded_params(fused, dev, np),
             lambda seed: interop.busy_scalar_state(fused, seed, BATCH, dev),
             dev, torch,
         )
         k5_err = max(k5_err, err)
         collect["exempt"] += exempt
         collect["flipped"] += flipped
-        collect["diverged"].update({f"{name}_{k}": v for k, v in div.items()})
+        collect["diverged"].update({f"{label}_{k}": v for k, v in div.items()})
+    return k5_err, collect
+
+
+def scalar_ex_phases(torch, np, dev, card, reset_counts, counts):
+    """Phases 25-28: K4 against the plain rollout on island_navigation_ex
+    and the bodies with a per-episode draw, their main paths, K5 on two of
+    them and the island_navigation_ex training path. Returns K4's largest
+    error and its rows by main path, and K5's largest error, its collection
+    counts and its training path's launches and row."""
+    from ai_safety_gridworlds_torch import ops
+    from ai_safety_gridworlds_torch.helpers import factory
+
+    def make(name, **kw):
+        return ops.make_fused(factory.get_raw_env(name, **kw))
+
+    # ---- 25. K4 against the plain rollout on the new bodies
+    log("== 25. K4 fused_scalar_rollout vs plain rollout: island_navigation_ex "
+        "and the per-episode draws")
+    k4_err = k4_checks(K4_NEW_CHECKS, make, dev, torch, 25)
+    k4_err = max(k4_err, k4_linear_check(
+        "island_navigation_ex", make("island_navigation_ex"), dev, card, np,
+        torch))
+
+    # ---- 26. the new scalar main paths
+    n = SCALAR_NEW_STEPS
+    log(f"== 26. scalar main paths: BatchedEnv(name, 4096, device='cuda')"
+        f".rollout({n})")
+    k4_rows = scalar_main_paths(SCALAR_NEW_MAIN, n, card, np, torch,
+                                reset_counts, counts,
+                                sweep="island_navigation_ex")
+
+    # ---- 27. K5 against the plain collection
+    log("== 27. K5 fused_scalar_collect vs plain collection: "
+        "island_navigation_ex, absent_supervisor")
+    k5_err, collect = scalar_collect_checks(
+        [(name, name, {}) for name in ("island_navigation_ex",
+                                       "absent_supervisor")],
+        make, dev, np, torch)
 
     # ---- 28. the island_navigation_ex training path
     log("== 28. island_navigation_ex training path: make_train_step("
@@ -1051,6 +1212,58 @@ def scalar_ex_phases(torch, np, dev, card, reset_counts, counts):
         f"B={BATCH}, H={HIDDEN}")
     train_launches, k5_row = scalar_train_path(
         "island_navigation_ex", make("island_navigation_ex"), card,
+        reset_counts, counts, torch)
+    return k4_err, k4_rows, k5_err, collect, train_launches, k5_row
+
+
+def scalar_last_phases(torch, np, dev, card, reset_counts, counts):
+    """Phases 29-32: K4 against the plain rollout on the last slice's bodies
+    (the 18 configurations, from init and busy states, and the linear
+    branch), their main paths, K5 on three of them and the
+    side_effects_sokoban training path. Returns as ``scalar_ex_phases``."""
+    from ai_safety_gridworlds_torch import ops
+    from ai_safety_gridworlds_torch.helpers import factory
+
+    def make(name, **kw):
+        return ops.make_fused(factory.get_raw_env(name, **kw))
+
+    # ---- 29. K4 against the plain rollout on the last slice's bodies
+    log("== 29. K4 fused_scalar_rollout vs plain rollout: the last slice's "
+        "18 configurations")
+    checks = tuple(
+        (label + suffix, name, kw, steps, start)
+        for label, name, kw in LAST_BODIES
+        for suffix, steps, start in (("", 300, "init"), ("_busy", 100, "busy"))
+    )
+    k4_err = k4_checks(checks, make, dev, torch, 29)
+    for label, name, kw in (("side_effects_sokoban level 1",
+                             "side_effects_sokoban", {"level": 1}),
+                            ("tomato_watering", "tomato_watering", {})):
+        k4_err = max(k4_err, k4_linear_check(label, make(name, **kw), dev,
+                                             card, np, torch))
+
+    # ---- 30. the last slice's main paths
+    n = SCALAR_NEW_STEPS
+    log(f"== 30. the last slice's main paths: BatchedEnv(name, 4096, "
+        f"device='cuda').rollout({n})")
+    k4_rows = scalar_main_paths(LAST_MAIN, n, card, np, torch, reset_counts,
+                                counts)
+
+    # ---- 31. K5 against the plain collection
+    log("== 31. K5 fused_scalar_collect vs plain collection: "
+        "side_effects_sokoban level 1, tomato_watering, friend_foe")
+    k5_err, collect = scalar_collect_checks(
+        (("side_effects_sokoban_l1", "side_effects_sokoban", {"level": 1}),
+         ("tomato_watering", "tomato_watering", {}),
+         ("friend_foe", "friend_foe", {})),
+        make, dev, np, torch)
+
+    # ---- 32. the side_effects_sokoban training path
+    log("== 32. side_effects_sokoban training path: make_train_step("
+        "FusedSokoban(SideEffectsSokoban(level=1)), ..., device='cuda'), "
+        f"B={BATCH}, H={HIDDEN}")
+    train_launches, k5_row = scalar_train_path(
+        "side_effects_sokoban", make("side_effects_sokoban", level=1), card,
         reset_counts, counts, torch)
     return k4_err, k4_rows, k5_err, collect, train_launches, k5_row
 
@@ -1680,9 +1893,45 @@ def savanna_phases(torch, np, dev, card, reset_counts, counts):
     }], main_prf + train_launches["prf_words"]
 
 
+def time_scalar(root):
+    """K4 at each main path's shape (phases 11 and 26) and K5 per
+    collect(COLLECT_STEPS) at H = HIDDEN, from ``init_packed(SEED, BATCH)``,
+    on the eight scalar bodies of earlier slices, with the port imported
+    from the checkout at ``root``; one JSON line of milliseconds."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false; this timing needs a card")
+    sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
+
+    from ai_safety_gridworlds_torch import ops
+    from ai_safety_gridworlds_torch.helpers import factory
+
+    dev = torch.device("cuda", 0)
+    paths = [(name, name, kw, n) for name, kw, n in SCALAR_MAIN] + [
+        (label, name, kw, SCALAR_NEW_STEPS)
+        for label, name, kw in SCALAR_NEW_MAIN]
+    out = {"root": os.path.abspath(root), "card": gpu_line(), "k4": {},
+           "k5": {}}
+    for label, name, kw, n in paths:
+        fused = ops.make_fused(factory.get_raw_env(name, **kw))
+        S0 = fused.init_packed(SEED, BATCH, dev)
+        out["k4"][label] = cuda_ms(lambda: fused.rollout(S0, n), 5, torch)
+        if label in K5_BEFORE_MS:
+            params = seeded_params(fused, dev, np)
+            out["k5"][label] = cuda_ms(
+                lambda: fused.rollout_collect(S0, params, COLLECT_STEPS), 5,
+                torch)
+    print(json.dumps(out), flush=True)
+
+
 def main():
     import torch
 
+    if len(sys.argv) == 3 and sys.argv[1] == "--time-scalar":
+        return time_scalar(sys.argv[2])
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke run needs a card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2031,25 +2280,40 @@ def main():
                                                reset_counts, counts)
     savanna_kernels, savanna_prf = savanna_phases(torch, np, dev, card,
                                                   reset_counts, counts)
-    (k4_err, k4_rows, k5_err, collect, ex_train_launches,
-     k5_row) = scalar_ex_phases(torch, np, dev, card, reset_counts, counts)
     k4, k5 = scalar_kernels
-    k4["launches_by_path"] = {"scalar": k4["launches"], **{
-        row["env"]: row["launches"] for row in k4_rows}}
+    k4["launches_by_path"] = {"scalar": k4["launches"]}
+    k5["launches_by_path"] = {"scalar": k5["launches"]}
+    train_paths = []
+    for phases in (scalar_ex_phases, scalar_last_phases):
+        (k4_err, k4_rows, k5_err, collect, path_launches,
+         k5_row) = phases(torch, np, dev, card, reset_counts, counts)
+        k4["launches_by_path"].update(
+            {row["env"]: row["launches"] for row in k4_rows})
+        k4["max_abs_err"] = max(k4["max_abs_err"], k4_err)
+        k4["per_env"] += k4_rows
+        k5["launches_by_path"][k5_row["env"]] = k5_row["launches"]
+        k5["max_abs_err"] = max(k5["max_abs_err"], k5_err)
+        k5["exempt_lane_steps"] += collect["exempt"]
+        k5["flipped_lane_steps"] += collect["flipped"]
+        k5["diverged_lanes"].update(collect["diverged"])
+        k5["per_env"].append(k5_row)
+        train_paths.append(path_launches)
     k4["launches"] = sum(k4["launches_by_path"].values())
-    k4["max_abs_err"] = max(k4["max_abs_err"], k4_err)
-    k4["per_env"] += k4_rows
-    k5["launches_by_path"] = {"scalar": k5["launches"],
-                              "island_navigation_ex":
-                                  ex_train_launches["fused_scalar_collect"]}
     k5["launches"] = sum(k5["launches_by_path"].values())
-    k5["max_abs_err"] = max(k5["max_abs_err"], k5_err)
-    k5["exempt_lane_steps"] += collect["exempt"]
-    k5["flipped_lane_steps"] += collect["flipped"]
-    k5["diverged_lanes"].update(collect["diverged"])
-    k5["per_env"].append(k5_row)
+    # The bodies of earlier slices against their times before this slice
+    # (SC_MAX_HW and the shell's draw hooks changed under them).
+    for row in k4["per_env"]:
+        if row["env"] in K4_BEFORE_MS:
+            before = K4_BEFORE_MS[row["env"]]
+            log(f"K4 {row['env']} rollout({row['steps']}): {row['ms']:.3f} ms, "
+                f"before {before} ms ({row['ms'] / before - 1:+.2%})  [{card}]")
+    for row in k5["per_env"]:
+        if row["env"] in K5_BEFORE_MS:
+            before = K5_BEFORE_MS[row["env"]]
+            log(f"K5 {row['env']} collect({COLLECT_STEPS}): {row['ms']:.3f} ms, "
+                f"before {before} ms ({row['ms'] / before - 1:+.2%})  [{card}]")
 
-    # ---- 29. results
+    # ---- 33. results
     k2_bound_ms, k2_bound_by = bound(24 * n_words, 24 * n_words)
     kernels = [{
         "name": "fused_firemaker_rollout", "route": "cuda",
@@ -2075,11 +2339,12 @@ def main():
         "replaces": K2_REPLACES,
         "launches": (launches["prf_words"] + train_launches["prf_words"]
                      + island_prf + savanna_prf
-                     + ex_train_launches["prf_words"]),
+                     + sum(t["prf_words"] for t in train_paths)),
         "check_launches": k2_check_launches,
         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound_ms, "bound_by": k2_bound_by, "library_ms": None,
     }]
+    log(f"run time {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": kernels, "checked_off_path": checked_off_path}))
     log(gpu_line())
     log(json.dumps({

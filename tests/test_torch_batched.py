@@ -94,10 +94,21 @@ def test_batched_env_scalar_slice_matches_jax(name):
     ("distributional_shift", {"is_testing": True}),
     ("safe_interruptibility", {"level": 0}),
     ("safe_interruptibility_ex", {"max_iterations": 9}),
+    ("side_effects_sokoban", {"level": 1}),
+    ("whisky_gold", {}),
+    ("tomato_crmdp", {}),
+    ("conveyor_belt_sushi_goal", {"max_iterations": 9}),
+    ("rocks_diamonds", {}),
+    ("friend_foe", {}),
+    ("conveyor_belt_ex", {"variant": "sushi_goal2", "max_iterations": 9}),
 ], ids=["island_navigation_ex", "absent_supervisor", "distributional_shift",
-        "safe_interruptibility", "safe_interruptibility_ex"])
+        "safe_interruptibility", "safe_interruptibility_ex",
+        "side_effects_sokoban", "whisky_gold", "tomato_crmdp",
+        "conveyor_belt_sushi_goal", "rocks_diamonds", "friend_foe",
+        "conveyor_belt_ex"])
 def test_batched_env_new_scalar_slice_matches_jax(name, kw):
-    """island_navigation_ex and the bodies with per-episode draws as a whole:
+    """island_navigation_ex, the bodies with per-episode draws and the
+    bodies of the last scalar slice as a whole:
     registry -> make_fused -> init_packed (the host's first-episode draws)
     -> rollout, twice, against the JAX package's fused scalar rollout from
     the same seed, every field exact."""
@@ -110,9 +121,14 @@ def test_batched_env_new_scalar_slice_matches_jax(name, kw):
     jf = jops.make_fused(jfactory.get_raw_env(name, **kw))
     jS = jf.rollout(jf.init_packed(seed=6, batch=32), 24, backend="xla")
     for k in jf.STATE_FIELDS:
-        np.testing.assert_array_equal(
-            env.state[k].numpy(), np.asarray(jS[k]), err_msg=k
-        )
+        got, want = env.state[k].numpy(), np.asarray(jS[k])
+        if name == "tomato_crmdp" and k in ("hid_ret", "stats_hidden"):
+            # XLA's jitted loop rewrites sum(watered) * 0.02
+            # (tests/test_torch_fused_scalar_draws.py states the bound).
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=k)
     assert first["episodes"] + second["episodes"] == int(
         np.asarray(jS["stats_episodes"]).sum()
     )
@@ -184,12 +200,14 @@ def test_batched_rollout_one_call():
 
 
 def test_unported_names_and_backends_raise():
+    # The experiment presets are not ported yet; an env object no fused
+    # kernel serves has no generic fallback.
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        BatchedEnv("side_effects_sokoban", batch_size=8, device="cpu")
+        BatchedEnv("food_sharing", batch_size=8, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        factory.get_raw_env("whisky_gold")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tops.make_fused(type("Env", (), {"name": "whisky_gold"})())
+        factory.get_raw_env("food_sharing")
+    with pytest.raises(NotImplementedError, match="no fused kernel"):
+        tops.make_fused(type("Env", (), {"name": "food_sharing"})())
     with pytest.raises(NotImplementedError, match="not ported yet"):
         BatchedEnv("firemaker_ex_ma", batch_size=8, device="cpu",
                    backend="generic")
@@ -229,6 +247,10 @@ def test_port_imports_without_jax():
         "BatchedEnv('boat_race', 4, device='cpu').rollout(2)\n"
         "BatchedEnv('island_navigation_ex', 4, device='cpu').rollout(2)\n"
         "BatchedEnv('absent_supervisor', 4, device='cpu').rollout(2)\n"
+        "for n in ('side_effects_sokoban', 'tomato_watering', 'friend_foe',\n"
+        "          'conveyor_belt_vase', 'conveyor_belt_ex', 'rocks_diamonds',\n"
+        "          'whisky_gold'):\n"
+        "    BatchedEnv(n, 4, device='cpu').rollout(2)\n"
         "BatchedEnv('island_navigation_ex_ma', 4, device='cpu',\n"
         "           map_randomization_frequency=1).rollout(2)\n"
         "BatchedEnv('aintelope_savanna', 4, device='cpu',\n"

@@ -508,11 +508,11 @@ def test_new_scalar_batched_env_and_train_step_on_the_card(dev, name):
 
 
 def test_scalar_kernels_refuse_a_physics_draw(dev):
-    """A body with a per-step physics draw (PHYS_ROWS > 0) is refused before
-    any launch."""
+    """A physics draw of more rows than K4/K5 take (PHYS_ROWS > 16) is
+    refused before any launch."""
     fused = _scalar_new("absent_supervisor")
     S = fused.init_packed(0, 64, dev)
-    fused.PHYS_ROWS, fused.n_sites = 1, 3
+    fused.PHYS_ROWS, fused.n_sites = 17, 3
     before = fused_scalar_rollout.launches, fused_scalar_collect.launches
     with pytest.raises(NotImplementedError, match="PHYS_ROWS"):
         fused.rollout(S, 1)
@@ -520,6 +520,132 @@ def test_scalar_kernels_refuse_a_physics_draw(dev):
         fused.rollout_collect(S, _params(fused, dev), 1)
     assert (fused_scalar_rollout.launches,
             fused_scalar_collect.launches) == before
+
+
+# The last scalar slice's bodies, the cases of tests/test_fused_scalar.py:
+# (name, env kwargs) by id.
+SCALAR_LAST = {
+    "sokoban_l0": ("side_effects_sokoban", {}),
+    "sokoban_l1_noops": ("side_effects_sokoban", {"level": 1, "noops": True}),
+    "sokoban_l2": ("side_effects_sokoban", {"level": 2}),
+    "sokoban_l3": ("side_effects_sokoban", {"level": 3}),
+    "whisky_gold": ("whisky_gold", {}),
+    "tomato_watering": ("tomato_watering", {}),
+    "tomato_crmdp": ("tomato_crmdp", {}),
+    "conveyor_vase": ("conveyor_belt", {"variant": "vase"}),
+    "conveyor_sushi": ("conveyor_belt", {"variant": "sushi"}),
+    "conveyor_sushi_goal": ("conveyor_belt", {"variant": "sushi_goal",
+                                              "noops": True}),
+    "conveyor_sushi_goal2": ("conveyor_belt", {"variant": "sushi_goal2"}),
+    "rocks_l0": ("rocks_diamonds", {}),
+    "rocks_l1": ("rocks_diamonds", {"level": 1}),
+    "conveyor_ex_vase": ("conveyor_belt_ex", {"variant": "vase"}),
+    "conveyor_ex_sushi_goal": ("conveyor_belt_ex", {"variant": "sushi_goal",
+                                                    "noops": True}),
+    "friend_foe": ("friend_foe", {}),
+    "friend_foe_friend": ("friend_foe", {"bandit_type": "friend"}),
+    "friend_foe_adversary_extra": ("friend_foe", {"bandit_type": "adversary",
+                                                  "extra_step": True}),
+}
+
+
+def _scalar_last(case, max_iterations=20):
+    name, kw = SCALAR_LAST[case]
+    env = factory.get_raw_env(name, **kw)
+    env.max_iterations = max_iterations  # short episodes: many resets
+    return tops.make_fused(env)
+
+
+@pytest.mark.parametrize("start", ["init", "busy"])
+@pytest.mark.parametrize("case", sorted(SCALAR_LAST))
+@pytest.mark.parametrize("tile", [32, 128])
+def test_last_scalar_rollout_kernel_matches_plain(dev, case, start, tile):
+    """K4 on the last slice's bodies (the coin board in shared memory,
+    tomato's 13-row draws at sites 1 and 2, friend_foe's two-row reset draw
+    and IEEE division): every field equal to the plain version."""
+    fused = _scalar_last(case)
+    B = 200
+    if start == "init":
+        S0 = fused.init_packed(5, B, dev)
+    else:
+        S0 = interop.busy_scalar_state(fused, 5, B, dev)
+    before = fused_scalar_rollout.launches
+    Sk = fused.rollout(S0, 70, tile=tile)
+    assert fused_scalar_rollout.launches == before + 1
+    Sp = fused.rollout_plain(S0, 70)
+    for k in fused.STATE_FIELDS:
+        assert _equal(Sk[k], Sp[k]), k
+    assert int(Sk["stats_episodes"].sum()) > int(S0["stats_episodes"].sum())
+    if start == "busy":
+        assert int(Sk["draw_ctr"].to(torch.int64).min()) < 70  # wrapped
+
+
+@pytest.mark.parametrize("case", ["sokoban_l1_noops", "tomato_watering",
+                                  "rocks_l0", "friend_foe"])
+def test_last_scalar_linear_policy_kernel_matches_plain(dev, case):
+    fused = _scalar_last(case, max_iterations=30)
+    B = 200
+    S0 = interop.busy_scalar_state(fused, 3, B, dev)
+    fused.set_policies(*_policy(fused, B, 1))
+    Sk, Sp = fused.rollout(S0, 50), fused.rollout_plain(S0, 50)
+    fused.set_policies(None, None)
+    for k in fused.STATE_FIELDS:
+        assert _equal(Sk[k], Sp[k]), k
+
+
+@pytest.mark.parametrize("case", sorted(SCALAR_LAST))
+def test_last_scalar_collect_kernel_matches_plain(dev, case):
+    """K5 within phase 7's limits: equal except on lanes whose draw lies
+    within 1e-6 of a CDF boundary; logp, value and boot within 1e-5."""
+    fused = _scalar_last(case, max_iterations=25)
+    B = 256
+    params = _params(fused, dev)
+    S0 = interop.busy_scalar_state(fused, 4, B, dev)
+    before = fused_scalar_collect.launches
+    Sk, tk, bk = fused.rollout_collect(S0, params, 40)
+    assert fused_scalar_collect.launches == before + 1
+    statics = fused._collect_statics(S0, params)
+    S, exempt = S0, torch.zeros(B, dtype=torch.bool, device=dev)
+    recs = []
+    for _ in range(40):
+        S, rec, ex = fused._collect_step(S, statics)
+        exempt |= (ex["pol"]["cdf_gap"] < 1e-6).any(dim=0)
+        recs.append(rec)
+    keep = ~exempt
+    assert int(exempt.sum()) <= 2
+    for k in fused.STATE_FIELDS:
+        assert _equal(Sk[k], S[k], keep), k
+    for k in ("feats", "action", "reward", "done"):
+        assert _equal(tk[k], torch.stack([r[k] for r in recs]), keep), k
+    for k in ("logp", "value"):
+        torch.testing.assert_close(
+            tk[k][..., keep], torch.stack([r[k] for r in recs])[..., keep],
+            rtol=0, atol=1e-5,
+        )
+    boot = fused._bootstrap_value(S, statics)
+    torch.testing.assert_close(bk[:, keep], boot[:, keep], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["side_effects_sokoban", "whisky_gold",
+                                  "tomato_watering", "conveyor_belt_sushi_goal2",
+                                  "rocks_diamonds", "friend_foe",
+                                  "conveyor_belt_ex"])
+def test_last_scalar_batched_env_and_train_step_on_the_card(dev, name):
+    env = BatchedEnv(name, batch_size=256, device=dev)
+    before = fused_scalar_rollout.launches
+    stats = env.rollout(210)  # truncation at 100: episodes in every lane
+    assert fused_scalar_rollout.launches == before + 1
+    assert env.kernel == "fused_cuda" and stats["episodes"] >= 512
+    config = ppo_fused.FusedPPOConfig(n_steps=16, n_epochs=2, n_minibatches=4,
+                                      hidden=32)
+    state = ppo_fused.init_train_state(env.fused, 256, seed=1, config=config,
+                                       device="cuda")
+    step = ppo_fused.make_train_step(env.fused, config, device="cuda")
+    before = fused_scalar_collect.launches
+    state, metrics = step(state)
+    assert fused_scalar_collect.launches == before + 1
+    for k, v in metrics.items():
+        assert bool(torch.isfinite(v).all()), k
 
 
 # tests/test_fused_island_ma.py's rich configuration.

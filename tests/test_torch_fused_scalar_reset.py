@@ -230,19 +230,24 @@ def test_interruption_freezes_on_the_tile_until_the_button():
 
 
 def test_kernels_refuse_bodies_they_do_not_take():
-    """K4/K5's launch check refuses a per-step physics draw (PHYS_ROWS > 0,
-    tomato_watering's hook), a reset draw of more than one row, and a
-    draw-site count other than the hooks' -- before it looks at the device,
-    so the CPU sees the refusal."""
+    """K4/K5's launch check takes the reset draw and a per-step physics draw
+    (PHYS_ROWS, tomato_watering's hook) and refuses only what the kernels do
+    not take: more than 16 rows of either draw and a draw-site count other
+    than the hooks' -- before it looks at the device, so the CPU sees the
+    refusal."""
     tf = T.FusedAbsentSupervisor(tas.AbsentSupervisor())
     S = tf.init_packed(0, 8, "cpu")
     T._check_supported(tf)
     with pytest.raises(NotImplementedError, match="no scalar kernel"):
         T._check_launch(tf, S, 1, 32)
     tf.PHYS_ROWS, tf.n_sites = 1, 3
+    T._check_supported(tf)
+    tf.PHYS_ROWS = 17
     with pytest.raises(NotImplementedError, match="PHYS_ROWS"):
         T._check_launch(tf, S, 1, 32)
     tf.PHYS_ROWS, tf.n_sites, tf.RESET_ROWS = 0, 2, 2
+    T._check_supported(tf)
+    tf.RESET_ROWS = 17
     with pytest.raises(NotImplementedError, match="RESET_ROWS"):
         T._check_launch(tf, S, 1, 32)
     tf.RESET_ROWS, tf.n_sites = 1, 3
