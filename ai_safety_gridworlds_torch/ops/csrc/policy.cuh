@@ -1,5 +1,6 @@
 // Device policy pieces shared by the port's step kernels (K1 and K3 in
-// fused_firemaker.cu, K4 and K5 in fused_scalar.cu).
+// fused_firemaker.cu, K4-K9 in fused_scalar.cu, fused_island_ma.cu and
+// fused_savanna.cu).
 //
 // Counterparts of ai_safety_gridworlds_tpu/ops/fused_base.py::_policy_actions
 // (:129, the greedy part of the per-lane linear policy), _mlp_forward_agent
@@ -56,24 +57,14 @@ __device__ __forceinline__ float mlp_hidden(const Mlp& m, int k, const float (&x
   return fmaxf(h, 0.f);
 }
 
-// _mlp_forward_agent and _mlp_policy_actions for one agent: the output rows
-// accumulate bias first, hidden units ascending, with no register array of
-// H hidden units; then the max-shifted logits, the log-normaliser (softmax
-// terms summed left to right), the inverse-CDF draw over the first A-1
-// cumulative sums from the uniform u, and the drawn action's logp. Returns
-// the drawn action's index in 0..A-1; A <= MAX_A.
-template <int F, int MAX_A>
-__device__ __forceinline__ int mlp_draw(const Mlp& m, int A, const float (&x)[F],
-                                        float u, float& logp, float& value) {
-  float out[MAX_A + 1];
-#pragma unroll
-  for (int a = 0; a <= MAX_A; ++a) out[a] = a <= A ? m.b2[a] : 0.f;
-  for (int k = 0; k < m.H; ++k) {
-    const float h = mlp_hidden<F>(m, k, x);
-#pragma unroll
-    for (int a = 0; a <= MAX_A; ++a)
-      if (a <= A) out[a] = out[a] + m.w2[a * m.H + k] * h;
-  }
+// The softmax draw of _mlp_policy_actions on one agent's output rows out[0..A]
+// (row A is the value head): the max-shifted logits, the log-normaliser
+// (softmax terms summed left to right), the inverse-CDF draw over the first
+// A-1 cumulative sums from the uniform u, and the drawn action's logp.
+// Returns the drawn action's index in 0..A-1; A <= MAX_A.
+template <int MAX_A>
+__device__ __forceinline__ int mlp_sample(const float (&out)[MAX_A + 1], int A,
+                                          float u, float& logp, float& value) {
   float mx = out[0];
 #pragma unroll
   for (int a = 1; a < MAX_A; ++a)
@@ -104,6 +95,61 @@ __device__ __forceinline__ int mlp_draw(const Mlp& m, int A, const float (&x)[F]
   }
   logp = z_sel - log_se;
   return idx;
+}
+
+// _mlp_forward_agent and _mlp_policy_actions for one agent, by one thread:
+// the output rows accumulate bias first, hidden units ascending, with no
+// register array of H hidden units; then mlp_sample.
+template <int F, int MAX_A>
+__device__ __forceinline__ int mlp_draw(const Mlp& m, int A, const float (&x)[F],
+                                        float u, float& logp, float& value) {
+  float out[MAX_A + 1];
+#pragma unroll
+  for (int a = 0; a <= MAX_A; ++a) out[a] = a <= A ? m.b2[a] : 0.f;
+  for (int k = 0; k < m.H; ++k) {
+    const float h = mlp_hidden<F>(m, k, x);
+#pragma unroll
+    for (int a = 0; a <= MAX_A; ++a)
+      if (a <= A) out[a] = out[a] + m.w2[a * m.H + k] * h;
+  }
+  return mlp_sample<MAX_A>(out, A, u, logp, value);
+}
+
+// _mlp_forward_agent for the NJ agents of one lane, by the lane's warp:
+// thread t computes hidden units t, t + 32, ... of every agent into the
+// warp's buffer hbuf [NJ][H + 1], then thread j * (A + 1) + a forms agent
+// j's output row a, bias first, hidden units ascending, as mlp_draw does;
+// returns that row (0 on the other threads). Here m.w2's rows lie H + 1
+// floats apart, so that the A + 1 row threads read distinct banks.
+template <int F, int NJ>
+__device__ __forceinline__ float mlp_warp_rows(const Mlp& m, int A,
+                                               const float (&x)[NJ][F],
+                                               float* hbuf, int lane) {
+  const int ld = m.H + 1;
+  __syncwarp();  // the previous call's rows have read hbuf
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+    for (int k = lane; k < m.H; k += 32) hbuf[j * ld + k] = mlp_hidden<F>(m, k, x[j]);
+  __syncwarp();
+  float o = 0.f;
+  if (lane < NJ * (A + 1)) {
+    const int j = lane / (A + 1), a = lane - j * (A + 1);
+    const float* h = hbuf + j * ld;
+    const float* w = m.w2 + a * ld;
+    o = m.b2[a];
+    for (int k = 0; k < m.H; ++k) o = o + w[k] * h[k];
+  }
+  return o;
+}
+
+// Agent j's output rows from mlp_warp_rows' threads, to every thread of the
+// warp; rows past A are 0, as in mlp_draw.
+template <int MAX_A>
+__device__ __forceinline__ void mlp_gather_rows(float o, int A, int j,
+                                                float (&out)[MAX_A + 1]) {
+#pragma unroll
+  for (int a = 0; a <= MAX_A; ++a)
+    out[a] = a <= A ? __shfl_sync(0xffffffffu, o, j * (A + 1) + a) : 0.f;
 }
 
 // The value head alone (_bootstrap_value): output row A in mlp_draw's order.

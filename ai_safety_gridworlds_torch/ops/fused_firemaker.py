@@ -89,8 +89,9 @@ REWARD_KINDS = (
 class FusedFiremaker(FusedMaBase):
     """Packed batched firemaker with a single-kernel rollout."""
 
-    # Lanes per block of the CUDA kernels (one thread per lane).
-    DEFAULT_TILE = 32
+    # Threads per block of the CUDA kernels (one warp per lane, so tile / 32
+    # lanes per block).
+    DEFAULT_TILE = 256
     POLICY_FEATURES = 6
 
     def __init__(self, env, mxu_stencil=False):
@@ -612,6 +613,9 @@ class FusedFiremaker(FusedMaBase):
 # ------------------------------------------------------------ CUDA kernels
 
 _MAX_N, _MAX_D, _MAX_TERMS, _MAX_A = 3, 8, 48, 5
+# Stencil rows, bits of a row's window, and board cells (one 32-bit word of
+# a thread's own cells) the kernels take.
+_MAX_ROWS, _MAX_WIN, _MAX_HW = 8, 8, 1024
 # Shared memory a block may take on sm_90 (bytes).
 _MAX_SMEM = 232448
 
@@ -650,10 +654,13 @@ class _FmParams(ctypes.Structure):
             "press_duration", "max_iterations",
         )],
         ("start_pos", _int_array(_MAX_N)),
-        ("n_terms", ctypes.c_int),
-        ("term_off", _int_array(_MAX_TERMS)),
-        ("term_row_start", _int_array(_MAX_TERMS)),
+        *[(k, ctypes.c_int) for k in (
+            "n_terms", "n_rows", "win_bits", "ext_lo", "n_ext",
+        )],
+        ("term_row", _int_array(_MAX_TERMS)),
+        ("term_bit", _int_array(_MAX_TERMS)),
         ("term_q", ctypes.c_float * _MAX_TERMS),
+        ("row_base", _int_array(_MAX_ROWS)),
         ("cont_p", ctypes.c_float),
         ("rv", (ctypes.c_float * _MAX_D) * len(REWARD_KINDS)),
         ("dir_tab", ((ctypes.c_int * 4) * 10) * 3),
@@ -691,18 +698,43 @@ def _firemaker_lib():
     return lib
 
 
+def _stencil(fused) -> dict:
+    """The kernels' stencil tables. ``terms``: (row, window bit, q) in the
+    reference's product order (rows of equal dr ascending, each row's
+    (dc, p) ascending), q = float32(1 - float32(p)). Row r's window at cell
+    c holds the sources at cells c - dr*W - dc for dc from the row's largest
+    down, in bits 0, 1, ... (a term's bit is dcmax - dc) of ``win_bits``
+    bits; it starts at bit c - ``row_base[r]`` of the extended source board,
+    whose bit e holds cell (e + ``ext_lo``) mod HW, for e < ``n_ext``: the
+    wrap-around of the roll form, read as one window per row. Raises
+    ``ValueError`` for a stencil the kernels' tables do not hold."""
+    HW, W = fused.HW, fused.w
+    terms, row_off, widths = [], [], []
+    for r, (dr, row) in enumerate(fused.spread_rows):
+        dcs = [dc for dc, _ in row]
+        row_off.append(dr * W + max(dcs))
+        widths.append(max(dcs) - min(dcs) + 1)
+        for dc, p_off in row:
+            q = np.float32(1.0) - np.float32(p_off)
+            terms.append((r, max(dcs) - dc, float(q)))
+    win_bits = max(widths)
+    ext_lo = min(-o for o in row_off)
+    ext_hi = max(-o + win_bits - 1 for o in row_off)
+    if (len(terms) > _MAX_TERMS or len(row_off) > _MAX_ROWS
+            or win_bits > _MAX_WIN or ext_lo < -HW or ext_hi >= HW):
+        raise ValueError("fire stencil too large for K1")
+    return dict(terms=terms, win_bits=win_bits, ext_lo=ext_lo,
+                n_ext=HW + ext_hi - ext_lo,
+                row_base=[o + ext_lo for o in row_off])
+
+
 def _static_params(fused, cell_bits) -> _FmParams:
     """The static parameter block: the board's cell bits, the stencil
-    terms in the reference's product order, reward vectors, direction
-    tables and the policy features' float32 constants. The pointers, B,
-    n_steps and hidden are left at 0."""
-    terms = []
-    for dr, row in fused.spread_rows:
-        for k, (dc, p_off) in enumerate(row):
-            q = np.float32(1.0) - np.float32(p_off)
-            terms.append((dr * fused.w + dc, int(k == 0), float(q)))
-    if len(terms) > _MAX_TERMS or any(abs(o) >= fused.HW for o, _, _ in terms):
-        raise ValueError("fire stencil too large for K1")
+    tables (``_stencil``), reward vectors, direction tables and the policy
+    features' float32 constants. The pointers, B, n_steps and hidden are
+    left at 0."""
+    st = _stencil(fused)
+    terms = st["terms"]
     p = _FmParams()
     p.cell_bits = cell_bits.data_ptr()
     env = fused.env
@@ -714,12 +746,16 @@ def _static_params(fused, cell_bits) -> _FmParams:
         extra_work_row=int(env.amount_agents > 2 and fused.n_workers > 1),
         press_duration=fused.press_duration,
         max_iterations=fused.max_iterations, n_terms=len(terms),
+        n_rows=len(st["row_base"]), win_bits=st["win_bits"],
+        ext_lo=st["ext_lo"], n_ext=st["n_ext"],
     ).items():
         setattr(p, k, int(v))
     for j in range(fused.n):
         p.start_pos[j] = int(fused.start_pos_flat[j, 0])
-    for k, (off, row_start, q) in enumerate(terms):
-        p.term_off[k], p.term_row_start[k], p.term_q[k] = off, row_start, q
+    for k, (row, bit, q) in enumerate(terms):
+        p.term_row[k], p.term_bit[k], p.term_q[k] = row, bit, q
+    for r, base in enumerate(st["row_base"]):
+        p.row_base[r] = base
     p.cont_p = fused.cont_p
     for r, kind in enumerate(REWARD_KINDS):
         for d in range(fused.D):
@@ -739,7 +775,44 @@ def _static_params(fused, cell_bits) -> _FmParams:
     return p
 
 
-def _check_launch(fused, S, n_steps, tile):
+def _smem_bytes(fused: FusedFiremaker, tile: int, hidden: int = 0) -> int:
+    """Shared memory per block of K1 (``hidden`` 0) or K3, as
+    ``fm_smem`` in ``csrc/fused_firemaker.cu`` lays it out in 4-byte
+    words: the block's K3 weights (w2's rows H + 1 apart), reward vectors,
+    stencil table and cell bits, then per lane (``tile // 32`` of them) the
+    fire board, the extended source board and one spare word, and K3's
+    hidden units [n, H + 1]."""
+    st = _stencil(fused)
+    A = fused.amax - fused.amin + 1
+    weights = (hidden * fused.POLICY_FEATURES + hidden
+               + (A + 1) * (hidden + 1) + A + 1) if hidden else 0
+    block = (weights + len(REWARD_KINDS) * _MAX_D
+             + (len(st["row_base"]) << st["win_bits"]) + (fused.HW + 3) // 4)
+    per_lane = ((fused.HW + 31) // 32 + (st["n_ext"] + 31) // 32 + 1
+                + (fused.n * (hidden + 1) if hidden else 0))
+    return 4 * (block + _lanes_per_block(tile) * per_lane)
+
+
+def _lanes_per_block(tile: int) -> int:
+    """Batch lanes per block of ``tile`` threads: one warp per lane."""
+    return tile // 32
+
+
+def _check_geometry(fused: FusedFiremaker, tile: int, hidden: int = 0):
+    """Refuse, before any launch, a board past the kernels' ``_MAX_HW``
+    cells or a block past the card's shared memory (``ValueError``)."""
+    if fused.HW > _MAX_HW:
+        raise ValueError(
+            f"board of {fused.HW} cells: the kernels take at most {_MAX_HW}"
+        )
+    if _smem_bytes(fused, tile, hidden) > _MAX_SMEM:
+        raise ValueError(
+            f"hidden {hidden} at tile {tile} does not fit the kernels' "
+            "shared memory"
+        )
+
+
+def _check_launch(fused, S, n_steps, tile, hidden=0):
     """The checks both kernels share; returns ``(device, B, n_steps)``."""
     device = S["t"].device
     if device.type != "cuda":
@@ -749,6 +822,7 @@ def _check_launch(fused, S, n_steps, tile):
             "the CUDA kernels implement the product-form stencil only; "
             "build FusedFiremaker(env, mxu_stencil=False)"
         )
+    _check_geometry(fused, tile, hidden)
     B, n_steps = check_kernel_state(
         fused, S, n_steps, tile, max(fused.HW, fused.n * fused.D, fused.n * 5)
     )
@@ -772,9 +846,12 @@ def fused_firemaker_rollout(fused: FusedFiremaker, S: dict, n_steps: int,
     (``csrc/fused_firemaker.cu``); returns a new state dict. The policy
     installed by ``set_policies`` at the time of the call picks the
     actions (K1's linear branch); without one the draws are uniform.
+    ``tile`` is threads per block, a multiple of 32 in [32, 256]: one warp
+    per lane, so ``tile // 32`` lanes per block.
 
-    Checks every field's device, dtype, shape and contiguity and raises on
-    what the kernel does not take; CPU tensors take the plain version."""
+    Checks every field's device, dtype, shape and contiguity, and the
+    board and shared memory against the kernel's limits, and raises on what
+    the kernel does not take; CPU tensors take the plain version."""
     if S["t"].device.type == "cpu":
         return fused.rollout_plain(S, n_steps)
     device, B, n_steps = _check_launch(fused, S, n_steps, tile)
@@ -808,14 +885,6 @@ def fused_firemaker_rollout(fused: FusedFiremaker, S: dict, n_steps: int,
 fused_firemaker_rollout.launches = 0
 
 
-def _collect_smem_bytes(fused: FusedFiremaker, hidden: int, tile: int) -> int:
-    """K3's shared memory per block: the MLP's weights as float32, then
-    the fire and source boards as bytes ``[HW, tile]`` and the cell bits."""
-    A = fused.amax - fused.amin + 1
-    n_w = hidden * fused.POLICY_FEATURES + hidden + (A + 1) * (hidden + 1)
-    return 4 * n_w + 2 * fused.HW * tile + fused.HW
-
-
 def fused_firemaker_collect(fused: FusedFiremaker, S: dict, params: dict,
                             n_steps: int,
                             tile: int = FusedFiremaker.DEFAULT_TILE):
@@ -824,21 +893,18 @@ def fused_firemaker_collect(fused: FusedFiremaker, S: dict, params: dict,
 
     Returns ``(S, traj, boot)`` as :meth:`FusedMaBase.rollout_collect`:
     ``traj[name]`` is ``[n_steps, rows, B]``, ``boot`` is ``[n, B]``.
-    Checks the state as K1 does and each MLP tensor's device, dtype, shape
-    and contiguity (``mlp_w1`` [H, F], ``mlp_b1`` [H, 1], ``mlp_w2`` [A+1,
-    H], ``mlp_b2`` [A+1, 1], float32 on the state's device); CPU tensors
-    take the plain version."""
+    ``tile`` is threads per block, as for K1. Checks the state as K1 does
+    and each MLP tensor's device, dtype, shape and contiguity (``mlp_w1``
+    [H, F], ``mlp_b1`` [H, 1], ``mlp_w2`` [A+1, H], ``mlp_b2`` [A+1, 1],
+    float32 on the state's device), and the weights and hidden units
+    against the shared memory; CPU tensors take the plain version."""
     if S["t"].device.type == "cpu":
         return fused.rollout_collect_plain(S, params, n_steps)
-    device, B, n_steps = _check_launch(fused, S, n_steps, tile)
     A = fused.amax - fused.amin + 1
     if A > _MAX_A:
         raise ValueError(f"K3 takes at most {_MAX_A} actions, got {A}")
-    H = check_mlp_params(fused, params, device)
-    if _collect_smem_bytes(fused, H, tile) > _MAX_SMEM:
-        raise ValueError(
-            f"hidden {H} at tile {tile} does not fit K3's shared memory"
-        )
+    H = check_mlp_params(fused, params, S["t"].device)
+    device, B, n_steps = _check_launch(fused, S, n_steps, tile, H)
     out = {k: torch.empty_like(S[k]) for k in fused.STATE_FIELDS}
     traj = {
         name: torch.empty((n_steps, rows, B), dtype=dtype, device=device)

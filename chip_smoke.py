@@ -13,14 +13,19 @@ Phases, in order; any failure exits non-zero before the last line:
    card, every state field exactly equal, from ``init_packed(seed, 4096)``:
    the default config for 600 steps (``max_iterations=1000`` truncates at
    step 500, so the run crosses an auto-reset) and
-   ``action_direction_mode=1, max_iterations=40`` for 100 steps; and the
+   ``action_direction_mode=1, max_iterations=40`` for 100 steps; the
    default config for 200 steps from a seeded mid-episode state (burning
-   board, busy counters, draw counters across the uint32 wrap);
+   board, busy counters, draw counters across the uint32 wrap); at a ragged
+   batch (4096 + 3, no multiple of the lanes per block) for 600 steps; and
+   with one and three agents (``ONE_AGENT``, ``amount_agents=3``;
+   ``max_iterations=100``) for 300 steps each, so that every agent count
+   the kernel instantiates runs;
 5. the main path: ``BatchedEnv("firemaker_ex_ma", batch_size=4096,
    device="cuda").rollout(256)`` three times with the launch counters set
    to 0 just before and read just after; then env-steps/s, the plain
    version's time at the same shape, and K1's time by lane count (4096,
-   16384, 65536) and lane tile (32, 64, 128, 256);
+   16384, 65536) and threads per block (32, 64, 128, 256: 1, 2, 4 and 8
+   lanes, one warp per lane);
 6. K1's linear-policy branch (``set_policies``, the policy-search path)
    against the plain rollout, exactly, over 200 steps from
    ``init_packed(0, 4096)`` with numpy-seeded per-lane W, b and eps = 0.1;
@@ -214,6 +219,12 @@ times K4 (at each main path's shape) and K5 (collect(64)) on the eight
 scalar bodies of earlier slices with the port imported from the checkout at
 ROOT, and prints them as one JSON line: run it on two checkouts in one call
 (parent, change, change, parent) to compare them on one card.
+
+    python3 chip_smoke.py --time-firemaker ROOT
+
+does the same for K1 (rollout(256)) and K3 (collect(64), H = 64) at
+B = 4096 from ``init_packed(SEED, 4096)``, each at its checkout's default
+tile.
 """
 
 from __future__ import annotations
@@ -229,14 +240,26 @@ MAIN_STEPS = 256
 MAIN_CALLS = 3
 SEED = 0
 SWEEP_BATCHES = (BATCH, 4 * BATCH, 16 * BATCH)
+# K1/K3's threads per block (one warp per lane: tile // 32 lanes).
 TILES = (32, 64, 128, 256)
-# (label, env kwargs, steps, start): "init" is init_packed(SEED, BATCH),
-# "busy" is interop.busy_firemaker_state(fused, SEED, BATCH).
+# One agent: firemaker without a supervisor, with the supervisor rewards
+# moved onto a dim the workers' reward space enables (the defaults name
+# dims only the supervisor's enables, and the fused class refuses them).
+ONE_AGENT = {"amount_agents": 1, **{
+    k: '{"ENERGY": -1}' for k in ("SUPERVISOR_TRESPASSING_REWARD",
+                                  "SUPERVISOR_STOP_BUTTON_REWARD",
+                                  "SUPERVISOR_WORKSHOP_REWARD")}}
+# (label, env kwargs, steps, start, batch): "init" is init_packed(SEED,
+# batch), "busy" is interop.busy_firemaker_state(fused, SEED, batch).
 K1_CHECKS = (
-    ("default", {}, 600, "init"),
+    ("default", {}, 600, "init", BATCH),
     ("adm1_maxit40", {"action_direction_mode": 1, "max_iterations": 40}, 100,
-     "init"),
-    ("default_busy", {}, 200, "busy"),
+     "init", BATCH),
+    ("default_busy", {}, 200, "busy", BATCH),
+    ("default_ragged", {}, 600, "init", BATCH + 3),
+    ("one_agent", dict(ONE_AGENT, max_iterations=100), 300, "init", BATCH),
+    ("three_agents", {"amount_agents": 3, "max_iterations": 100}, 300, "init",
+     BATCH),
 )
 K1_REPLACES = (
     "ai_safety_gridworlds_tpu/ops/fused_base.py:432 (_rollout_pallas_call) "
@@ -273,10 +296,10 @@ K5_REPLACES = (
     ":1285/:1297, :1385/:1394, :2236, :1054, :1477, :1577/:1586, :1669, "
     ":1828, :1998/:2028 and :2135 bodies"
 )
-# K1's and K3's times at the main-path shapes before the policy pieces moved
-# to policy.cuh (PERF.md; NVIDIA H100 80GB HBM3 at 700 W).
-K1_BEFORE_MS = 123.899
-K3_BEFORE_MS = 34.205
+# K1's and K3's times at the main-path shapes in the earlier design, one
+# thread per lane (PERF.md; NVIDIA H100 80GB HBM3 at 700 W).
+K1_BEFORE_MS = 123.934
+K3_BEFORE_MS = 34.213
 # (name, env kwargs, rollout steps of the scalar main path).
 SCALAR_MAIN = (
     ("boat_race", {}, 8192),
@@ -454,9 +477,11 @@ PEAK_OPS_PER_S = 67e12
 # finalizers), uniform01 (shift, convert, scale), the draw and the
 # external-fire count.
 OPS_PER_CELL = 21 + 3 + 4
-# At each spreadable cell: 24 stencil terms of 4 operations (offset,
-# wrap-around, source test, multiply), 5 row products and 1 - prod.
-OPS_PER_STENCIL_CELL = 24 * 4 + 6
+# At each spreadable cell, per stencil row: the window's offset, its read,
+# shift and mask, the table read and the multiply; then 1 - prod. (The
+# earlier design tested each of the 24 terms: 4 operations a term and 6
+# more, 102 operations a cell.)
+OPS_PER_STENCIL_ROW = 6
 
 
 def log(msg=""):
@@ -507,10 +532,12 @@ def bound(n_bytes, n_ops):
 def step_ops(fused, acting_substeps):
     """Operations of the firemaker step for ``acting_substeps`` acting
     agent sub-steps (every cell hashed, the stencil at every spreadable
-    cell)."""
+    cell, one table lookup per row of equal dr)."""
     n_spread = int((fused.consts["spreadable"] > 0.5).sum())
+    n_rows = len(fused.spread_rows)
     return acting_substeps * (
-        fused.HW * OPS_PER_CELL + n_spread * OPS_PER_STENCIL_CELL
+        fused.HW * OPS_PER_CELL
+        + n_spread * (n_rows * OPS_PER_STENCIL_ROW + 1)
     )
 
 
@@ -1926,11 +1953,40 @@ def time_scalar(root):
     print(json.dumps(out), flush=True)
 
 
+def time_firemaker(root):
+    """K1 per rollout(MAIN_STEPS) and K3 per collect(COLLECT_STEPS) at
+    H = HIDDEN, B = BATCH, from ``init_packed(SEED, BATCH)``, each at the
+    default tile of the port imported from the checkout at ``root``; one
+    JSON line of milliseconds."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false; this timing needs a card")
+    sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
+
+    from ai_safety_gridworlds_torch.envs.firemaker_ex_ma import FiremakerExMa
+    from ai_safety_gridworlds_torch.ops.fused_firemaker import FusedFiremaker
+
+    dev = torch.device("cuda", 0)
+    fused = FusedFiremaker(FiremakerExMa())
+    S0 = fused.init_packed(SEED, BATCH, dev)
+    params = seeded_params(fused, dev, np)
+    out = {"root": os.path.abspath(root), "card": gpu_line(),
+           "tile": fused.DEFAULT_TILE}
+    out["k1_ms"] = cuda_ms(lambda: fused.rollout(S0, MAIN_STEPS), 5, torch)
+    out["k3_ms"] = cuda_ms(
+        lambda: fused.rollout_collect(S0, params, COLLECT_STEPS), 5, torch)
+    print(json.dumps(out), flush=True)
+
+
 def main():
     import torch
 
     if len(sys.argv) == 3 and sys.argv[1] == "--time-scalar":
         return time_scalar(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--time-firemaker":
+        return time_firemaker(sys.argv[2])
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke run needs a card")
@@ -2002,7 +2058,8 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(k in line for k in ("registers", "spill", "smem",
+                                       "entry function")):
                 log(f"  [{name}] {line.strip()}")
 
     # ---- 3. K2 against the plain PRF
@@ -2037,12 +2094,12 @@ def main():
     # ---- 4. K1 against the plain rollout on the card
     log("== 4. K1 fused_firemaker_rollout vs plain rollout")
     k1_err = 0.0
-    for label, kw, steps, start in K1_CHECKS:
+    for label, kw, steps, start, batch in K1_CHECKS:
         fused = FusedFiremaker(FiremakerExMa(**kw))
         if start == "init":
-            S0 = fused.init_packed(SEED, BATCH, dev)
+            S0 = fused.init_packed(SEED, batch, dev)
         else:
-            S0 = interop.busy_firemaker_state(fused, SEED, BATCH, dev)
+            S0 = interop.busy_firemaker_state(fused, SEED, batch, dev)
         t0 = time.perf_counter()
         Sk = fused.rollout(S0, steps)
         torch.cuda.synchronize()
@@ -2054,12 +2111,14 @@ def main():
         k1_err = max(k1_err, rollout_equal(f"K1 {label}", fused, Sk, Sp, torch))
         eps = Sk["stats_episodes"]
         fires = int((Sk["fire"] > 0.5).sum())
-        log(f"K1 {label}: {steps} steps equal in all "
-            f"{len(fused.STATE_FIELDS)} fields; episodes per lane "
+        log(f"K1 {label} (B={batch}, {fused.n} agents): {steps} steps equal "
+            f"in all {len(fused.STATE_FIELDS)} fields; episodes per lane "
             f"{int(eps.min())}..{int(eps.max())}, burning cells {fires}; "
             f"kernel {tk:.3f} s, plain {tp:.3f} s")
-        if label == "default" and int(eps.min()) < 1:
-            fail("K1 default check did not cross an auto-reset")
+        # Every run from init of 300 steps or more passes its first
+        # truncation.
+        if start == "init" and steps >= 300 and int(eps.min()) < 1:
+            fail(f"K1 {label} check did not cross an auto-reset")
         if start == "busy" and int(Sk["draw_ctr"].to(torch.int64).min()) >= steps:
             fail("K1 busy check did not cross the draw-counter wrap")
 
@@ -2115,17 +2174,19 @@ def main():
     log(f"K1 rollout({MAIN_STEPS}) at B={BATCH}: {k1_ms:.3f} ms "
         f"({BATCH * MAIN_STEPS / k1_ms * 1e3:.0f} env-steps/s); plain "
         f"{k1_plain_ms:.3f} ms ({BATCH * MAIN_STEPS / k1_plain_ms * 1e3:.0f} "
-        f"env-steps/s); before the policy.cuh move {K1_BEFORE_MS} ms "
-        f"({k1_ms / K1_BEFORE_MS - 1:+.2%})  [{card}]")
-    # K1 alone by lane count and tile, from init_packed (3 timed calls each).
+        f"env-steps/s); one thread per lane {K1_BEFORE_MS} ms "
+        f"({k1_ms / K1_BEFORE_MS - 1:+.2%}); bound {k1_bound_ms:.4f} ms "
+        f"({k1_bound_by}), {k1_bound_ms / k1_ms:.2%} of it  [{card}]")
+    # K1 alone by lane count and threads per block, from init_packed (3
+    # timed calls each).
     for b in SWEEP_BATCHES:
         S_b = fused.init_packed(SEED, b, dev)
         for tile in TILES:
             ms = cuda_ms(lambda: fused.rollout(S_b, MAIN_STEPS, tile=tile), 3,
                          torch)
-            log(f"K1 sweep: rollout({MAIN_STEPS}) B={b} tile={tile}: "
-                f"{ms:.3f} ms, {b * MAIN_STEPS / ms * 1e3:.0f} env-steps/s  "
-                f"[{card}]")
+            log(f"K1 sweep: rollout({MAIN_STEPS}) B={b} tile={tile} "
+                f"({tile // 32} lanes per block): {ms:.3f} ms, "
+                f"{b * MAIN_STEPS / ms * 1e3:.0f} env-steps/s  [{card}]")
         del S_b
 
 
@@ -2214,7 +2275,7 @@ def main():
         f"plain collection {k3_plain_ms:.3f} ms; median train_step "
         f"{step_ms:.3f} ms, {1 - k3_ms / step_ms:.2%} of it outside K3 "
         f"(GAE, {cfg.n_epochs * cfg.n_minibatches} minibatch updates, Adam); "
-        f"before the policy.cuh move {K3_BEFORE_MS} ms "
+        f"one thread per lane {K3_BEFORE_MS} ms "
         f"({k3_ms / K3_BEFORE_MS - 1:+.2%})  [{card}]")
     log("metrics of the last step: " + json.dumps(
         {k: float(v) for k, v in metrics.items()}))
@@ -2249,6 +2310,8 @@ def main():
     k3_ops = (step_ops(fused, fused.n * env_steps)
               + fused.n * env_steps * mlp_ops(fused, HIDDEN))
     k3_bound_ms, k3_bound_by = bound(k3_bytes, k3_ops)
+    log(f"K3 bound {k3_bound_ms:.4f} ms ({k3_bound_by}), "
+        f"{k3_bound_ms / k3_ms:.2%} of K3's time  [{card}]")
 
     # ---- 9. the learning gate
     log("== 9. learning gate: firemaker, max_iterations=50, B=64, 200 updates")

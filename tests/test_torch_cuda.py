@@ -94,7 +94,8 @@ def test_prf_words_kernel_matches_plain(dev):
 @pytest.mark.parametrize("tile", [32, 128])
 def test_rollout_kernel_matches_plain(dev, kw, tile):
     fused = FusedFiremaker(FiremakerExMa(**kw))
-    S0 = fused.init_packed(5, 200, dev)  # ragged: 200 is no multiple of tile
+    # Ragged: 203 lanes are no multiple of the tile // 32 lanes per block.
+    S0 = fused.init_packed(5, 203, dev)
     before = fused_firemaker_rollout.launches
     Sk = fused.rollout(S0, 60, tile=tile)
     assert fused_firemaker_rollout.launches == before + 1
@@ -135,6 +136,78 @@ def test_rollout_kernel_rejects_bad_state(dev):
         fused.rollout(S, 1, tile=48)
     with pytest.raises(NotImplementedError):
         FusedFiremaker(FiremakerExMa(), mxu_stencil=True).rollout(S, 1)
+
+
+ONE_AGENT = {"amount_agents": 1, **{
+    k: '{"ENERGY": -1}' for k in ("SUPERVISOR_TRESPASSING_REWARD",
+                                  "SUPERVISOR_STOP_BUTTON_REWARD",
+                                  "SUPERVISOR_WORKSHOP_REWARD")}}
+
+
+@pytest.mark.parametrize("kw", [
+    ONE_AGENT, {}, {"amount_agents": 3},
+], ids=["one_agent", "two_agents", "three_agents"])
+@pytest.mark.parametrize("start", ["init", "busy"])
+def test_rollout_kernel_matches_plain_per_agent_count(dev, kw, start):
+    """Each agent count the kernel instantiates, at a ragged batch (8 lanes
+    per block at tile 256) across auto-resets."""
+    fused = FusedFiremaker(FiremakerExMa(max_iterations=30, **kw))
+    B = 8 * 25 + 5
+    S0 = (fused.init_packed(6, B, dev) if start == "init"
+          else interop.busy_firemaker_state(fused, 6, B, dev))
+    Sk = fused.rollout(S0, 50, tile=256)
+    Sp = fused.rollout_plain(S0, 50)
+    for k in fused.STATE_FIELDS:
+        assert _equal(Sk[k], Sp[k]), k
+    assert int(Sk["stats_episodes"].min()) >= 1
+
+
+def _big_firemaker(monkeypatch):
+    """Firemaker on its art widened to 33 x 33 = 1089 cells, past the
+    kernels' 1024."""
+    from ai_safety_gridworlds_torch.envs import firemaker_ex_ma as env_mod
+
+    art = env_mod.GAME_ART[0]
+    rows = [r[:-1] + ("#" if r[0] == r[1] == "#" else " ") * 16 + r[-1]
+            for r in art[:-1]]
+    rows += ["#" + " " * 31 + "#"] * 16 + ["#" * 33]
+    monkeypatch.setattr(env_mod, "GAME_ART", env_mod.GAME_ART + [rows])
+    return FusedFiremaker(FiremakerExMa(level=1))
+
+
+def test_kernels_refuse_a_board_past_their_limit(dev, monkeypatch):
+    fused = _big_firemaker(monkeypatch)
+    S = fused.init_packed(0, 64, dev)
+    before = (fused_firemaker_rollout.launches,
+              fused_firemaker_collect.launches)
+    with pytest.raises(ValueError, match="1024"):
+        fused.rollout(S, 2)
+    with pytest.raises(ValueError, match="1024"):
+        fused.rollout_collect(S, _params(fused, dev, hidden=8), 2)
+    assert (fused_firemaker_rollout.launches,
+            fused_firemaker_collect.launches) == before
+    assert int(fused.rollout_plain(S, 2)["t"].min()) == 4
+
+
+def test_kernel_shared_memory_matches_python(dev):
+    """The library's layout (fm_smem) and the wrapper's refusal check
+    (_smem_bytes) agree."""
+    import ctypes
+
+    from ai_safety_gridworlds_torch.ops import fused_firemaker as fm
+
+    lib = fm._firemaker_lib()
+    lib.fm_smem_bytes.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_int]
+    for kw in ({}, {"amount_agents": 3,
+                    "FIRE_SPREAD_EXCLUSIVE_MAX_DISTANCE": 4.0}):
+        fused = FusedFiremaker(FiremakerExMa(**kw))
+        p = fused._kernel_static(dev)
+        for tile in (32, 96, 256):
+            for hidden in (0, 1, 64):
+                assert lib.fm_smem_bytes(ctypes.byref(p), fused.n, tile,
+                                         hidden) == fm._smem_bytes(
+                    fused, tile, hidden), (kw, tile, hidden)
 
 
 def test_batched_env_on_the_card(dev):
@@ -215,6 +288,38 @@ def test_collect_kernel_matches_plain_teacher_forced(dev, kw):
             assert _equal(tk[k][0], rec[k], keep), (step, k)
         torch.testing.assert_close(tk["logp"][0][:, keep], rec["logp"][:, keep],
                                    rtol=0, atol=1e-5)
+        torch.testing.assert_close(tk["value"][0], rec["value"], rtol=0,
+                                   atol=1e-5)
+        boot = fused._bootstrap_value(Sp, statics)
+        torch.testing.assert_close(bk[:, keep], boot[:, keep], rtol=0,
+                                   atol=1e-5)
+        S = Sp
+    assert exempt <= 2
+
+
+@pytest.mark.parametrize("kw", [ONE_AGENT, {"amount_agents": 3}],
+                         ids=["one_agent", "three_agents"])
+def test_collect_kernel_matches_plain_at_a_ragged_batch(dev, kw):
+    """K3 at 8 * 25 + 5 lanes (tile 256: 8 lanes per block) within phase
+    7's limits: teacher-forced, every non-exempt lane equal, logp, value and
+    boot within 1e-5."""
+    fused = FusedFiremaker(FiremakerExMa(max_iterations=12, **kw))
+    B = 8 * 25 + 5
+    params = _params(fused, dev, hidden=40)
+    S = interop.busy_firemaker_state(fused, 7, B, dev)
+    statics = fused._collect_statics(S, params)
+    exempt = 0
+    for step in range(16):
+        Sk, tk, bk = fused.rollout_collect(S, params, 1, tile=256)
+        Sp, rec, ex = fused._collect_step(S, statics)
+        keep = ~(ex["pol"]["cdf_gap"] < 1e-6).any(dim=0)
+        exempt += int((~keep).sum())
+        for k in fused.STATE_FIELDS:
+            assert _equal(Sk[k], Sp[k], keep), (step, k)
+        for k in ("feats", "action", "reward", "done"):
+            assert _equal(tk[k][0], rec[k], keep), (step, k)
+        torch.testing.assert_close(tk["logp"][0][:, keep],
+                                   rec["logp"][:, keep], rtol=0, atol=1e-5)
         torch.testing.assert_close(tk["value"][0], rec["value"], rtol=0,
                                    atol=1e-5)
         boot = fused._bootstrap_value(Sp, statics)

@@ -14,6 +14,9 @@
 * (d) The log-survival form of the stencil is within 1e-5 of the product
   form and exactly 0 where no neighbour burns; the product form equals
   JAX's eager product form bit for bit.
+* (e) The CUDA kernels' geometry, which runs in Python: their table form of
+  the stencil equals the product form bit for bit, the launch geometry and
+  shared memory, and the refusal of a board past their limit.
 """
 
 import jax.numpy as jnp
@@ -21,10 +24,16 @@ import numpy as np
 import pytest
 import torch
 
+from ai_safety_gridworlds_torch.envs import firemaker_ex_ma as firemaker_env
+from ai_safety_gridworlds_torch.envs.firemaker_ex_ma import GAME_ART
 from ai_safety_gridworlds_torch.envs.firemaker_ex_ma import FiremakerExMa as TEnv
 from ai_safety_gridworlds_torch.ops import interop
 from ai_safety_gridworlds_torch.ops.fused_firemaker import (
     FusedFiremaker as TF,
+    _check_geometry,
+    _lanes_per_block,
+    _smem_bytes,
+    _stencil,
     fused_firemaker_rollout,
 )
 from ai_safety_gridworlds_tpu.envs.firemaker_ex_ma import FiremakerExMa as JEnv
@@ -244,3 +253,92 @@ def test_log_form_cum_accuracy_and_product_form_bits():
         no_nbr = cum_poly == 0.0
         assert (cum_log[no_nbr] == 0.0).all()
         assert (cum_log[~no_nbr] > 0.0).all()
+
+
+# ------------------------------------------------- the kernels' geometry
+
+
+def _table_form_cum(fused, src):
+    """``1 - prod`` as K1/K3 form it from ``_stencil``'s tables, in numpy
+    float32: each row's table entry (its factors q in the terms' order) is
+    read at the row's window of the extended, wrapped source board."""
+    st = _stencil(fused)
+    n_rows, win = len(st["row_base"]), st["win_bits"]
+    table = np.ones((n_rows, 1 << win), np.float32)
+    for r in range(n_rows):
+        for pattern in range(1 << win):
+            for row, bit, q in st["terms"]:
+                if row == r and (pattern >> bit) & 1:
+                    table[r, pattern] = table[r, pattern] * np.float32(q)
+    ext = src[(np.arange(st["n_ext"]) + st["ext_lo"]) % fused.HW]
+    cum = np.zeros(src.shape, np.float32)
+    for c in range(fused.HW):
+        prod = np.ones(src.shape[1], np.float32)
+        for r in range(n_rows):
+            start = c - st["row_base"][r]
+            assert start >= 0
+            idx = np.zeros(src.shape[1], np.int64)
+            for i in range(min(win, st["n_ext"] - start)):
+                idx |= ext[start + i].astype(np.int64) << i
+            prod = prod * table[r, idx]
+        cum[c] = np.float32(1.0) - prod
+    return cum
+
+
+@pytest.mark.parametrize("max_d", [2.0, 3.0, 4.0])
+def test_kernel_stencil_tables_equal_the_product_form(max_d):
+    """The kernels' stencil (one table entry per row of equal dr, read at
+    a window of the extended source board) gives the plain product form's
+    cum bit for bit at every cell, wrap-around included."""
+    tf, _ = _pair(FIRE_SPREAD_EXCLUSIVE_MAX_DISTANCE=max_d)
+    rng = np.random.default_rng(5)
+    for density in (0.02, 0.3, 1.0):
+        src = (rng.random((tf.HW, 16)) < density).astype(np.float32)
+        want = tf._spread_cum(torch.from_numpy(src), tf._on("cpu")).numpy()
+        np.testing.assert_array_equal(
+            _table_form_cum(tf, src).view(np.uint32), want.view(np.uint32)
+        )
+
+
+def test_launch_geometry():
+    """Lanes per block from ``tile`` (threads per block, one warp per
+    lane) and the kernels' shared memory, counted by hand for the default
+    board: 17 x 17 = 289 cells, 5 stencil rows of 5-bit windows, the
+    extended source board 289 + 2 * 36 = 361 bits."""
+    tf, _ = _pair()
+    assert [_lanes_per_block(t) for t in (32, 64, 128, 256)] == [1, 2, 4, 8]
+    st = _stencil(tf)
+    assert (len(st["row_base"]), st["win_bits"]) == (5, 5)
+    assert (st["ext_lo"], st["n_ext"]) == (-36, 361)
+    # Block: reward vectors 8 * 8, table 5 * 32, cell bits 289 / 4 -> 73
+    # words; per lane: fire 10, source board 12 + 1 spare.
+    block, lane = 64 + 160 + 73, 10 + 13
+    assert _smem_bytes(tf, 128) == 4 * (block + 4 * lane)
+    # K3 at H = 64, A = 5: w1 384, b1 64, w2 6 rows of 65, b2 6; per lane
+    # the hidden units of 2 agents, 65 apart.
+    weights = 384 + 64 + 6 * 65 + 6
+    assert _smem_bytes(tf, 256, 64) == 4 * (weights + block
+                                            + 8 * (lane + 2 * 65))
+    _check_geometry(tf, 256, 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        _check_geometry(tf, 256, 20000)
+
+
+def _big_art():
+    """The firemaker art widened to 33 x 33 = 1089 cells."""
+    art = GAME_ART[0]
+    rows = [r[:-1] + ("#" if r[0] == r[1] == "#" else " ") * 16 + r[-1]
+            for r in art[:-1]]
+    rows += ["#" + " " * 31 + "#"] * 16 + ["#" * 33]
+    return rows
+
+
+def test_board_past_the_kernels_limit_is_refused(monkeypatch):
+    monkeypatch.setattr(firemaker_env, "GAME_ART", GAME_ART + [_big_art()])
+    tf = TF(TEnv(level=1))
+    assert tf.HW == 33 * 33
+    with pytest.raises(ValueError, match="1024"):
+        _check_geometry(tf, 128)
+    # The plain version runs it.
+    S = tf.rollout(tf.init_packed(0, 4, "cpu"), 3)
+    assert S["t"].min() == 6
