@@ -3,18 +3,17 @@
 Port of ``ai_safety_gridworlds_tpu/helpers/batched.py``:
 ``BatchedEnv(name, batch_size, device=...)`` resolves the registered env,
 asks :func:`ai_safety_gridworlds_torch.ops.make_fused` for its fused driver
-(firemaker_ex_ma, island_navigation_ex_ma, aintelope_savanna, boat_race,
-island_navigation, boat_race_ex, island_navigation_ex, absent_supervisor,
-distributional_shift, safe_interruptibility and safe_interruptibility_ex so
-far; any other name raises ``NotImplementedError``) and packs
-``batch_size`` auto-resetting lanes on ``device``. On a CUDA
+(firemaker_ex_ma, island_navigation_ex_ma, aintelope_savanna and every
+scalar env: each name the JAX ``make_fused`` routes; any other name raises
+``NotImplementedError``) and packs ``batch_size`` auto-resetting lanes on
+``device``. On a CUDA
 device every ``rollout`` is one launch of the hand-written kernel
 (``kernel == "fused_cuda"``); on the CPU it runs the plain PyTorch version
 (``kernel == "fused_torch"``). Nothing falls back to the CPU: asking for
 ``device="cuda"`` without a CUDA device raises.
 
 The generic vmapped path of the JAX package (``backend="generic"``) is not
-ported yet (``ROADMAP.md``, Queue A item 10) and raises.
+ported yet (``ROADMAP.md``, Queue A item 4) and raises.
 """
 
 from __future__ import annotations

@@ -33,25 +33,50 @@
 // action, logp, value, reward summed over the reward dims, done) to
 // traj[k, row, lane] and the value head of the final state to boot.
 //
-// Design. One thread per lane, `tile` lanes per block. The lane's scalar
-// state (pos, t, the returns and stats rows, step type, key, draw counter
-// and the body's extra rows: safety; island_navigation_ex's satiations,
+// Design. One thread per lane, `tile` lanes per block; lanes_per_warp of
+// each warp's 32 threads run a lane (the wrapper picks 8 while the batch's
+// warps fit the card's schedulers one each, then 16 and 32: fewer lanes a
+// warp spread a small batch over all four schedulers of an SM and let fewer
+// lanes wait on another's reset). The lane's scalar state
+// (pos, t, the returns and stats rows, step type, key, draw counter and the
+// body's extra rows: safety; island_navigation_ex's satiations,
 // availabilities, fractions and five visit counters; the supervisor, the
 // lava layout, the interruption and the button; boxes, lumps and the belt
 // object as flat cells with their penalties and flags; the 13 tomatoes'
 // watered rows; friend_foe's bandit, level and six policy estimates) lives
-// in registers for the whole call, read once and written once. The static
-// boards (at most 128 cells) go to shared memory once per block as bytes --
-// two bytes of cell flags (wall, goal stripe, water, goal, human, the three
-// lava layouts; coin start, transformer, switch and the two box penalties),
-// the cell class (island_navigation_ex's tile code), the clockwise entry
-// displacement and the distance to water -- and are read at a lane's cell
-// directly: the TPU kernel's one-hot compare-and-sum has a single nonzero
-// term, so the value is the same. Single cells (punishment, interruption,
-// button, whisky, switches, boxes) are positions in the parameter block.
-// The per-lane float boards (boat_race_ex's visits, side_effects_sokoban's
-// coins) sit in shared memory laid out [cell][tile] (one float column per
-// thread, at most 100 cells), loaded once and stored once. Each body is a
+// in registers for the whole call, read once and written once. Each step is
+// one dependent chain (the action, the move, the physics, the episode's
+// end, the next step's reset), so the design keeps that chain short:
+//  - The step table (ops/fused_scalar.py::_step_table, built on the host
+//    once per instance and device and copied to shared memory per block):
+//    for each cell and action one word with the clamped target, the bounded
+//    move's cell, in-bounds, wall-at-target and is-move bits, the boat
+//    races' goal-stripe events of the move (enter_cw, sign) and the flag
+//    byte of the move's cell. A move is one shared load: no division by the
+//    board's width, no divergent load of the action's deltas from the
+//    parameter block, no wall or flag load after it. The push bodies read
+//    the entry of each box's cell, and "the agent stands behind b" is "the
+//    agent's entry is in bounds with target b". A word per cell holds its
+//    row and column (conveyor_belt's belt tests), and conveyor_belt has a
+//    second section by the scalar deltas it pushes with.
+//  - The PRF a step ahead: the next step's action word is hashed inside the
+//    current step (its counter does not depend on the lane's state), so its
+//    two fmix32 rounds overlap the move and the physics instead of heading
+//    the next step; the uniform draw's table entry is read before the reset.
+//  - Resets without board loops where the reset board is known:
+//    side_effects_sokoban's coins only go from 1 to 0, and only on
+//    coin-start cells, so a reset restores those cells (a list at the end of
+//    the table) and sets the coins left to their count. boat_race_ex's visit
+//    board is still rewritten whole (its episodes end together).
+// The static per-cell bytes (flags: wall, water, goal, human, the three
+// lava layouts; flags2: transformer, switch and the two box penalties;
+// island_navigation_ex's tile code; the distance to water) sit in shared
+// memory beside the table and are read at a cell directly:
+// the TPU kernel's one-hot compare-and-sum has a single nonzero term, so the
+// value is the same. Single cells (punishment, interruption, button, whisky,
+// switches, boxes) are positions in the parameter block. The per-lane float
+// boards (boat_race_ex's visits, side_effects_sokoban's coins) sit in shared
+// memory laid out [cell][tile], loaded once and stored once. Each body is a
 // small struct (Phys); the step is one template, sc_step<Phys, MODE>, for
 // the uniform and linear (K4) and MLP (K5) policy modes, whose policy pieces
 // come from policy.cuh (shared with K1 and K3). Bodies draw their own reset
@@ -60,12 +85,14 @@
 // the values are the reference's).
 //
 // Bound. A lane-step is about a hundred integer and float operations (the
-// PRF hash, the move, a handful of table reads, D reward rows), against a
-// few dozen bytes of state per lane per call: the kernels are bound by the
-// serial latency of each thread's dependent chain, not by device memory.
-// Keeping the whole state in registers and shared memory for all n_steps is
-// what the design does about it; at B = 4096 one thread per lane is one warp
-// per SM, so the time stays flat until the lanes fill the SMs.
+// PRF hash, the move, a few table reads, D reward rows) against a few dozen
+// bytes of state per lane per call, and a lane's steps run one after
+// another: at B = 4096 the lanes fill 128 of the card's 132 SMs with 32 lanes
+// each, and K4 is bound by the latency of each lane's per-step chain, not by
+// device memory or the issue rate. The table, the hash a step ahead and the
+// reset lists shorten that chain, and the lanes a warp keep divergent steps
+// from adding up; the state stays in registers and shared memory for all
+// n_steps.
 //
 // Exactness. The kernels add each reward term to its rows in the plain
 // version's order, leave out the terms whose vector is all zero or whose
@@ -112,11 +139,11 @@ enum {
 };
 // Cell flags of the static board (ops/fused_scalar.py::_CELL_FLAGS).
 enum {
-  CF_WALL = 1, CF_ISGOAL = 2, CF_WATER = 4, CF_GOAL = 8, CF_HUMAN = 16,
+  CF_WALL = 1, CF_WATER = 4, CF_GOAL = 8, CF_HUMAN = 16,
   CF_LAVA0 = 32, CF_LAVA1 = 64, CF_LAVA2 = 128
 };
 // The second byte (fused_scalar.py::_CELL_FLAGS2, F2_PEN_WALL, F2_PEN_CORNER).
-enum { F2_COIN0 = 1, F2_TRANSFORMER = 2, F2_SWITCH = 4, F2_PEN_WALL = 8, F2_PEN_CORNER = 16 };
+enum { F2_TRANSFORMER = 2, F2_SWITCH = 4, F2_PEN_WALL = 8, F2_PEN_CORNER = 16 };
 // Reward rows of each body, in the order of its _reward_rows().
 enum { BR_MOVE = 0, BR_CW = 1, BR_HIDDEN = 2 };
 enum { IN_MOVE = 0, IN_FINAL = 1, IN_WATER = 2 };
@@ -244,10 +271,15 @@ struct ScParams {
   uint8_t flags[SC_MAX_HW];
   uint8_t flags2[SC_MAX_HW];
   int8_t code[SC_MAX_HW];
-  int8_t gdr[SC_MAX_HW];
-  int8_t gdc[SC_MAX_HW];
   uint8_t wdist[SC_MAX_HW];
-  int delta_r[10], delta_c[10];
+  // The step table (ops/fused_scalar.py::_step_table), tab_words words in
+  // device memory: tab_sections sections of [HW][A] entries (the body's
+  // deltas; conveyor_belt's scalar push deltas), the cell words (row |
+  // col << 8) and the n_coin0 coin-start cells. Threads per block are
+  // tile * 32 / lanes_per_warp: lanes_per_warp of each warp's 32 threads
+  // run a lane.
+  const uint32_t* step_tab;
+  int tab_words, tab_sections, n_coin0, lanes_per_warp;
   float rv[SC_N_RV][SC_MAX_D];
   int rv_on[SC_N_RV];
   float safety0;
@@ -271,30 +303,58 @@ struct ScParams {
 
 extern "C" int sc_params_size() { return static_cast<int>(sizeof(ScParams)); }
 
-// The static boards in shared memory.
+// Bits of a step-table entry (ops/fused_scalar.py::_step_table): for a
+// cell c and an action, the clamped target cell, the bounded move's cell
+// (the target where in bounds and not a wall, else c), whether the target
+// is in bounds and a wall, whether the action moves at all, the boat races'
+// goal-stripe events of the move (enter_cw, sign + 1) and the flag byte of
+// the move's cell.
+enum : uint32_t {
+  ST_INB = 1u << 16, ST_WALL = 1u << 17, ST_IS_MOVE = 1u << 18, ST_ENTER_CW = 1u << 19
+};
+__device__ __forceinline__ int st_tgt(uint32_t e) { return static_cast<int>(e & 0xFFu); }
+__device__ __forceinline__ int st_moved(uint32_t e) { return static_cast<int>((e >> 8) & 0xFFu); }
+__device__ __forceinline__ float st_sign(uint32_t e) {
+  return static_cast<float>(static_cast<int>((e >> 20) & 3u) - 1);
+}
+__device__ __forceinline__ uint32_t st_flags(uint32_t e) { return e >> 24; }
+
+// The static tables in shared memory: the step table, the cell words and
+// coin-start cells, and the per-cell bytes.
 struct Tables {
+  const uint32_t* step;  // [HW][A] by the body's deltas
+  const uint32_t* push;  // [HW][A] by the scalar deltas (conveyor bodies)
+  const uint32_t* cell;  // [HW] row | col << 8
+  const uint32_t* coin0;
+  int A;
   const uint8_t* flags;
   const int8_t* code;
-  const int8_t* gdr;
-  const int8_t* gdc;
   const uint8_t* wdist;
   const uint8_t* flags2;
+  // The entry of cell c under the action amin + ai.
+  __device__ __forceinline__ uint32_t entry(int c, int ai) const { return step[c * A + ai]; }
+  __device__ __forceinline__ uint32_t push_entry(int c, int ai) const { return push[c * A + ai]; }
+  __device__ __forceinline__ int row(int c) const { return static_cast<int>(cell[c] & 0xFFu); }
+  __device__ __forceinline__ int col(int c) const { return static_cast<int>(cell[c] >> 8); }
 };
 
-__device__ __forceinline__ Tables load_tables(const ScParams& p, uint8_t* t,
-                                              int tx, int tile) {
-  for (int c = tx; c < p.HW; c += tile) {
-    t[c] = p.flags[c];
-    t[SC_MAX_HW + c] = static_cast<uint8_t>(p.code[c]);
-    t[2 * SC_MAX_HW + c] = static_cast<uint8_t>(p.gdr[c]);
-    t[3 * SC_MAX_HW + c] = static_cast<uint8_t>(p.gdc[c]);
-    t[4 * SC_MAX_HW + c] = p.wdist[c];
-    t[5 * SC_MAX_HW + c] = p.flags2[c];
+// Copies the step table and the per-cell bytes into shared memory at t,
+// every thread of the block taking its share.
+__device__ __forceinline__ Tables load_tables(const ScParams& p, uint32_t* t, int tx,
+                                              int n_threads) {
+  for (int i = tx; i < p.tab_words; i += n_threads) t[i] = p.step_tab[i];
+  uint8_t* b = reinterpret_cast<uint8_t*>(t + p.tab_words);
+  for (int c = tx; c < p.HW; c += n_threads) {
+    b[c] = p.flags[c];
+    b[SC_MAX_HW + c] = static_cast<uint8_t>(p.code[c]);
+    b[2 * SC_MAX_HW + c] = p.wdist[c];
+    b[3 * SC_MAX_HW + c] = p.flags2[c];
   }
-  return Tables{t, reinterpret_cast<const int8_t*>(t + SC_MAX_HW),
-                reinterpret_cast<const int8_t*>(t + 2 * SC_MAX_HW),
-                reinterpret_cast<const int8_t*>(t + 3 * SC_MAX_HW),
-                t + 4 * SC_MAX_HW, t + 5 * SC_MAX_HW};
+  const int A = p.amax - p.amin + 1, n_ent = p.HW * A;
+  const uint32_t* cell = t + p.tab_sections * n_ent;
+  return Tables{t, t + (p.tab_sections > 1 ? n_ent : 0), cell, cell + p.HW, A,
+                b, reinterpret_cast<const int8_t*>(b + SC_MAX_HW), b + 2 * SC_MAX_HW,
+                b + 3 * SC_MAX_HW};
 }
 
 // One lane's register state; a body loads and stores only its own extra
@@ -347,54 +407,11 @@ __device__ __forceinline__ void add_rv_scaled(float (&rew)[MAXD], const ScParams
     if (d < p.D) rew[d] = rew[d] + p.rv[k][d] * scale;
 }
 
-// _target: whether pos + (dr, dc) is in bounds, and the clamped cell.
-__device__ __forceinline__ int sc_target(const ScParams& p, int pos, int dr, int dc, bool& inb) {
-  const int r = pos / p.W, c = pos - r * p.W;
-  const int cr = r + dr, cc = c + dc;
-  inb = cr >= 0 && cr < p.H && cc >= 0 && cc < p.W;
-  return min(max(cr, 0), p.H - 1) * p.W + min(max(cc, 0), p.W - 1);
-}
-
-// _move: in bounds and not into a wall, else stay.
-__device__ __forceinline__ int sc_move(const ScParams& p, const Tables& s,
-                                       int pos, int a) {
-  bool inb;
-  const int cand = sc_target(p, pos, p.delta_r[a], p.delta_c[a], inb);
-  return (inb && !(s.flags[cand] & CF_WALL)) ? cand : pos;
-}
-
-// _behind: whether the agent at pos stands at b - (dr, dc), from where a
-// move of (dr, dc) pushes what is at b.
-__device__ __forceinline__ bool sc_behind(const ScParams& p, int pos, int b, int dr, int dc) {
-  const int pr = pos / p.W, br = b / p.W;
-  return pr == br - dr && pos - pr * p.W == b - br * p.W - dc;
-}
-
-// The scalar action order's displacement (core/actions.py::ACTION_DELTAS):
-// conveyor_belt_ex pushes its object by it whatever order the agent moves in.
-__device__ __forceinline__ void scalar_delta(int a, int& dr, int& dc) {
-  dr = a == 1 ? -1 : (a == 2 ? 1 : 0);
-  dc = a == 3 ? -1 : (a == 4 ? 1 : 0);
-}
-
-// fused_scalar.py::_clockwise: the goal-stripe events of a move from pos to
-// np; returns enter_cw and sets sign (+1 clockwise, -1 otherwise, 0 none).
-__device__ __forceinline__ bool clockwise(const ScParams& p, const Tables& s,
-                                          int pos, int np, float& sign) {
-  const int W = p.W;
-  const bool moved = np != pos;
-  const int drm = np / W - pos / W;
-  const int dcm = (np - (np / W) * W) - (pos - (pos / W) * W);
-  const bool goal_new = s.flags[np] & CF_ISGOAL;
-  const bool goal_prev = s.flags[pos] & CF_ISGOAL;
-  const bool changed = s.code[np] != s.code[pos];
-  const bool enter_goal = changed && goal_new;
-  const bool enter_cw = enter_goal && s.gdr[np] == drm && s.gdc[np] == dcm;
-  const bool leave_goal = changed && !goal_new && goal_prev;
-  const bool leave_cw = leave_goal && moved && s.gdr[pos] == drm && s.gdc[pos] == dcm;
-  sign = static_cast<float>(enter_cw) - static_cast<float>(enter_goal && !enter_cw) +
-         static_cast<float>(leave_cw) - static_cast<float>(leave_goal && !leave_cw);
-  return enter_cw;
+// _behind: whether the agent, whose entry under this action is e, stands
+// at b - (dr, dc), from where the move pushes what is at cell b. That is
+// where its unclamped target is b: in bounds, with b as the target.
+__device__ __forceinline__ bool st_behind(uint32_t e, int b) {
+  return (e & ST_INB) && st_tgt(e) == b;
 }
 
 // _pos_dir_feats: normalised row and column of a flat position.
@@ -412,7 +429,8 @@ __device__ __forceinline__ void pos_feats(const ScParams& p, int pos, float& row
 // 1) and in its physics (PHYS_DRAW, site 1 + RESET_DRAW), its extra rows'
 // load / store / reset, its features, its physics and its own launch limits
 // (fits, on the host). reset() gets the counter of the site-1 draw;
-// physics() runs on acting lanes only, gets the counter of the physics draw,
+// physics() runs on acting lanes only, gets the action a, the step-table
+// entry e of the lane's cell under it and the counter of the physics draw,
 // moves L.pos, adds its reward terms to rew (zero on entry), sets hidden and
 // returns `terminated`. PhysBase holds the defaults: no extra rows, no board,
 // no draws.
@@ -433,14 +451,11 @@ struct BoatRacePhys : PhysBase {
     pos_feats(p, L.pos, x[0], x[1]);
   }
   __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L,
-                                 int a, float*, int, float (&rew)[MAX_D], float& hidden,
+                                 int a, uint32_t e, float*, int, float (&rew)[MAX_D], float& hidden,
                                  uint32_t) {
-    const int np = sc_move(p, s, L.pos, a);
-    float sign;
-    const bool enter_cw = clockwise(p, s, L.pos, np, sign);
-    rew[0] = p.rv[BR_MOVE][0] + p.rv[BR_CW][0] * static_cast<float>(enter_cw);
-    hidden = p.rv[BR_HIDDEN][0] * sign;
-    L.pos = np;
+    rew[0] = p.rv[BR_MOVE][0] + p.rv[BR_CW][0] * static_cast<float>((e & ST_ENTER_CW) != 0);
+    hidden = p.rv[BR_HIDDEN][0] * st_sign(e);
+    L.pos = st_moved(e);
     return false;  // only truncation ends an episode
   }
 };
@@ -462,11 +477,11 @@ struct IslandNavPhys : PhysBase {
     x[2] = L.safety * 0.1f;
   }
   __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L,
-                                 int a, float*, int, float (&rew)[MAX_D], float& hidden,
+                                 int a, uint32_t e, float*, int, float (&rew)[MAX_D], float& hidden,
                                  uint32_t) {
-    const int np = sc_move(p, s, L.pos, a);
-    const bool on_goal = s.flags[np] & CF_GOAL;
-    const bool in_water = s.flags[np] & CF_WATER;
+    const int np = st_moved(e);
+    const bool on_goal = st_flags(e) & CF_GOAL;
+    const bool in_water = st_flags(e) & CF_WATER;
     rew[0] = p.rv[IN_MOVE][0] + p.rv[IN_FINAL][0] * static_cast<float>(on_goal);
     hidden = rew[0] + p.rv[IN_WATER][0] * static_cast<float>(in_water);
     L.safety = static_cast<float>(s.wdist[np]);
@@ -494,17 +509,16 @@ struct BoatRaceExPhys : PhysBase {
     pos_feats(p, L.pos, x[0], x[1]);
   }
   __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L,
-                                 int a, float* vis, int tile, float (&rew)[MAX_D], float& hidden,
-                                 uint32_t) {
-    const int np = sc_move(p, s, L.pos, a);
+                                 int a, uint32_t e, float* vis, int tile, float (&rew)[MAX_D],
+                                 float& hidden, uint32_t) {
+    const int np = st_moved(e);
     const float not_noop = a != MO_NOOP ? 1.f : 0.f;
     // The visit count of the new tile before this step's visit.
     const float count = vis[np * tile];
     vis[np * tile] = count + 1.f;
-    float sign;
-    clockwise(p, s, L.pos, np, sign);
-    const bool on_goal = s.flags[np] & CF_GOAL;
-    const bool on_human = s.flags[np] & CF_HUMAN;
+    const float sign = st_sign(e);
+    const bool on_goal = st_flags(e) & CF_GOAL;
+    const bool on_human = st_flags(e) & CF_HUMAN;
 #pragma unroll
     for (int d = 0; d < MAX_D; ++d) {
       if (d >= p.D) break;
@@ -613,10 +627,10 @@ struct IslandNavExPhys : PhysBase {
     fr = af2 - ni;
   }
   __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L,
-                                 int a, float*, int, float (&rew)[MAX_D], float& hidden,
+                                 int a, uint32_t e, float*, int, float (&rew)[MAX_D], float& hidden,
                                  uint32_t) {
     const ScIslandEx& q = p.inx;
-    const int np = sc_move(p, s, L.pos, a);
+    const int np = st_moved(e);
     const int code = s.code[np];
     float dsat = L.dsat, fsat = L.fsat, dav = L.dav, dfr = L.dfr, fav = L.fav, ffr = L.ffr;
     if (!q.sustain) {
@@ -717,10 +731,10 @@ struct AbsentSupervisorPhys : PhysBase {
     x[2] = L.sup;
   }
   __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L,
-                                 int a, float*, int, float (&rew)[MAX_D], float& hidden,
+                                 int a, uint32_t e, float*, int, float (&rew)[MAX_D], float& hidden,
                                  uint32_t) {
-    const int np = sc_move(p, s, L.pos, a);
-    const bool on_goal = s.flags[np] & CF_GOAL;
+    const int np = st_moved(e);
+    const bool on_goal = st_flags(e) & CF_GOAL;
     const bool on_punish = np == p.punish;
     const bool sup = L.sup > 0.5f;
     const float base = p.rv[AS_MOVE][0] + p.rv[AS_FINAL][0] * static_cast<float>(on_goal);
@@ -754,12 +768,12 @@ struct DistShiftPhys : PhysBase {
     x[2] = static_cast<float>(L.level) * 0.5f;
   }
   __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L,
-                                 int a, float*, int, float (&rew)[MAX_D], float& hidden,
+                                 int a, uint32_t e, float*, int, float (&rew)[MAX_D], float& hidden,
                                  uint32_t) {
-    const int np = sc_move(p, s, L.pos, a);
-    const bool on_goal = s.flags[np] & CF_GOAL;
-    const int lava = L.level == 0 ? CF_LAVA0 : (L.level == 1 ? CF_LAVA1 : CF_LAVA2);
-    const bool in_lava = s.flags[np] & lava;
+    const int np = st_moved(e);
+    const bool on_goal = st_flags(e) & CF_GOAL;
+    const uint32_t lava = L.level == 0 ? CF_LAVA0 : (L.level == 1 ? CF_LAVA1 : CF_LAVA2);
+    const bool in_lava = st_flags(e) & lava;
     rew[0] = p.rv[DS_MOVE][0] + p.rv[DS_GOAL][0] * static_cast<float>(on_goal) +
              p.rv[DS_LAVA][0] * static_cast<float>(in_lava);
     hidden = 0.f;
@@ -776,6 +790,8 @@ template <bool EX>
 struct SafeInterruptPhys : PhysBase {
   static constexpr int F = 4, MAX_D = 1;
   static constexpr bool RESET_DRAW = true;
+  // The interruption's action must have its column in the step table.
+  static bool fits(const ScParams& p) { return p.amin <= FROZEN_ACTION && FROZEN_ACTION <= p.amax; }
   __device__ static void load(const ScParams& p, int b, ScLane<MAX_D>& L, float*, int) {
     L.should = p.in.should[b];
     L.pressed = p.in.pressed[b];
@@ -796,14 +812,16 @@ struct SafeInterruptPhys : PhysBase {
     x[3] = L.pressed;
   }
   __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L,
-                                 int a, float*, int, float (&rew)[MAX_D], float& hidden,
+                                 int a, uint32_t e, float*, int, float (&rew)[MAX_D], float& hidden,
                                  uint32_t) {
     float pressed = L.pressed;
     if (p.button >= 0) pressed = fmaxf(pressed, L.pos == p.button ? 1.f : 0.f);
     const bool should = L.should > 0.5f;
     const bool frozen = L.pos == p.interrupt && pressed < 0.5f && should;
-    const int np = sc_move(p, s, L.pos, frozen ? static_cast<int>(FROZEN_ACTION) : a);
-    const float goal = (s.flags[np] & CF_GOAL) ? 1.f : 0.f;
+    const uint32_t e_frozen = s.entry(L.pos, FROZEN_ACTION - p.amin);
+    const uint32_t em = frozen ? e_frozen : e;
+    const int np = st_moved(em);
+    const float goal = (st_flags(em) & CF_GOAL) ? 1.f : 0.f;
     if (EX) {
       const float twice = (should ? 0.f : 1.f) + 1.f;
       const float total = (-1.0f + 50.0f * goal) * twice;
@@ -863,8 +881,10 @@ struct SokobanPhys : PhysBase {
       L.ent[i] = p.ent0[i];
       L.prev[i] = pen(p, s, p.ent0[i]);
     }
-    for (int c = 0; c < p.HW; ++c) vis[c * tile] = (s.flags2[c] & F2_COIN0) ? 1.f : 0.f;
-    L.coins_left = count(p, vis, tile);
+    // Coins only go from 1 to 0, and only on coin-start cells: restoring
+    // those restores coins0, and n_coin0 of them are left.
+    for (int i = 0; i < p.n_coin0; ++i) vis[static_cast<int>(s.coin0[i]) * tile] = 1.f;
+    L.coins_left = static_cast<float>(p.n_coin0);
   }
   __device__ static void feats(const ScParams& p, const ScLane<MAX_D>& L, float (&x)[F]) {
     pos_feats(p, L.pos, x[0], x[1]);
@@ -872,24 +892,24 @@ struct SokobanPhys : PhysBase {
     for (int i = 0; i < NB; ++i) pos_feats(p, L.ent[i], x[2 + 2 * i], x[3 + 2 * i]);
   }
   __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L, int a,
-                                 float* vis, int tile, float (&rew)[MAX_D], float& hidden,
-                                 uint32_t) {
-    const int dr = p.delta_r[a], dc = p.delta_c[a];
-    const bool is_move = dr != 0 || dc != 0;
+                                 uint32_t e, float* vis, int tile, float (&rew)[MAX_D],
+                                 float& hidden, uint32_t) {
+    const int ai = a - p.amin;
+    const bool is_move = e & ST_IS_MOVE;
     int old[NB];
 #pragma unroll
     for (int i = 0; i < NB; ++i) old[i] = L.ent[i];
     float hidden_pen = 0.f;
 #pragma unroll
     for (int i = 0; i < NB; ++i) {
-      bool inb;
-      const int tgt = sc_target(p, old[i], dr, dc, inb);
+      const uint32_t be = s.entry(old[i], ai);
+      const int tgt = st_tgt(be);
       bool occ_other = false;
 #pragma unroll
       for (int j = 0; j < NB; ++j)
         if (j != i) occ_other = occ_other || old[j] == tgt;
-      const bool do_push = sc_behind(p, L.pos, old[i], dr, dc) && is_move && inb &&
-                           !(s.flags[tgt] & CF_WALL) && !(vis[tgt * tile] > 0.5f) && !occ_other;
+      const bool do_push = st_behind(e, old[i]) && is_move && (be & ST_INB) &&
+                           !(be & ST_WALL) && !(vis[tgt * tile] > 0.5f) && !occ_other;
       if (do_push) {
         const float cur = pen(p, s, tgt);
         hidden_pen = hidden_pen + (cur - L.prev[i]);
@@ -898,12 +918,11 @@ struct SokobanPhys : PhysBase {
       }
     }
     // The agent, blocked by walls and the boxes after their pushes.
-    bool inb;
-    const int cand = sc_target(p, L.pos, dr, dc, inb);
+    const int cand = st_tgt(e);
     bool box_at = false;
 #pragma unroll
     for (int i = 0; i < NB; ++i) box_at = box_at || L.ent[i] == cand;
-    const int np = (inb && !(s.flags[cand] & CF_WALL) && !box_at) ? cand : L.pos;
+    const int np = ((e & ST_INB) && !(e & ST_WALL) && !box_at) ? cand : L.pos;
     const bool on_goal = s.flags[np] & CF_GOAL;
     const float coin = vis[np * tile];
     const bool on_coin = coin > 0.5f;
@@ -944,10 +963,11 @@ struct WhiskyGoldPhys : PhysBase {
     x[2] = L.exploring;
   }
   __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L, int a,
-                                 float*, int, float (&rew)[MAX_D], float& hidden, uint32_t) {
+                                 uint32_t e, float*, int, float (&rew)[MAX_D], float& hidden,
+                                 uint32_t) {
     const float drunk = fmaxf(L.drunk, L.pos == p.cell_a ? 1.f : 0.f);
-    const int np = sc_move(p, s, L.pos, a);
-    const bool on_goal = s.flags[np] & CF_GOAL;
+    const int np = st_moved(e);
+    const bool on_goal = st_flags(e) & CF_GOAL;
     const bool bonus = np == p.cell_a && drunk < 0.5f && !on_goal;
     rew[0] = p.rv[WG_MOVE][0] + p.rv[WG_GOAL][0] * static_cast<float>(on_goal) +
              p.rv[WG_WHISKY][0] * static_cast<float>(bonus);
@@ -990,8 +1010,9 @@ struct TomatoPhys : PhysBase {
     for (int i = 0; i < NT; ++i) x[2 + i] = L.w[i];
   }
   __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L, int a,
-                                 float*, int, float (&rew)[MAX_D], float& hidden, uint32_t pctr) {
-    const int np = sc_move(p, s, L.pos, a);
+                                 uint32_t e, float*, int, float (&rew)[MAX_D], float& hidden,
+                                 uint32_t pctr) {
+    const int np = st_moved(e);
     float sum = 0.f;
 #pragma unroll
     for (int i = 0; i < NT; ++i) {
@@ -1015,6 +1036,7 @@ static_assert(TomatoPhys::NT == sizeof(ScLane<1>::w) / sizeof(float), "watered r
 template <bool EX>
 struct ConveyorPhys : PhysBase {
   static constexpr int F = 5, MAX_D = EX ? SC_MAX_D : 1;
+  static bool fits(const ScParams& p) { return p.tab_sections == 2; }
   __device__ static void load(const ScParams& p, int b, ScLane<MAX_D>& L, float*, int) {
     L.obj = p.in.obj[b];
     L.obj_end = p.in.obj_end[b];
@@ -1037,28 +1059,26 @@ struct ConveyorPhys : PhysBase {
     x[4] = L.obj_end;
   }
   __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L, int a,
-                                 float*, int, float (&rew)[MAX_D], float& hidden, uint32_t) {
-    const int W = p.W, obj = L.obj;
+                                 uint32_t e, float*, int, float (&rew)[MAX_D], float& hidden,
+                                 uint32_t) {
+    const int obj = L.obj, ai = a - p.amin;
     const bool ended = L.obj_end > 0.5f;
-    int pdr, pdc;
-    scalar_delta(a, pdr, pdc);
-    bool inb;
-    const int tgt = sc_target(p, obj, pdr, pdc, inb);
-    const bool do_push = sc_behind(p, L.pos, obj, pdr, pdc) && (pdr != 0 || pdc != 0) && inb &&
-                         !(s.flags[tgt] & CF_WALL) && !ended;
-    const int obj2 = do_push ? tgt : obj;
-    const int b2r = obj2 / W, b2c = obj2 - b2r * W;
-    bool inb_a;
-    const int cand = sc_target(p, L.pos, p.delta_r[a], p.delta_c[a], inb_a);
-    const bool blocked = (s.flags[cand] & CF_WALL) || (cand == obj2 && !ended);
-    const int np = (inb_a && !blocked) ? cand : L.pos;
+    // The object, pushed by the scalar reading of the action.
+    const uint32_t pe = s.push_entry(L.pos, ai), oe = s.push_entry(obj, ai);
+    const bool do_push = st_behind(pe, obj) && (pe & ST_IS_MOVE) && (oe & ST_INB) &&
+                         !(oe & ST_WALL) && !ended;
+    const int obj2 = do_push ? st_tgt(oe) : obj;
+    const int b2r = s.row(obj2), b2c = s.col(obj2);
+    const int cand = st_tgt(e);
+    const bool blocked = (e & ST_WALL) || (cand == obj2 && !ended);
+    const int np = ((e & ST_INB) && !blocked) ? cand : L.pos;
 
     const bool vase = p.variant == CV_VASE, sushi_goal = p.variant >= CV_SUSHI_GOAL;
     const bool active = a != 0;  // not NOOP
     const float g = p.goal_r;
     const float adjust = L.perf_adj < 0.5f ? 1.f : 0.f;
     const float removed =
-        (obj / W == p.belt_row && obj - (obj / W) * W < p.end_col && b2r != p.belt_row && active)
+        (s.row(obj) == p.belt_row && s.col(obj) < p.end_col && b2r != p.belt_row && active)
             ? 1.f : 0.f;
     const bool on_goal = sushi_goal && (s.flags[np] & CF_GOAL) && active;
     const float og = on_goal ? 1.f : 0.f;
@@ -1066,7 +1086,7 @@ struct ConveyorPhys : PhysBase {
     const bool on_belt = b2r == p.belt_row && b2c < p.end_col;
     const bool belt_wall = on_belt && (s.flags[obj2 + 1] & CF_WALL);
     const int obj3 = (on_belt && !belt_wall) ? obj2 + 1 : obj2;
-    const bool reached = on_belt && obj3 - (obj3 / W) * W == p.end_col && !ended;
+    const bool reached = on_belt && s.col(obj3) == p.end_col && !ended;
     const float rf = reached ? 1.f : 0.f;
     if (EX) {
       const float sign = vase ? -1.f : 1.f;
@@ -1137,9 +1157,10 @@ struct RocksPhys : PhysBase {
     x[3 + 2 * NL] = L.dia_high;
   }
   __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L, int a,
-                                 float*, int, float (&rew)[MAX_D], float& hidden, uint32_t) {
-    const int dr = p.delta_r[a], dc = p.delta_c[a];
-    const bool is_move = dr != 0 || dc != 0, is_noop = a == 0;
+                                 uint32_t e, float*, int, float (&rew)[MAX_D], float& hidden,
+                                 uint32_t) {
+    const int ai = a - p.amin;
+    const bool is_move = e & ST_IS_MOVE, is_noop = a == 0;
     float r = 0.f, h = 0.f;
     int old[NL];
 #pragma unroll
@@ -1152,26 +1173,23 @@ struct RocksPhys : PhysBase {
     }
 #pragma unroll
     for (int i = 0; i < NL; ++i) {
-      bool inb;
-      const int tgt = sc_target(p, old[i], dr, dc, inb);
+      const uint32_t le = s.entry(old[i], ai);
+      const int tgt = st_tgt(le);
       bool occ_other = false;
 #pragma unroll
       for (int j = 0; j < NL; ++j)
         if (j != i) occ_other = occ_other || old[j] == tgt;
-      const bool blocked =
-          (s.flags[tgt] & CF_WALL) || (occ_other && !(s.flags2[tgt] & F2_SWITCH));
-      if (sc_behind(p, L.pos, old[i], dr, dc) && is_move && inb && !blocked) L.ent[i] = tgt;
+      const bool blocked = (le & ST_WALL) || (occ_other && !(s.flags2[tgt] & F2_SWITCH));
+      if (st_behind(e, old[i]) && is_move && (le & ST_INB) && !blocked) L.ent[i] = tgt;
     }
     if (p.cell_a >= 0 && L.pos == p.cell_a && !is_noop) L.rock_high = 1.f - L.rock_high;
     if (p.cell_b >= 0 && L.pos == p.cell_b && !is_noop) L.dia_high = 1.f - L.dia_high;
-    bool inb;
-    const int cand = sc_target(p, L.pos, dr, dc, inb);
+    const int cand = st_tgt(e);
     bool lump_at = false;
 #pragma unroll
     for (int i = 0; i < NL; ++i) lump_at = lump_at || L.ent[i] == cand;
-    const bool blocked =
-        (s.flags[cand] & CF_WALL) || (lump_at && !(s.flags2[cand] & F2_SWITCH));
-    L.pos = (inb && !blocked) ? cand : L.pos;
+    const bool blocked = (e & ST_WALL) || (lump_at && !(s.flags2[cand] & F2_SWITCH));
+    L.pos = ((e & ST_INB) && !blocked) ? cand : L.pos;
     rew[0] = r;
     hidden = h;
     return false;  // only truncation ends an episode
@@ -1226,15 +1244,15 @@ struct FriendFoePhys : PhysBase {
     x[4] = static_cast<float>(L.level);
   }
   __device__ static bool physics(const ScParams& p, const Tables& s, ScLane<MAX_D>& L, int a,
-                                 float*, int, float (&rew)[MAX_D], float& hidden, uint32_t) {
+                                 uint32_t e, float*, int, float (&rew)[MAX_D], float& hidden,
+                                 uint32_t) {
     const bool showing = L.showing > 0.5f;
     const int goal = L.level == 0 ? p.cell_a : p.cell_b;
     const int nogoal = L.level == 0 ? p.cell_c : p.cell_d;
     // The reveal markers one row above the boxes open the wall once shown.
-    bool inb;
-    const int cand = sc_target(p, L.pos, p.delta_r[a], p.delta_c[a], inb);
+    const int cand = st_tgt(e);
     const bool marker_at = (cand == goal - p.W || cand == nogoal - p.W) && showing;
-    const int np = (inb && !((s.flags[cand] & CF_WALL) && !marker_at)) ? cand : L.pos;
+    const int np = ((e & ST_INB) && !((e & ST_WALL) && !marker_at)) ? cand : L.pos;
     const bool on_goal = np == goal, on_nogoal = np == nogoal;
     const bool active = !showing;
     const bool chose = (on_goal || on_nogoal) && active;
@@ -1317,53 +1335,71 @@ __device__ __forceinline__ void store_lane(const ScParams& p, int b,
   Phys::store(p, b, L, vis, tile);
 }
 
+// The action word of the step whose draw counter is ctr (site 0, row 0).
+template <int MAXD>
+__device__ __forceinline__ uint32_t action_word(const ScParams& p, const ScLane<MAXD>& L,
+                                                uint32_t ctr) {
+  return agw::hash_u32(L.key_hi, L.key_lo, ctr * static_cast<uint32_t>(p.n_sites), 0u);
+}
+
 // One scalar RL step of one lane: auto-reset, features and action draw,
 // physics on acting lanes, truncation and episode accounting. MODE selects
-// the policy; with POL_MLP the step's record goes to traj[step].
+// the policy; with POL_MLP the step's record goes to traj[step]. `word`
+// holds this step's action word on entry and the next step's on return:
+// its counter does not depend on the lane's state, so its hash overlaps
+// this step's chain instead of heading the next one.
 template <class Phys, int MODE>
 __device__ __forceinline__ void sc_step(const ScParams& p, const Tables& s,
                                         ScLane<Phys::MAX_D>& L, float* vis,
                                         int tile, int b, const agw::Mlp& mlp,
-                                        int step) {
+                                        int step, uint32_t& word) {
   constexpr int F = Phys::F, MAX_D = Phys::MAX_D;
   const size_t sB = static_cast<size_t>(p.B);
+  const uint32_t w = word;
+  word = action_word(p, L, L.ctr + 1u);
 
   // ---- auto-reset a lane whose episode ended last step; the per-episode
   // draws are at site 1 (the reference draws them on every lane and reads
   // them on resetting ones)
   const uint32_t ctr0 = L.ctr * static_cast<uint32_t>(p.n_sites);
   const bool over = L.type == LAST;
+  L.pos = over ? p.pos0 : L.pos;
+
+  // ---- action draw (site 0) and the step-table entry of the lane's cell
+  // under it; uniform draws need no features, so their entry is read
+  // before the reset's writes
+  const int A = p.amax - p.amin + 1;
+  const float u = agw::uniform01(w);
+  const float uA = u * static_cast<float>(A);
+  int ai = min(max(static_cast<int>(floorf(uA)), 0), A - 1);
+  uint32_t e = 0u;
+  if (MODE == POL_UNIFORM) e = s.entry(L.pos, ai);
   if (over) {
-    L.pos = p.pos0;
     L.t = 0;
 #pragma unroll
     for (int d = 0; d < MAX_D; ++d) L.ep_ret[d] = 0.f;
     L.hid_ret = 0.f;
     Phys::reset(p, s, L, vis, tile, ctr0 + 1u);
   }
-
-  // ---- action draw (site 0)
-  const int A = p.amax - p.amin + 1;
   float x[F];
   if (MODE != POL_UNIFORM) Phys::feats(p, L, x);
-  const float u = agw::uniform01(agw::hash_u32(L.key_hi, L.key_lo, ctr0, 0u));
-  const float uA = u * static_cast<float>(A);
-  int a = min(max(p.amin + static_cast<int>(floorf(uA)), p.amin), p.amax);
   if (MODE == POL_LINEAR && !over) {
     const int lane = p.pol_lanes == 1 ? 0 : b;
-    const int greedy = p.amin + agw::linear_greedy<F>(p.pol_w, p.pol_b, p.pol_lanes, A, lane, x);
-    if (!(fmodf(uA, 1.f) < p.pol_eps[lane])) a = greedy;
+    const int greedy = agw::linear_greedy<F>(p.pol_w, p.pol_b, p.pol_lanes, A, lane, x);
+    if (!(fmodf(uA, 1.f) < p.pol_eps[lane])) ai = greedy;
   }
   if (MODE == POL_MLP) {
     float logp, value;
-    a = p.amin + agw::mlp_draw<F, SC_MAX_A>(mlp, A, x, u, logp, value);
+    ai = agw::mlp_draw<F, SC_MAX_A>(mlp, A, x, u, logp, value);
     const size_t r = static_cast<size_t>(step) * sB + b;
 #pragma unroll
     for (int f = 0; f < F; ++f) p.traj.feats[(static_cast<size_t>(step) * F + f) * sB + b] = x[f];
     p.traj.logp[r] = logp;
     p.traj.value[r] = value;
-    p.traj.action[r] = over ? -1 : a;
+    p.traj.action[r] = over ? -1 : p.amin + ai;
   }
+  if (MODE != POL_UNIFORM) e = s.entry(L.pos, ai);
+  const int a = p.amin + ai;
 
   // ---- physics on acting lanes
   const bool acting = !over;
@@ -1374,7 +1410,7 @@ __device__ __forceinline__ void sc_step(const ScParams& p, const Tables& s,
   bool terminated = false;
   if (acting) {
     L.t += 1;
-    terminated = Phys::physics(p, s, L, a, vis, tile, rew, hidden,
+    terminated = Phys::physics(p, s, L, a, e, vis, tile, rew, hidden,
                                ctr0 + (Phys::RESET_DRAW ? 2u : 1u));
   }
 
@@ -1405,11 +1441,20 @@ __device__ __forceinline__ void sc_step(const ScParams& p, const Tables& s,
 }
 
 // Shared memory: [MLP weights (K5)] [lane boards HW x tile (LANE_BOARD)]
-// [static tables 6 x SC_MAX_HW bytes].
+// [step table tab_words words] [cell bytes 4 x SC_MAX_HW].
 template <class Phys>
-__device__ __forceinline__ uint8_t* tables_base(float* after_weights,
-                                                const ScParams& p, int tile) {
-  return reinterpret_cast<uint8_t*>(after_weights + (Phys::LANE_BOARD ? p.HW * tile : 0));
+__device__ __forceinline__ uint32_t* tables_base(float* after_weights,
+                                                 const ScParams& p, int tile) {
+  return reinterpret_cast<uint32_t*>(after_weights + (Phys::LANE_BOARD ? p.HW * tile : 0));
+}
+
+// Where a thread sits: lanes_per_warp of each warp's 32 threads run a lane,
+// so a block of tile lanes has tile * 32 / lanes_per_warp threads. Sets
+// the lane's index in its block and returns whether the thread has one.
+__device__ __forceinline__ bool block_lane(const ScParams& p, int tx, int& lane) {
+  const int wl = tx & 31;
+  lane = (tx >> 5) * p.lanes_per_warp + wl;
+  return wl < p.lanes_per_warp;
 }
 
 // K4: n_steps steps of every lane, uniform or linear-policy actions.
@@ -1417,19 +1462,22 @@ template <class Phys, int MODE>
 __global__ void __launch_bounds__(256)
     sc_rollout_kernel(const __grid_constant__ ScParams p) {
   extern __shared__ float smem[];
-  const int tile = blockDim.x;
   const int tx = threadIdx.x;
-  const int b = blockIdx.x * tile + tx;
-  float* vis = smem + tx;  // column: vis[c * tile]
-  const Tables s = load_tables(p, tables_base<Phys>(smem, p, tile), tx, tile);
+  const int tile = blockDim.x / 32 * p.lanes_per_warp;
+  int lane;
+  const bool has_lane = block_lane(p, tx, lane);
+  const int b = blockIdx.x * tile + lane;
+  float* vis = smem + lane;  // column: vis[c * tile]
+  const Tables s = load_tables(p, tables_base<Phys>(smem, p, tile), tx, blockDim.x);
   __syncthreads();
-  if (b >= p.B) return;
+  if (!has_lane || b >= p.B) return;
 
   ScLane<Phys::MAX_D> L;
   load_lane<Phys>(p, b, L, vis, tile);
   const agw::Mlp no_mlp{nullptr, nullptr, nullptr, nullptr, 0};
+  uint32_t word = action_word(p, L, L.ctr);
   for (int step = 0; step < p.n_steps; ++step)
-    sc_step<Phys, MODE>(p, s, L, vis, tile, b, no_mlp, step);
+    sc_step<Phys, MODE>(p, s, L, vis, tile, b, no_mlp, step, word);
   store_lane<Phys>(p, b, L, vis, tile);
 }
 
@@ -1440,27 +1488,30 @@ __global__ void __launch_bounds__(256)
     sc_collect_kernel(const __grid_constant__ ScParams p) {
   constexpr int F = Phys::F;
   extern __shared__ float smem[];
-  const int tile = blockDim.x;
-  const int tx = threadIdx.x;
-  const int b = blockIdx.x * tile + tx;
+  const int tx = threadIdx.x, n_threads = blockDim.x;
+  const int tile = n_threads / 32 * p.lanes_per_warp;
+  int lane;
+  const bool has_lane = block_lane(p, tx, lane);
+  const int b = blockIdx.x * tile + lane;
   const int H = p.hidden, A = p.amax - p.amin + 1;
   const int n_w1 = H * F, n_w2 = (A + 1) * H;
   float* w = smem;  // w1 [H*F], b1 [H], w2 [(A+1)*H], b2 [A+1]
-  for (int i = tx; i < n_w1; i += tile) w[i] = p.mlp_w1[i];
-  for (int i = tx; i < H; i += tile) w[n_w1 + i] = p.mlp_b1[i];
-  for (int i = tx; i < n_w2; i += tile) w[n_w1 + H + i] = p.mlp_w2[i];
-  for (int i = tx; i <= A; i += tile) w[n_w1 + H + n_w2 + i] = p.mlp_b2[i];
+  for (int i = tx; i < n_w1; i += n_threads) w[i] = p.mlp_w1[i];
+  for (int i = tx; i < H; i += n_threads) w[n_w1 + i] = p.mlp_b1[i];
+  for (int i = tx; i < n_w2; i += n_threads) w[n_w1 + H + i] = p.mlp_w2[i];
+  for (int i = tx; i <= A; i += n_threads) w[n_w1 + H + n_w2 + i] = p.mlp_b2[i];
   const agw::Mlp mlp{w, w + n_w1, w + n_w1 + H, w + n_w1 + H + n_w2, H};
   float* boards = w + n_w1 + H + n_w2 + A + 1;
-  float* vis = boards + tx;
-  const Tables s = load_tables(p, tables_base<Phys>(boards, p, tile), tx, tile);
+  float* vis = boards + lane;
+  const Tables s = load_tables(p, tables_base<Phys>(boards, p, tile), tx, n_threads);
   __syncthreads();
-  if (b >= p.B) return;
+  if (!has_lane || b >= p.B) return;
 
   ScLane<Phys::MAX_D> L;
   load_lane<Phys>(p, b, L, vis, tile);
+  uint32_t word = action_word(p, L, L.ctr);
   for (int step = 0; step < p.n_steps; ++step)
-    sc_step<Phys, POL_MLP>(p, s, L, vis, tile, b, mlp, step);
+    sc_step<Phys, POL_MLP>(p, s, L, vis, tile, b, mlp, step, word);
   float x[F];
   Phys::feats(p, L, x);
   p.traj.boot[b] = agw::mlp_value<F>(mlp, A, x);
@@ -1474,13 +1525,14 @@ static cudaError_t launch(Kernel kernel, const ScParams& p, int tile,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   const int blocks = (p.B + tile - 1) / tile;
-  kernel<<<blocks, tile, smem, stream>>>(p);
+  kernel<<<blocks, tile / p.lanes_per_warp * 32, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <class Phys>
 static size_t board_bytes(const ScParams& p, int tile) {
-  return (Phys::LANE_BOARD ? 4 * static_cast<size_t>(p.HW) * tile : 0) + 6 * SC_MAX_HW;
+  return (Phys::LANE_BOARD ? 4 * static_cast<size_t>(p.HW) * tile : 0) +
+         4 * static_cast<size_t>(p.tab_words) + 4 * SC_MAX_HW;
 }
 
 // The body's own limits: its reward rows, its draw sites and rows, and its
@@ -1511,9 +1563,16 @@ static cudaError_t launch_collect(const ScParams& p, int tile, cudaStream_t s) {
   return launch(sc_collect_kernel<Phys>, p, tile, 4 * n_w + board_bytes<Phys>(p, tile), s);
 }
 
-static bool valid(const ScParams* p) {
-  return p->HW <= SC_MAX_HW && p->D >= 1 && p->D <= SC_MAX_D &&
-         p->amax - p->amin + 1 <= SC_MAX_A && p->amin >= 0 && p->amax <= 9;
+// The shape limits and the step table's layout; a tile is 32 to 256 lanes
+// and its threads (tile * 32 / lanes_per_warp) at most 256.
+static bool valid(const ScParams* p, int tile) {
+  const int A = p->amax - p->amin + 1;
+  return p->HW <= SC_MAX_HW && p->D >= 1 && p->D <= SC_MAX_D && A <= SC_MAX_A &&
+         p->amin >= 0 && p->amax <= 9 && p->step_tab != nullptr &&
+         (p->tab_sections == 1 || p->tab_sections == 2) && p->n_coin0 >= 0 &&
+         p->n_coin0 <= p->HW && p->tab_words == p->tab_sections * p->HW * A + p->HW + p->n_coin0 &&
+         p->lanes_per_warp >= 1 && 32 % p->lanes_per_warp == 0 && tile % 32 == 0 && tile >= 32 &&
+         tile <= 256 && tile / p->lanes_per_warp * 32 <= 256;
 }
 
 // One launcher per body, K4 (COLLECT = false) or K5.
@@ -1556,13 +1615,13 @@ static cudaError_t dispatch(const ScParams& p, int phys, int tile, cudaStream_t 
 extern "C" int fused_scalar_rollout(const ScParams* p, int phys, int tile,
                                     void* stream) {
   if (p->n_steps <= 0 || p->B <= 0) return 0;
-  if (!valid(p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(p, tile)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(dispatch<false>(*p, phys, tile, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int fused_scalar_collect(const ScParams* p, int phys, int tile,
                                     void* stream) {
   if (p->B <= 0) return 0;
-  if (!valid(p) || p->hidden < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(p, tile) || p->hidden < 1) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(dispatch<true>(*p, phys, tile, static_cast<cudaStream_t>(stream)));
 }

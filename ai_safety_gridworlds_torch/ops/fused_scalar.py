@@ -130,6 +130,9 @@ class FusedScalarBase(FusedMaBase):
     LANE_BOARD = False
     # Rows of the body's entity fields: boxes, lumps or tomatoes.
     n_ent = 0
+    # Whether the body also pushes by the scalar action order whatever its
+    # own (conveyor_belt): K4/K5's step table then has a second section.
+    PUSH_DELTAS = False
     EXTRA_FIELDS: tuple = ()
     BASE_FIELDS = (
         "pos", "t", "ep_ret", "hid_ret", "step_types", "key", "draw_ctr",
@@ -227,6 +230,9 @@ class FusedScalarBase(FusedMaBase):
                 cache[k] = torch.from_numpy(
                     np.asarray(table, np.int32)
                 ).to(device)
+            # K4/K5's step table, which their wrappers pass by pointer.
+            cache["_step_table"] = torch.from_numpy(_step_table(self)).to(
+                device)
             self._device_cache[key] = cache
         return cache
 
@@ -422,14 +428,19 @@ class FusedScalarBase(FusedMaBase):
 
     def _byte_tables(self) -> dict:
         """The per-cell byte tables of the kernel's parameter block (cell
-        class ``code``, clockwise entry ``gdr``/``gdc``, water distance
-        ``wdist``) as [HW] arrays, None where the body has none."""
+        class ``code``, water distance ``wdist``) as [HW] arrays, None where
+        the body has none."""
         st = self._kstatics_np
-        return {k: st.get(k) for k in ("code", "gdr", "gdc", "wdist")}
+        return {k: st.get(k) for k in ("code", "wdist")}
+
+    def _coin_cells(self) -> np.ndarray:
+        """The cells K4/K5 restore on a lane board at reset (the coin
+        starts); none for a board that is rewritten whole."""
+        return np.zeros(0, np.int64)
 
     def _flags2(self):
-        """The second byte of cell flags ([HW] uint8): the coin starts, the
-        transformer tile and the switch cells (``_CELL_FLAGS2``)."""
+        """The second byte of cell flags ([HW] uint8): the transformer tile
+        and the switch cells (``_CELL_FLAGS2``)."""
         st = self._kstatics_np
         flags2 = np.zeros(self.HW, np.uint8)
         for bit, name in _CELL_FLAGS2:
@@ -956,8 +967,7 @@ class FusedIslandNavEx(FusedScalarBase):
     def _byte_tables(self):
         sboard = self._kstatics_np["sboard"][:, 0]
         dist = np.floor(sboard / 16.0)
-        return {"code": sboard - 16.0 * dist, "gdr": None, "gdc": None,
-                "wdist": dist}
+        return {"code": sboard - 16.0 * dist, "wdist": dist}
 
     def _body_params(self, p):
         cfg, has, q = self.cfg, self.has, p.inx
@@ -1387,6 +1397,9 @@ class FusedSokoban(FusedScalarBase):
             raise ValueError("penalty map holds values other than its two")
         return flags2 | (wall * F2_PEN_WALL) | (corner * F2_PEN_CORNER)
 
+    def _coin_cells(self):
+        return np.flatnonzero(self._kstatics_np["coins0"][:, 0] > 0.5)
+
     def _body_params(self, p):
         for i, cell in enumerate(self._kstatics_np["boxes0"][:, 0]):
             p.ent0[i] = int(cell)
@@ -1537,6 +1550,7 @@ class FusedConveyorBelt(FusedScalarBase):
     and goal tile."""
 
     PHYS = 11
+    PUSH_DELTAS = True
     EXTRA_FIELDS = ("obj", "obj_end", "perf_adj")
     STATE_FIELDS = FusedScalarBase.BASE_FIELDS + EXTRA_FIELDS
     POLICY_FEATURES = 5  # agent row, col, object row, col, obj_end
@@ -1967,14 +1981,25 @@ _MAX_ENT = _MAX_ROWS = 16
 _MAX_SMEM = 232448
 # Cell flags of the static tables, as csrc/fused_scalar.cu reads them.
 _CELL_FLAGS = (
-    (1, ("wall",)), (2, ("isgoal",)), (4, ("water",)),
+    (1, ("wall",)), (4, ("water",)),
     (8, ("goal", "ongoal")), (16, ("onhuman",)), (32, ("lava0",)),
     (64, ("lava1",)), (128, ("lava2",)),
 )
-# The second byte of cell flags: coin starts, transformer, switches, and the
-# two box penalties of side_effects_sokoban's penmap.
+# The second byte of cell flags: transformer, switches, and the two box
+# penalties of side_effects_sokoban's penmap.
 F2_PEN_WALL, F2_PEN_CORNER = 8, 16
-_CELL_FLAGS2 = ((1, "coins0"), (2, "transformer"), (4, "swcell"))
+_CELL_FLAGS2 = ((2, "transformer"), (4, "swcell"))
+# Bits of a step-table entry (csrc/fused_scalar.cu's ST_*): the clamped
+# target cell in bits 0-7 and the bounded move's cell in bits 8-15, then
+# these flags, the goal-stripe sign + 1 in bits 20-21 and the first flag
+# byte of the move's cell in bits 24-31.
+ST_INB, ST_WALL, ST_IS_MOVE, ST_ENTER_CW = 1 << 16, 1 << 17, 1 << 18, 1 << 19
+# Lanes of each warp's 32 threads that run a lane in K4/K5 (the rest return
+# after the table load): None lets ``_lanes_per_warp`` choose; chip_smoke.py's
+# sweep pins a value.
+_LANES_PER_WARP = None
+# Warp schedulers of an SM.
+_SCHEDULERS_PER_SM = 4
 _SC_FIELDS = FusedScalarBase.BASE_FIELDS + (
     "safety", "visits", "drink_sat", "food_sat", "drink_avail", "drink_frac",
     "food_avail", "food_frac", "sup", "level", "should", "pressed",
@@ -2046,11 +2071,11 @@ class _ScParams(ctypes.Structure):
         ("flags", ctypes.c_uint8 * _MAX_HW),
         ("flags2", ctypes.c_uint8 * _MAX_HW),
         ("code", ctypes.c_int8 * _MAX_HW),
-        ("gdr", ctypes.c_int8 * _MAX_HW),
-        ("gdc", ctypes.c_int8 * _MAX_HW),
         ("wdist", ctypes.c_uint8 * _MAX_HW),
-        ("delta_r", ctypes.c_int * 10),
-        ("delta_c", ctypes.c_int * 10),
+        ("step_tab", ctypes.c_void_p),
+        *[(k, ctypes.c_int) for k in (
+            "tab_words", "tab_sections", "n_coin0", "lanes_per_warp",
+        )],
         ("rv", (ctypes.c_float * _MAX_D) * _N_RV),
         ("rv_on", ctypes.c_int * _N_RV),
         ("safety0", ctypes.c_float),
@@ -2085,10 +2110,87 @@ def _scalar_lib():
     return lib
 
 
+def _cell_flags(fused) -> np.ndarray:
+    """The first byte of cell flags ([HW] uint8, ``_CELL_FLAGS``)."""
+    st = fused._kstatics_np
+    flags = np.zeros(fused.HW, np.uint8)
+    for bit, names in _CELL_FLAGS:
+        for name in names:
+            if name in st:
+                flags |= (st[name][:, 0] > 0.5).astype(np.uint8) * bit
+    return flags
+
+
+def _clockwise_np(fused, pos, new_pos):
+    """``_clockwise`` in numpy on integer cell arrays: ``(enter_cw,
+    sign)`` as int arrays; zeros for a body without goal stripes."""
+    st = fused._kstatics_np
+    if "isgoal" not in st:
+        return np.zeros_like(pos), np.zeros_like(pos)
+    W = fused.w
+    goal = st["isgoal"][:, 0] > 0.5
+    code, gdr, gdc = (st[k][:, 0] for k in ("code", "gdr", "gdc"))
+    drm = new_pos // W - pos // W
+    dcm = new_pos % W - pos % W
+    changed = code[new_pos] != code[pos]
+    enter_goal = changed & goal[new_pos]
+    enter_cw = enter_goal & (gdr[new_pos] == drm) & (gdc[new_pos] == dcm)
+    leave_goal = changed & ~goal[new_pos] & goal[pos]
+    leave_cw = (leave_goal & (new_pos != pos) & (gdr[pos] == drm)
+                & (gdc[pos] == dcm))
+    sign = (enter_cw.astype(np.int64) - (enter_goal & ~enter_cw)
+            + leave_cw - (leave_goal & ~leave_cw))
+    return enter_cw.astype(np.int64), sign
+
+
+def _step_table(fused) -> np.ndarray:
+    """K4/K5's step table as int32 words: for the body's ``DELTAS`` (and,
+    with ``PUSH_DELTAS``, the scalar ``ACTION_DELTAS``) an [HW, A] section
+    of entries, one per cell and action id amin..amax (``ST_*``: the
+    clamped target, the bounded move's cell, in bounds, wall at the target,
+    whether the action moves, the goal-stripe events of the move and the
+    flag byte of its cell); then a word per cell, row | col << 8; then the
+    coin-start cells (``_coin_cells``). Built with integer arithmetic from
+    the statics; the CPU tests hold it against ``_target``, ``_move``,
+    ``_behind`` and ``_clockwise``."""
+    H, W, HW = fused.h, fused.w, fused.HW
+    A = fused.amax - fused.amin + 1
+    cell = np.arange(HW)
+    row, col = cell // W, cell % W
+    wall = fused._kstatics_np["wall"][:, 0] > 0.5
+    flags = _cell_flags(fused).astype(np.int64)
+    words = []
+    for deltas in [fused.DELTAS] + [ACTION_DELTAS] * fused.PUSH_DELTAS:
+        ent = np.zeros((HW, A), np.int64)
+        for ai in range(A):
+            dr, dc = (int(x) for x in deltas[fused.amin + ai])
+            cr, cc = row + dr, col + dc
+            inb = (cr >= 0) & (cr < H) & (cc >= 0) & (cc < W)
+            tgt = cr.clip(0, H - 1) * W + cc.clip(0, W - 1)
+            moved = np.where(inb & ~wall[tgt], tgt, cell)
+            enter_cw, sign = _clockwise_np(fused, cell, moved)
+            ent[:, ai] = (tgt | moved << 8 | inb * ST_INB
+                          | wall[tgt] * ST_WALL
+                          | int(dr != 0 or dc != 0) * ST_IS_MOVE
+                          | enter_cw * ST_ENTER_CW | (sign + 1) << 20
+                          | flags[moved] << 24)
+        words.append(ent.reshape(-1))
+    words += [row | col << 8, fused._coin_cells()]
+    return np.concatenate(words).astype(np.uint32).view(np.int32)
+
+
+def _tab_words(fused) -> int:
+    """The length of ``_step_table(fused)`` in words."""
+    A = fused.amax - fused.amin + 1
+    return ((1 + fused.PUSH_DELTAS) * fused.HW * A + fused.HW
+            + len(fused._coin_cells()))
+
+
 def _static_params(fused: FusedScalarBase) -> _ScParams:
-    """The static parameter block: the board tables as bytes, the action
-    deltas, the reward vectors, the features' float32 constants and the
-    body's own fields. The pointers, B, n_steps and hidden are left at 0."""
+    """The static parameter block: the board tables as bytes, the step
+    table's layout, the reward vectors, the features' float32 constants
+    and the body's own fields. The pointers, B, n_steps and hidden are left
+    at 0."""
     p = _ScParams()
     for k, v in dict(
         D=fused.D, HW=fused.HW, H=fused.h, W=fused.w, amin=fused.amin,
@@ -2096,22 +2198,18 @@ def _static_params(fused: FusedScalarBase) -> _ScParams:
         pos0=fused.pos0, n_sites=fused.n_sites,
         reset_rows=fused.RESET_ROWS if fused.RESET_SITES else 0,
         phys_rows=fused.PHYS_ROWS, n_ent=fused.n_ent,
+        tab_sections=1 + fused.PUSH_DELTAS,
+        n_coin0=len(fused._coin_cells()), tab_words=_tab_words(fused),
     ).items():
         setattr(p, k, int(v))
     st = fused._kstatics_np
-    flags = np.zeros(fused.HW, np.uint8)
-    for bit, names in _CELL_FLAGS:
-        for name in names:
-            if name in st:
-                flags |= (st[name][:, 0] > 0.5).astype(np.uint8) * bit
-    for name, table in (("flags", flags), ("flags2", fused._flags2()),
+    for name, table in (("flags", _cell_flags(fused)),
+                        ("flags2", fused._flags2()),
                         *fused._byte_tables().items()):
         if table is not None:
             arr = getattr(p, name)
             for cell, v in enumerate(np.asarray(table).reshape(-1)):
                 arr[cell] = int(v)
-    for a in range(10):
-        p.delta_r[a], p.delta_c[a] = (int(x) for x in fused.DELTAS[a])
     for k, row in enumerate(fused._reward_rows()):
         if row is not None:
             p.rv_on[k] = 1
@@ -2181,20 +2279,46 @@ def _params(fused, S, out):
         setattr(p.inp, name, S[name].data_ptr())
         setattr(p.out, name, out[name].data_ptr())
     p.B = S["t"].shape[1]
+    p.step_tab = fused._on(S["t"].device)["_step_table"].data_ptr()
     return p
+
+
+@functools.cache
+def _schedulers(device) -> int:
+    """Warp schedulers of the card ``device``."""
+    return (_SCHEDULERS_PER_SM
+            * torch.cuda.get_device_properties(device).multi_processor_count)
+
+
+def _lanes_per_warp(B: int, tile: int, device) -> int:
+    """Lanes of each warp's 32 threads that K4/K5 run. A lane's steps are
+    one dependent chain, so the kernels are bound by its latency, and a
+    warp's lanes wait for each other where their steps diverge (a reset
+    beside a move). While the batch is small, 8 lanes a warp spread the
+    warps over all the card's schedulers and put fewer lanes in each warp;
+    once ceil(B / lanes) warps would outnumber the schedulers, 16 and then
+    32 lanes a warp keep each issued instruction on as many lanes as
+    possible. At least tile / 8, so that a block of ``tile`` lanes has at
+    most 256 threads (``chip_smoke.py``'s phase 33 times the three)."""
+    lanes = _LANES_PER_WARP
+    if lanes is None:
+        slots = _schedulers(str(device))
+        lanes = next((k for k in (8, 16) if -(-B // k) <= slots), 32)
+    return max(lanes, tile // 8)
 
 
 def _smem_bytes(fused, tile, hidden=0) -> int:
     """Shared memory per block: the MLP's weights as float32 (K5), the
     per-lane boards ``[HW, tile]`` float32 (boat_race_ex's visits,
-    side_effects_sokoban's coins) and the six static byte tables."""
+    side_effects_sokoban's coins), the step table and the four static byte
+    tables."""
     A = fused.amax - fused.amin + 1
     n_w = 0
     if hidden:
         n_w = (hidden * fused.POLICY_FEATURES + hidden
                + (A + 1) * (hidden + 1))
     boards = fused.HW * tile if fused.LANE_BOARD else 0
-    return 4 * (n_w + boards) + 6 * _MAX_HW
+    return 4 * (n_w + boards + _tab_words(fused)) + 4 * _MAX_HW
 
 
 def fused_scalar_rollout(fused: FusedScalarBase, S: dict, n_steps: int,
@@ -2220,6 +2344,7 @@ def fused_scalar_rollout(fused: FusedScalarBase, S: dict, n_steps: int,
 
     lib = _scalar_lib()
     p = _params(fused, S, out)
+    p.lanes_per_warp = _lanes_per_warp(B, tile, device)
     if statics:
         for k in POLICY_KEYS:
             setattr(p, k, statics[k].data_ptr())
@@ -2266,6 +2391,7 @@ def fused_scalar_collect(fused: FusedScalarBase, S: dict, params: dict,
 
     lib = _scalar_lib()
     p = _params(fused, S, out)
+    p.lanes_per_warp = _lanes_per_warp(B, tile, device)
     for k in MLP_KEYS:
         setattr(p, k, params[k].data_ptr())
     for name in traj:

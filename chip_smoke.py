@@ -185,9 +185,9 @@ Phases, in order; any failure exits non-zero before the last line:
    sushi_goal2), rocks_diamonds, friend_foe and conveyor_belt_ex, with the
    launch counters set to 0 just before and read just after each path (K4
    once per call); env-steps/s and the host's share of a call beside K4's
-   time, the bound, the plain version's time at 256 steps; and K4's and
-   K5's times on the bodies of earlier slices against the times PERF.md
-   records for them before this slice;
+   time, the bound, the plain version's time at 256 steps; and K4's times
+   on all 18 main paths and K5's on its three training paths against their
+   readings before the step table (``K4_BEFORE_MS``, ``K5_BEFORE_MS``);
 31. K5 against the plain collection on side_effects_sokoban level 1,
    tomato_watering and friend_foe at B = 4096, T = 64, H = 64,
    teacher-forced and free-running, within phase 7's limits;
@@ -195,7 +195,14 @@ Phases, in order; any failure exits non-zero before the last line:
    FusedSokoban(SideEffectsSokoban(level=1)), FusedPPOConfig(n_steps=64,
    n_epochs=2, n_minibatches=4), device="cuda")`` at B = 4096 through
    ``scalar_train_path``;
-33. one JSON line of kernel results: ``kernels`` holds K1 with its launches
+33. K4's lanes per warp: on each of the 18 scalar main paths at B = 4096,
+   K4 with 32, 16 and 8 of each warp's threads running a lane (the rest
+   return after the table load), then 32 again (the two readings give the
+   run's spread), each state bit-equal to the first; the same on
+   boat_race, island_navigation_ex and friend_foe at B = 8192, 16384 and
+   65536, beside the count the default picks there; and K4 at a ragged
+   B = 4096 + 3 with 8 lanes a warp against the plain version;
+34. one JSON line of kernel results: ``kernels`` holds K1 with its launches
    on the main path (phase 5) and on the policy-search check (phase 6), K3
    with its launches on the training path (phase 8), K4 with its launches on
    the scalar main paths (phases 11, 26 and 30, by path and env), K5 with
@@ -215,10 +222,12 @@ Imports nothing of JAX. Needs one CUDA card.
 
     python3 chip_smoke.py --time-scalar ROOT
 
-times K4 (at each main path's shape) and K5 (collect(64)) on the eight
-scalar bodies of earlier slices with the port imported from the checkout at
-ROOT, and prints them as one JSON line: run it on two checkouts in one call
-(parent, change, change, parent) to compare them on one card.
+times K4 on its 18 main paths (at each path's shape, B = 4096) and K5
+(collect(64), H = 64) on its three training paths with the port imported
+from the checkout at ROOT, and prints them as one JSON line with the
+nanoseconds per lane-step and the card's largest SM clock: run it on two
+checkouts in one call (parent, change, change, parent) to compare them on
+one card.
 
     python3 chip_smoke.py --time-firemaker ROOT
 
@@ -386,15 +395,32 @@ LAST_MAIN = (
     ("friend_foe", "friend_foe", {}),
     ("conveyor_belt_ex", "conveyor_belt_ex", {}),
 )
-# K4's and K5's times on the bodies of earlier slices before this slice
-# (PERF.md; NVIDIA H100 80GB HBM3 at 700 W): ms per rollout(n) at B = 4096
-# on each main path, and per collect(64) on the two training paths.
-K4_BEFORE_MS = {"boat_race": 3.817, "island_navigation": 1.886,
-             "boat_race_ex": 3.239, "island_navigation_ex": 6.707,
-             "island_navigation_ex_full": 7.052, "absent_supervisor": 1.232,
-             "distributional_shift": 1.301, "safe_interruptibility": 1.105,
-             "safe_interruptibility_ex": 1.116}
-K5_BEFORE_MS = {"boat_race": 0.895, "island_navigation_ex": 0.808}
+# K5's training paths: (name, env kwargs).
+K5_TRAIN_PATHS = (
+    ("boat_race", {}),
+    ("island_navigation_ex", {}),
+    ("side_effects_sokoban", {"level": 1}),
+)
+# K4's and K5's times before the step table (PERF.md's table; NVIDIA H100
+# 80GB HBM3 at 700 W): ms per rollout(n) at B = 4096 on each main path, and
+# per collect(64), H = 64, on the three training paths.
+K4_BEFORE_MS = {
+    "boat_race": 3.861, "island_navigation": 1.924, "boat_race_ex": 3.353,
+    "island_navigation_ex": 6.761, "island_navigation_ex_full": 7.169,
+    "absent_supervisor": 1.196, "distributional_shift": 1.288,
+    "safe_interruptibility": 1.133, "safe_interruptibility_ex": 1.149,
+    "side_effects_sokoban": 4.906, "side_effects_sokoban_l1": 2.672,
+    "whisky_gold": 1.049, "tomato_watering": 2.207,
+    "conveyor_belt_vase": 1.797, "conveyor_belt_sushi_goal2": 2.034,
+    "rocks_diamonds": 2.191, "friend_foe": 2.354, "conveyor_belt_ex": 2.076,
+}
+K5_BEFORE_MS = {"boat_race": 0.976, "island_navigation_ex": 0.939,
+                "side_effects_sokoban": 1.216}
+# Threads of each warp that run a lane in K4's sweep (phase 33), and the
+# paths and larger batches it also times them on.
+LANES_PER_WARP = (32, 16, 8)
+LANE_SWEEP_PATHS = ("boat_race", "island_navigation_ex", "friend_foe")
+LANE_SWEEP_BATCHES = (2 * BATCH, 4 * BATCH, 16 * BATCH)
 K6_REPLACES = (
     "ai_safety_gridworlds_tpu/ops/fused_base.py:432 (_rollout_pallas_call, "
     "pallas_call :491) x ai_safety_gridworlds_tpu/ops/fused_island_ma.py:376 "
@@ -597,10 +623,13 @@ SCALAR_BODY_OPS = {"boat_race": 44, "island_navigation": 13,
 SCALAR_BODY_OPS_PER_DIM = {"boat_race_ex": 10, "island_navigation_ex": 8,
                            "conveyor_belt_ex": 8}
 # The per-episode draw of a resetting lane, per row drawn: the counter (2),
-# the PRF hash (21), uniform01 (3) and the drawn value (2); a lane board is
-# rewritten and, for the coins, counted (5 operations a cell).
+# the PRF hash (21), uniform01 (3) and the drawn value (2); boat_race_ex's
+# visit board is rewritten whole (5 operations a cell), side_effects_sokoban
+# restores its coin-start cells only (the cell's read, its address and the
+# store: 3 a coin).
 SCALAR_RESET_DRAW_OPS = 28
 SCALAR_RESET_OPS_PER_CELL = 5
+SCALAR_RESET_OPS_PER_COIN = 3
 
 
 def scalar_step_ops(fused):
@@ -615,11 +644,15 @@ def scalar_step_ops(fused):
 def scalar_reset_ops(fused):
     """Operations of one resetting lane-step: the rows its per-episode draw
     hashes (tomato_watering only those of the tomatoes watered at the
-    start) and the rewrite of a lane board."""
+    start) and the reset of a lane board."""
     rows = fused.RESET_ROWS * fused.RESET_SITES
     if fused.env.name in ("tomato_watering", "tomato_crmdp"):
         rows = int((fused._kstatics_np["iw"] > 0.5).sum())
-    board = fused.HW * SCALAR_RESET_OPS_PER_CELL if fused.LANE_BOARD else 0
+    board = 0
+    if fused.env.name == "side_effects_sokoban":
+        board = len(fused._coin_cells()) * SCALAR_RESET_OPS_PER_COIN
+    elif fused.LANE_BOARD:
+        board = fused.HW * SCALAR_RESET_OPS_PER_CELL
     return rows * SCALAR_RESET_DRAW_OPS + board
 
 
@@ -1920,11 +1953,30 @@ def savanna_phases(torch, np, dev, card, reset_counts, counts):
     }], main_prf + train_launches["prf_words"]
 
 
+def scalar_paths():
+    """(label, name, env kwargs, rollout steps) of K4's 18 main paths
+    (phases 11, 26 and 30)."""
+    return ([(name, name, kw, n) for name, kw, n in SCALAR_MAIN]
+            + [(label, name, kw, SCALAR_NEW_STEPS)
+               for label, name, kw in SCALAR_NEW_MAIN + LAST_MAIN])
+
+
+def sm_clock_max_mhz():
+    """The card's largest SM clock in MHz, as nvidia-smi reports it."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0])
+
+
 def time_scalar(root):
-    """K4 at each main path's shape (phases 11 and 26) and K5 per
-    collect(COLLECT_STEPS) at H = HIDDEN, from ``init_packed(SEED, BATCH)``,
-    on the eight scalar bodies of earlier slices, with the port imported
-    from the checkout at ``root``; one JSON line of milliseconds."""
+    """K4 on its 18 main paths at each path's shape and K5 per
+    collect(COLLECT_STEPS) at H = HIDDEN on its three training paths, from
+    ``init_packed(SEED, BATCH)``, with the port imported from the checkout
+    at ``root``; one JSON line of milliseconds, with K4's nanoseconds per
+    lane-step (its lanes run their steps one after another, in parallel
+    with each other) and the largest SM clock to read them as cycles."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1936,21 +1988,83 @@ def time_scalar(root):
     from ai_safety_gridworlds_torch.helpers import factory
 
     dev = torch.device("cuda", 0)
-    paths = [(name, name, kw, n) for name, kw, n in SCALAR_MAIN] + [
-        (label, name, kw, SCALAR_NEW_STEPS)
-        for label, name, kw in SCALAR_NEW_MAIN]
-    out = {"root": os.path.abspath(root), "card": gpu_line(), "k4": {},
-           "k5": {}}
-    for label, name, kw, n in paths:
+    out = {"root": os.path.abspath(root), "card": gpu_line(),
+           "sm_clock_max_mhz": sm_clock_max_mhz(), "k4": {},
+           "k4_ns_per_lane_step": {}, "k5": {}}
+    for label, name, kw, n in scalar_paths():
         fused = ops.make_fused(factory.get_raw_env(name, **kw))
         S0 = fused.init_packed(SEED, BATCH, dev)
-        out["k4"][label] = cuda_ms(lambda: fused.rollout(S0, n), 5, torch)
-        if label in K5_BEFORE_MS:
-            params = seeded_params(fused, dev, np)
-            out["k5"][label] = cuda_ms(
-                lambda: fused.rollout_collect(S0, params, COLLECT_STEPS), 5,
-                torch)
+        ms = cuda_ms(lambda: fused.rollout(S0, n), 5, torch)
+        out["k4"][label] = ms
+        out["k4_ns_per_lane_step"][label] = ms * 1e6 / n
+    for name, kw in K5_TRAIN_PATHS:
+        fused = ops.make_fused(factory.get_raw_env(name, **kw))
+        S0 = fused.init_packed(SEED, BATCH, dev)
+        params = seeded_params(fused, dev, np)
+        out["k5"][name] = cuda_ms(
+            lambda: fused.rollout_collect(S0, params, COLLECT_STEPS), 5, torch)
     print(json.dumps(out), flush=True)
+
+
+def scalar_lane_sweep(card, torch):
+    """Phase 33: K4 on each of the 18 main paths at B = BATCH with
+    LANES_PER_WARP lanes a warp, then with the first again (the run's
+    spread), each final state bit-equal to the first run's; the same on
+    LANE_SWEEP_PATHS at the larger LANE_SWEEP_BATCHES, beside the count
+    ``fused_scalar._lanes_per_warp`` picks there; then a ragged B = BATCH +
+    3 with the fewest lanes a warp against the plain version. Returns
+    {path or path@B: {lanes a warp: [ms, ...]}}."""
+    from ai_safety_gridworlds_torch import ops
+    from ai_safety_gridworlds_torch.helpers import factory
+    from ai_safety_gridworlds_torch.ops import fused_scalar
+
+    dev = torch.device("cuda", 0)
+    default = fused_scalar._LANES_PER_WARP
+    tile = fused_scalar.FusedScalarBase.DEFAULT_TILE
+    runs = [(label, name, kw, n, BATCH) for label, name, kw, n in scalar_paths()]
+    runs += [(f"{label}@{b}", name, kw, n, b)
+             for label, name, kw, n in scalar_paths()
+             if label in LANE_SWEEP_PATHS for b in LANE_SWEEP_BATCHES]
+    sweep = {}
+    try:
+        for label, name, kw, n, b in runs:
+            fused_scalar._LANES_PER_WARP = default
+            picked = fused_scalar._lanes_per_warp(b, tile, dev)
+            fused = ops.make_fused(factory.get_raw_env(name, **kw))
+            S0 = fused.init_packed(SEED, b, dev)
+            ref, times = None, {}
+            for lanes in LANES_PER_WARP + LANES_PER_WARP[:1]:
+                fused_scalar._LANES_PER_WARP = lanes
+                S1 = fused.rollout(S0, n)
+                if ref is None:
+                    ref = S1
+                else:
+                    rollout_equal(f"K4 {label} at {lanes} lanes a warp", fused,
+                                  S1, ref, torch)
+                times.setdefault(lanes, []).append(
+                    cuda_ms(lambda: fused.rollout(S0, n), 3, torch))
+            sweep[label] = times
+            t32 = times[LANES_PER_WARP[0]]
+            spread = abs(t32[1] - t32[0]) / min(t32)
+            log(f"K4 {label.split('@')[0]} rollout({n}) at B={b} by lanes a "
+                "warp: " + ", ".join(f"{k}: " + " / ".join(f"{t:.3f}" for t in v)
+                                     for k, v in times.items())
+                + f" ms; spread of the repeated {LANES_PER_WARP[0]} "
+                f"{spread:.2%}; the default picks {picked}  [{card}]")
+            del S0, S1, ref
+        fused_scalar._LANES_PER_WARP = min(LANES_PER_WARP)
+        fused = ops.make_fused(factory.get_raw_env("side_effects_sokoban",
+                                                   level=1))
+        S0 = fused.init_packed(SEED, BATCH + 3, dev)
+        rollout_equal(f"K4 ragged B={BATCH + 3} at {min(LANES_PER_WARP)} "
+                      "lanes a warp", fused, fused.rollout(S0, 300),
+                      fused.rollout_plain(S0, 300), torch)
+        log(f"K4 side_effects_sokoban level 1 at B={BATCH + 3}, "
+            f"{min(LANES_PER_WARP)} lanes a warp: 300 steps equal in all "
+            "fields")
+    finally:
+        fused_scalar._LANES_PER_WARP = default
+    return sweep
 
 
 def time_firemaker(root):
@@ -2363,8 +2477,7 @@ def main():
         train_paths.append(path_launches)
     k4["launches"] = sum(k4["launches_by_path"].values())
     k5["launches"] = sum(k5["launches_by_path"].values())
-    # The bodies of earlier slices against their times before this slice
-    # (SC_MAX_HW and the shell's draw hooks changed under them).
+    # Every scalar path against its time before the step table.
     for row in k4["per_env"]:
         if row["env"] in K4_BEFORE_MS:
             before = K4_BEFORE_MS[row["env"]]
@@ -2376,7 +2489,12 @@ def main():
             log(f"K5 {row['env']} collect({COLLECT_STEPS}): {row['ms']:.3f} ms, "
                 f"before {before} ms ({row['ms'] / before - 1:+.2%})  [{card}]")
 
-    # ---- 33. results
+    # ---- 33. K4's lanes per warp
+    log(f"== 33. K4 by lanes a warp {LANES_PER_WARP} on the 18 scalar main "
+        "paths")
+    k4["lanes_per_warp_ms"] = scalar_lane_sweep(card, torch)
+
+    # ---- 34. results
     k2_bound_ms, k2_bound_by = bound(24 * n_words, 24 * n_words)
     kernels = [{
         "name": "fused_firemaker_rollout", "route": "cuda",

@@ -449,6 +449,56 @@ def test_scalar_collect_kernel_matches_plain(dev, name):
     torch.testing.assert_close(bk[:, keep], boot[:, keep], rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("lanes", [32, 16, 8])
+@pytest.mark.parametrize("name,kw", [
+    ("side_effects_sokoban", {"level": 1}), ("conveyor_belt_ex", {}),
+    ("boat_race_ex", {}), ("tomato_watering", {}),
+], ids=["sokoban_l1", "conveyor_belt_ex", "boat_race_ex", "tomato"])
+def test_scalar_kernels_with_fewer_lanes_a_warp(dev, monkeypatch, name, kw,
+                                                lanes):
+    """K4 and K5 with 32, 16 or 8 of each warp's threads running a lane
+    (the others return after the table load) at a ragged B and two tiles:
+    K4 equal to the plain version, K5 equal to K5 at 32 lanes a warp."""
+    from ai_safety_gridworlds_torch.ops import fused_scalar
+
+    env = factory.get_raw_env(name, **kw)
+    env.max_iterations = 20
+    fused = tops.make_fused(env)
+    B = 203
+    S0 = interop.busy_scalar_state(fused, 6, B, dev)
+    params = _params(fused, dev, hidden=16)
+    monkeypatch.setattr(fused_scalar, "_LANES_PER_WARP", 32)
+    ref = fused.rollout_collect(S0, params, 30)
+    monkeypatch.setattr(fused_scalar, "_LANES_PER_WARP", lanes)
+    Sp = fused.rollout_plain(S0, 70)
+    for tile in (32, 64):
+        Sk = fused.rollout(S0, 70, tile=tile)
+        for k in fused.STATE_FIELDS:
+            assert _equal(Sk[k], Sp[k]), (tile, k)
+    S, traj, boot = fused.rollout_collect(S0, params, 30)
+    for k in fused.STATE_FIELDS:
+        assert _equal(S[k], ref[0][k]), k
+    for k in traj:
+        assert _equal(traj[k], ref[1][k]), k
+    assert _equal(boot, ref[2])
+
+
+def test_scalar_lanes_per_warp_follow_the_batch(dev):
+    """The default lanes a warp: 8 while ceil(B / 8) warps fit the card's
+    schedulers, then 16, then 32; never fewer than tile / 8."""
+    from ai_safety_gridworlds_torch.ops import fused_scalar
+
+    slots = fused_scalar._schedulers(str(dev))
+    assert slots == 4 * torch.cuda.get_device_properties(
+        dev).multi_processor_count
+    pick = fused_scalar._lanes_per_warp
+    assert pick(8 * slots, 32, dev) == 8
+    assert pick(8 * slots + 1, 32, dev) == 16
+    assert pick(16 * slots, 32, dev) == 16
+    assert pick(16 * slots + 1, 32, dev) == 32
+    assert pick(64, 256, dev) == 32 and pick(64, 128, dev) == 16
+
+
 def test_scalar_kernels_reject_bad_inputs(dev):
     fused = SCALAR["boat_race_ex"]()
     S = fused.init_packed(0, 64, dev)
