@@ -20,8 +20,6 @@ from __future__ import annotations
 
 from typing import Optional
 
-import torch
-
 
 class BatchedEnv:
     """A batch of auto-resetting environments behind the fused kernel.
@@ -83,10 +81,9 @@ class BatchedEnv:
         return self._fused
 
     def _reward_sums(self):
-        # float64 keeps the sums of the per-lane float32 totals exact.
-        return (
-            self._S["stats_rewards"].to(torch.float64).sum(dim=-1).cpu().numpy()
-        )
+        # The JAX package's sums: numpy's float32 sum of the per-lane
+        # float32 totals.
+        return self._S["stats_rewards"].cpu().numpy().sum(axis=-1)
 
     def rollout(self, n_steps: int) -> dict:
         """Advance every lane ``n_steps`` env steps under a uniform-random

@@ -27,32 +27,66 @@
 // dims, done) to traj[k, row, lane] and the value head of the final state to
 // boot.
 //
-// Design. One thread per lane, `tile` lanes per block. The lane's scalar
-// fields -- positions, reasons, step types, facings, step counts,
-// satiations, visits, safety distances, availabilities, t, key, draw
-// counter, episode counter, reward sums -- live in registers for the whole
-// call, read once and written once. The [HW, B] boards stay in device
-// memory, column b of them: the lane's copy of the predator curtain, of the
-// resource curtains under sustainability and, under exact_reset, of the
-// wall and code/distance boards is made into the output state at the start
-// and updated there in place; with a layout pool the wall and code boards
-// are read from the pool's statics. The per-cell random words (predator
-// moves, drape scores, the redraw's scores) are recomputed from the PRF
-// wherever a pass needs them, so no per-cell scratch array is kept:
-//
-// * The redraw takes "the smallest score above the previous pick" T times;
-//   the scores ((bits >> (ib + 3)) << ib) | cell are distinct within a lane,
-//   so this equals JAX's chain of T masked minima.
+// Design. A lane group of g threads runs each lane (g = p.group, a power of
+// two from 1 to 32; p.lanes_per_warp groups in each warp, at most 32 / g, the
+// other threads idle), `tile` threads per block.
+// * The lane's scalar fields -- positions, reasons, step types, facings,
+//   step counts, satiations, visits, safety distances, availabilities, t,
+//   key, draw counter, episode counter, reward sums -- live in registers for
+//   the whole call and are group-uniform: every thread of the group holds
+//   them and runs the scalar part of the step redundantly, so the group
+//   takes every branch together. Thread 0 of the group writes them back and
+//   writes K9's records. Each reward sum is formed by one thread (every
+//   thread forms the same one) in the plain version's order.
+// * The lane's boards live in the block's shared memory for the whole call,
+//   loaded from column b of the state (or of the layout's statics) at the
+//   start and stored once at the end: the predator curtain, the wall board
+//   and the resource curtains under sustainability as bytes, the
+//   code/distance board as 16-bit integers (code + 16 * distance, at most
+//   8 + 16 * 99), and a score word per cell for the drapes. Every value a
+//   state can hold there is an exact small integer (the CPU tests check
+//   every state the plain version reaches), so the bytes store and load it
+//   exactly. The per-episode reset copies the layout's boards group-parallel.
+// * Group thread t owns cells c = t (mod g): each per-cell pass runs over
+//   its own cells, and a group minimum or sum (a butterfly of
+//   __shfl_xor_sync over the group's own mask, so groups of one warp may
+//   diverge) joins the threads. The threads of a group need not run in
+//   step, so a pass that writes cells other threads read runs between two
+//   __syncwarp of the group's mask (or a group reduction in their place):
+//   one after their last reads, one before their next.
+// * A drape counts its curtain (a group sum: the curtain holds only 0 and
+//   1); where it has tiles to remove or spawn, each thread hashes its own
+//   cells once into their removal or spawn scores, each of the at most
+//   res_k picks of the cutoff tau is the group minimum of the per-thread
+//   minima above the previous pick, stopping at the first invalid pick
+//   (every later one is invalid too), and each thread flips its own cells
+//   with score <= tau. The scores are distinct integers, so the picked set
+//   is the plain version's.
+// * The redraw takes "the smallest score above the previous pick" T times,
+//   each a group minimum; the scores ((bits >> (ib + 3)) << ib) | cell are
+//   distinct within a lane, so this equals JAX's chain of T masked minima.
+//   Each pick's cell is written by its owner; a water pick's distance pass
+//   runs over every thread's own cells.
 // * The predator walk marks each predator that draws a move with 10 + its
-//   direction on the board, then runs the four direction passes in order.
-//   Each pass first marks its movers (20) against the board as it stood
-//   before the pass -- a mark still reads as occupied -- and then moves them
-//   all, so no predator moves twice or follows a vacated cell. A predator's
-//   original cell carries its move and direction, as in JAX's move_mask.
-// * A drape's removal or spawn finds the cutoff tau as the count-th
-//   smallest candidate score by the same "smallest above the previous"
-//   scan, stopping at the first invalid pick (every later one is invalid
-//   too), then updates the curtain once: picked == {score <= tau}.
+//   direction, then runs the four direction passes in order. Each pass
+//   first marks its movers (20) against the board as it stood before the
+//   pass, then moves them all. Each phase is free of order between cells,
+//   so the group's threads run it in parallel: a mover's target was empty
+//   before the pass (a mark reads as occupied, so a target read while its
+//   owner marks it reads occupied either way), movers of one direction have
+//   distinct sources and so distinct targets, and a target, empty before
+//   the pass, is no mover. A __syncwarp separates the phases.
+// * The predator safety distance is a group minimum of Manhattan
+//   distances.
+// * K9's MLP runs across the group: thread t forms hidden units k = t
+//   (mod g), each bias first and features ascending, and passes them
+//   around the group in ascending order by __shfl_sync; thread a mod g sums
+//   output row a, bias first and hidden units ascending, as mlp_draw does
+//   (policy.cuh, mlp_group_rows).
+// The group size is a runtime field, not a template parameter: one
+// instantiation per (N, MODE) serves every g, so the build stays at 12
+// kernels. fused_savanna.py::_lanes_per_group picks g from the batch and
+// from the configuration's per-cell work.
 //
 // K8 and K9 share one step body, sv_step<N, MODE>, instantiated for N = 1..4
 // agents and the uniform, linear (K8) and MLP (K9) policy modes; the feature
@@ -61,16 +95,20 @@
 //
 // Bound. A lane-step is a few hundred operations for the draws and each
 // acting sub-step, plus per-cell passes where a feature needs them: HW
-// hashes per predator pass and per drape pick, a few board passes per
-// walk, and T x HW hashes per redraw. The boards are read and written
-// through L1/L2 at 4 bytes a cell. The kernels are bound by each thread's
-// serial chain of dependent operations, not by device memory.
+// hashes per drape, a compare per cell and pick, HW hashes and a few board
+// passes per walk, T x HW hashes per redraw. The boards stay on chip, so a
+// call moves little more than its state. The kernels are bound by each
+// lane's serial chain of dependent operations: the group shortens the
+// per-cell part of it by g and runs g times as many warps.
 //
 // Exactness. The kernels add each reward term to its row in the plain
 // version's order, only where its condition holds (the plain version's
 // masked add gives the same bits), skip the terms whose vector is all zero,
 // and take every float operation of the plain step one by one; the library
-// is built with --fmad=false. Regrowth computes expf(e * logf(av + 1)), the
+// is built with --fmad=false. Every per-cell result is an integer, so the
+// order of a group reduction does not matter; the float paths (regrowth,
+// gold and silver, the MLP's units and rows) run on one thread in the
+// plain version's order. Regrowth computes expf(e * logf(av + 1)), the
 // gold and silver factor (logf(v + 2) - logf(v + 1)) / logf(base) as a
 // division; K8 equals the plain version on the card where both reach the
 // same expf/logf.
@@ -220,10 +258,90 @@ struct SvParams {
   const float* mlp_w2;
   const float* mlp_b2;
   int hidden;
+  // The lane group: threads per lane (a power of two, 1..32) and groups per
+  // warp (at most 32 / group).
+  int group, lanes_per_warp;
   SvTraj traj;
 };
 
 extern "C" int sv_params_size() { return static_cast<int>(sizeof(SvParams)); }
+
+// The lane's boards in the block's shared memory: bytes for the predator
+// curtain (and the walk's marks), the wall board and the sustainability
+// curtains, 16-bit words for the code/distance board, and with a
+// tile-spawning drape a score word per cell. HWP rounds HW up to 4 bytes;
+// a lane's share is an odd number of words, so that the lanes of a warp
+// reading one cell hit distinct banks.
+__host__ __device__ __forceinline__ int sv_hwp(int HW) { return (HW + 3) & ~3; }
+
+__host__ __device__ __forceinline__ int sv_n_curtains(const SvParams& p) {
+  int n = 0;
+  for (int r = 0; r < 4; ++r) n += p.sustain && p.res_on[r];
+  return n;
+}
+
+__host__ __device__ __forceinline__ bool sv_drapes(const SvParams& p) {
+  bool any = false;
+  for (int r = 0; r < 4; ++r) any = any || (p.sustain && p.res_on[r] && !p.res_metric[r]);
+  return any;
+}
+
+__host__ __device__ __forceinline__ int sv_lane_words(const SvParams& p) {
+  const int hwp = sv_hwp(p.HW);
+  const int bytes = hwp * (2 + sv_n_curtains(p)) + 2 * hwp + (sv_drapes(p) ? 4 * p.HW : 0);
+  return (bytes / 4) | 1;
+}
+
+extern "C" int sv_lane_bytes(const SvParams* p) { return 4 * sv_lane_words(*p); }
+
+struct SvBoards {
+  unsigned char* pred;    // 0/1; inside the walk also 10 + d and 20
+  unsigned char* wall;    // 0/1
+  unsigned char* res[4];  // 0/1, null where off
+  unsigned short* code;   // code + 16 * water distance
+  int* score;             // drape scores, null without a tile-spawning drape
+};
+
+__device__ __forceinline__ SvBoards lane_boards(const SvParams& p, uint32_t* base) {
+  const int hwp = sv_hwp(p.HW);
+  unsigned char* bytes = reinterpret_cast<unsigned char*>(base);
+  SvBoards s;
+  s.pred = bytes;
+  s.wall = bytes + hwp;
+  int k = 2;
+  for (int r = 0; r < 4; ++r) s.res[r] = (p.sustain && p.res_on[r]) ? bytes + hwp * k++ : nullptr;
+  s.code = reinterpret_cast<unsigned short*>(bytes + hwp * k);
+  s.score = sv_drapes(p) ? reinterpret_cast<int*>(bytes + hwp * k + 2 * hwp) : nullptr;
+  return s;
+}
+
+// A lane group: this thread's index t in it, its size g and its threads'
+// mask in the warp. Its shuffles name only its own threads, so the groups
+// of a warp may take different branches.
+struct Grp {
+  int t, g;
+  unsigned mask;
+};
+
+__device__ __forceinline__ int grp_min(const Grp& G, int v) {
+  for (int k = 1; k < G.g; k <<= 1) v = min(v, __shfl_xor_sync(G.mask, v, k, G.g));
+  return v;
+}
+
+__device__ __forceinline__ int grp_sum(const Grp& G, int v) {
+  for (int k = 1; k < G.g; k <<= 1) v += __shfl_xor_sync(G.mask, v, k, G.g);
+  return v;
+}
+
+__device__ __forceinline__ void grp_sync(const Grp& G) { __syncwarp(G.mask); }
+
+// The owner of cell c in its group.
+__device__ __forceinline__ bool owns(const Grp& G, int c) { return (c & (G.g - 1)) == G.t; }
+
+// The lane's layout under a layout pool (_pool_select: ep_idx % K).
+__device__ __forceinline__ int layout_of(const SvParams& p, int ep_idx) {
+  return p.pool > 1 ? ((ep_idx % p.pool) + p.pool) % p.pool : 0;
+}
 
 template <int N, typename T>
 __device__ __forceinline__ T get(const T (&a)[N], int i) {
@@ -310,8 +428,11 @@ __device__ __forceinline__ bool is_border(const SvParams& p, int c) {
   return r == 0 || r == p.H - 1 || col == 0 || col == p.W - 1;
 }
 
+// The lane's scalars, on every thread of its group, and its boards, each
+// cell by its owner, into shared memory.
 template <int N>
-__device__ __forceinline__ void load_lane(const SvParams& p, int b, SvLane<N>& L) {
+__device__ __forceinline__ void load_lane(const SvParams& p, const Grp& G, const SvBoards& s,
+                                          int b, SvLane<N>& L) {
   const size_t B = static_cast<size_t>(p.B);
   L.key_hi = p.in.key[b];
   L.key_lo = p.in.key[B + b];
@@ -340,23 +461,38 @@ __device__ __forceinline__ void load_lane(const SvParams& p, int b, SvLane<N>& L
     for (int d = 0; d < SV_MAX_D; ++d)
       L.stats[j][d] = d < p.D ? p.in.stats_rewards[(j * p.D + d) * B + b] : 0.f;
   }
-  // The lane's boards go to the output state, where the steps update them.
-  for (int c = 0; c < p.HW; ++c) {
+  // Under exact_reset the wall and code boards are the lane's own state;
+  // otherwise its current layout's statics.
+  const int li = layout_of(p, L.ep_idx);
+  const float* wall = p.exact_reset ? p.in.wall : p.wall[li];
+  const float* sboard = p.exact_reset ? p.in.sboard : p.sboard[li];
+  for (int c = G.t; c < p.HW; c += G.g) {
     const size_t cb = c * B + b;
-    p.out.predator[cb] = p.in.predator[cb];
-    if (p.exact_reset) {
-      p.out.wall[cb] = p.in.wall[cb];
-      p.out.sboard[cb] = p.in.sboard[cb];
-    }
-    if (p.sustain)
-      for (int r = 0; r < 4; ++r)
-        if (p.res_on[r]) p.out.res[r][cb] = p.in.res[r][cb];
+    s.pred[c] = p.in.predator[cb] > 0.5f;
+    s.wall[c] = wall[cb] > 0.5f;
+    s.code[c] = static_cast<unsigned short>(sboard[cb]);
+    for (int r = 0; r < 4; ++r)
+      if (s.res[r]) s.res[r][c] = p.in.res[r][cb] > 0.5f;
   }
+  grp_sync(G);
 }
 
+// The lane's scalars by thread 0 of its group, its boards by their owners.
 template <int N>
-__device__ __forceinline__ void store_lane(const SvParams& p, int b, const SvLane<N>& L) {
+__device__ __forceinline__ void store_lane(const SvParams& p, const Grp& G, const SvBoards& s,
+                                           int b, const SvLane<N>& L) {
   const size_t B = static_cast<size_t>(p.B);
+  for (int c = G.t; c < p.HW; c += G.g) {
+    const size_t cb = c * B + b;
+    p.out.predator[cb] = static_cast<float>(s.pred[c]);
+    if (p.exact_reset) {
+      p.out.wall[cb] = static_cast<float>(s.wall[c]);
+      p.out.sboard[cb] = static_cast<float>(s.code[c]);
+    }
+    for (int r = 0; r < 4; ++r)
+      if (s.res[r]) p.out.res[r][cb] = static_cast<float>(s.res[r][c]);
+  }
+  if (G.t != 0) return;
   p.out.key[b] = L.key_hi;
   p.out.key[B + b] = L.key_lo;
   p.out.draw_ctr[b] = L.ctr;
@@ -410,66 +546,81 @@ __device__ __forceinline__ void policy_feats(const SvParams& p, const SvLane<N>&
 }
 
 // _redraw_layout for one resetting lane: a fresh uniformly shuffled map
-// from the redraw site's words, written to the lane's boards in the output
-// state; the agents' starts go to L.pos.
-__device__ __noinline__ Pos4 redraw(const SvParams& p, int b, uint32_t key_hi, uint32_t key_lo,
-                                    uint32_t ctr0) {
+// from the redraw site's words, written to the lane's boards; returns the
+// agents' starts. Each pick is a group minimum over the threads' own
+// interior cells.
+__device__ __noinline__ Pos4 redraw(const SvParams& p, Grp G, SvBoards s,
+                                    uint32_t key_hi, uint32_t key_lo, uint32_t ctr0) {
   Pos4 starts;
-  const size_t B = static_cast<size_t>(p.B);
   const int ib = p.idx_bits;
   const int idx_mask = (1 << ib) - 1;
   const uint32_t site = ctr0 + static_cast<uint32_t>(p.redraw_site);
-  float* wall = p.out.wall;
-  float* sboard = p.out.sboard;
-  float* pred = p.out.predator;
-  for (int c = 0; c < p.HW; ++c) {
-    const size_t cb = c * B + b;
-    wall[cb] = is_border(p, c) ? 1.f : 0.f;
-    sboard[cb] = 16.f * 99.f;  // code 0, water distance 99
-    pred[cb] = 0.f;
-    if (p.sustain)
-      for (int r = 0; r < 4; ++r)
-        if (p.res_on[r]) p.out.res[r][cb] = 0.f;
+  grp_sync(G);  // the last step's reads of other threads' cells are done
+  for (int c = G.t; c < p.HW; c += G.g) {
+    s.wall[c] = is_border(p, c);
+    s.code[c] = 16 * 99;  // code 0, water distance 99
+    s.pred[c] = 0;
+    for (int r = 0; r < 4; ++r)
+      if (s.res[r]) s.res[r][c] = 0;
   }
   int prev = -1;
   for (int k = 0; k < p.T; ++k) {
     int m = SENT;
-    for (int c = 0; c < p.HW; ++c) {
+    for (int c = G.t; c < p.HW; c += G.g) {
       if (is_border(p, c)) continue;
       const uint32_t bits = agw::hash_u32(key_hi, key_lo, site, static_cast<uint32_t>(c));
-      const int s = static_cast<int>(((bits >> (ib + 3)) << ib) | static_cast<uint32_t>(c));
-      if (s > prev && s < m) m = s;
+      const int sc = static_cast<int>(((bits >> (ib + 3)) << ib) | static_cast<uint32_t>(c));
+      if (sc > prev && sc < m) m = sc;
     }
+    m = grp_min(G, m);
     prev = m;
     const int pc = m & idx_mask;
-    const size_t pb = pc * B + b;
+    const bool mine = owns(G, pc);
     const int kind = p.spec[k];
     if (kind >= SPEC_AGENT) {
       starts.c[(kind - SPEC_AGENT) & (SV_MAX_N - 1)] = pc;
-    } else if (kind == SPEC_PREDATOR) {
-      pred[pb] = 1.f;
-    } else if (kind == SPEC_WALL) {
-      wall[pb] = 1.f;
     } else if (kind == SPEC_WATER) {
       // The water distance min-updates every cell; the codes stay.
       const int pr = pc / p.W, pcol = pc - (pc / p.W) * p.W;
-      for (int c = 0; c < p.HW; ++c) {
-        const size_t cb = c * B + b;
-        const int v = static_cast<int>(sboard[cb]);
+      for (int c = G.t; c < p.HW; c += G.g) {
+        const int v = s.code[c];
         const int r = c / p.W, col = c - (c / p.W) * p.W;
         const int d = min(v >> 4, abs(r - pr) + abs(col - pcol));
-        sboard[cb] = static_cast<float>((v & 15) + 16 * d);
+        s.code[c] = static_cast<unsigned short>((v & 15) + 16 * d);
       }
-      sboard[pb] = sboard[pb] + static_cast<float>(T_WATER);
-    } else if (kind >= SPEC_RES && kind < SPEC_RES + 4 && p.sustain && p.res_on[kind - SPEC_RES]) {
-      p.out.res[kind - SPEC_RES][pb] = 1.f;
-    } else if (kind >= SPEC_RES && kind < SPEC_RES + 4) {
-      sboard[pb] = sboard[pb] + static_cast<float>(p.res_code[kind - SPEC_RES]);
-    } else {  // gold, silver
-      sboard[pb] = sboard[pb] + static_cast<float>(kind == SPEC_GOLD ? T_GOLD : T_SILVER);
+      if (mine) s.code[pc] = static_cast<unsigned short>(s.code[pc] + T_WATER);
+    } else if (mine) {
+      const bool res = kind >= SPEC_RES && kind < SPEC_RES + 4;
+      if (kind == SPEC_PREDATOR) {
+        s.pred[pc] = 1;
+      } else if (kind == SPEC_WALL) {
+        s.wall[pc] = 1;
+      } else if (res && s.res[kind - SPEC_RES]) {
+        s.res[kind - SPEC_RES][pc] = 1;
+      } else {  // the static resource codes, gold, silver
+        const int code = res ? p.res_code[kind - SPEC_RES] : kind == SPEC_GOLD ? T_GOLD : T_SILVER;
+        s.code[pc] = static_cast<unsigned short>(s.code[pc] + code);
+      }
     }
   }
+  grp_sync(G);
   return starts;
+}
+
+// The per-episode reset into layout li (no redraw): the layout's boards,
+// group-parallel.
+__device__ __noinline__ void reset_boards(const SvParams& p, Grp G, SvBoards s, int b, int li) {
+  const size_t B = static_cast<size_t>(p.B);
+  grp_sync(G);  // the last step's reads of other threads' cells are done
+  for (int c = G.t; c < p.HW; c += G.g) {
+    const size_t cb = c * B + b;
+    s.pred[c] = p.predator0[li][cb] > 0.5f;
+    s.wall[c] = p.wall[li][cb] > 0.5f;
+    s.code[c] = static_cast<unsigned short>(p.sboard[li][cb]);
+    for (int r = 0; r < 4; ++r)
+      if (s.res[r]) s.res[r][c] = p.res0[li][r][cb] > 0.5f;
+  }
+  grp_sync(G);
 }
 
 // Resource r on the acting agent's tile: the visit counts; with
@@ -522,71 +673,72 @@ __device__ __forceinline__ void homeo(const SvParams& p, float (&rew)[N][SV_MAX_
   }
 }
 
-// The predator walk of one acting sub-step at the round's last agent.
-__device__ __noinline__ void predator_walk(const SvParams& p, int b, const float* wall,
-                                           uint32_t key_hi, uint32_t key_lo, uint32_t site,
-                                           Pos4 q) {
-  const size_t B = static_cast<size_t>(p.B);
-  float* pred = p.out.predator;
+// The predator walk of one acting sub-step at the round's last agent, each
+// phase over the threads' own cells (the design note above says why each
+// phase is free of order between cells).
+__device__ __noinline__ void predator_walk(const SvParams& p, Grp G, SvBoards s, uint32_t key_hi,
+                                           uint32_t key_lo, uint32_t site, Pos4 q) {
+  unsigned char* pred = s.pred;
+  grp_sync(G);  // the sub-step's reads of other threads' cells are done
   // Each predator that draws a move (off the agents' cells) is marked
   // 10 + its direction.
-  for (int c = 0; c < p.HW; ++c) {
-    const size_t cb = c * B + b;
-    if (!(pred[cb] > 0.5f) || on_player(q, c)) continue;
+  for (int c = G.t; c < p.HW; c += G.g) {
+    if (!pred[c] || on_player(q, c)) continue;
     const uint32_t bits = agw::hash_u32(key_hi, key_lo, site, static_cast<uint32_t>(c));
     if (agw::uniform01(bits) < p.pred_move_p)
-      pred[cb] = 10.f + static_cast<float>(1 + static_cast<int>(bits & 3u));
+      pred[c] = static_cast<unsigned char>(10 + 1 + (bits & 3u));
   }
+  grp_sync(G);
   for (int d = 1; d <= 4; ++d) {
-    const int s = p.delta[d];
-    const float mark = 10.f + static_cast<float>(d);
-    // Movers of this pass, against the board as it stood before it.
-    for (int c = 0; c < p.HW; ++c) {
-      const size_t cb = c * B + b;
-      if (pred[cb] != mark) continue;
-      int tc = c + s;
+    const int sh = p.delta[d];
+    const unsigned char mark = static_cast<unsigned char>(10 + d);
+    // Movers of this pass, against the board as it stood before it. The
+    // target's owner may be marking it 20 meanwhile: it reads occupied
+    // either way.
+    for (int c = G.t; c < p.HW; c += G.g) {
+      if (pred[c] != mark) continue;
+      int tc = c + sh;
       if (tc < 0) tc += p.HW;
       if (tc >= p.HW) tc -= p.HW;
-      const size_t tb = tc * B + b;
-      if (pred[tb] < 0.5f && wall[tb] < 0.5f) pred[cb] = 20.f;
+      const unsigned char at = *static_cast<volatile unsigned char*>(pred + tc);
+      if (!at && !s.wall[tc]) pred[c] = 20;
     }
-    for (int c = 0; c < p.HW; ++c) {
-      const size_t cb = c * B + b;
-      if (pred[cb] != 20.f) continue;
-      int tc = c + s;
+    grp_sync(G);
+    for (int c = G.t; c < p.HW; c += G.g) {
+      if (pred[c] != 20) continue;
+      int tc = c + sh;
       if (tc < 0) tc += p.HW;
       if (tc >= p.HW) tc -= p.HW;
-      pred[cb] = 0.f;
-      pred[tc * B + b] = 1.f;
+      pred[c] = 0;
+      pred[tc] = 1;
     }
+    grp_sync(G);
   }
-  for (int c = 0; c < p.HW; ++c) {
-    const size_t cb = c * B + b;
-    if (pred[cb] > 0.5f) pred[cb] = 1.f;
-  }
+  for (int c = G.t; c < p.HW; c += G.g)
+    if (pred[c]) pred[c] = 1;
+  grp_sync(G);
 }
 
-// A drape candidate's score: removal takes curtain cells (players' cells
-// last), spawn takes free cells off the walls and the players.
-__device__ __forceinline__ int drape_score(const Pos4& q, bool removing, float cur, float wall,
-                                           uint32_t bits, int c) {
-  const int base = static_cast<int>(((bits >> 12) << 9) | static_cast<uint32_t>(c));
+// A drape candidate's score from its rank part: removal takes curtain cells
+// (players' cells last), spawn takes free cells off the walls and the
+// players.
+__device__ __forceinline__ int drape_score(const Pos4& q, bool removing, bool cur, bool wall,
+                                           int base, int c) {
   const bool player = on_player(q, c);
-  if (removing) return cur > 0.5f ? base + (player ? OFF_PLAYER : 0) : SENT;
-  return (cur < 0.5f && wall < 0.5f && !player) ? base : SENT;
+  if (removing) return cur ? base + (player ? OFF_PLAYER : 0) : SENT;
+  return (!cur && !wall && !player) ? base : SENT;
 }
 
 // One resource drape of an acting sub-step: regrowth, then the removal or
 // spawn of tiles toward the ceiling of the availability. Returns the new
 // availability.
-__device__ __noinline__ float drape(const SvParams& p, int b, int r, const float* wall,
+__device__ __noinline__ float drape(const SvParams& p, Grp G, SvBoards s, int r,
                                     float usable_half, uint32_t key_hi, uint32_t key_lo,
                                     uint32_t site, int t, float av, Pos4 q) {
-  const size_t B = static_cast<size_t>(p.B);
-  float* cur = p.out.res[r];
+  unsigned char* cur = s.res[r];
   bool on_any = false;
 #pragma unroll
-  for (int j = 0; j < SV_MAX_N; ++j) on_any = on_any || (q.c[j] >= 0 && cur[q.c[j] * B + b] > 0.5f);
+  for (int j = 0; j < SV_MAX_N; ++j) on_any = on_any || (q.c[j] >= 0 && cur[q.c[j]]);
   const bool can_grow = t > 0 && !on_any && av >= 1.f && av < p.res_cond[r];
   float av_new = av;
   if (can_grow) {
@@ -595,34 +747,41 @@ __device__ __noinline__ float drape(const SvParams& p, int b, int r, const float
   }
   if (p.res_metric[r]) return av_new;
   const float av_int = ceilf(av_new);
-  float current = 0.f;
-  for (int c = 0; c < p.HW; ++c) current = current + cur[c * B + b];
+  // The curtain's count: a group sum, as it holds only 0 and 1.
+  int n_on = 0;
+  for (int c = G.t; c < p.HW; c += G.g) n_on += cur[c];
+  const float current = static_cast<float>(grp_sum(G, n_on));
   const float need = fmaxf(current - av_int, 0.f);
   const float grow = fmaxf(av_int - current, 0.f);
   const bool removing = need > 0.5f;
   float count = removing ? need : grow;
+  if (!(count > 0.5f)) return av_new;
   const int thresh = removing ? SENT : OFF_PLAYER;
+  // Each cell hashed once, into its score.
+  int* sc = s.score;
+  for (int c = G.t; c < p.HW; c += G.g) {
+    const uint32_t bits = agw::hash_u32(key_hi, key_lo, site, static_cast<uint32_t>(c));
+    const int rank = static_cast<int>(((bits >> 12) << 9) | static_cast<uint32_t>(c));
+    sc[c] = drape_score(q, removing, cur[c], s.wall[c], rank, c);
+  }
   int tau = -1, prev = -1;
   for (int it = 0; it < p.res_k[r] && count > 0.5f; ++it) {
     int m = SENT;
-    for (int c = 0; c < p.HW; ++c) {
-      const size_t cb = c * B + b;
-      const uint32_t bits = agw::hash_u32(key_hi, key_lo, site, static_cast<uint32_t>(c));
-      const int s = drape_score(q, removing, cur[cb], wall[cb], bits, c);
-      if (s > prev && s < m) m = s;
+    for (int c = G.t; c < p.HW; c += G.g) {
+      const int v = sc[c];
+      if (v > prev && v < m) m = v;
     }
+    m = grp_min(G, m);
     if (!(m < thresh)) break;
     tau = m;
     prev = m;
     count = count - 1.f;
   }
   if (tau < 0) return av_new;
-  const float sign = removing ? -1.f : 1.f;
-  for (int c = 0; c < p.HW; ++c) {
-    const size_t cb = c * B + b;
-    const uint32_t bits = agw::hash_u32(key_hi, key_lo, site, static_cast<uint32_t>(c));
-    if (drape_score(q, removing, cur[cb], wall[cb], bits, c) <= tau) cur[cb] = cur[cb] + sign;
-  }
+  const unsigned char now = removing ? 0 : 1;
+  for (int c = G.t; c < p.HW; c += G.g)
+    if (sc[c] <= tau) cur[c] = now;
+  grp_sync(G);
   return av_new;
 }
 
@@ -630,10 +789,9 @@ __device__ __noinline__ float drape(const SvParams& p, int b, int r, const float
 // action draws, agent order, every agent's sub-step, finalize. MODE selects
 // the policy; with POL_MLP the step's trajectory record goes to traj[step].
 template <int N, int MODE>
-__device__ __forceinline__ void sv_step(const SvParams& p, SvLane<N>& L, int b,
-                                        const agw::Mlp& mlp, int step) {
+__device__ __forceinline__ void sv_step(const SvParams& p, const Grp& G, const SvBoards& s,
+                                        SvLane<N>& L, int b, const agw::Mlp& mlp, int step) {
   const size_t B = static_cast<size_t>(p.B);
-  float* pred = p.out.predator;
   const uint32_t ctr0 = L.ctr * static_cast<uint32_t>(p.n_sites);
 
   // ---- auto-reset lanes whose episode ended last step: the redraw, or
@@ -643,24 +801,16 @@ __device__ __forceinline__ void sv_step(const SvParams& p, SvLane<N>& L, int b,
 #pragma unroll
   for (int j = 0; j < N; ++j) over = over && (L.types[j] == LAST || L.types[j] == DEAD);
   if (over && p.pool > 1) L.ep_idx += 1;
-  const int li = p.pool > 1 ? ((L.ep_idx % p.pool) + p.pool) % p.pool : 0;
-  const float* wall = p.exact_reset ? p.out.wall : p.wall[li];
-  const float* sboard = p.exact_reset ? p.out.sboard : p.sboard[li];
+  const int li = layout_of(p, L.ep_idx);
   if (over) {
     if (p.exact_reset) {
-      const Pos4 starts = redraw(p, b, L.key_hi, L.key_lo, ctr0);
+      const Pos4 starts = redraw(p, G, s, L.key_hi, L.key_lo, ctr0);
 #pragma unroll
       for (int j = 0; j < N; ++j) L.pos[j] = starts.c[j];
     } else {
 #pragma unroll
       for (int j = 0; j < N; ++j) L.pos[j] = p.pos0[li][j * B + b];
-      for (int c = 0; c < p.HW; ++c) {
-        const size_t cb = c * B + b;
-        pred[cb] = p.predator0[li][cb];
-        if (p.sustain)
-          for (int r = 0; r < 4; ++r)
-            if (p.res_on[r]) p.out.res[r][cb] = p.res0[li][r][cb];
-      }
+      reset_boards(p, G, s, b, li);
     }
 #pragma unroll
     for (int j = 0; j < N; ++j) {
@@ -704,14 +854,17 @@ __device__ __forceinline__ void sv_step(const SvParams& p, SvLane<N>& L, int b,
     }
     if (MODE == POL_MLP) {
       float logp, value;
-      a = p.amin + agw::mlp_draw<SV_F, SV_MAX_A>(mlp, A, x[j], u, logp, value);
-      const size_t r = static_cast<size_t>(step) * N + j;
+      a = p.amin + agw::mlp_group_draw<SV_F, SV_MAX_A>(mlp, A, x[j], u, G.t, G.g, G.mask, logp,
+                                                        value);
+      if (G.t == 0) {
+        const size_t r = static_cast<size_t>(step) * N + j;
 #pragma unroll
-      for (int f = 0; f < SV_F; ++f)
-        p.traj.feats[(static_cast<size_t>(step) * (N * SV_F) + j * SV_F + f) * B + b] = x[j][f];
-      p.traj.logp[r * B + b] = logp;
-      p.traj.value[r * B + b] = value;
-      p.traj.action[r * B + b] = off ? -1 : a;
+        for (int f = 0; f < SV_F; ++f)
+          p.traj.feats[(static_cast<size_t>(step) * (N * SV_F) + j * SV_F + f) * B + b] = x[j][f];
+        p.traj.logp[r * B + b] = logp;
+        p.traj.value[r * B + b] = value;
+        p.traj.action[r * B + b] = off ? -1 : a;
+      }
     }
     actions[j] = off ? -1 : a;
     order[j] = j;
@@ -761,7 +914,7 @@ __device__ __forceinline__ void sv_step(const SvParams& p, SvLane<N>& L, int b,
     bool occ = false;
 #pragma unroll
     for (int j = 0; j < N; ++j) occ = occ || (j != i && L.pos[j] == cand);
-    const bool wall_at = wall[cand * B + b] > 0.5f;
+    const bool wall_at = s.wall[cand];
     const bool moved = active && !is_noop && !wall_at && !occ;
     const int np = moved ? cand : pos_i;
     put(L.pos, i, np);
@@ -771,14 +924,13 @@ __device__ __forceinline__ void sv_step(const SvParams& p, SvLane<N>& L, int b,
     if (active && !is_noop) add_rv<N>(rew, p, i, RV_MOVE);
 
     // --- decode the combined board at the new position
-    const size_t npb = np * B + b;
-    const float v_at = sboard[npb];
+    const float v_at = static_cast<float>(s.code[np]);
     const float dw_at = floorf(v_at * (1.0f / 16.0f));
     const float code_at = v_at - 16.0f * dw_at;
-    const bool pred_at = pred[npb] > 0.5f;
+    const bool pred_at = s.pred[np];
     bool on_res[4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) on_res[r] = p.sustain && p.res_on[r] && p.out.res[r][npb] > 0.5f;
+    for (int r = 0; r < 4; ++r) on_res[r] = s.res[r] && s.res[r][np];
 
     // --- satiation decrements and thirst/hunger death
     if (active && p.penalise) {
@@ -852,17 +1004,18 @@ __device__ __forceinline__ void sv_step(const SvParams& p, SvLane<N>& L, int b,
       homeo<N>(p, rew, i, get(L.fsat, i), p.food_def_thresh, p.food_over_thresh, RV_FOOD_DEF,
                RV_FOOD_OVER);
 
-    // --- safety distances: water from the board, predators by a per-cell
+    // --- safety distances: water from the board, predators by a group
     // minimum
     if (p.has_water && active) put(L.safety, i, static_cast<int>(dw_at));
     if (p.has_predators && active) {
       const int nr = np / p.W, nc = np - (np / p.W) * p.W;
       int dmin = 9999;
-      for (int c = 0; c < p.HW; ++c) {
-        if (!(pred[c * B + b] > 0.5f)) continue;
+      for (int c = G.t; c < p.HW; c += G.g) {
+        if (!s.pred[c]) continue;
         const int r = c / p.W, col = c - (c / p.W) * p.W;
         dmin = min(dmin, abs(r - nr) + abs(col - nc));
       }
+      dmin = grp_min(G, dmin);
       put(L.safety2, i, dmin > 98 ? 99 : dmin);
     }
 
@@ -881,8 +1034,8 @@ __device__ __forceinline__ void sv_step(const SvParams& p, SvLane<N>& L, int b,
         cmin = min(cmin, L.count[j]);
       }
       if (cmax == cmin && cmax > 0) {
-        predator_walk(p, b, wall, L.key_hi, L.key_lo, slot_site, pos4<N>(L.pos));
-        if (active && !pred_at && pred[npb] > 0.5f) add_rv<N>(rew, p, i, RV_PREDATOR);
+        predator_walk(p, G, s, L.key_hi, L.key_lo, slot_site, pos4<N>(L.pos));
+        if (active && !pred_at && s.pred[np]) add_rv<N>(rew, p, i, RV_PREDATOR);
       }
     }
 
@@ -892,7 +1045,7 @@ __device__ __forceinline__ void sv_step(const SvParams& p, SvLane<N>& L, int b,
 #pragma unroll
       for (int r = 0; r < 4; ++r)
         if (p.res_on[r])
-          L.avail[r] = drape(p, b, r, wall, usable_half, L.key_hi, L.key_lo,
+          L.avail[r] = drape(p, G, s, r, usable_half, L.key_hi, L.key_lo,
                              slot_site + 1u + static_cast<uint32_t>(p.res_site[r]), L.t,
                              L.avail[r], q);
     }
@@ -914,7 +1067,7 @@ __device__ __forceinline__ void sv_step(const SvParams& p, SvLane<N>& L, int b,
     for (int d = 0; d < SV_MAX_D; ++d) L.stats[j][d] = L.stats[j][d] + rew[j][d];
   L.ctr += 1u;
 
-  if (MODE == POL_MLP) {
+  if (MODE == POL_MLP && G.t == 0) {
     // Each agent's reward summed over the reward dims, in order; done flags.
 #pragma unroll
     for (int j = 0; j < N; ++j) {
@@ -929,16 +1082,36 @@ __device__ __forceinline__ void sv_step(const SvParams& p, SvLane<N>& L, int b,
   }
 }
 
+// Where a thread sits: thread G.t of its lane group, which is group
+// (tx mod 32) / g of its warp; lanes_per_warp groups of each warp run a
+// lane, so a block of tile threads runs tile / 32 * lanes_per_warp lanes.
+// Sets the group, the lane's index in its block and its batch index, and
+// returns whether the thread has a lane.
+__device__ __forceinline__ bool seat(const SvParams& p, Grp& G, int& lane_blk, int& b) {
+  const int wl = threadIdx.x & 31, g = p.group;
+  const int grp = wl / g;
+  G.t = wl & (g - 1);
+  G.g = g;
+  G.mask = g == 32 ? 0xffffffffu : ((1u << g) - 1u) << (grp * g);
+  lane_blk = (threadIdx.x >> 5) * p.lanes_per_warp + grp;
+  b = blockIdx.x * ((blockDim.x >> 5) * p.lanes_per_warp) + lane_blk;
+  return grp < p.lanes_per_warp && b < p.B;
+}
+
 // K8: n_steps steps of every lane, uniform or linear-policy actions.
 template <int N, int MODE>
 __global__ void __launch_bounds__(256) sv_rollout_kernel(const __grid_constant__ SvParams p) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= p.B) return;
+  extern __shared__ float smem[];
+  Grp G;
+  int lane_blk, b;
+  if (!seat(p, G, lane_blk, b)) return;
+  const SvBoards s =
+      lane_boards(p, reinterpret_cast<uint32_t*>(smem) + lane_blk * sv_lane_words(p));
   SvLane<N> L;
-  load_lane<N>(p, b, L);
+  load_lane<N>(p, G, s, b, L);
   const agw::Mlp no_mlp{nullptr, nullptr, nullptr, nullptr, 0};
-  for (int step = 0; step < p.n_steps; ++step) sv_step<N, MODE>(p, L, b, no_mlp, step);
-  store_lane<N>(p, b, L);
+  for (int step = 0; step < p.n_steps; ++step) sv_step<N, MODE>(p, G, s, L, b, no_mlp, step);
+  store_lane<N>(p, G, s, b, L);
 }
 
 // K9: n_steps MLP-policy steps of every lane with the trajectory streamed
@@ -946,28 +1119,39 @@ __global__ void __launch_bounds__(256) sv_rollout_kernel(const __grid_constant__
 template <int N>
 __global__ void __launch_bounds__(256) sv_collect_kernel(const __grid_constant__ SvParams p) {
   extern __shared__ float smem[];
-  const int tile = blockDim.x;
+  const int n_threads = blockDim.x;
   const int tx = threadIdx.x;
-  const int b = blockIdx.x * tile + tx;
   const int H = p.hidden, A = p.amax - p.amin + 1;
   const int n_w1 = H * SV_F, n_w2 = (A + 1) * H;
-  float* w = smem;  // w1 [H*F], b1 [H], w2 [(A+1)*H], b2 [A+1]
-  for (int k = tx; k < n_w1; k += tile) w[k] = p.mlp_w1[k];
-  for (int k = tx; k < H; k += tile) w[n_w1 + k] = p.mlp_b1[k];
-  for (int k = tx; k < n_w2; k += tile) w[n_w1 + H + k] = p.mlp_w2[k];
-  for (int k = tx; k <= A; k += tile) w[n_w1 + H + n_w2 + k] = p.mlp_b2[k];
+  float* w = smem;  // w1 [H*F], b1 [H], w2 [(A+1)*H], b2 [A+1], then the lanes' boards
+  for (int k = tx; k < n_w1; k += n_threads) w[k] = p.mlp_w1[k];
+  for (int k = tx; k < H; k += n_threads) w[n_w1 + k] = p.mlp_b1[k];
+  for (int k = tx; k < n_w2; k += n_threads) w[n_w1 + H + k] = p.mlp_w2[k];
+  for (int k = tx; k <= A; k += n_threads) w[n_w1 + H + n_w2 + k] = p.mlp_b2[k];
   __syncthreads();
-  if (b >= p.B) return;
+  Grp G;
+  int lane_blk, b;
+  if (!seat(p, G, lane_blk, b)) return;
   const agw::Mlp mlp{w, w + n_w1, w + n_w1 + H, w + n_w1 + H + n_w2, H};
+  const SvBoards s = lane_boards(
+      p, reinterpret_cast<uint32_t*>(w + n_w1 + H + n_w2 + A + 1) + lane_blk * sv_lane_words(p));
 
   SvLane<N> L;
-  load_lane<N>(p, b, L);
-  for (int step = 0; step < p.n_steps; ++step) sv_step<N, POL_MLP>(p, L, b, mlp, step);
+  load_lane<N>(p, G, s, b, L);
+  for (int step = 0; step < p.n_steps; ++step) sv_step<N, POL_MLP>(p, G, s, L, b, mlp, step);
   float x[N][SV_F];
   policy_feats<N>(p, L, x);
 #pragma unroll
-  for (int j = 0; j < N; ++j) p.traj.boot[j * p.B + b] = agw::mlp_value<SV_F>(mlp, A, x[j]);
-  store_lane<N>(p, b, L);
+  for (int j = 0; j < N; ++j) {
+    const float v = agw::mlp_group_value<SV_F, SV_MAX_A>(mlp, A, x[j], G.t, G.g, G.mask);
+    if (G.t == 0) p.traj.boot[j * p.B + b] = v;
+  }
+  store_lane<N>(p, G, s, b, L);
+}
+
+// The lanes' boards of a block of tile threads.
+static size_t board_bytes(const SvParams& p, int tile) {
+  return 4 * static_cast<size_t>(sv_lane_words(p)) * (tile / 32 * p.lanes_per_warp);
 }
 
 template <typename Kernel>
@@ -976,33 +1160,41 @@ static cudaError_t launch(Kernel kernel, const SvParams& p, int tile, size_t sme
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  const int blocks = (p.B + tile - 1) / tile;
+  const int lanes = tile / 32 * p.lanes_per_warp;
+  const int blocks = (p.B + lanes - 1) / lanes;
   kernel<<<blocks, tile, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int N>
 static cudaError_t launch_rollout(const SvParams& p, int tile, cudaStream_t s) {
-  return p.pol_w ? launch(sv_rollout_kernel<N, POL_LINEAR>, p, tile, 0, s)
-                 : launch(sv_rollout_kernel<N, POL_UNIFORM>, p, tile, 0, s);
+  const size_t smem = board_bytes(p, tile);
+  return p.pol_w ? launch(sv_rollout_kernel<N, POL_LINEAR>, p, tile, smem, s)
+                 : launch(sv_rollout_kernel<N, POL_UNIFORM>, p, tile, smem, s);
 }
 
 template <int N>
 static cudaError_t launch_collect(const SvParams& p, int tile, cudaStream_t s) {
   const size_t A = p.amax - p.amin + 1, H = p.hidden;
   const size_t n_w = H * SV_F + H + (A + 1) * H + (A + 1);
-  return launch(sv_collect_kernel<N>, p, tile, 4 * n_w, s);
+  return launch(sv_collect_kernel<N>, p, tile, 4 * n_w + board_bytes(p, tile), s);
 }
 
-static bool valid(const SvParams* p) {
+// The shape limits, and the block: tile threads, a multiple of 32 in
+// [32, 256], in lane groups of a power of two threads, lanes_per_warp of
+// them a warp.
+static bool valid(const SvParams* p, int tile) {
+  const int g = p->group;
   return p->D >= 1 && p->D <= SV_MAX_D && p->pool >= 1 && p->pool <= SV_MAX_POOL &&
          p->amin >= 0 && p->amax <= 9 && p->amax - p->amin + 1 <= SV_MAX_A && p->T >= 0 &&
-         p->T <= SV_MAX_T && p->HW > 0 && p->idx_bits + 3 < 32;
+         p->T <= SV_MAX_T && p->HW > 0 && p->idx_bits + 3 < 32 && g >= 1 && g <= 32 &&
+         (g & (g - 1)) == 0 && p->lanes_per_warp >= 1 && p->lanes_per_warp * g <= 32 &&
+         tile % 32 == 0 && tile >= 32 && tile <= 256;
 }
 
 extern "C" int fused_savanna_rollout(const SvParams* p, int n_agents, int tile, void* stream) {
   if (p->n_steps <= 0 || p->B <= 0) return 0;
-  if (!valid(p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(p, tile)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_agents) {
     case 1: return static_cast<int>(launch_rollout<1>(*p, tile, s));
@@ -1015,7 +1207,7 @@ extern "C" int fused_savanna_rollout(const SvParams* p, int n_agents, int tile, 
 
 extern "C" int fused_savanna_collect(const SvParams* p, int n_agents, int tile, void* stream) {
   if (p->B <= 0) return 0;
-  if (!valid(p) || p->hidden < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(p, tile) || p->hidden < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_agents) {
     case 1: return static_cast<int>(launch_collect<1>(*p, tile, s));

@@ -152,6 +152,53 @@ __device__ __forceinline__ void mlp_gather_rows(float o, int A, int j,
     out[a] = a <= A ? __shfl_sync(0xffffffffu, o, j * (A + 1) + a) : 0.f;
 }
 
+// _mlp_forward_agent for one agent by a lane group of g threads (a power of
+// two, 1..32, whose threads mask names): thread t forms hidden units
+// k = t (mod g), bias first and features ascending, and the group passes
+// them round in ascending order; thread a mod g sums output row a, bias
+// first and hidden units ascending, as mlp_draw does. Every thread of the
+// group gets all rows; rows past A are 0.
+template <int F, int MAX_A>
+__device__ __forceinline__ void mlp_group_rows(const Mlp& m, int A, const float (&x)[F], int t,
+                                               int g, unsigned mask, float (&out)[MAX_A + 1]) {
+  float o[MAX_A + 1];
+#pragma unroll
+  for (int a = 0; a <= MAX_A; ++a) o[a] = a <= A ? m.b2[a] : 0.f;
+  for (int k0 = 0; k0 < m.H; k0 += g) {
+    const int k = k0 + t;
+    const float h = k < m.H ? mlp_hidden<F>(m, k, x) : 0.f;
+    const int kn = min(g, m.H - k0);
+    for (int i = 0; i < kn; ++i) {
+      const float hi = __shfl_sync(mask, h, i, g);
+#pragma unroll
+      for (int a = 0; a <= MAX_A; ++a)
+        if (a <= A && (a & (g - 1)) == t) o[a] = o[a] + m.w2[a * m.H + k0 + i] * hi;
+    }
+  }
+#pragma unroll
+  for (int a = 0; a <= MAX_A; ++a) out[a] = a <= A ? __shfl_sync(mask, o[a], a & (g - 1), g) : 0.f;
+}
+
+// mlp_draw by a lane group: mlp_group_rows, then mlp_sample on every
+// thread of the group.
+template <int F, int MAX_A>
+__device__ __forceinline__ int mlp_group_draw(const Mlp& m, int A, const float (&x)[F], float u,
+                                              int t, int g, unsigned mask, float& logp,
+                                              float& value) {
+  float out[MAX_A + 1];
+  mlp_group_rows<F, MAX_A>(m, A, x, t, g, mask, out);
+  return mlp_sample<MAX_A>(out, A, u, logp, value);
+}
+
+// mlp_value by a lane group.
+template <int F, int MAX_A>
+__device__ __forceinline__ float mlp_group_value(const Mlp& m, int A, const float (&x)[F], int t,
+                                                 int g, unsigned mask) {
+  float out[MAX_A + 1];
+  mlp_group_rows<F, MAX_A>(m, A, x, t, g, mask, out);
+  return out[A];
+}
+
 // The value head alone (_bootstrap_value): output row A in mlp_draw's order.
 template <int F>
 __device__ __forceinline__ float mlp_value(const Mlp& m, int A, const float (&x)[F]) {

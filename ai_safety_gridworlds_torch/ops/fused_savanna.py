@@ -125,8 +125,9 @@ def _read(board: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 class FusedSavanna(FusedMaBase):
     """Packed batched aintelope_savanna with a single-kernel rollout."""
 
-    # Lanes per block of the CUDA kernels (one thread per lane).
-    DEFAULT_TILE = 32
+    # Threads per block of the CUDA kernels; None lets the wrappers size a
+    # block of 32 lanes (``_block``).
+    DEFAULT_TILE = None
     # Per-agent policy features: normalised row and column, drink and food
     # satiation, water and predator safety distances, the observation-
     # direction one-hot.
@@ -1014,15 +1015,7 @@ class FusedSavanna(FusedMaBase):
                     & ~player_cells
                 )
                 dirs = 1 + (bits & 3)
-                cur_f = predator_f
-                for d_id in range(1, 5):
-                    dr, dc = ACTION_DELTAS_MO[d_id]
-                    shift = int(dr * W + dc)
-                    movers = move_mask & (dirs == d_id) & (cur_f > 0.5)
-                    # The border walls absorb the roll's wrap-around.
-                    tgt_free = torch.roll(cur_f + wall_f, -shift, 0) < 0.5
-                    mf = (movers & tgt_free).to(_F32)
-                    cur_f = cur_f - mf + torch.roll(mf, shift, 0)
+                cur_f = self._predator_walk(predator_f, wall_f, move_mask, dirs)
                 landed_on_me = (_read(cur_f, new_pos_i) > 0.5) & ~pred_at & active
                 rewards = addr(rewards, "PREDATOR_NPC_SCORE", sel_nd,
                                landed_on_me.to(_F32))
@@ -1082,16 +1075,9 @@ class FusedSavanna(FusedMaBase):
                         )
                         scores = torch.where(removing, rem_scores, spawn_scores)
                         thresh = torch.where(removing, SENT, OFF_PLAYER)
-                        # The cutoff tau: the count-th smallest candidate
-                        # (or the last valid one); picked == {score <= tau}.
-                        tau = torch.full_like(thresh, -1)
-                        masked = scores
-                        for _ in range(max(spec["k_rem"], spec["k_spawn"])):
-                            minv = masked.min(dim=0, keepdim=True).values
-                            valid = (minv < thresh) & (count > 0.5)
-                            tau = torch.where(valid, minv, tau)
-                            masked = torch.where(masked == minv, SENT, masked)
-                            count = count - valid.to(_F32)
+                        tau = self._drape_cutoff(
+                            scores, thresh, count,
+                            max(spec["k_rem"], spec["k_spawn"]))
                         cur_f = cur_f + torch.where(scores <= tau, sign, 0.0)
                     res[name] = torch.where(acting, cur_f, res[name])
                     avail[name] = torch.where(acting, av_new, avail[name])
@@ -1142,6 +1128,36 @@ class FusedSavanna(FusedMaBase):
                 "slots": draws,
             }
         return out
+
+    def _predator_walk(self, predator_f, wall_f, move_mask, dirs):
+        """The predators' random walk: four passes, one per direction, each
+        moving all of its movers at once from the board as it stood before
+        the pass; returns the new curtain."""
+        cur_f = predator_f
+        for d_id in range(1, 5):
+            dr, dc = ACTION_DELTAS_MO[d_id]
+            shift = int(dr * self.w + dc)
+            movers = move_mask & (dirs == d_id) & (cur_f > 0.5)
+            # The border walls absorb the roll's wrap-around.
+            tgt_free = torch.roll(cur_f + wall_f, -shift, 0) < 0.5
+            mf = (movers & tgt_free).to(_F32)
+            cur_f = cur_f - mf + torch.roll(mf, shift, 0)
+        return cur_f
+
+    @staticmethod
+    def _drape_cutoff(scores, thresh, count, k):
+        """A drape's cutoff tau: the count-th smallest candidate score (or
+        the last valid one) by a chain of k masked minima, -1 without one;
+        the drape picks {score <= tau}."""
+        tau = torch.full_like(thresh, -1)
+        masked = scores
+        for _ in range(k):
+            minv = masked.min(dim=0, keepdim=True).values
+            valid = (minv < thresh) & (count > 0.5)
+            tau = torch.where(valid, minv, tau)
+            masked = torch.where(masked == minv, SENT, masked)
+            count = count - valid.to(_F32)
+        return tau
 
     # ------------------------------------------------------------- interop
 
@@ -1228,6 +1244,14 @@ _MAX_N, _MAX_D, _MAX_A, _MAX_POOL, _MAX_T = 4, 12, 5, 8, 256
 _MAX_DRAPE_HW = 512
 # Shared memory a block may take on sm_90 (bytes).
 _MAX_SMEM = 232448
+# Warp schedulers of an H100 SXM (132 SMs, 4 each): the default of the pure
+# chooser; the wrappers pass the card's own count.
+_H100_SCHEDULERS = 4 * 132
+# Threads per lane (the lane group, g) and lane groups per warp of K8/K9:
+# None lets ``_lanes_per_group`` choose g and runs 32 // g groups a warp;
+# chip_smoke.py's sweep and the card tests pin values.
+_LANES_PER_GROUP = None
+_LANES_PER_WARP = None
 # Placement kinds of the redraw, as csrc/fused_savanna.cu numbers them; an
 # agent j is 16 + j.
 _SPEC_CODES = {
@@ -1306,6 +1330,8 @@ class _SvParams(ctypes.Structure):
         ("pol_lanes", ctypes.c_int),
         *[(k, ctypes.c_void_p) for k in MLP_KEYS],
         ("hidden", ctypes.c_int),
+        ("group", ctypes.c_int),
+        ("lanes_per_warp", ctypes.c_int),
         ("traj", _SvTraj),
     ]
 
@@ -1321,6 +1347,8 @@ def _savanna_lib():
         ]
         entry.restype = ctypes.c_int
     lib.sv_params_size.restype = ctypes.c_int
+    lib.sv_lane_bytes.argtypes = [ctypes.c_void_p]
+    lib.sv_lane_bytes.restype = ctypes.c_int
     if lib.sv_params_size() != ctypes.sizeof(_SvParams):
         raise RuntimeError(
             "SvParams layout differs between fused_savanna.cu "
@@ -1479,18 +1507,117 @@ def _check_supported(fused, B: int) -> None:
         )
 
 
-def _check_launch(fused, S, n_steps, tile):
-    """The checks both kernels share; returns ``(device, B, n_steps)``.
-    Configurations the kernels lack raise ``NotImplementedError``, bad
-    inputs ``ValueError``, both before any launch."""
+def _drapes(fused) -> bool:
+    """Whether a sustainability drape spawns and removes tiles."""
+    return fused.sustain and any(not s["use_metric"] for s in fused.res_specs)
+
+
+def _lane_bytes(fused) -> int:
+    """Shared memory of one lane's boards in K8/K9, as ``sv_lane_words`` in
+    ``csrc/fused_savanna.cu`` lays them out: a byte a cell for the predator
+    curtain, the wall board and each sustainability curtain, two for the
+    code/distance board (each rounded up to 4 bytes), a score word a cell
+    with a tile-spawning drape, and an odd number of words in all."""
+    hwp = -(-fused.HW // 4) * 4
+    n_cur = len(fused.res_specs) if fused.sustain else 0
+    nbytes = hwp * (2 + n_cur) + 2 * hwp + (4 * fused.HW if _drapes(fused) else 0)
+    return 4 * ((nbytes // 4) | 1)
+
+
+def _geometry(fused, g, tile, hidden):
+    """``(lane groups a warp, threads, shared bytes)`` of a K8/K9 block of
+    g-thread lane groups: 32 // g groups a warp (fewer where
+    ``_LANES_PER_WARP`` pins them); ``tile`` threads, or by default a block
+    of 32 lanes (at most 256 threads) halved while it does not fit; the
+    MLP's weights (K9, ``hidden`` units) and the lanes' boards."""
+    lanes = 32 // g if _LANES_PER_WARP is None else min(_LANES_PER_WARP, 32 // g)
+    weights = _collect_smem_bytes(fused, hidden) if hidden else 0
+
+    def smem(threads):
+        return weights + threads // 32 * lanes * _lane_bytes(fused)
+
+    threads = tile
+    if threads is None:
+        threads = min(256, 1024 // lanes)
+        while threads > 32 and smem(threads) > _MAX_SMEM:
+            threads //= 2
+    return lanes, threads, smem(threads)
+
+
+# (largest g, least g, warps a scheduler) of the lane group by the per-cell
+# work of a sub-step (chip_smoke.py's group-size sweep on the H100, PERF.md):
+# K8 with none, with predators (the walk and the safety distance) and with a
+# tile-spawning drape; K9, whose MLP splits over the group too, without and
+# with such work.
+_GROUP_RANGE = {"light": (4, 2, 1), "predators": (16, 4, 4),
+                "drapes": (16, 8, 4), "mlp_light": (8, 2, 4), "mlp": (16, 2, 4)}
+
+
+def _lanes_per_group(fused, B: int, tile=None, hidden: int = 0,
+                     schedulers: int = _H100_SCHEDULERS) -> int:
+    """g, the threads of the lane group that runs each lane of K8 (or of K9
+    with ``hidden`` MLP units), a power of two dividing 32, from the batch
+    ``B`` and the configuration's per-cell work.
+
+    A lane's steps are one dependent chain, which its group runs together:
+    the per-cell passes (the drapes' hashes and picks, the predator walk and
+    safety distance, the redraw) and K9's MLP split over the g threads, the
+    scalar part runs on all of them. The largest g of the configuration's
+    range (``_GROUP_RANGE``) whose ceil(B * g / 32) warps fit the range's
+    count to each of the card's ``schedulers``, and at least the range's
+    least g: more threads a lane shorten the chain while the card has room
+    for the warps, fewer keep the redundant scalar part small once it has
+    none. Then g doubles while a block of ``tile`` threads (``_geometry``)
+    does not fit the shared memory. ``_LANES_PER_GROUP`` pins g."""
+    g = _LANES_PER_GROUP
+    if g is None:
+        drapes = _drapes(fused)
+        heavy = drapes or fused.env._has_predators
+        if hidden:
+            work = "mlp" if heavy else "mlp_light"
+        else:
+            work = "drapes" if drapes else "predators" if heavy else "light"
+        top, least, per_scheduler = _GROUP_RANGE[work]
+        g = next((k for k in (16, 8, 4, 2)
+                  if k <= top and -(-B * k // 32) <= per_scheduler * schedulers),
+                 1)
+        g = max(g, least)
+    while g < 32 and _geometry(fused, g, tile, hidden)[2] > _MAX_SMEM:
+        g *= 2
+    return g
+
+
+def _block(fused, B, tile, hidden=0, schedulers=_H100_SCHEDULERS):
+    """``(g, lane groups a warp, threads, shared bytes)`` of a K8/K9 launch
+    at batch ``B``; raises ``ValueError`` when no lane group fits a block
+    of ``tile`` threads."""
+    g = _lanes_per_group(fused, B, tile, hidden, schedulers)
+    lanes, threads, smem = _geometry(fused, g, tile, hidden)
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"the savanna kernels' boards ({_lane_bytes(fused)} bytes a lane) "
+            f"do not fit a block of {threads} threads"
+        )
+    return g, lanes, threads, smem
+
+
+def _check_launch(fused, S, n_steps, tile, hidden=0):
+    """The checks both kernels share; returns ``(device, B, n_steps,
+    block)`` with ``block`` from ``_block``. Configurations the kernels lack
+    raise ``NotImplementedError``, bad inputs ``ValueError``, both before any
+    launch."""
     device = S["t"].device
     if device.type != "cuda":
         raise NotImplementedError(f"no savanna kernel for {device}")
     _check_supported(fused, S["t"].shape[1])
     B, n_steps = check_kernel_state(
-        fused, S, n_steps, tile, max(fused.HW, fused.n * fused.D, fused.n * 7)
+        fused, S, n_steps, 32 if tile is None else tile,
+        max(fused.HW, fused.n * fused.D, fused.n * 7),
     )
-    return device, B, n_steps
+    from ai_safety_gridworlds_torch.ops.fused_scalar import _schedulers
+
+    return device, B, n_steps, _block(fused, B, tile, hidden,
+                                      _schedulers(str(device)))
 
 
 def _params(fused, S, out, device) -> _SvParams:
@@ -1513,17 +1640,21 @@ def _params(fused, S, out, device) -> _SvParams:
 
 
 def fused_savanna_rollout(fused: FusedSavanna, S: dict, n_steps: int,
-                          tile: int = FusedSavanna.DEFAULT_TILE) -> dict:
+                          tile=FusedSavanna.DEFAULT_TILE) -> dict:
     """Advance a packed CUDA state ``n_steps`` steps with one launch of K8
     (``csrc/fused_savanna.cu``); returns a new state dict. The policy
     installed by ``set_policies`` at the time of the call picks the actions
     (K8's linear branch); without one the draws are uniform.
 
+    ``tile`` is the threads per block (a multiple of 32 in [32, 256]);
+    each lane runs on a group of ``_lanes_per_group`` threads, so a block
+    holds ``tile // g`` lanes. None sizes a block of 32 lanes.
+
     Checks every field's device, dtype, shape and contiguity and raises on
     what the kernel does not take; CPU tensors take the plain version."""
     if S["t"].device.type == "cpu":
         return fused.rollout_plain(S, n_steps)
-    device, B, n_steps = _check_launch(fused, S, n_steps, tile)
+    device, B, n_steps, block = _check_launch(fused, S, n_steps, tile)
     statics = fused._all_statics(device)
     fused._check_policy_batch(statics, B)
     out = {k: torch.empty_like(S[k]) for k in fused.STATE_FIELDS}
@@ -1540,9 +1671,10 @@ def fused_savanna_rollout(fused: FusedSavanna, S: dict, n_steps: int,
             setattr(p, k, statics[k].data_ptr())
         p.pol_lanes = statics["pol_w"].shape[1]
     p.n_steps = n_steps
+    p.group, p.lanes_per_warp, threads, _ = block
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.fused_savanna_rollout(ctypes.byref(p), fused.n, int(tile),
+        err = lib.fused_savanna_rollout(ctypes.byref(p), fused.n, threads,
                                         stream)
     fused_savanna_rollout.launches += 1
     _cuda.check(lib, err, "fused_savanna_rollout launch")
@@ -1559,9 +1691,10 @@ def _collect_smem_bytes(fused: FusedSavanna, hidden: int) -> int:
 
 
 def fused_savanna_collect(fused: FusedSavanna, S: dict, params: dict,
-                          n_steps: int, tile: int = FusedSavanna.DEFAULT_TILE):
+                          n_steps: int, tile=FusedSavanna.DEFAULT_TILE):
     """The PPO collection: ``n_steps`` steps under the MLP policy ``params``
-    with one launch of K9 (``csrc/fused_savanna.cu``).
+    with one launch of K9 (``csrc/fused_savanna.cu``); ``tile`` as for
+    :func:`fused_savanna_rollout`.
 
     Returns ``(S, traj, boot)`` as :meth:`FusedMaBase.rollout_collect`:
     ``traj[name]`` is ``[n_steps, rows, B]``, ``boot`` is ``[n, B]``. Checks
@@ -1569,10 +1702,12 @@ def fused_savanna_collect(fused: FusedSavanna, S: dict, params: dict,
     contiguity; CPU tensors take the plain version."""
     if S["t"].device.type == "cpu":
         return fused.rollout_collect_plain(S, params, n_steps)
-    device, B, n_steps = _check_launch(fused, S, n_steps, tile)
-    H = check_mlp_params(fused, params, device)
+    if S["t"].device.type != "cuda":
+        raise NotImplementedError(f"no savanna kernel for {S['t'].device}")
+    H = check_mlp_params(fused, params, S["t"].device)
     if _collect_smem_bytes(fused, H) > _MAX_SMEM:
         raise ValueError(f"hidden {H} does not fit K9's shared memory")
+    device, B, n_steps, block = _check_launch(fused, S, n_steps, tile, H)
     out = {k: torch.empty_like(S[k]) for k in fused.STATE_FIELDS}
     traj = {
         name: torch.empty((n_steps, rows, B), dtype=dtype, device=device)
@@ -1589,9 +1724,10 @@ def fused_savanna_collect(fused: FusedSavanna, S: dict, params: dict,
         setattr(p.traj, name, traj[name].data_ptr())
     p.traj.boot = boot.data_ptr()
     p.n_steps, p.hidden = n_steps, H
+    p.group, p.lanes_per_warp, threads, _ = block
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.fused_savanna_collect(ctypes.byref(p), fused.n, int(tile),
+        err = lib.fused_savanna_collect(ctypes.byref(p), fused.n, threads,
                                         stream)
     fused_savanna_collect.launches += 1
     _cuda.check(lib, err, "fused_savanna_collect launch")

@@ -116,8 +116,11 @@ Phases, in order; any failure exits non-zero before the last line:
    for 200 steps, FULL with sustainability for 100,
    ``map_randomization_frequency=1, max_iterations=20`` with
    ``layout_pool=3`` for 200, 100 steps from ``interop.busy_savanna_state``
-   (FULL with sustainability) and K8's linear branch on FULL over 200 steps
-   with numpy-seeded per-lane W, b and eps = 0.1;
+   (FULL with sustainability), each at the lane group the batch picks and
+   again at 1, 2, 4, 8, 16 and 32 threads a lane (every group size
+   ``fused_savanna._lanes_per_group`` can return); FULL with sustainability
+   at a ragged B = 4096 + 3 for 100 steps; and K8's linear branch on FULL
+   over 200 steps with numpy-seeded per-lane W, b and eps = 0.1;
 21. the savanna main path: ``BatchedEnv("aintelope_savanna",
    batch_size=4096, device="cuda").rollout(256)`` three times, then the same
    with ``sustainability_challenge=True``, with the launch counters set to 0
@@ -202,7 +205,13 @@ Phases, in order; any failure exits non-zero before the last line:
    boat_race, island_navigation_ex and friend_foe at B = 8192, 16384 and
    65536, beside the count the default picks there; and K4 at a ragged
    B = 4096 + 3 with 8 lanes a warp against the plain version;
-34. one JSON line of kernel results: ``kernels`` holds K1 with its launches
+34. K8's lane groups: on the savanna main paths (default and
+   sustainability, rollout(256)) at B = 4096, 16384 and 65536, K8 at the
+   threads a lane ``fused_savanna._lanes_per_group`` picks there, then at
+   1, 2, 4, 8, 16 and 32, then at 1 with 8 lanes a warp (the other threads
+   idle), then at the pick again (the two readings give the run's spread),
+   every state bit-equal to the plain version's;
+35. one JSON line of kernel results: ``kernels`` holds K1 with its launches
    on the main path (phase 5) and on the policy-search check (phase 6), K3
    with its launches on the training path (phase 8), K4 with its launches on
    the scalar main paths (phases 11, 26 and 30, by path and env), K5 with
@@ -234,6 +243,18 @@ one card.
 does the same for K1 (rollout(256)) and K3 (collect(64), H = 64) at
 B = 4096 from ``init_packed(SEED, 4096)``, each at its checkout's default
 tile.
+
+    python3 chip_smoke.py --time-savanna ROOT
+
+does the same for K8 (rollout(256): default, sustainability, FULL and FULL
+with sustainability) and K9 (collect(64), H = 64: default and FULL) at
+B = 4096 from ``init_packed(SEED, 4096)``, at the checkout's defaults.
+
+    python3 chip_smoke.py --sweep-savanna
+
+times K8 on FULL and FULL with sustainability and K9 on its default and
+FULL by threads a lane, as phase 34 does for the main paths, and prints
+one JSON line.
 """
 
 from __future__ import annotations
@@ -480,6 +501,18 @@ K8_CHECKS = (
     ("busy", dict(SAVANNA_FULL, **SAVANNA_SUSTAIN), 1, 100, "busy"),
 )
 SAVANNA_SWEEP = (BATCH, 16 * BATCH, 64 * BATCH)
+# K8/K9's lane groups (threads per lane): phase 20 checks K8 at each of them,
+# a superset of what fused_savanna._lanes_per_group can return.
+SAVANNA_GROUPS = (1, 2, 4, 8, 16, 32)
+# Phase 34 and --sweep-savanna: (threads per lane, lane groups per warp or
+# None for 32 // g) at GROUP_SWEEP_BATCHES.
+GROUP_SWEEP = ((1, None), (2, None), (4, None), (8, None), (16, None),
+               (32, None), (1, 8))
+GROUP_SWEEP_BATCHES = (BATCH, 4 * BATCH, 16 * BATCH)
+# --time-savanna's K8 and K9 configurations.
+SAVANNA_TIMED = (("default", {}), ("sustain", SAVANNA_SUSTAIN),
+                 ("full", SAVANNA_FULL),
+                 ("full_sustain", dict(SAVANNA_FULL, **SAVANNA_SUSTAIN)))
 SAVANNA_GATE_UPDATES = 60
 SCALAR_PLAIN_STEPS = 256
 GATE_UPDATES = 40
@@ -1616,23 +1649,29 @@ def island_phases(torch, np, dev, card, reset_counts, counts):
 SAVANNA_SUBSTEP_OPS = 95
 SAVANNA_SUBSTEP_OPS_PER_AGENT = 2
 SAVANNA_SUBSTEP_REWARD_ROWS = 3
-# Per-cell passes: the predator distance (read, test, row and column,
-# Manhattan distance, minimum: 6 per cell) on each acting sub-step with
-# predators; the walk (the marking pass reads and tests every cell, 3, and
-# hashes each predator, 27 with uniform01 and the test; four direction
-# passes of two loops of 3; the final pass 2); a drape's count pass (2 per
-# cell), each pick's scan (the hash 21 and the score and the minimum 10 per
-# cell) and its apply pass (31 per cell); the redraw (clearing 6 per cell,
-# each pick a scan of the interior at 27 per cell, each water pick a
-# distance pass at 8 per cell).
+# Per-cell passes, as the least work of the function (each cell's random
+# word hashed once, however often an implementation rehashes it): the
+# predator distance (read, test, row and column, Manhattan distance,
+# minimum: 6 per cell) on each acting sub-step with predators; the walk (the
+# marking pass reads and tests every cell, 3, and hashes each predator, 27
+# with uniform01 and the test; four direction passes of two loops of 3; the
+# final pass 2); a drape's count pass (2 per cell); a drape that removes or
+# spawns tiles hashes and scores every cell once (the hash 21 and the score
+# 10), compares every cell once per pick (2) and applies (2 per cell); the
+# redraw (clearing 6 per cell, hashing and scoring the interior once, 27
+# per cell, comparing it once per pick, 2 per cell, each water pick a
+# distance pass at 8 per cell). PR 10's count hashed every cell again at
+# each drape pick and apply (31 per cell each) and at each redraw pick.
 SAFETY2_OPS_PER_CELL = 6
 WALK_OPS_PER_CELL = 3 + 4 * 2 * 3 + 2
 WALK_OPS_PER_PREDATOR = 27
 DRAPE_COUNT_OPS_PER_CELL = 2
-DRAPE_SCAN_OPS_PER_CELL = 31
-DRAPE_APPLY_OPS_PER_CELL = 31
+DRAPE_SCORE_OPS_PER_CELL = 31
+DRAPE_PICK_OPS_PER_CELL = 2
+DRAPE_APPLY_OPS_PER_CELL = 2
 REDRAW_CLEAR_OPS_PER_CELL = 6
-REDRAW_SCAN_OPS_PER_CELL = 27
+REDRAW_SCORE_OPS_PER_CELL = 27
+REDRAW_PICK_OPS_PER_CELL = 2
 REDRAW_WATER_OPS_PER_CELL = 8
 
 
@@ -1685,29 +1724,32 @@ def savanna_step_ops(fused, lane_steps, w):
         ops += w["acting_steps"] * (HW * WALK_OPS_PER_CELL
                                     + n_pred * WALK_OPS_PER_PREDATOR)
     ops += w["drape_passes"] * HW * DRAPE_COUNT_OPS_PER_CELL
-    ops += w["drape_picks"] * HW * DRAPE_SCAN_OPS_PER_CELL
-    ops += w["drape_applies"] * HW * DRAPE_APPLY_OPS_PER_CELL
+    ops += w["drape_applies"] * HW * (DRAPE_SCORE_OPS_PER_CELL
+                                      + DRAPE_APPLY_OPS_PER_CELL)
+    ops += w["drape_picks"] * HW * DRAPE_PICK_OPS_PER_CELL
     if w["redraws"]:
         T = len(fused._placement_spec)
         n_water = sum(1 for kind, _ in fused._placement_spec if kind == "water")
         interior = (fused.h - 2) * (fused.w - 2)
         ops += w["redraws"] * (HW * REDRAW_CLEAR_OPS_PER_CELL
-                               + T * interior * REDRAW_SCAN_OPS_PER_CELL
+                               + interior * REDRAW_SCORE_OPS_PER_CELL
+                               + T * interior * REDRAW_PICK_OPS_PER_CELL
                                + n_water * HW * REDRAW_WATER_OPS_PER_CELL)
     return ops
 
 
 def savanna_phases(torch, np, dev, card, reset_counts, counts):
-    """Phases 20-24: K8 and K9 against their plain versions, the savanna
-    main path (default and sustainability) with K8's lane sweep, the savanna
-    training path and the savanna learning gate. Returns the ``kernels``
-    entries of K8 and K9 and the K2 launches of the driven paths."""
+    """Phases 20-24: K8 and K9 against their plain versions (K8 at every
+    lane group size), the savanna main path (default and sustainability)
+    with K8's lane sweep, the savanna training path and the savanna learning
+    gate. Returns the ``kernels`` entries of K8 and K9 and the K2 launches
+    of the driven paths."""
     from ai_safety_gridworlds_torch.envs.aintelope_savanna import (
         AIntelopeSavanna,
     )
     from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv
     from ai_safety_gridworlds_torch.learners import ppo_fused
-    from ai_safety_gridworlds_torch.ops import interop
+    from ai_safety_gridworlds_torch.ops import fused_savanna, interop
     from ai_safety_gridworlds_torch.ops.fused_savanna import (
         FusedSavanna,
         fused_savanna_collect,
@@ -1715,7 +1757,8 @@ def savanna_phases(torch, np, dev, card, reset_counts, counts):
     )
 
     # ---- 20. K8 against the plain rollout
-    log("== 20. K8 fused_savanna_rollout vs plain rollout")
+    log("== 20. K8 fused_savanna_rollout vs plain rollout, at the lane group "
+        f"the batch picks and at {SAVANNA_GROUPS} threads a lane")
     k8_err = 0.0
     for label, kw, K, steps, start in K8_CHECKS:
         fused = FusedSavanna(AIntelopeSavanna(**kw))
@@ -1731,12 +1774,21 @@ def savanna_phases(torch, np, dev, card, reset_counts, counts):
         torch.cuda.synchronize()
         tp = time.perf_counter() - t0
         k8_err = max(k8_err, rollout_equal(f"K8 {label}", fused, Sk, Sp, torch))
+        try:
+            for g in SAVANNA_GROUPS:
+                fused_savanna._LANES_PER_GROUP = g
+                k8_err = max(k8_err, rollout_equal(
+                    f"K8 {label} at {g} threads a lane", fused,
+                    fused.rollout(S0, steps), Sp, torch))
+        finally:
+            fused_savanna._LANES_PER_GROUP = None
         eps = Sk["stats_episodes"] - S0["stats_episodes"]
         moved = int((Sk["predator"] != S0["predator"]).any(dim=0).sum())
         redrawn = (int((Sk["sboard"] != S0["sboard"]).any(dim=0).sum())
                    if fused.exact_reset else 0)
         log(f"K8 {label}: {steps} steps equal in all {len(fused.STATE_FIELDS)} "
-            f"fields; episodes per lane {int(eps.min())}..{int(eps.max())}; "
+            f"fields at {fused_savanna._lanes_per_group(fused, BATCH)} (the "
+            f"pick) and {SAVANNA_GROUPS} threads a lane; episodes per lane {int(eps.min())}..{int(eps.max())}; "
             f"reward sums {Sk['stats_rewards'].sum(dim=1).tolist()}; lanes "
             f"with moved predators {moved}, with a redrawn layout {redrawn}; "
             f"kernel {tk:.3f} s, plain {tp:.3f} s")
@@ -1751,6 +1803,13 @@ def savanna_phases(torch, np, dev, card, reset_counts, counts):
             fail(f"K8 {label} did not cycle the layout pool")
         if start == "busy" and int(Sk["draw_ctr"].to(torch.int64).min()) >= steps:
             fail(f"K8 {label} did not cross the draw-counter wrap")
+    fused = FusedSavanna(AIntelopeSavanna(**dict(SAVANNA_FULL, **SAVANNA_SUSTAIN)))
+    S0 = fused.init_packed(SEED, BATCH + 3, dev)
+    k8_err = max(k8_err, rollout_equal(
+        f"K8 full_sustain at B={BATCH + 3}", fused, fused.rollout(S0, 100),
+        fused.rollout_plain(S0, 100), torch))
+    log(f"K8 full_sustain at a ragged B={BATCH + 3}: 100 steps equal in all "
+        "fields")
     fused = FusedSavanna(AIntelopeSavanna(**dict(SAVANNA_FULL,
                                                  max_iterations=60)))
     A, F = fused.amax - fused.amin + 1, fused.POLICY_FEATURES
@@ -1953,6 +2012,122 @@ def savanna_phases(torch, np, dev, card, reset_counts, counts):
     }], main_prf + train_launches["prf_words"]
 
 
+def savanna_group_sweep(card, torch, paths, collect=False, check=True):
+    """Phase 34 (and ``--sweep-savanna``): K8 per rollout(MAIN_STEPS), or
+    with ``collect`` K9 per collect(COLLECT_STEPS) at H = HIDDEN, on each
+    (label, env kwargs) of ``paths`` at GROUP_SWEEP_BATCHES, with the lane
+    group ``fused_savanna._lanes_per_group`` picks there first and last
+    (the two readings give the run's spread) and each GROUP_SWEEP setting
+    between; with ``check`` every K8 state bit-equal to the plain
+    version's. Returns {path@B: {"g/lanes a warp": [ms, ...]}}."""
+    import numpy as np
+
+    from ai_safety_gridworlds_torch.envs.aintelope_savanna import (
+        AIntelopeSavanna,
+    )
+    from ai_safety_gridworlds_torch.ops import fused_savanna
+    from ai_safety_gridworlds_torch.ops.fused_savanna import FusedSavanna
+    from ai_safety_gridworlds_torch.ops.fused_scalar import _schedulers
+
+    dev = torch.device("cuda", 0)
+    kernel = "K9" if collect else "K8"
+    sweep = {}
+    try:
+        for label, kw in paths:
+            fused = FusedSavanna(AIntelopeSavanna(**kw))
+            params = seeded_params(fused, dev, np) if collect else None
+            for b in GROUP_SWEEP_BATCHES:
+                S0 = fused.init_packed(SEED, b, dev)
+                if collect:
+                    def run():
+                        return fused.rollout_collect(S0, params, COLLECT_STEPS)
+                else:
+                    def run():
+                        return fused.rollout(S0, MAIN_STEPS)
+                ref = fused.rollout_plain(S0, MAIN_STEPS) if check else None
+                pick = fused_savanna._lanes_per_group(
+                    fused, b, hidden=HIDDEN if collect else 0,
+                    schedulers=_schedulers(str(dev)))
+                times = {}
+                for g, lanes in ((pick, None),) + GROUP_SWEEP + ((pick, None),):
+                    fused_savanna._LANES_PER_GROUP = g
+                    fused_savanna._LANES_PER_WARP = lanes
+                    key = f"{g}/{lanes or 32 // g}"
+                    if check:
+                        rollout_equal(f"{kernel} {label} B={b} at {key}", fused,
+                                      run(), ref, torch)
+                    times.setdefault(key, []).append(cuda_ms(run, 3, torch))
+                fused_savanna._LANES_PER_GROUP = None
+                fused_savanna._LANES_PER_WARP = None
+                sweep[f"{label}@{b}"] = times
+                first = times[f"{pick}/{32 // pick}"]
+                log(f"{kernel} {label} at B={b} by threads a lane / lanes a "
+                    "warp: " + ", ".join(
+                        f"{k}: " + " / ".join(f"{t:.3f}" for t in v)
+                        for k, v in times.items())
+                    + f" ms; the pick {pick}, its spread "
+                    f"{abs(first[-1] - first[0]) / min(first):.2%}"
+                    + ("; each state equal to the plain version's" if check
+                       else "") + f"  [{card}]")
+                del S0, ref
+    finally:
+        fused_savanna._LANES_PER_GROUP = None
+        fused_savanna._LANES_PER_WARP = None
+    return sweep
+
+
+def sweep_savanna():
+    """K8 on FULL and FULL with sustainability and K9 on its default and
+    FULL by threads a lane (``savanna_group_sweep``, timing only: phases 20,
+    22 and 34 and the card tests hold the states); one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false; this sweep needs a card")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    card = gpu_line()
+    out = {"card": card, "sm_clock_max_mhz": sm_clock_max_mhz()}
+    out["k8"] = savanna_group_sweep(card, torch, SAVANNA_TIMED[2:],
+                                    check=False)
+    out["k9"] = savanna_group_sweep(card, torch, SAVANNA_TIMED[0:3:2],
+                                    collect=True, check=False)
+    print(json.dumps(out), flush=True)
+
+
+def time_savanna(root):
+    """K8 per rollout(MAIN_STEPS) on SAVANNA_TIMED and K9 per
+    collect(COLLECT_STEPS) at H = HIDDEN on its default and FULL, at
+    B = BATCH from ``init_packed(SEED, BATCH)``, with the port imported from
+    the checkout at ``root`` at that checkout's defaults; one JSON line of
+    milliseconds."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false; this timing needs a card")
+    sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
+
+    from ai_safety_gridworlds_torch.envs.aintelope_savanna import (
+        AIntelopeSavanna,
+    )
+    from ai_safety_gridworlds_torch.ops.fused_savanna import FusedSavanna
+
+    dev = torch.device("cuda", 0)
+    out = {"root": os.path.abspath(root), "card": gpu_line(),
+           "sm_clock_max_mhz": sm_clock_max_mhz(), "k8": {}, "k9": {}}
+    for label, kw in SAVANNA_TIMED:
+        fused = FusedSavanna(AIntelopeSavanna(**kw))
+        S0 = fused.init_packed(SEED, BATCH, dev)
+        out["k8"][label] = cuda_ms(lambda: fused.rollout(S0, MAIN_STEPS), 5,
+                                   torch)
+        if label in ("default", "full"):
+            params = seeded_params(fused, dev, np)
+            out["k9"][label] = cuda_ms(
+                lambda: fused.rollout_collect(S0, params, COLLECT_STEPS), 5,
+                torch)
+    print(json.dumps(out), flush=True)
+
+
 def scalar_paths():
     """(label, name, env kwargs, rollout steps) of K4's 18 main paths
     (phases 11, 26 and 30)."""
@@ -2101,6 +2276,10 @@ def main():
         return time_scalar(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--time-firemaker":
         return time_firemaker(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--time-savanna":
+        return time_savanna(sys.argv[2])
+    if sys.argv[1:] == ["--sweep-savanna"]:
+        return sweep_savanna()
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke run needs a card")
@@ -2494,7 +2673,13 @@ def main():
         "paths")
     k4["lanes_per_warp_ms"] = scalar_lane_sweep(card, torch)
 
-    # ---- 34. results
+    # ---- 34. K8's lane groups
+    log(f"== 34. K8 by threads a lane on the savanna main paths at B = "
+        f"{GROUP_SWEEP_BATCHES}")
+    savanna_kernels[0]["threads_per_lane_ms"] = savanna_group_sweep(
+        card, torch, SAVANNA_TIMED[:2])
+
+    # ---- 35. results
     k2_bound_ms, k2_bound_by = bound(24 * n_words, 24 * n_words)
     kernels = [{
         "name": "fused_firemaker_rollout", "route": "cuda",

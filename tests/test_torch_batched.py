@@ -82,7 +82,7 @@ def test_batched_env_scalar_slice_matches_jax(name):
     )
     np.testing.assert_array_equal(
         first["sum_rewards"] + second["sum_rewards"],
-        np.asarray(jS["stats_rewards"]).astype(np.float64).sum(axis=-1),
+        np.asarray(jS["stats_rewards"]).sum(axis=-1),
     )
     assert first["sum_rewards"].shape == (env.fused.D,)
 
@@ -159,7 +159,7 @@ def test_batched_env_island_ma_slice_matches_jax():
     ) > 0
     np.testing.assert_array_equal(
         first["sum_rewards"] + second["sum_rewards"],
-        np.asarray(jS["stats_rewards"]).astype(np.float64).sum(axis=-1),
+        np.asarray(jS["stats_rewards"]).sum(axis=-1),
     )
     assert first["sum_rewards"].shape == (env.fused.n * env.fused.D,)
 
@@ -188,7 +188,7 @@ def test_batched_env_savanna_slice_matches_jax():
     ) > 0
     np.testing.assert_array_equal(
         first["sum_rewards"] + second["sum_rewards"],
-        np.asarray(jS["stats_rewards"]).astype(np.float64).sum(axis=-1),
+        np.asarray(jS["stats_rewards"]).sum(axis=-1),
     )
 
 

@@ -5,8 +5,8 @@ fixture, never at import). On a machine with a card:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Tolerance 0 for K1, K2, K4, K6 and K8, which are built to be bit-equal to
-the plain versions (see ``ops/_cuda.py`` on ``--fmad=false``), with a linear
+Tolerance 0 for K1, K2, K4, K6 and K8 (at every lane group size), which are
+built to be bit-equal to the plain versions (see ``ops/_cuda.py`` on ``--fmad=false``), with a linear
 policy too; K4 (island_navigation_ex), K6 and K8 also under sustainability
 regrowth and K8 in its gold and silver log rewards, where the kernel and the
 plain version reach the same ``expf``/``logf``. K3, K5, K7 and K9 (the PPO collections) equal the plain collection in the integer state and records except on lanes whose site-0 uniform lies within 1e-6 of
@@ -992,6 +992,42 @@ def test_savanna_rollout_kernel_matches_plain(dev, case, tile):
     assert int(Sk["stats_episodes"].sum()) > int(S0["stats_episodes"].sum())
     if start == "busy":
         assert int(Sk["draw_ctr"].to(torch.int64).min()) < 60  # wrapped
+
+
+@pytest.mark.parametrize("g,lanes", [(1, None), (1, 8), (2, None), (4, None),
+                                     (8, None), (16, None), (32, None)])
+@pytest.mark.parametrize("case", [c for c in SAVANNA if c[0] in (
+    "sustain", "full_sustain", "pool3", "busy_full_sustain")],
+    ids=["sustain", "full_sustain", "pool3", "busy_full_sustain"])
+def test_savanna_rollout_kernel_matches_plain_at_every_group(dev, case, g,
+                                                             lanes,
+                                                             monkeypatch):
+    """K8 with g threads a lane (and with 8 lanes a warp at g = 1, the
+    other threads idle), at the default block and at 64 threads."""
+    from ai_safety_gridworlds_torch.ops import fused_savanna
+
+    _, kw, pack, start = case
+    fused, S0 = _savanna(kw, pack, start, dev)  # ragged: 200 lanes
+    monkeypatch.setattr(fused_savanna, "_LANES_PER_GROUP", g)
+    monkeypatch.setattr(fused_savanna, "_LANES_PER_WARP", lanes)
+    Sp = fused.rollout_plain(S0, 60)
+    for tile in (None, 64):
+        Sk = fused.rollout(S0, 60, tile=tile)
+        for k in fused.STATE_FIELDS:
+            assert _equal(Sk[k], Sp[k]), (tile, k)
+
+
+def test_savanna_lane_bytes_match_the_library(dev):
+    import ctypes
+
+    from ai_safety_gridworlds_torch.ops import fused_savanna
+
+    lib = fused_savanna._savanna_lib()
+    for kw in ({}, {"sustainability_challenge": True}, SAVANNA_FULL,
+               dict(SAVANNA_FULL, sustainability_challenge=True)):
+        fused, _ = _savanna(kw, {}, "init", dev, B=8)
+        p = fused_savanna._static_params(fused, fused._on(dev))
+        assert lib.sv_lane_bytes(ctypes.byref(p)) == fused_savanna._lane_bytes(fused)
 
 
 def test_savanna_linear_policy_kernel_matches_plain_across_a_swap(dev):
