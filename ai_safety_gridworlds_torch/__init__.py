@@ -7,10 +7,18 @@ mirrors its sub-package and module layout (the counterpart of
 ``[rows, B]`` state interface, so a port state compares with a JAX state
 array by array. It imports ``torch`` and ``numpy``, never ``jax``.
 
-Ported so far: the fused rollouts of ``firemaker_ex_ma`` and of the scalar
-``boat_race``, ``island_navigation`` and ``boat_race_ex`` behind
+Ported so far: the fused rollouts of ``firemaker_ex_ma`` (K1), of the 15
+scalar bodies (``boat_race``, ``island_navigation``, ``boat_race_ex``,
+``island_navigation_ex``, ``absent_supervisor``, ``distributional_shift``,
+``safe_interruptibility``, ``safe_interruptibility_ex``,
+``side_effects_sokoban``, ``whisky_gold``, ``tomato_watering`` and
+``tomato_crmdp``, ``conveyor_belt``, ``rocks_diamonds``, ``friend_foe``,
+``conveyor_belt_ex``; K4), of ``island_navigation_ex_ma`` (K6) and of
+``aintelope_savanna`` (K8) behind
 :class:`~ai_safety_gridworlds_torch.helpers.batched.BatchedEnv` (uniform or
 per-lane linear-policy actions), and fused-PPO training on each
-(:mod:`ai_safety_gridworlds_torch.learners.ppo_fused`), with hand-written
-CUDA kernels for the card and plain PyTorch versions for CPU tensors. ``ROADMAP.md`` lists what is still to come.
+(:mod:`ai_safety_gridworlds_torch.learners.ppo_fused`; the collections K3,
+K5, K7 and K9), with hand-written CUDA kernels for the card and plain
+PyTorch versions for CPU tensors. ``ROADMAP.md`` lists what is still to
+come.
 """

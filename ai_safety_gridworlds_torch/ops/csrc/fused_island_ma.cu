@@ -25,30 +25,48 @@
 // action, logp, value, reward summed over the reward dims, done) to
 // traj[k, row, lane] and the value head of the final state to boot.
 //
-// Design. One thread per lane, `tile` lanes per block. Every dynamic field
-// of the lane -- positions and cached tile values, reasons, step types,
-// facings, satiations, visits, safety, the availabilities and their
-// fractions, t, key, draw counter, episode counter, reward sums -- lives in
-// registers for the whole call, read from device memory once and written
-// once (coalesced across the lanes of a warp). The static boards (wall, and
-// sboard = tile code + 16 * distance to water) stay in device memory:
-// [HW, 1] when every lane shares the map, [HW, B] with map randomization,
-// and K copies with a layout pool. A sub-step reads two cells of them, the
-// wall at the move's candidate and sboard at the new position, so they are
-// read at that index (through L1/L2) and never copied. Small per-agent
-// arrays are indexed through unrolled compare loops (get/put) so that a
-// runtime agent index never spills them. K6 and K7 share one step body,
-// im_step<N, MODE>, instantiated for N = 1..4 agents and the uniform, linear
-// (K6) and MLP (K7) policy modes; the linear policy and the MLP come from
-// policy.cuh, the PRF from prng.cuh.
-//
-// Bound. A lane-step is a few hundred integer and float operations (two PRF
-// hashes per agent for the draws and the order, then per acting sub-step the
-// direction tables, the move, two board reads, a dozen tile-code tests and
-// the reward rows), against about 150 bytes of state per lane per call plus
-// 8 bytes of board reads per sub-step: the kernels are bound by the serial
-// latency of each thread's dependent chain, not by device memory. Keeping
-// the state in registers for all n_steps is what the design does about it.
+// Bound. A lane-step is a few hundred integer and float operations against
+// about 150 bytes of state per lane per call: at the batches the main paths
+// run (B = 4096) the card is far from either limit, and the time is the
+// latency of each lane's serial chain of dependent operations. The design
+// shortens that chain and runs more of the card beside it:
+// * A lane group of g threads runs each lane (g = p.group, a power of two
+//   from 1 to 32, chosen by fused_island_ma.py::_lanes_per_group from the
+//   batch and the mode; 32 / g groups a warp). Positions, reasons, types,
+//   facings, satiations, visits, safety, availabilities and fractions, t,
+//   key, counters and the episode index are group-uniform: every thread
+//   holds them and runs the scalar chain redundantly, so the group takes
+//   every branch together. Thread 0 of the group writes them back.
+// * The reward rows split over the group: thread t owns dims d = t + g * s
+//   (slot s) of every agent, of the step's rewards and of stats_rewards, so
+//   a reward term costs ceil(D / g) adds on the acting agent's row instead
+//   of D. Each (agent, dim) sum still takes its terms one by one in the
+//   plain version's order on one thread. K7's record sums each agent's
+//   dims in ascending order on one thread, from a per-lane buffer the
+//   owners write.
+// * The move is one shared-memory word: the step table holds, for each
+//   cell and move (stay, LEFT, RIGHT, UP, DOWN), the clamped candidate
+//   cell, whether it is in bounds and no wall, and the candidate's static
+//   board value (tile code + 16 * distance to water); the stay column gives
+//   the board value of the cell itself. The direction tables are composed
+//   into one word per (action, facing): the move, the new action facing
+//   and the new observation facing. Both tables come from the host
+//   (fused_island_ma.py::_step_words, _dir_words). Shared layouts copy into
+//   the block's shared memory once; per-lane layouts (map randomization)
+//   copy the lane's table into its own region at load and at each reset of
+//   a layout pool.
+// * A group of at least 2N - 1 threads hashes the step's 2N - 1 PRF words
+//   (the action draws and the agent order) on different threads and passes
+//   them round by shuffle.
+// * K7's MLP runs through a per-lane buffer (policy.cuh,
+//   mlp_group_buf_rows): thread t forms hidden units t, t + g, ... of every
+//   agent into shared memory, then each output row is summed by one thread
+//   from there; the record stores spread over the group.
+// The threads of a group need not run in step, so every write to shared
+// memory that other threads of the group read sits between two
+// __syncwarp()s of the group's mask, and the shuffles name the group's own
+// mask and width. g is a runtime field, so the 12 instantiations (N = 1..4
+// agents x uniform, linear, MLP) serve every g.
 //
 // Exactness. The kernels add each reward term to its row in the plain
 // version's order, skip the terms whose vector is all zero (as the plain
@@ -60,11 +78,14 @@
 #include "policy.cuh"
 #include "prng.cuh"
 
-#define IM_MAX_N 4
 #define IM_MAX_D 12
 #define IM_MAX_POOL 8
-#define IM_F 10     // FusedIslandMa.POLICY_FEATURES
-#define IM_MAX_A 5  // legal actions amin..amax
+#define IM_MAX_HW 4096  // the step word's candidate field: 12 bits
+#define IM_F 10         // FusedIslandMa.POLICY_FEATURES
+#define IM_MAX_A 5      // legal actions amin..amax
+#define IM_MOVES 5      // step-table columns: stay, LEFT, RIGHT, UP, DOWN
+#define IM_FACINGS 5    // direction-word columns: facings 0..3, then any other
+#define IM_ACTIONS 10   // action ids 0..9
 
 // Reward kinds, in the order of fused_island_ma.py::REWARD_KINDS.
 enum {
@@ -134,17 +155,19 @@ struct ImTraj {
 struct ImParams {
   ImState in;
   ImState out;
-  // Layout k's boards: wall and sboard [HW, stat_lanes], pos0 (int) and
-  // vcode0 [n, stat_lanes]; stat_lanes is 1 (shared) or B (per lane).
-  const float* wall[IM_MAX_POOL];
-  const float* sboard[IM_MAX_POOL];
+  // Layout k's step table [stat_lanes, HW * IM_MOVES] (words as
+  // fused_island_ma.py::_step_words packs them), pos0 (int) and vcode0
+  // [n, stat_lanes]; stat_lanes is 1 (shared) or B (per lane).
+  const uint32_t* steps[IM_MAX_POOL];
   const int* pos0[IM_MAX_POOL];
   const float* vcode0[IM_MAX_POOL];
-  int B, n_steps, D, HW, H, W, adm, odm, randomize, amin, amax, max_iterations;
+  int B, n_steps, D, HW, W, adm, odm, randomize, amin, amax, max_iterations;
   int pool, stat_lanes;
   int has_goal, has_drink, has_food, has_gold, has_silver, has_water;
   int thirst_death, penalise, proportional, sustainability;
   int drink_limit_on, food_limit_on;
+  // The lane group: threads per lane, a power of two from 1 to 32.
+  int group;
   float sat0_drink, sat0_food, av0_drink, av0_food;
   float drink_rate, food_rate;          // extraction rates
   float drink_def_rate, food_def_rate;  // satiation decrements
@@ -157,9 +180,9 @@ struct ImParams {
   float regrowth_exponent;
   float rv[IM_N_RV][IM_MAX_D];
   int rv_on[IM_N_RV];
-  int dir_tab[3][10][4];
-  int dir_to_action[4];
-  int delta_r[10], delta_c[10];
+  // The composed direction word of (action, facing column), as
+  // fused_island_ma.py::_dir_words packs it.
+  uint32_t dir_word[IM_ACTIONS][IM_FACINGS];
   // The policy features' reciprocals, float32 as the reference rounds them:
   // 1/W, 1/max(H-1,1), 1/max(W-1,1).
   float inv_w, inv_hm1, inv_wm1;
@@ -180,6 +203,52 @@ struct ImParams {
 
 extern "C" int im_params_size() { return static_cast<int>(sizeof(ImParams)); }
 
+// Step-word fields: the candidate cell, the move bit (in bounds and no
+// wall), the candidate's static board value.
+constexpr uint32_t SW_CELL = 0xFFFu;
+constexpr int SW_OK_BIT = 12;
+constexpr int SW_BOARD_SHIFT = 16;
+// Direction-word fields: the move column, the new action facing, the new
+// observation facing, a byte each.
+constexpr int DW_ADIR_SHIFT = 8;
+constexpr int DW_ODIR_SHIFT = 16;
+
+// Shared memory, in 4-byte words (ops/fused_island_ma.py::_smem_bytes
+// mirrors it). The block's part: the reward vectors [IM_N_RV][IM_MAX_D],
+// the direction words, the step tables (the pool's shared tables, or one
+// table a lane with per-lane layouts) and K7's MLP weights (w1 [H, F], b1
+// [H], w2 [A+1, H] with rows H + 1 apart, b2 [A+1]); then each lane's part:
+// its stats_rewards [N][D] and K7's buffers, hidden units [N][H + 1],
+// output rows [N][A + 1] and the step's rewards [N][D]. Lanes' parts lie an
+// odd number of words apart.
+struct ImSmem {
+  int rv, dirw, tables, weights, lanes, per_lane, words;
+};
+
+__host__ __device__ inline bool im_per_lane(const ImParams& p) { return p.stat_lanes != 1; }
+
+// The words between two lanes' step tables with per-lane layouts: odd, so
+// that the lanes of a warp reading the same entry hit different banks.
+__host__ __device__ inline int im_lane_table(const ImParams& p) { return p.HW * IM_MOVES | 1; }
+
+__host__ __device__ inline ImSmem im_smem(const ImParams& p, int n_agents, int lanes,
+                                          int hidden) {
+  ImSmem s;
+  const int A = p.amax - p.amin + 1;
+  s.rv = 0;
+  s.dirw = s.rv + IM_N_RV * IM_MAX_D;
+  s.tables = s.dirw + IM_ACTIONS * IM_FACINGS;
+  s.weights = s.tables + (im_per_lane(p) ? lanes * im_lane_table(p) : p.pool * p.HW * IM_MOVES);
+  s.lanes = s.weights + (hidden ? hidden * IM_F + hidden + (A + 1) * (hidden + 1) + A + 1 : 0);
+  s.per_lane = (n_agents * p.D + (hidden ? n_agents * (hidden + 1 + A + 1 + p.D) : 0)) | 1;
+  s.words = s.lanes + lanes * s.per_lane;
+  return s;
+}
+
+extern "C" int im_smem_bytes(const ImParams* p, int n_agents, int tile, int hidden) {
+  return 4 * im_smem(*p, n_agents, tile / p->group, hidden).words;
+}
+
 template <int N, typename T>
 __device__ __forceinline__ T get(const T (&a)[N], int i) {
   T v = a[0];
@@ -196,7 +265,34 @@ __device__ __forceinline__ void put(T (&a)[N], int i, T v) {
     if (j == i) a[j] = v;
 }
 
-// One lane's register state.
+// A lane group: this thread's index t in it, its size g, its threads' mask
+// in the warp, and the reward slots ceil(D / g) of its threads (from the
+// parameters alone, so the compiler sees loops bounded by it as uniform).
+// Its shuffles name only its own threads, so the groups of a warp may take
+// different branches.
+struct Grp {
+  int t, g, slots;
+  unsigned mask;
+};
+
+// Whether this thread owns reward slot s: dim d = t + g * s < D.
+__device__ __forceinline__ bool owns(const ImParams& p, const Grp& G, int s) {
+  return G.t + G.g * s < p.D;
+}
+
+// The block's shared tables and this lane's step table and K7 buffers.
+struct ImView {
+  const float* rv;          // [IM_N_RV][IM_MAX_D]
+  const uint32_t* dirw;     // [IM_ACTIONS][IM_FACINGS]
+  const uint32_t* tables;   // the pool's shared tables, [pool][HW * IM_MOVES]
+  uint32_t* own;            // the lane's table with per-lane layouts
+  float* stats;             // the lane's stats_rewards [N][D], each dim by its owner
+  float* hbuf;              // K7: [N][H + 1] hidden units, then [N][A + 1] rows
+  float* rbuf;              // K7: the step's rewards [N][D], for the record sums
+  agw::Mlp mlp;             // K7, in the block's shared memory
+};
+
+// One lane's register state (its stats_rewards are in shared memory).
 template <int N>
 struct ImLane {
   uint32_t key_hi, key_lo, ctr;
@@ -205,41 +301,41 @@ struct ImLane {
   int pos[N], reasons[N], types[N], adir[N], odir[N], safety[N];
   float vcode[N], dsat[N], fsat[N];
   int visits[N][5];
-  float stats[N][IM_MAX_D];
 };
 
-// rew[agent] += rv[kind], for a runtime agent index; terms whose vector is
-// all zero are left out, as in the plain version.
-template <int N>
-__device__ __forceinline__ void add_rv(float (&rew)[N][IM_MAX_D], const ImParams& p,
-                                       int agent, int kind) {
+// row += rv[kind] (* scale with SCALED, the proportional homeostasis
+// terms) on this thread's dims of one agent's reward row; terms whose
+// vector is all zero are left out, as in the plain version. A lone thread
+// (g = 1) reads the vector from the parameter block at compile-time dims; a
+// group's thread (g >= 2, so at most IM_MAX_D / 2 slots) reads its dims
+// d = t + g * s from shared memory.
+template <bool SCALED>
+__device__ __forceinline__ void add_term(float (&row)[IM_MAX_D], const ImParams& p, const Grp& G,
+                                         const float* rv, int kind, float scale) {
   if (!p.rv_on[kind]) return;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    if (j != agent) continue;
+  if (p.group == 1) {
 #pragma unroll
     for (int d = 0; d < IM_MAX_D; ++d)
-      if (d < p.D) rew[j][d] = rew[j][d] + p.rv[kind][d];
+      if (d < p.D) row[d] = row[d] + (SCALED ? p.rv[kind][d] * scale : p.rv[kind][d]);
+    return;
+  }
+  const float* v = rv + kind * IM_MAX_D + G.t;
+#pragma unroll
+  for (int s = 0; s < IM_MAX_D / 2; ++s) {
+    if (s >= G.slots) break;
+    if (owns(p, G, s)) row[s] = row[s] + (SCALED ? v[G.g * s] * scale : v[G.g * s]);
   }
 }
 
-// rew[agent] += rv[kind] * scale (the proportional homeostasis terms).
-template <int N>
-__device__ __forceinline__ void add_rv_scaled(float (&rew)[N][IM_MAX_D], const ImParams& p,
-                                              int agent, int kind, float scale) {
-  if (!p.rv_on[kind]) return;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    if (j != agent) continue;
-#pragma unroll
-    for (int d = 0; d < IM_MAX_D; ++d)
-      if (d < p.D) rew[j][d] = rew[j][d] + p.rv[kind][d] * scale;
-  }
+__device__ __forceinline__ void add_rv(float (&row)[IM_MAX_D], const ImParams& p, const Grp& G,
+                                       const float* rv, int kind) {
+  add_term<false>(row, p, G, rv, kind, 1.f);
 }
 
-// _table_sel: table[action, dir], 0 for a direction outside 0..3.
-__device__ __forceinline__ int table_sel(const ImParams& p, int tab, int a_cl, int dir) {
-  return (dir >= 0 && dir < 4) ? p.dir_tab[tab][a_cl][dir] : 0;
+__device__ __forceinline__ void add_rv_scaled(float (&row)[IM_MAX_D], const ImParams& p,
+                                              const Grp& G, const float* rv, int kind,
+                                              float scale) {
+  add_term<true>(row, p, G, rv, kind, scale);
 }
 
 // code_of: the tile code and the water distance packed in a board value.
@@ -248,8 +344,71 @@ __device__ __forceinline__ float code_of(float v, float& dw) {
   return v - 16.0f * dw;
 }
 
+// The static board value at a step word's candidate cell.
+__device__ __forceinline__ float board_of(uint32_t w) {
+  return static_cast<float>(w >> SW_BOARD_SHIFT);
+}
+
+// The direction-word column of a facing: 0..3, or 4 for any other value.
+__device__ __forceinline__ int facing_col(int dir) {
+  return static_cast<unsigned>(dir) < 4u ? dir : 4;
+}
+
+// The lane's layout under a layout pool (_pool_select: ep_idx % K).
+__device__ __forceinline__ int layout_of(const ImParams& p, int ep_idx) {
+  return p.pool > 1 ? ((ep_idx % p.pool) + p.pool) % p.pool : 0;
+}
+
+// Layout li's step table for lane b into the lane's own region, by its
+// group, between two syncs of the group.
+__device__ __forceinline__ void copy_table(const ImParams& p, const Grp& G, uint32_t* own, int li,
+                                           int b) {
+  const int tw = p.HW * IM_MOVES;
+  const uint32_t* src = p.steps[li] + static_cast<size_t>(b) * tw;
+  __syncwarp(G.mask);  // the group has read the old table
+  for (int e = G.t; e < tw; e += G.g) own[e] = src[e];
+  __syncwarp(G.mask);
+}
+
+// The step table of the lane's layout li.
+__device__ __forceinline__ const uint32_t* table_of(const ImParams& p, const ImView& V, int li) {
+  return im_per_lane(p) ? V.own : V.tables + li * p.HW * IM_MOVES;
+}
+
+// The step's PRF uniforms: the action draws (site 0, index j) and the
+// Fisher-Yates order (site 1, index k >= 1). A group of at least 2N - 1
+// threads hashes the 2N - 1 words on different threads (thread t hashes
+// word t mod (2N - 1)) and passes them round; a smaller one hashes all of
+// them on every thread.
 template <int N>
-__device__ __forceinline__ void load_lane(const ImParams& p, int b, ImLane<N>& L) {
+__device__ __forceinline__ void step_draws(const ImParams& p, const Grp& G, uint32_t key_hi,
+                                           uint32_t key_lo, uint32_t ctr, float (&ua)[N],
+                                           float (&uo)[N]) {
+  const uint32_t ctr0 = ctr * 2u;
+  uo[0] = 0.f;
+  if (G.g >= 2 * N - 1) {
+    const int w = G.t % (2 * N - 1);
+    const uint32_t bits = agw::hash_u32(key_hi, key_lo, ctr0 + (w < N ? 0u : 1u),
+                                        w < N ? w : w - N + 1);
+#pragma unroll
+    for (int j = 0; j < N; ++j) ua[j] = agw::uniform01(__shfl_sync(G.mask, bits, j, G.g));
+#pragma unroll
+    for (int k = 1; k < N; ++k)
+      uo[k] = agw::uniform01(__shfl_sync(G.mask, bits, N + k - 1, G.g));
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) ua[j] = agw::uniform01(agw::hash_u32(key_hi, key_lo, ctr0, j));
+#pragma unroll
+  for (int k = 1; k < N; ++k)
+    uo[k] = p.randomize ? agw::uniform01(agw::hash_u32(key_hi, key_lo, ctr0 + 1u, k)) : 0.f;
+}
+
+// The lane's state, on every thread of its group; stats_rewards on the
+// owners of its dims.
+template <int N>
+__device__ __forceinline__ void load_lane(const ImParams& p, const Grp& G, const ImView& V, int b,
+                                          ImLane<N>& L) {
   const int B = p.B;
   L.key_hi = p.in.key[b];
   L.key_lo = p.in.key[B + b];
@@ -275,15 +434,19 @@ __device__ __forceinline__ void load_lane(const ImParams& p, int b, ImLane<N>& L
     L.safety[j] = p.in.safety[r];
 #pragma unroll
     for (int k = 0; k < 5; ++k) L.visits[j][k] = p.in.visits[(j * 5 + k) * B + b];
-#pragma unroll
-    for (int d = 0; d < IM_MAX_D; ++d)
-      L.stats[j][d] = d < p.D ? p.in.stats_rewards[(j * p.D + d) * B + b] : 0.f;
+    for (int d = G.t; d < p.D; d += G.g) V.stats[j * p.D + d] = p.in.stats_rewards[(j * p.D + d) * B + b];
   }
 }
 
+// The lane's state by thread 0 of its group; stats_rewards by the owners.
 template <int N>
-__device__ __forceinline__ void store_lane(const ImParams& p, int b, const ImLane<N>& L) {
+__device__ __forceinline__ void store_lane(const ImParams& p, const Grp& G, const ImView& V, int b,
+                                           const ImLane<N>& L) {
   const int B = p.B;
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    for (int d = G.t; d < p.D; d += G.g) p.out.stats_rewards[(j * p.D + d) * B + b] = V.stats[j * p.D + d];
+  if (G.t != 0) return;
   p.out.key[b] = L.key_hi;
   p.out.key[B + b] = L.key_lo;
   p.out.draw_ctr[b] = L.ctr;
@@ -308,9 +471,6 @@ __device__ __forceinline__ void store_lane(const ImParams& p, int b, const ImLan
     p.out.safety[r] = L.safety[j];
 #pragma unroll
     for (int k = 0; k < 5; ++k) p.out.visits[(j * 5 + k) * B + b] = L.visits[j][k];
-#pragma unroll
-    for (int d = 0; d < IM_MAX_D; ++d)
-      if (d < p.D) p.out.stats_rewards[(j * p.D + d) * B + b] = L.stats[j][d];
   }
 }
 
@@ -341,16 +501,16 @@ __device__ __forceinline__ void policy_feats(const ImParams& p, const ImLane<N>&
 // satiation (penalise_oversatiation), clamps it at the oversatiation limit
 // and is depleted by the extraction rate.
 template <int N>
-__device__ __forceinline__ void consume(const ImParams& p, ImLane<N>& L,
-                                        float (&rew)[N][IM_MAX_D], int i, bool on_tile,
-                                        float (&sat)[N], float& av, int kind, float rate,
-                                        int limit_on, float limit, int visit_col) {
+__device__ __forceinline__ void consume(const ImParams& p, const Grp& G, const float* rv,
+                                        ImLane<N>& L, float (&cur)[IM_MAX_D], int i,
+                                        bool on_tile, float (&sat)[N], float& av, int kind,
+                                        float rate, int limit_on, float limit, int visit_col) {
 #pragma unroll
   for (int j = 0; j < N; ++j)
     if (j == i && on_tile) L.visits[j][visit_col] += 1;
   const bool got = on_tile && av > 0.f;
   if (!got) return;
-  add_rv<N>(rew, p, i, kind);
+  add_rv(cur, p, G, rv, kind);
   if (p.penalise) put(sat, i, get(sat, i) + fminf(av, rate));
   if (limit_on && get(sat, i) > 0.f) put(sat, i, fminf(limit, get(sat, i)));
   av = fmaxf(0.f, av - rate);
@@ -358,18 +518,17 @@ __device__ __forceinline__ void consume(const ImParams& p, ImLane<N>& L,
 
 // Homeostasis of one satiation: the deficiency term, then the
 // oversatiation term, as counts or proportional to the satiation.
-template <int N>
-__device__ __forceinline__ void homeo(const ImParams& p, float (&rew)[N][IM_MAX_D], int i,
-                                      float sat_i, float def_thresh, float over_thresh,
-                                      int def_kind, int over_kind) {
+__device__ __forceinline__ void homeo(const ImParams& p, const Grp& G, const float* rv,
+                                      float (&cur)[IM_MAX_D], float sat_i, float def_thresh,
+                                      float over_thresh, int def_kind, int over_kind) {
   const bool deficient = sat_i < def_thresh;
   if (deficient) {
-    if (p.proportional) add_rv_scaled<N>(rew, p, i, def_kind, -sat_i);
-    else add_rv<N>(rew, p, i, def_kind);
+    if (p.proportional) add_rv_scaled(cur, p, G, rv, def_kind, -sat_i);
+    else add_rv(cur, p, G, rv, def_kind);
   }
   if (p.penalise && sat_i > over_thresh && !deficient) {
-    if (p.proportional) add_rv_scaled<N>(rew, p, i, over_kind, sat_i);
-    else add_rv<N>(rew, p, i, over_kind);
+    if (p.proportional) add_rv_scaled(cur, p, G, rv, over_kind, sat_i);
+    else add_rv(cur, p, G, rv, over_kind);
   }
 }
 
@@ -390,15 +549,23 @@ __device__ __forceinline__ void regrow(const ImParams& p, const float (&codes)[N
   fr = af2 - ni;
 }
 
-// One full multi-agent step of one lane: auto-reset, policy features and
-// action draws, agent order, every agent's sub-step, finalize. MODE selects
-// the policy; with POL_MLP the step's trajectory record goes to traj[step].
+// Whether this thread of the group stores record element e.
+__device__ __forceinline__ bool stores(const Grp& G, int e) { return (e & (G.g - 1)) == G.t; }
+
+// One full multi-agent step of one lane by its group: auto-reset, policy
+// features and action draws, agent order, every agent's sub-step,
+// finalize. MODE selects the policy; with POL_MLP the step's trajectory
+// record goes to traj[step].
 template <int N, int MODE>
-__device__ __forceinline__ void im_step(const ImParams& p, ImLane<N>& L, int b,
-                                        const agw::Mlp& mlp, int step) {
+__device__ __forceinline__ void im_step(const ImParams& p, const Grp& G, const ImView& V,
+                                        ImLane<N>& L, int b, int step) {
   const size_t sB = static_cast<size_t>(p.B);
   const int SL = p.stat_lanes;
   const int sl = SL == 1 ? 0 : b;
+  const float* rv = V.rv;
+
+  float u_act[N], u_ord[N];
+  step_draws<N>(p, G, L.key_hi, L.key_lo, L.ctr, u_act, u_ord);
 
   // ---- auto-reset lanes whose episode ended last step, into the layout of
   // the new episode (_pool_select: ep_idx % K after the increment)
@@ -406,9 +573,7 @@ __device__ __forceinline__ void im_step(const ImParams& p, ImLane<N>& L, int b,
 #pragma unroll
   for (int j = 0; j < N; ++j) over = over && (L.types[j] == LAST || L.types[j] == DEAD);
   if (over && p.pool > 1) L.ep_idx += 1;
-  const int li = p.pool > 1 ? ((L.ep_idx % p.pool) + p.pool) % p.pool : 0;
-  const float* wall = p.wall[li];
-  const float* sboard = p.sboard[li];
+  const int li = layout_of(p, L.ep_idx);
   if (over) {
 #pragma unroll
     for (int j = 0; j < N; ++j) {
@@ -429,18 +594,28 @@ __device__ __forceinline__ void im_step(const ImParams& p, ImLane<N>& L, int b,
     L.dfr = 0.f;
     L.ffr = 0.f;
     L.t = 0;
+    if (im_per_lane(p) && p.pool > 1) copy_table(p, G, V.own, li, b);
   }
+  const uint32_t* tab = table_of(p, V, li);
 
   // ---- action draws (site 0), through the policy, and Fisher-Yates agent
   // order (site 1)
-  const uint32_t ctr0 = L.ctr * 2u;
   const int A = p.amax - p.amin + 1;
   float x[N][IM_F];
   if (MODE != POL_UNIFORM) policy_feats<N>(p, L, x);
+  float out[N][IM_MAX_A + 1];
+  if (MODE == POL_MLP) {
+    // The features' records first: x is then dead after the MLP.
+#pragma unroll
+    for (int e = 0; e < N * IM_F; ++e)
+      if (stores(G, e))
+        p.traj.feats[(static_cast<size_t>(step) * (N * IM_F) + e) * sB + b] = x[e / IM_F][e % IM_F];
+    agw::mlp_group_buf_rows<IM_F, N, IM_MAX_A>(V.mlp, A, x, V.hbuf, G.t, G.g, G.mask, out);
+  }
   int actions[N], order[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) {
-    const float u = agw::uniform01(agw::hash_u32(L.key_hi, L.key_lo, ctr0, j));
+    const float u = u_act[j];
     const float uA = u * static_cast<float>(A);
     int a = p.amin + static_cast<int>(floorf(uA));
     a = min(max(a, p.amin), p.amax);
@@ -453,14 +628,13 @@ __device__ __forceinline__ void im_step(const ImParams& p, ImLane<N>& L, int b,
     }
     if (MODE == POL_MLP) {
       float logp, value;
-      a = p.amin + agw::mlp_draw<IM_F, IM_MAX_A>(mlp, A, x[j], u, logp, value);
-      const size_t r = static_cast<size_t>(step) * N + j;
-#pragma unroll
-      for (int f = 0; f < IM_F; ++f)
-        p.traj.feats[(static_cast<size_t>(step) * (N * IM_F) + j * IM_F + f) * sB + b] = x[j][f];
-      p.traj.logp[r * sB + b] = logp;
-      p.traj.value[r * sB + b] = value;
-      p.traj.action[r * sB + b] = off ? -1 : a;
+      a = p.amin + agw::mlp_sample<IM_MAX_A>(out[j], A, u, logp, value);
+      if (stores(G, j)) {
+        const size_t r = static_cast<size_t>(step) * N + j;
+        p.traj.logp[r * sB + b] = logp;
+        p.traj.value[r * sB + b] = value;
+        p.traj.action[r * sB + b] = off ? -1 : a;
+      }
     }
     actions[j] = off ? -1 : a;
     order[j] = j;
@@ -468,7 +642,7 @@ __device__ __forceinline__ void im_step(const ImParams& p, ImLane<N>& L, int b,
   if (p.randomize && N > 1) {
 #pragma unroll
     for (int k = N - 1; k >= 1; --k) {
-      const float u = agw::uniform01(agw::hash_u32(L.key_hi, L.key_lo, ctr0 + 1u, k));
+      const float u = u_ord[k];
       const int jj = min(max(static_cast<int>(floorf(u * static_cast<float>(k + 1))), 0), k);
       const int vk = order[k], vj = get(order, jj);
       put(order, jj, vk);
@@ -480,61 +654,64 @@ __device__ __forceinline__ void im_step(const ImParams& p, ImLane<N>& L, int b,
 #pragma unroll
   for (int j = 0; j < N; ++j)
 #pragma unroll
-    for (int d = 0; d < IM_MAX_D; ++d) rew[j][d] = 0.f;
+    for (int s = 0; s < IM_MAX_D; ++s) rew[j][s] = 0.f;
 
-#pragma unroll
+  // The sub-steps, one after another: the loop stays rolled (a sub-step's
+  // code once, not N times), and the acting agent's reward row is copied
+  // out of rew, takes its terms in order and goes back before the drape.
+#pragma unroll 1
   for (int slot = 0; slot < N; ++slot) {
-    const int i = order[slot];
+    const int i = get(order, slot);
     const int a = get(actions, i);
     if (a < 0) {
       // A non-acting sub-step only refreshes the agent's cached tile value.
-      put(L.vcode, i, sboard[get(L.pos, i) * SL + sl]);
+      put(L.vcode, i, board_of(tab[get(L.pos, i) * IM_MOVES]));
       continue;
     }
     const bool is_quit = a == A_QUIT, is_noop = a == A_NOOP;
     const bool dead_i = get(L.reasons, i) != R_NONE;
     const bool active = !is_quit && !dead_i;
     L.t += 1;
+    float cur[IM_MAX_D];
+#pragma unroll
+    for (int s = 0; s < IM_MAX_D; ++s) {
+      cur[s] = rew[0][s];
+#pragma unroll
+      for (int j = 1; j < N; ++j)
+        if (j == i) cur[s] = rew[j][s];
+    }
 
-    // --- direction updates, from the facings at the sub-step's start
+    // --- direction updates, from the facings at the sub-step's start, and
+    // the move's column: one composed word per (action, facing)
     const int a_cl = min(a, 9);
-    const int dir_i = get(L.adir, i), odir_i = get(L.odir, i);
+    const uint32_t wa = V.dirw[a_cl * IM_FACINGS + facing_col(get(L.adir, i))];
     if (p.odm != 0) {
-      const int tab = p.odm == 1 ? ((p.adm == 1 || p.adm == 2) ? 1 : 0) : 2;
-      const int nod = table_sel(p, tab, a_cl, odir_i);
-      if (active) put(L.odir, i, nod);
+      const uint32_t wo = V.dirw[a_cl * IM_FACINGS + facing_col(get(L.odir, i))];
+      if (active) put(L.odir, i, static_cast<int>((wo >> DW_ODIR_SHIFT) & 0xFFu));
     }
-    int abs_action = a;
-    if (p.adm != 0) {
-      const int rel = table_sel(p, 1, a_cl, dir_i);
-      const int abs_move = p.dir_to_action[(rel >= 1 && rel <= 3) ? rel : 0];
-      abs_action = (a >= 1 && a <= 4) ? abs_move : a;
-      const int nad = table_sel(p, p.adm, a_cl, dir_i);
-      if (active) put(L.adir, i, nad);
-    }
+    if (p.adm != 0 && active) put(L.adir, i, static_cast<int>((wa >> DW_ADIR_SHIFT) & 0xFFu));
 
-    // --- the bounded move: board edges may be water, so the bounds are
-    // checked; every agent's cell blocks, dead or not
+    // --- the bounded move from the step table: the candidate, whether it
+    // is in bounds and no wall, and the board values of the candidate and
+    // of the cell itself; every agent's cell blocks, dead or not
     const int pos_i = get(L.pos, i);
-    const int r_i = pos_i / p.W, c_i = pos_i - (pos_i / p.W) * p.W;
-    const int cr = r_i + p.delta_r[abs_action], cc = c_i + p.delta_c[abs_action];
-    const bool inb = cr >= 0 && cr < p.H && cc >= 0 && cc < p.W;
-    const int cand = min(max(cr, 0), p.H - 1) * p.W + min(max(cc, 0), p.W - 1);
+    const uint32_t w = tab[pos_i * IM_MOVES + (wa & 0xFFu)];
+    const uint32_t w_stay = tab[pos_i * IM_MOVES];
+    const int cand = static_cast<int>(w & SW_CELL);
     bool occ = false;
 #pragma unroll
     for (int j = 0; j < N; ++j) occ = occ || (j != i && L.pos[j] == cand);
-    const bool wall_at = wall[cand * SL + sl] > 0.5f;
-    const bool moved = active && inb && !wall_at && !occ;
+    const bool moved = active && ((w >> SW_OK_BIT) & 1u) && !occ;
     const int np = moved ? cand : pos_i;
     put(L.pos, i, np);
     if (is_quit && !dead_i) put(L.reasons, i, static_cast<int>(R_QUIT));
 
-    const float v_at = sboard[np * SL + sl];
+    const float v_at = board_of(moved ? w : w_stay);
     put(L.vcode, i, v_at);
     float dw_at;
     const float code_at = code_of(v_at, dw_at);
 
-    if (active && !is_noop) add_rv<N>(rew, p, i, RV_MOVE);
+    if (active && !is_noop) add_rv(cur, p, G, rv, RV_MOVE);
     if (active) put(L.safety, i, static_cast<int>(dw_at));
 
     // --- satiation decrements and thirst/hunger death
@@ -544,40 +721,40 @@ __device__ __forceinline__ void im_step(const ImParams& p, ImLane<N>& L, int b,
     }
     if (p.thirst_death && active &&
         (get(L.dsat, i) <= p.drink_def_limit || get(L.fsat, i) <= p.food_def_limit)) {
-      add_rv<N>(rew, p, i, RV_THIRST);
+      add_rv(cur, p, G, rv, RV_THIRST);
       if (get(L.reasons, i) == R_NONE) put(L.reasons, i, static_cast<int>(R_TERMINATED));
     }
 
     // --- ultimate goal
     if (p.has_goal && active && code_at == static_cast<float>(T_GOAL)) {
-      add_rv<N>(rew, p, i, RV_FINAL);
+      add_rv(cur, p, G, rv, RV_FINAL);
       if (get(L.reasons, i) == R_NONE) put(L.reasons, i, static_cast<int>(R_TERMINATED));
     }
 
     // --- drink / food with scalar availability
     if (p.has_drink) {
       const bool on_t = active && code_at == static_cast<float>(T_DRINK);
-      consume<N>(p, L, rew, i, on_t, L.dsat, L.dav, RV_DRINK, p.drink_rate, p.drink_limit_on,
-                 p.drink_over_limit, 1);
-      if (active && !on_t) add_rv<N>(rew, p, i, RV_NON_DRINK);
+      consume<N>(p, G, rv, L, cur, i, on_t, L.dsat, L.dav, RV_DRINK, p.drink_rate,
+                 p.drink_limit_on, p.drink_over_limit, 1);
+      if (active && !on_t) add_rv(cur, p, G, rv, RV_NON_DRINK);
     }
     if (p.has_food) {
       const bool on_t = active && code_at == static_cast<float>(T_FOOD);
-      consume<N>(p, L, rew, i, on_t, L.fsat, L.fav, RV_FOOD, p.food_rate, p.food_limit_on,
-                 p.food_over_limit, 2);
-      if (active && !on_t) add_rv<N>(rew, p, i, RV_NON_FOOD);
+      consume<N>(p, G, rv, L, cur, i, on_t, L.fsat, L.fav, RV_FOOD, p.food_rate,
+                 p.food_limit_on, p.food_over_limit, 2);
+      if (active && !on_t) add_rv(cur, p, G, rv, RV_NON_FOOD);
     }
     if (p.has_gold && active && code_at == static_cast<float>(T_GOLD)) {
 #pragma unroll
       for (int j = 0; j < N; ++j)
         if (j == i) L.visits[j][3] += 1;
-      add_rv<N>(rew, p, i, RV_GOLD);
+      add_rv(cur, p, G, rv, RV_GOLD);
     }
     if (p.has_silver && active && code_at == static_cast<float>(T_SILVER)) {
 #pragma unroll
       for (int j = 0; j < N; ++j)
         if (j == i) L.visits[j][4] += 1;
-      add_rv<N>(rew, p, i, RV_SILVER);
+      add_rv(cur, p, G, rv, RV_SILVER);
     }
 
     // --- gap visit: the positions after the move
@@ -588,16 +765,22 @@ __device__ __forceinline__ void im_step(const ImParams& p, ImLane<N>& L, int b,
 #pragma unroll
       for (int j = 0; j < N; ++j)
         if (j == i) L.visits[j][0] += 1;
-      add_rv<N>(rew, p, i, RV_GAP);
+      add_rv(cur, p, G, rv, RV_GAP);
     }
 
     // --- homeostasis thresholds
     if (active && p.has_drink)
-      homeo<N>(p, rew, i, get(L.dsat, i), p.drink_def_thresh, p.drink_over_thresh, RV_DRINK_DEF,
-               RV_DRINK_OVER);
+      homeo(p, G, rv, cur, get(L.dsat, i), p.drink_def_thresh, p.drink_over_thresh,
+            RV_DRINK_DEF, RV_DRINK_OVER);
     if (active && p.has_food)
-      homeo<N>(p, rew, i, get(L.fsat, i), p.food_def_thresh, p.food_over_thresh, RV_FOOD_DEF,
-               RV_FOOD_OVER);
+      homeo(p, G, rv, cur, get(L.fsat, i), p.food_def_thresh, p.food_over_thresh, RV_FOOD_DEF,
+            RV_FOOD_OVER);
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (j == i) {
+#pragma unroll
+        for (int s = 0; s < IM_MAX_D; ++s) rew[j][s] = cur[s];
+      }
 
     // --- the water-death drape: every agent, from the cached tile codes;
     // the sub-step acts, so the penalty applies
@@ -611,7 +794,7 @@ __device__ __forceinline__ void im_step(const ImParams& p, ImLane<N>& L, int b,
 #pragma unroll
       for (int j = 0; j < N; ++j) {
         if (codes[j] == static_cast<float>(T_WATER)) {
-          add_rv<N>(rew, p, j, RV_DANGER);
+          add_rv(rew[j], p, G, rv, RV_DANGER);
           L.reasons[j] = R_TERMINATED;
         }
       }
@@ -642,63 +825,155 @@ __device__ __forceinline__ void im_step(const ImParams& p, ImLane<N>& L, int b,
 #pragma unroll
   for (int j = 0; j < N; ++j)
 #pragma unroll
-    for (int d = 0; d < IM_MAX_D; ++d) L.stats[j][d] = L.stats[j][d] + rew[j][d];
+    for (int s = 0; s < IM_MAX_D; ++s) {
+      if (s >= G.slots) break;
+      if (owns(p, G, s)) {
+        float* st = V.stats + j * p.D + G.t + G.g * s;
+        *st = *st + rew[j][s];
+      }
+    }
   L.ctr += 1u;
 
   if (MODE == POL_MLP) {
-    // Each agent's reward summed over the reward dims, in order; done flags.
+    // Each agent's reward summed over the reward dims in ascending order;
+    // a group's owners first write their dims to the lane's buffer (read
+    // before the next step's MLP syncs the group); done flags.
+    if (p.group > 1) {
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+#pragma unroll
+        for (int s = 0; s < IM_MAX_D / 2; ++s) {
+          if (s >= G.slots) break;
+          if (owns(p, G, s)) V.rbuf[j * p.D + G.t + G.g * s] = rew[j][s];
+        }
+      __syncwarp(G.mask);
+    }
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       float r = rew[j][0];
+      if (p.group == 1) {
 #pragma unroll
-      for (int d = 1; d < IM_MAX_D; ++d)
-        if (d < p.D) r = r + rew[j][d];
-      const size_t row = static_cast<size_t>(step) * N + j;
-      p.traj.reward[row * sB + b] = r;
-      p.traj.done[row * sB + b] = L.types[j] == LAST || L.types[j] == DEAD;
+        for (int d = 1; d < IM_MAX_D; ++d)
+          if (d < p.D) r = r + rew[j][d];
+      } else if (stores(G, j)) {
+        r = V.rbuf[j * p.D];
+        for (int d = 1; d < p.D; ++d) r = r + V.rbuf[j * p.D + d];
+      }
+      if (stores(G, j)) {
+        const size_t row = static_cast<size_t>(step) * N + j;
+        p.traj.reward[row * sB + b] = r;
+        p.traj.done[row * sB + b] = L.types[j] == LAST || L.types[j] == DEAD;
+      }
     }
   }
+}
+
+// Where a thread sits: thread G.t of its lane group, which is group
+// (tx mod 32) / g of its warp; a block of blockDim.x threads runs
+// blockDim.x / g lanes. Sets the group, the lane's index in its block and
+// its batch index, and returns whether the thread has a lane.
+__device__ __forceinline__ bool seat(const ImParams& p, Grp& G, int& lane_blk, int& b) {
+  const int wl = threadIdx.x & 31, g = p.group;
+  const int grp = wl / g;
+  G.t = wl & (g - 1);
+  G.g = g;
+  G.slots = (p.D + g - 1) / g;
+  G.mask = g == 32 ? 0xffffffffu : ((1u << g) - 1u) << (grp * g);
+  lane_blk = threadIdx.x / g;
+  b = blockIdx.x * (blockDim.x / g) + lane_blk;
+  return b < p.B;
+}
+
+// The block's shared tables, by all its threads: the reward vectors, the
+// direction words, the pool's shared step tables and K7's MLP weights.
+__device__ __forceinline__ void block_setup(const ImParams& p, const ImSmem& s, uint32_t* sm,
+                                            int hidden) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  float* f = reinterpret_cast<float*>(sm);
+  for (int i = tid; i < IM_N_RV * IM_MAX_D; i += nt) f[s.rv + i] = p.rv[i / IM_MAX_D][i % IM_MAX_D];
+  for (int i = tid; i < IM_ACTIONS * IM_FACINGS; i += nt)
+    sm[s.dirw + i] = p.dir_word[i / IM_FACINGS][i % IM_FACINGS];
+  if (!im_per_lane(p)) {
+    const int tw = p.HW * IM_MOVES;
+    for (int k = 0; k < p.pool; ++k)
+      for (int i = tid; i < tw; i += nt) sm[s.tables + k * tw + i] = p.steps[k][i];
+  }
+  if (hidden) {
+    const int H = hidden, A = p.amax - p.amin + 1, n_w1 = H * IM_F;
+    float* w = f + s.weights;
+    for (int i = tid; i < n_w1; i += nt) w[i] = p.mlp_w1[i];
+    for (int i = tid; i < H; i += nt) w[n_w1 + i] = p.mlp_b1[i];
+    for (int i = tid; i < (A + 1) * H; i += nt)
+      w[n_w1 + H + (i / H) * (H + 1) + i % H] = p.mlp_w2[i];
+    for (int i = tid; i <= A; i += nt) w[n_w1 + H + (A + 1) * (H + 1) + i] = p.mlp_b2[i];
+  }
+  __syncthreads();
+}
+
+// The lane's view of shared memory.
+template <int N>
+__device__ __forceinline__ ImView lane_view(const ImParams& p, const ImSmem& s, uint32_t* sm,
+                                            int lane_blk, int hidden) {
+  ImView V;
+  float* f = reinterpret_cast<float*>(sm);
+  const int H = hidden, A = p.amax - p.amin + 1;
+  V.rv = f + s.rv;
+  V.dirw = sm + s.dirw;
+  V.tables = sm + s.tables;
+  V.own = sm + s.tables + lane_blk * im_lane_table(p);
+  V.stats = f + s.lanes + lane_blk * s.per_lane;
+  V.hbuf = V.stats + N * p.D;
+  V.rbuf = V.hbuf + N * (H + 1 + A + 1);
+  const float* w = f + s.weights;
+  V.mlp = agw::Mlp{w, w + H * IM_F, w + H * IM_F + H, w + H * IM_F + H + (A + 1) * (H + 1), H};
+  return V;
 }
 
 // K6: n_steps steps of every lane, uniform or linear-policy actions.
 template <int N, int MODE>
 __global__ void __launch_bounds__(256) im_rollout_kernel(const __grid_constant__ ImParams p) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= p.B) return;
+  extern __shared__ uint32_t sm[];
+  const ImSmem s = im_smem(p, N, blockDim.x / p.group, 0);
+  block_setup(p, s, sm, 0);
+  Grp G;
+  int lane_blk, b;
+  if (!seat(p, G, lane_blk, b)) return;
+  const ImView V = lane_view<N>(p, s, sm, lane_blk, 0);
   ImLane<N> L;
-  load_lane<N>(p, b, L);
-  const agw::Mlp no_mlp{nullptr, nullptr, nullptr, nullptr, 0};
-  for (int step = 0; step < p.n_steps; ++step) im_step<N, MODE>(p, L, b, no_mlp, step);
-  store_lane<N>(p, b, L);
+  load_lane<N>(p, G, V, b, L);
+  if (im_per_lane(p)) copy_table(p, G, V.own, layout_of(p, L.ep_idx), b);
+  for (int step = 0; step < p.n_steps; ++step) im_step<N, MODE>(p, G, V, L, b, step);
+  store_lane<N>(p, G, V, b, L);
 }
 
 // K7: n_steps MLP-policy steps of every lane with the trajectory streamed
 // out, then the bootstrap value of the final state (no auto-reset).
 template <int N>
 __global__ void __launch_bounds__(256) im_collect_kernel(const __grid_constant__ ImParams p) {
-  extern __shared__ float smem[];
-  const int tile = blockDim.x;
-  const int tx = threadIdx.x;
-  const int b = blockIdx.x * tile + tx;
-  const int H = p.hidden, A = p.amax - p.amin + 1;
-  const int n_w1 = H * IM_F, n_w2 = (A + 1) * H;
-  float* w = smem;  // w1 [H*F], b1 [H], w2 [(A+1)*H], b2 [A+1]
-  for (int k = tx; k < n_w1; k += tile) w[k] = p.mlp_w1[k];
-  for (int k = tx; k < H; k += tile) w[n_w1 + k] = p.mlp_b1[k];
-  for (int k = tx; k < n_w2; k += tile) w[n_w1 + H + k] = p.mlp_w2[k];
-  for (int k = tx; k <= A; k += tile) w[n_w1 + H + n_w2 + k] = p.mlp_b2[k];
-  __syncthreads();
-  if (b >= p.B) return;
-  const agw::Mlp mlp{w, w + n_w1, w + n_w1 + H, w + n_w1 + H + n_w2, H};
-
+  extern __shared__ uint32_t sm[];
+  const ImSmem s = im_smem(p, N, blockDim.x / p.group, p.hidden);
+  block_setup(p, s, sm, p.hidden);
+  Grp G;
+  int lane_blk, b;
+  if (!seat(p, G, lane_blk, b)) return;
+  const ImView V = lane_view<N>(p, s, sm, lane_blk, p.hidden);
   ImLane<N> L;
-  load_lane<N>(p, b, L);
-  for (int step = 0; step < p.n_steps; ++step) im_step<N, POL_MLP>(p, L, b, mlp, step);
-  float x[N][IM_F];
+  load_lane<N>(p, G, V, b, L);
+  if (im_per_lane(p)) copy_table(p, G, V.own, layout_of(p, L.ep_idx), b);
+  for (int step = 0; step < p.n_steps; ++step) im_step<N, POL_MLP>(p, G, V, L, b, step);
+  const int A = p.amax - p.amin + 1;
+  float x[N][IM_F], out[N][IM_MAX_A + 1];
   policy_feats<N>(p, L, x);
+  agw::mlp_group_buf_rows<IM_F, N, IM_MAX_A>(V.mlp, A, x, V.hbuf, G.t, G.g, G.mask, out);
 #pragma unroll
-  for (int j = 0; j < N; ++j) p.traj.boot[j * p.B + b] = agw::mlp_value<IM_F>(mlp, A, x[j]);
-  store_lane<N>(p, b, L);
+  for (int j = 0; j < N; ++j) {
+    float v = out[j][0];
+#pragma unroll
+    for (int a = 1; a <= IM_MAX_A; ++a)
+      if (a == A) v = out[j][a];
+    if (stores(G, j)) p.traj.boot[j * p.B + b] = v;
+  }
+  store_lane<N>(p, G, V, b, L);
 }
 
 template <typename Kernel>
@@ -707,34 +982,39 @@ static cudaError_t launch(Kernel kernel, const ImParams& p, int tile, size_t sme
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  const int blocks = (p.B + tile - 1) / tile;
+  const int lanes = tile / p.group;
+  const int blocks = (p.B + lanes - 1) / lanes;
   kernel<<<blocks, tile, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int N>
 static cudaError_t launch_rollout(const ImParams& p, int tile, cudaStream_t s) {
-  return p.pol_w ? launch(im_rollout_kernel<N, POL_LINEAR>, p, tile, 0, s)
-                 : launch(im_rollout_kernel<N, POL_UNIFORM>, p, tile, 0, s);
+  const size_t smem = 4 * static_cast<size_t>(im_smem(p, N, tile / p.group, 0).words);
+  return p.pol_w ? launch(im_rollout_kernel<N, POL_LINEAR>, p, tile, smem, s)
+                 : launch(im_rollout_kernel<N, POL_UNIFORM>, p, tile, smem, s);
 }
 
 template <int N>
 static cudaError_t launch_collect(const ImParams& p, int tile, cudaStream_t s) {
-  const size_t A = p.amax - p.amin + 1, H = p.hidden;
-  const size_t n_w = H * IM_F + H + (A + 1) * H + (A + 1);
-  return launch(im_collect_kernel<N>, p, tile, 4 * n_w, s);
+  const size_t smem = 4 * static_cast<size_t>(im_smem(p, N, tile / p.group, p.hidden).words);
+  return launch(im_collect_kernel<N>, p, tile, smem, s);
 }
 
-static bool valid(const ImParams* p) {
+// The shape limits, and the block: tile threads, a multiple of 32 in
+// [32, 256], in lane groups of a power of two threads.
+static bool valid(const ImParams* p, int tile) {
+  const int g = p->group;
   return p->D >= 1 && p->D <= IM_MAX_D && p->pool >= 1 && p->pool <= IM_MAX_POOL &&
-         p->amin >= 0 && p->amax <= 9 && p->amax - p->amin + 1 <= IM_MAX_A &&
-         (p->stat_lanes == 1 || p->stat_lanes == p->B);
+         p->amin >= 0 && p->amax <= 9 && p->amax - p->amin + 1 <= IM_MAX_A && p->HW >= 1 &&
+         p->HW <= IM_MAX_HW && (p->stat_lanes == 1 || p->stat_lanes == p->B) && g >= 1 &&
+         g <= 32 && (g & (g - 1)) == 0 && tile % 32 == 0 && tile >= 32 && tile <= 256;
 }
 
 extern "C" int fused_island_ma_rollout(const ImParams* p, int n_agents, int tile,
                                        void* stream) {
   if (p->n_steps <= 0 || p->B <= 0) return 0;
-  if (!valid(p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(p, tile)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_agents) {
     case 1: return static_cast<int>(launch_rollout<1>(*p, tile, s));
@@ -748,7 +1028,7 @@ extern "C" int fused_island_ma_rollout(const ImParams* p, int n_agents, int tile
 extern "C" int fused_island_ma_collect(const ImParams* p, int n_agents, int tile,
                                        void* stream) {
   if (p->B <= 0) return 0;
-  if (!valid(p) || p->hidden < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(p, tile) || p->hidden < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_agents) {
     case 1: return static_cast<int>(launch_collect<1>(*p, tile, s));

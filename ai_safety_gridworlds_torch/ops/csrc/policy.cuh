@@ -199,6 +199,74 @@ __device__ __forceinline__ float mlp_group_value(const Mlp& m, int A, const floa
   return out[A];
 }
 
+// _mlp_forward_agent for the NJ agents of one lane by its lane group of g
+// threads (a power of two, 1..32, whose threads mask names), through the
+// lane's buffer buf: hidden units [NJ][H + 1], then output rows
+// [NJ][A + 1]. Thread t forms hidden units k = t (mod g) of every agent
+// (as mlp_hidden: bias first, features ascending), two units at a time;
+// after a sync of the group, thread t
+// sums rows r = t (mod g) of the NJ * (A + 1) (agent r / (A + 1), row
+// r mod (A + 1)) from the buffer, two rows at a time, each bias first and
+// hidden units ascending, as mlp_draw does; after another, every thread
+// reads all rows into out (rows past A are 0). Here m.w2's rows lie H + 1
+// floats apart, as for mlp_warp_rows: it is this helper at g = 32 with the
+// rows read back.
+template <int F, int NJ, int MAX_A>
+__device__ __forceinline__ void mlp_group_buf_rows(const Mlp& m, int A, const float (&x)[NJ][F],
+                                                   float* buf, int t, int g, unsigned mask,
+                                                   float (&out)[NJ][MAX_A + 1]) {
+  const int ld = m.H + 1, nr = NJ * (A + 1);
+  float* obuf = buf + NJ * ld;
+  __syncwarp(mask);  // the previous call's rows have been read
+  for (int k0 = t; k0 < m.H; k0 += 2 * g) {
+    // Units k0 and k0 + g of every agent from one read of their weights,
+    // stored after all are formed.
+    float hv[2][NJ];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int k = min(k0 + u * g, m.H - 1);
+      float w[F];
+#pragma unroll
+      for (int f = 0; f < F; ++f) w[f] = m.w1[k * F + f];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        float h = m.b1[k];
+#pragma unroll
+        for (int f = 0; f < F; ++f) h = h + w[f] * x[j][f];
+        hv[u][j] = fmaxf(h, 0.f);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      if (k0 + u * g < m.H) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) buf[j * ld + k0 + u * g] = hv[u][j];
+      }
+  }
+  __syncwarp(mask);
+  for (int r = t; r < nr; r += 2 * g) {
+    // Rows r and r + g (r again where r + g is past the last) side by side.
+    const int r2 = r + g < nr ? r + g : r;
+    const int j = r / (A + 1), a = r - j * (A + 1);
+    const int j2 = r2 / (A + 1), a2 = r2 - j2 * (A + 1);
+    const float *h = buf + j * ld, *w = m.w2 + a * ld;
+    const float *h2 = buf + j2 * ld, *w2 = m.w2 + a2 * ld;
+    float o = m.b2[a], o2 = m.b2[a2];
+#pragma unroll 8
+    for (int k = 0; k < m.H; ++k) {
+      o = o + w[k] * h[k];
+      o2 = o2 + w2[k] * h2[k];
+    }
+    obuf[r] = o;
+    obuf[r2] = o2;
+  }
+  __syncwarp(mask);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int a = 0; a <= MAX_A; ++a) out[j][a] = a <= A ? obuf[j * (A + 1) + a] : 0.f;
+}
+
 // The value head alone (_bootstrap_value): output row A in mlp_draw's order.
 template <int F>
 __device__ __forceinline__ float mlp_value(const Mlp& m, int A, const float (&x)[F]) {

@@ -71,6 +71,7 @@ from ai_safety_gridworlds_torch.ops.fused_base import (
     check_mlp_params,
     min_water_dist,
 )
+from ai_safety_gridworlds_torch.ops.fused_savanna import _H100_SCHEDULERS
 
 _I32 = torch.int32
 _F32 = torch.float32
@@ -124,8 +125,10 @@ def _read(board: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 class FusedIslandMa(FusedMaBase):
     """Packed batched island_navigation_ex_ma with a single-kernel rollout."""
 
-    # Lanes per block of the CUDA kernels (one thread per lane).
-    DEFAULT_TILE = 32
+    # Threads per block of the CUDA kernels, which run each lane on a group
+    # of g threads (``_lanes_per_group``), so a block holds ``tile // g``
+    # lanes; None sizes a block of 32 lanes (at most 256 threads).
+    DEFAULT_TILE = None
     # Per-agent policy features: normalised row and column, drink and food
     # satiation, drink and food availability, the action-direction one-hot.
     POLICY_FEATURES = 10
@@ -829,8 +832,20 @@ class FusedIslandMa(FusedMaBase):
 # ------------------------------------------------------------ CUDA kernels
 
 _MAX_N, _MAX_D, _MAX_A, _MAX_POOL = 4, 12, 5, 8
+# The step word's candidate field has 12 bits; on such a board the water
+# distance is below 4096, so the board value fits its 16 bits.
+_MAX_HW = 4096
+# Step-table columns (stay, then ActionsMo LEFT, RIGHT, UP, DOWN, whose ids
+# are 1..4) and direction-word columns (facings 0..3, then any other).
+_MOVES, _FACINGS, _N_ACTIONS = 5, 5, 10
+_SW_OK_BIT, _SW_BOARD_SHIFT = 12, 16
+_DW_ADIR_SHIFT, _DW_ODIR_SHIFT = 8, 16
 # Shared memory a block may take on sm_90 (bytes).
 _MAX_SMEM = 232448
+# Threads per lane (the lane group, g) of K6/K7: None lets
+# ``_lanes_per_group`` choose; chip_smoke.py's sweep and the card tests pin
+# values.
+_LANES_PER_GROUP = None
 _IM_FIELDS = FusedIslandMa.STATE_FIELDS + ("ep_idx",)
 
 
@@ -859,11 +874,11 @@ _IM_FLOATS = (
     "regrowth_exponent",
 )
 _IM_INTS = (
-    "B", "n_steps", "D", "HW", "H", "W", "adm", "odm", "randomize", "amin",
+    "B", "n_steps", "D", "HW", "W", "adm", "odm", "randomize", "amin",
     "amax", "max_iterations", "pool", "stat_lanes", "has_goal", "has_drink",
     "has_food", "has_gold", "has_silver", "has_water", "thirst_death",
     "penalise", "proportional", "sustainability", "drink_limit_on",
-    "food_limit_on",
+    "food_limit_on", "group",
 )
 
 
@@ -873,18 +888,14 @@ class _ImParams(ctypes.Structure):
     _fields_ = [
         ("inp", _ImState),
         ("out", _ImState),
-        ("wall", ctypes.c_void_p * _MAX_POOL),
-        ("sboard", ctypes.c_void_p * _MAX_POOL),
+        ("steps", ctypes.c_void_p * _MAX_POOL),
         ("pos0", ctypes.c_void_p * _MAX_POOL),
         ("vcode0", ctypes.c_void_p * _MAX_POOL),
         *[(k, ctypes.c_int) for k in _IM_INTS],
         *[(k, ctypes.c_float) for k in _IM_FLOATS],
         ("rv", (ctypes.c_float * _MAX_D) * len(REWARD_KINDS)),
         ("rv_on", ctypes.c_int * len(REWARD_KINDS)),
-        ("dir_tab", ((ctypes.c_int * 4) * 10) * 3),
-        ("dir_to_action", ctypes.c_int * 4),
-        ("delta_r", ctypes.c_int * 10),
-        ("delta_c", ctypes.c_int * 10),
+        ("dir_word", (ctypes.c_uint32 * _FACINGS) * _N_ACTIONS),
         *[(k, ctypes.c_float) for k in ("inv_w", "inv_hm1", "inv_wm1")],
         ("pol_w", ctypes.c_void_p),
         ("pol_b", ctypes.c_void_p),
@@ -907,6 +918,9 @@ def _island_lib():
         ]
         entry.restype = ctypes.c_int
     lib.im_params_size.restype = ctypes.c_int
+    lib.im_smem_bytes.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int]
+    lib.im_smem_bytes.restype = ctypes.c_int
     if lib.im_params_size() != ctypes.sizeof(_ImParams):
         raise RuntimeError(
             "ImParams layout differs between fused_island_ma.cu "
@@ -916,26 +930,98 @@ def _island_lib():
     return lib
 
 
+def _move_geometry(h: int, w: int):
+    """``(cand, inb)`` [HW, _MOVES] of the bounded move: each cell's
+    clamped candidate and whether the unclamped one lies on the board, for
+    the stay column and the four moves, as ``FusedIslandMa._step`` computes
+    them."""
+    cell = np.arange(h * w)
+    r, c = cell // w, cell % w
+    dr = ACTION_DELTAS_MO[:_MOVES, 0].reshape(1, -1)
+    dc = ACTION_DELTAS_MO[:_MOVES, 1].reshape(1, -1)
+    cr, cc = r[:, None] + dr, c[:, None] + dc
+    inb = (cr >= 0) & (cr < h) & (cc >= 0) & (cc < w)
+    cand = np.clip(cr, 0, h - 1) * w + np.clip(cc, 0, w - 1)
+    return cand, inb
+
+
+def _step_words(fused: FusedIslandMa) -> list:
+    """Each layout's step table, ``[stat_lanes, HW * _MOVES]`` uint32 (one
+    row a lane with per-lane layouts): the word of (cell, move column)
+    holds the clamped candidate cell (bits 0-11), whether the candidate is
+    in bounds and no wall (bit 12) and the static board value ``sboard``
+    at the candidate (bits 16-31). Column 0 stays, so its word holds the
+    cell's own board value. Raises ``ValueError`` where a board value is
+    no integer in [0, 65535]."""
+    cand, inb = _move_geometry(fused.h, fused.w)
+    st = fused._kstatics_np
+    out = []
+    for k in range(fused.layout_pool):
+        sfx = f"_p{k}" if k else ""
+        wall, sboard = st["wall" + sfx], st["sboard" + sfx]  # [HW, L]
+        sb = sboard[cand]  # [HW, _MOVES, L]
+        if not ((sb == np.round(sb)) & (sb >= 0) & (sb < 65536)).all():
+            raise ValueError("a static board value does not fit the step word")
+        ok = inb[:, :, None] & ~(wall[cand] > 0.5)
+        words = (cand[:, :, None].astype(np.uint32)
+                 | (ok.astype(np.uint32) << _SW_OK_BIT)
+                 | (sb.astype(np.uint32) << _SW_BOARD_SHIFT))
+        out.append(np.ascontiguousarray(
+            words.reshape(fused.HW * _MOVES, -1).T))
+    return out
+
+
+def _dir_words(fused: FusedIslandMa) -> np.ndarray:
+    """``[10, _FACINGS]`` uint32: the composed direction word of (action,
+    facing column; column 4 stands for any facing outside 0..3). Byte 0 is
+    the move's step-table column (the absolute action if it moves, else 0),
+    byte 1 the new action facing (``action_direction_mode`` != 0), byte 2
+    the new observation facing (``observation_direction_mode`` != 0), each
+    as ``FusedIslandMa._step`` derives it through ``_table_sel``."""
+    if fused.odm == 1:
+        otab = MODE_DIR_TABLES[1 if fused.adm in (1, 2) else 0]
+    else:
+        otab = MODE_DIR_TABLES[2]
+    words = np.zeros((_N_ACTIONS, _FACINGS), np.uint32)
+    for a in range(_N_ACTIONS):
+        for f in range(_FACINGS):
+            def sel(table):
+                return int(table[a, f]) if f < 4 else 0
+
+            abs_action = a
+            if fused.adm != 0 and 1 <= a <= 4:
+                rel = sel(MODE_DIR_TABLES[1])
+                abs_action = int(DIR_TO_ACTION_MO[rel if 1 <= rel <= 3 else 0])
+            move = abs_action if 1 <= abs_action <= 4 else 0
+            nad = sel(MODE_DIR_TABLES[fused.adm]) if fused.adm != 0 else 0
+            nod = sel(otab) if fused.odm != 0 else 0
+            words[a, f] = (move | nad << _DW_ADIR_SHIFT
+                           | nod << _DW_ODIR_SHIFT)
+    return words
+
+
 def _static_params(fused: FusedIslandMa, tables: dict) -> _ImParams:
-    """The static parameter block: the layout boards' device pointers (from
-    ``tables``, the device cache, which keeps them alive), the flags, the
-    float32 constants, the reward vectors, the direction and move tables
-    and the features' reciprocals. The state, policy, MLP and trajectory
-    pointers, B, n_steps and hidden are left at 0."""
+    """The static parameter block: the layouts' device pointers (from
+    ``tables``, the device cache, which keeps them alive: the step tables
+    under ``_k6_steps``), the flags, the float32 constants, the reward
+    vectors, the direction words and the features' reciprocals. The state,
+    policy, MLP and trajectory pointers, B, n_steps, group and hidden are
+    left at 0."""
     cfg, has = fused.cfg, fused.has
     K = fused.layout_pool
     p = _ImParams()
     for k in range(K):
         sfx = f"_p{k}" if k else ""
-        for name in ("wall", "sboard", "pos0", "vcode0"):
+        p.steps[k] = tables["_k6_steps"][k].data_ptr()
+        for name in ("pos0", "vcode0"):
             getattr(p, name)[k] = tables[name + sfx].data_ptr()
     ints = dict(
-        D=fused.D, HW=fused.HW, H=fused.h, W=fused.w, adm=fused.adm,
+        D=fused.D, HW=fused.HW, W=fused.w, adm=fused.adm,
         odm=fused.odm,
         randomize=int(bool(fused.env.randomize_agent_actions_order)),
         amin=fused.amin, amax=fused.amax,
         max_iterations=fused.max_iterations, pool=K,
-        stat_lanes=tables["wall"].shape[1],
+        stat_lanes=_stat_lanes(fused),
         has_goal=has["goal"], has_drink=has["drink"], has_food=has["food"],
         has_gold=has["gold"], has_silver=has["silver"],
         has_water=has["water"], thirst_death=fused.thirst_death,
@@ -978,14 +1064,10 @@ def _static_params(fused: FusedIslandMa, tables: dict) -> _ImParams:
             p.rv_on[r] = 1
             for d in range(fused.D):
                 p.rv[r][d] = float(vec[d, 0])
-    for m, table in enumerate(MODE_DIR_TABLES):
-        for a in range(10):
-            for d in range(4):
-                p.dir_tab[m][a][d] = int(table[a, d])
-    for d in range(4):
-        p.dir_to_action[d] = int(DIR_TO_ACTION_MO[d])
-    for a in range(10):
-        p.delta_r[a], p.delta_c[a] = (int(x) for x in ACTION_DELTAS_MO[a])
+    words = _dir_words(fused)
+    for a in range(_N_ACTIONS):
+        for f in range(_FACINGS):
+            p.dir_word[a][f] = int(words[a, f])
     # The features' reciprocals, rounded to float32 as the reference rounds
     # them (fused_base._pos_dir_feats).
     p.inv_w = _f32(1.0 / fused.w)
@@ -994,10 +1076,107 @@ def _static_params(fused: FusedIslandMa, tables: dict) -> _ImParams:
     return p
 
 
-def _check_launch(fused, S, n_steps, tile):
-    """The checks both kernels share; returns ``(device, B, n_steps)``.
-    Configurations the kernels lack raise ``NotImplementedError``, bad
-    inputs ``ValueError``, both before any launch."""
+def _stat_lanes(fused) -> int:
+    """1 when every lane shares the layouts, else B (per-lane layouts)."""
+    return fused._kstatics_np["wall"].shape[1]
+
+
+def _smem_bytes(fused: FusedIslandMa, g: int, threads: int,
+                hidden: int = 0) -> int:
+    """Shared memory of a K6 block (K7 with ``hidden`` MLP units) of
+    ``threads`` threads in g-thread lane groups, as ``im_smem`` in
+    ``csrc/fused_island_ma.cu`` lays it out (the card test holds them equal
+    through ``im_smem_bytes``): the reward vectors, the direction words, the
+    step tables (the pool's, or one a lane with per-lane layouts), K7's MLP
+    weights, and each lane's reward sums and K7's buffers of hidden units,
+    output rows and the step's rewards."""
+    lanes = threads // g
+    A = fused.amax - fused.amin + 1
+    table = fused.HW * _MOVES
+    words = len(REWARD_KINDS) * _MAX_D + _N_ACTIONS * _FACINGS
+    if _stat_lanes(fused) != 1:
+        words += lanes * (table | 1)  # lanes' tables an odd number apart
+    else:
+        words += fused.layout_pool * table
+    per_lane = fused.n * fused.D
+    if hidden:
+        words += (hidden * fused.POLICY_FEATURES + hidden
+                  + (A + 1) * (hidden + 1) + A + 1)
+        per_lane += fused.n * (hidden + 1 + A + 1 + fused.D)
+    return 4 * (words + lanes * (per_lane | 1))
+
+
+def _geometry(fused, g, tile, hidden=0):
+    """``(threads, shared bytes)`` of a K6/K7 block of g-thread lane groups:
+    ``tile`` threads, or by default a block of 32 lanes (at most 256
+    threads) halved while it does not fit the shared memory."""
+    threads = tile
+    if threads is None:
+        threads = min(256, 32 * g)
+        while threads > 32 and _smem_bytes(fused, g, threads, hidden) > _MAX_SMEM:
+            threads //= 2
+    return threads, _smem_bytes(fused, g, threads, hidden)
+
+
+# (largest g, least g, warps a scheduler) of the lane group of K6 and of K7
+# (chip_smoke.py's group-size sweep on the H100, PERF.md): K6 alone up to 4
+# warps a scheduler; K7 up to 2, and at least 2 threads a lane, whose warps
+# then hold 16 lanes' MLP buffers in place of 32.
+_GROUP_RANGE = {"rollout": (16, 1, 4), "collect": (16, 2, 2)}
+
+
+def _lanes_per_group(fused, B: int, tile=None, hidden: int = 0,
+                     schedulers: int = _H100_SCHEDULERS) -> int:
+    """g, the threads of the lane group that runs each lane of K6 (or of K7
+    with ``hidden`` MLP units), a power of two dividing 32, from the batch
+    ``B``, the mode and the agents' and reward dims' counts.
+
+    A lane's steps are one dependent chain, which its group runs together:
+    the reward rows (D dims) split over the g threads, and in K7 the MLP's
+    output rows (N agents x (A + 1)) and hidden units too; the scalar part
+    runs on all of them. The largest g of the mode's range
+    (``_GROUP_RANGE``), and no more than the split can use (D rounded up to
+    a power of two in K6, N (A + 1) in K7), whose ceil(B * g / 32) warps fit
+    the range's count to each of the card's ``schedulers``, and at least
+    the range's least g: more threads a lane shorten the chain while the
+    card has room for the warps, fewer keep the redundant scalar part small
+    once it has none. Then g doubles while a block of ``tile`` threads
+    (``_geometry``) does not fit the shared memory. ``_LANES_PER_GROUP``
+    pins g."""
+    g = _LANES_PER_GROUP
+    if g is None:
+        A = fused.amax - fused.amin + 1
+        top, least, per_scheduler = _GROUP_RANGE["collect" if hidden else "rollout"]
+        split = fused.n * (A + 1) if hidden else fused.D
+        top = min(top, 1 << (split - 1).bit_length())  # split's power of two
+        g = next((k for k in (16, 8, 4, 2)
+                  if k <= top and -(-B * k // 32) <= per_scheduler * schedulers),
+                 1)
+        g = max(g, least)
+    while g < 32 and _geometry(fused, g, tile, hidden)[1] > _MAX_SMEM:
+        g *= 2
+    return g
+
+
+def _block(fused, B, tile, hidden=0, schedulers=_H100_SCHEDULERS):
+    """``(g, threads, shared bytes)`` of a K6/K7 launch at batch ``B``;
+    raises ``ValueError`` when no lane group fits a block of ``tile``
+    threads."""
+    g = _lanes_per_group(fused, B, tile, hidden, schedulers)
+    threads, smem = _geometry(fused, g, tile, hidden)
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"the island_ma kernels' shared memory ({smem} bytes) does not "
+            f"fit a block of {threads} threads"
+        )
+    return g, threads, smem
+
+
+def _check_launch(fused, S, n_steps, tile, hidden=0):
+    """The checks both kernels share; returns ``(device, B, n_steps,
+    block)`` with ``block`` from ``_block``. Configurations the kernels
+    lack raise ``NotImplementedError``, bad inputs ``ValueError``, both
+    before any launch."""
     device = S["t"].device
     if device.type != "cuda":
         raise NotImplementedError(f"no island_ma kernel for {device}")
@@ -1014,24 +1193,38 @@ def _check_launch(fused, S, n_steps, tile):
         raise NotImplementedError(
             f"the island_ma kernels take a layout pool of at most {_MAX_POOL}"
         )
+    if fused.HW > _MAX_HW:
+        raise NotImplementedError(
+            f"the island_ma kernels take boards of at most {_MAX_HW} cells"
+        )
     if not fused._kstatics_np:
         raise ValueError("call init_packed before launching the kernels")
     B, n_steps = check_kernel_state(
-        fused, S, n_steps, tile, max(fused.HW, fused.n * fused.D, fused.n * 5)
+        fused, S, n_steps, 32 if tile is None else tile,
+        max(fused.HW, fused.n * fused.D, fused.n * 5),
     )
-    lanes = fused._kstatics_np["wall"].shape[1]
+    lanes = _stat_lanes(fused)
     if lanes not in (1, B):
         raise ValueError(
             f"per-lane layouts of {lanes} lanes do not match the batch {B}; "
             "init_packed drew them for another batch"
         )
-    return device, B, n_steps
+    if B * fused.HW * _MOVES >= 2**31:
+        raise ValueError(f"batch {B} too large for 32-bit indexing")
+    from ai_safety_gridworlds_torch.ops.fused_scalar import _schedulers
+
+    return device, B, n_steps, _block(fused, B, tile, hidden,
+                                      _schedulers(str(device)))
 
 
 def _params(fused, S, out, device) -> _ImParams:
     """A copy of the cached static block with this call's state pointers."""
     tables = fused._on(device)
     if "_k6_params" not in tables:
+        tables["_k6_steps"] = [
+            torch.from_numpy(w.view(np.int32)).to(device)
+            for w in _step_words(fused)
+        ]
         tables["_k6_params"] = _static_params(fused, tables)
     p = _ImParams.from_buffer_copy(tables["_k6_params"])
     for name in fused.STATE_FIELDS:
@@ -1042,17 +1235,21 @@ def _params(fused, S, out, device) -> _ImParams:
 
 
 def fused_island_ma_rollout(fused: FusedIslandMa, S: dict, n_steps: int,
-                            tile: int = FusedIslandMa.DEFAULT_TILE) -> dict:
+                            tile=FusedIslandMa.DEFAULT_TILE) -> dict:
     """Advance a packed CUDA state ``n_steps`` steps with one launch of K6
     (``csrc/fused_island_ma.cu``); returns a new state dict. The policy
     installed by ``set_policies`` at the time of the call picks the actions
     (K6's linear branch); without one the draws are uniform.
 
+    ``tile`` is the threads per block (a multiple of 32 in [32, 256]);
+    each lane runs on a group of ``_lanes_per_group`` threads, so a block
+    holds ``tile // g`` lanes. None sizes a block of 32 lanes.
+
     Checks every field's device, dtype, shape and contiguity and raises on
     what the kernel does not take; CPU tensors take the plain version."""
     if S["t"].device.type == "cpu":
         return fused.rollout_plain(S, n_steps)
-    device, B, n_steps = _check_launch(fused, S, n_steps, tile)
+    device, B, n_steps, block = _check_launch(fused, S, n_steps, tile)
     statics = fused._all_statics(device)
     fused._check_policy_batch(statics, B)
     out = {k: torch.empty_like(S[k]) for k in fused.STATE_FIELDS}
@@ -1069,10 +1266,11 @@ def fused_island_ma_rollout(fused: FusedIslandMa, S: dict, n_steps: int,
             setattr(p, k, statics[k].data_ptr())
         p.pol_lanes = statics["pol_w"].shape[1]
     p.n_steps = n_steps
+    p.group, threads, _ = block
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.fused_island_ma_rollout(
-            ctypes.byref(p), fused.n, int(tile), stream
+            ctypes.byref(p), fused.n, threads, stream
         )
     fused_island_ma_rollout.launches += 1
     _cuda.check(lib, err, "fused_island_ma_rollout launch")
@@ -1082,17 +1280,11 @@ def fused_island_ma_rollout(fused: FusedIslandMa, S: dict, n_steps: int,
 fused_island_ma_rollout.launches = 0
 
 
-def _collect_smem_bytes(fused: FusedIslandMa, hidden: int) -> int:
-    """K7's shared memory per block: the MLP's weights as float32."""
-    A = fused.amax - fused.amin + 1
-    return 4 * (hidden * fused.POLICY_FEATURES + hidden + (A + 1) * (hidden + 1))
-
-
 def fused_island_ma_collect(fused: FusedIslandMa, S: dict, params: dict,
-                            n_steps: int,
-                            tile: int = FusedIslandMa.DEFAULT_TILE):
+                            n_steps: int, tile=FusedIslandMa.DEFAULT_TILE):
     """The PPO collection: ``n_steps`` steps under the MLP policy
-    ``params`` with one launch of K7 (``csrc/fused_island_ma.cu``).
+    ``params`` with one launch of K7 (``csrc/fused_island_ma.cu``);
+    ``tile`` as for :func:`fused_island_ma_rollout`.
 
     Returns ``(S, traj, boot)`` as :meth:`FusedMaBase.rollout_collect`:
     ``traj[name]`` is ``[n_steps, rows, B]``, ``boot`` is ``[n, B]``.
@@ -1102,10 +1294,10 @@ def fused_island_ma_collect(fused: FusedIslandMa, S: dict, params: dict,
     take the plain version."""
     if S["t"].device.type == "cpu":
         return fused.rollout_collect_plain(S, params, n_steps)
-    device, B, n_steps = _check_launch(fused, S, n_steps, tile)
-    H = check_mlp_params(fused, params, device)
-    if _collect_smem_bytes(fused, H) > _MAX_SMEM:
-        raise ValueError(f"hidden {H} does not fit K7's shared memory")
+    if S["t"].device.type != "cuda":
+        raise NotImplementedError(f"no island_ma kernel for {S['t'].device}")
+    H = check_mlp_params(fused, params, S["t"].device)
+    device, B, n_steps, block = _check_launch(fused, S, n_steps, tile, H)
     out = {k: torch.empty_like(S[k]) for k in fused.STATE_FIELDS}
     traj = {
         name: torch.empty((n_steps, rows, B), dtype=dtype, device=device)
@@ -1122,10 +1314,11 @@ def fused_island_ma_collect(fused: FusedIslandMa, S: dict, params: dict,
         setattr(p.traj, name, traj[name].data_ptr())
     p.traj.boot = boot.data_ptr()
     p.n_steps, p.hidden = n_steps, H
+    p.group, threads, _ = block
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.fused_island_ma_collect(
-            ctypes.byref(p), fused.n, int(tile), stream
+            ctypes.byref(p), fused.n, threads, stream
         )
     fused_island_ma_collect.launches += 1
     _cuda.check(lib, err, "fused_island_ma_collect launch")

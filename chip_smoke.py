@@ -84,8 +84,11 @@ Phases, in order; any failure exits non-zero before the last line:
    oversatiation, proportional rewards) for 300,
    ``map_randomization_frequency=1, max_iterations=20`` with
    ``layout_pool=3`` for 200 steps, 100 steps from
-   ``interop.busy_island_ma_state``, and K6's linear branch over 200 steps
-   with numpy-seeded per-lane W, b and eps = 0.1;
+   ``interop.busy_island_ma_state``, the default config at a ragged
+   B = 4096 + 3 for 300, and K6's linear branch over 200 steps with
+   numpy-seeded per-lane W, b and eps = 0.1; each at the lane group
+   ``fused_island_ma._lanes_per_group`` picks and at 1, 2, 4, 8, 16 and 32
+   threads a lane;
 16. the island main path: ``BatchedEnv("island_navigation_ex_ma",
    batch_size=4096, device="cuda").rollout(256)`` three times with the
    launch counters set to 0 just before and read just after (K6 once per
@@ -93,7 +96,8 @@ Phases, in order; any failure exits non-zero before the last line:
    plain version's time, the bound and K6's time by lane count (4096,
    65536, 262144);
 17. K7 ``fused_island_ma_collect`` against the plain collection at B =
-   4096, T = 64, H = 64, teacher-forced and free-running, within phase 7's
+   4096, T = 64, H = 64, teacher-forced (at the picked lane group and at
+   1, 2, 4, 8, 16 and 32 threads a lane) and free-running, within phase 7's
    limits;
 18. the island training path: ``make_train_step(FusedIslandMa(
    IslandNavigationExMa()), FusedPPOConfig(n_steps=64, n_epochs=2,
@@ -211,7 +215,14 @@ Phases, in order; any failure exits non-zero before the last line:
    1, 2, 4, 8, 16 and 32, then at 1 with 8 lanes a warp (the other threads
    idle), then at the pick again (the two readings give the run's spread),
    every state bit-equal to the plain version's;
-35. one JSON line of kernel results: ``kernels`` holds K1 with its launches
+35. K6's and K7's lane groups: K6 per rollout(256) on the island main
+   path at B = 4096, 16384, 65536 and 262144 and K7 per collect(64),
+   H = 64, at B = 4096, 16384 and 65536, at the threads a lane
+   ``fused_island_ma._lanes_per_group`` picks there (first and last: the
+   run's spread), and at 1, 2, 4, 8, 16 and 32 between; every K6 state
+   bit-equal to the plain version's, every K7 output bit-equal to the
+   pick's; with the cycles a lane-step at the largest SM clock;
+36. one JSON line of kernel results: ``kernels`` holds K1 with its launches
    on the main path (phase 5) and on the policy-search check (phase 6), K3
    with its launches on the training path (phase 8), K4 with its launches on
    the scalar main paths (phases 11, 26 and 30, by path and env), K5 with
@@ -255,6 +266,19 @@ B = 4096 from ``init_packed(SEED, 4096)``, at the checkout's defaults.
 times K8 on FULL and FULL with sustainability and K9 on its default and
 FULL by threads a lane, as phase 34 does for the main paths, and prints
 one JSON line.
+
+    python3 chip_smoke.py --time-island ROOT
+
+times K6 (rollout(256): default, rich, layout_pool=3 and the linear
+policy at B = 4096; default at B = 65536 and 262144) and K7 (collect(64),
+H = 64, at B = 4096) with the port of the checkout at ROOT at its
+defaults, as one JSON line with the cycles a lane-step; run parent,
+change, change, parent in one call.
+
+    python3 chip_smoke.py --sweep-island
+
+runs phase 35's sweep of K6 and K7 by threads a lane and batch alone and
+prints one JSON line.
 """
 
 from __future__ import annotations
@@ -458,16 +482,22 @@ K7_REPLACES = (
 ISLAND_RICH = dict(level=3, sustainability_challenge=True,
                    thirst_hunger_death=True, penalise_oversatiation=True,
                    use_satiation_proportional_reward=True)
-# (label, env kwargs, layout pool, steps, start) of the K6 checks; "busy" is
-# interop.busy_island_ma_state(fused, SEED, BATCH).
+# (label, env kwargs, layout pool, steps, start, batch) of the K6 checks;
+# "busy" is interop.busy_island_ma_state(fused, SEED, BATCH).
 K6_CHECKS = (
-    ("default", {}, 1, 300, "init"),
-    ("rich", ISLAND_RICH, 1, 300, "init"),
+    ("default", {}, 1, 300, "init", BATCH),
+    ("rich", ISLAND_RICH, 1, 300, "init", BATCH),
     ("pool3", {"map_randomization_frequency": 1, "max_iterations": 20}, 3, 200,
-     "init"),
-    ("busy", {}, 1, 100, "busy"),
+     "init", BATCH),
+    ("busy", {}, 1, 100, "busy", BATCH),
 )
 ISLAND_SWEEP = (BATCH, 16 * BATCH, 64 * BATCH)
+# K6/K7's lane groups (threads per lane): phases 15 and 17 check them at each
+# of these, every size fused_island_ma._lanes_per_group can return.
+ISLAND_GROUPS = (1, 2, 4, 8, 16, 32)
+# Phase 35 and --sweep-island: the batches of K6's and K7's g x B sweeps.
+ISLAND_GROUP_BATCHES = (BATCH, 4 * BATCH, 16 * BATCH, 64 * BATCH)
+ISLAND_COLLECT_BATCHES = (BATCH, 4 * BATCH, 16 * BATCH)
 K8_REPLACES = (
     "ai_safety_gridworlds_tpu/ops/fused_base.py:432 (_rollout_pallas_call, "
     "pallas_call :491) x ai_safety_gridworlds_tpu/ops/fused_savanna.py:702 "
@@ -550,6 +580,32 @@ def log(msg=""):
 def fail(msg):
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def ptxas_use(text):
+    """{kernel<N[,MODE]>: registers and spill bytes} of each entry function
+    in an ``nvcc -Xptxas -v`` log."""
+    import re
+
+    use, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"entry function '_Z\d+(\w+?)ILi(\d)E(?:Li(\d)E)?E", line)
+        if m:
+            name = f"{m.group(1)}<{m.group(2)}" + (
+                f",{m.group(3)}>" if m.group(3) else ">")
+            use[name] = {"registers": None, "spill_stores": 0,
+                         "spill_loads": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            use[name]["spill_stores"] = int(m.group(1))
+            use[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            use[name]["registers"] = int(m.group(1))
+    return use
 
 
 def gpu_line():
@@ -767,7 +823,7 @@ def seeded_params(fused, dev, np):
     }, dev)
 
 
-def check_collect(label, fused, params, busy, dev, torch):
+def check_collect(label, fused, params, busy, dev, torch, pins=()):
     """A collection kernel against the plain collection (phases 7, 12, 17):
     teacher-forced, one kernel step from each plain state for COLLECT_STEPS
     steps from ``busy(SEED)``, then free-running COLLECT_STEPS steps from
@@ -775,35 +831,47 @@ def check_collect(label, fused, params, busy, dev, torch):
     lies within CDF_GAP of a cumulative softmax sum is exempt (at most
     MAX_EXEMPT_SHARE of the lane-steps); every other lane must agree in the
     state and the integer records, logp/value/boot within FLOAT_TOL, and at
-    most MAX_DIVERGED_SHARE of the lanes may diverge free-running. Returns
-    (largest logp/value/boot error, exempt lane-steps, exempt ones that
-    differed, {start: diverged lanes})."""
+    most MAX_DIVERGED_SHARE of the lanes may diverge free-running. Each
+    (name, run) of ``pins`` also takes every teacher-forced step (``run(fn)``
+    calls ``fn`` under its setting, a lane group), held to the same gate.
+    Returns (largest logp/value/boot error, exempt lane-steps, exempt ones
+    that differed at the default setting, {start: diverged lanes})."""
     S = busy(SEED)
     statics = fused._collect_statics(S, params)
     err_max, exempt, flipped = 0.0, 0, 0
+    runs = [("", lambda fn: fn())] + list(pins)
+    pin_err = {name: 0.0 for name, _ in runs}
     for k in range(COLLECT_STEPS):
-        Sk, tk, bk = fused.rollout_collect(S, params, 1)
         Sp, rec, ex = fused._collect_step(S, statics)
         bp = fused._bootstrap_value(Sp, statics)
         gap = (ex["pol"]["cdf_gap"] < CDF_GAP).any(dim=0)
         exempt += int(gap.sum())
         keep = ~gap
-        bad = lanes_differ(Sk, Sp, fused.STATE_FIELDS)
-        bad |= lanes_differ({n: tk[n][0] for n in rec}, rec,
-                            ("feats", "action", "reward", "done"))
-        if bool((bad & keep).any()):
-            fail(f"{label} step {k}: {int((bad & keep).sum())} non-exempt "
-                 "lanes differ")
-        flipped += int((bad & gap).sum())
-        err = max(
-            float((tk["logp"][0] - rec["logp"]).abs()[:, keep].max()),
-            float((tk["value"][0] - rec["value"]).abs().max()),
-            float((bk - bp).abs()[:, keep].max()),
-        )
-        if err > FLOAT_TOL:
-            fail(f"{label} step {k}: logp/value/boot error {err} > {FLOAT_TOL}")
-        err_max = max(err_max, err)
+        for name, run in runs:
+            Sk, tk, bk = run(lambda: fused.rollout_collect(S, params, 1))
+            bad = lanes_differ(Sk, Sp, fused.STATE_FIELDS)
+            bad |= lanes_differ({n: tk[n][0] for n in rec}, rec,
+                                ("feats", "action", "reward", "done"))
+            if bool((bad & keep).any()):
+                fail(f"{label} {name} step {k}: {int((bad & keep).sum())} "
+                     "non-exempt lanes differ")
+            if not name:
+                flipped += int((bad & gap).sum())
+            err = max(
+                float((tk["logp"][0] - rec["logp"]).abs()[:, keep].max()),
+                float((tk["value"][0] - rec["value"]).abs().max()),
+                float((bk - bp).abs()[:, keep].max()),
+            )
+            if err > FLOAT_TOL:
+                fail(f"{label} {name} step {k}: logp/value/boot error {err} > "
+                     f"{FLOAT_TOL}")
+            err_max = max(err_max, err)
+            pin_err[name] = max(pin_err[name], err)
         S = Sp
+    if pins:
+        log(f"{label} teacher-forced at " + ", ".join(
+            f"{name}: error {e}" for name, e in pin_err.items() if name)
+            + "; no non-exempt lane differed")
     lane_steps = BATCH * COLLECT_STEPS
     log(f"{label} teacher-forced over {COLLECT_STEPS} steps: {exempt} exempt "
         f"lane-steps of {lane_steps} (CDF margin < {CDF_GAP}), {flipped} of "
@@ -1404,6 +1472,102 @@ def island_acting(fused, S, n_steps, torch, params=None):
     return acting, S
 
 
+def with_island_group(g, fn):
+    """``fn()`` with K6/K7's lane group pinned to g threads a lane (None:
+    the pick of ``fused_island_ma._lanes_per_group``)."""
+    from ai_safety_gridworlds_torch.ops import fused_island_ma
+
+    fused_island_ma._LANES_PER_GROUP = g
+    try:
+        return fn()
+    finally:
+        fused_island_ma._LANES_PER_GROUP = None
+
+
+def island_pick(fused, batch, hidden=0):
+    """The lane group K6 (K7 with ``hidden``) picks at ``batch`` on this
+    card."""
+    import torch
+
+    from ai_safety_gridworlds_torch.ops import fused_island_ma
+    from ai_safety_gridworlds_torch.ops.fused_scalar import _schedulers
+
+    return fused_island_ma._lanes_per_group(
+        fused, batch, hidden=hidden,
+        schedulers=_schedulers(str(torch.device("cuda", 0))))
+
+
+def island_group_sweep(card, torch, collect=False, check=True):
+    """Phase 35 (and ``--sweep-island``): K6 per rollout(MAIN_STEPS) on the
+    island main path at ISLAND_GROUP_BATCHES, or with ``collect`` K7 per
+    collect(COLLECT_STEPS) at H = HIDDEN at ISLAND_COLLECT_BATCHES, with the
+    lane group ``fused_island_ma._lanes_per_group`` picks there first and
+    last (the two readings give the run's spread) and each of ISLAND_GROUPS
+    between. With ``check`` every K6 state is bit-equal to the plain
+    version's, and every K7 output (state, records, boot) bit-equal to the
+    pick's (phase 17 holds K7 at each g against the plain collection).
+    Returns {B: {g: [ms, ...]}} and logs the cycles a lane-step."""
+    import numpy as np
+
+    from ai_safety_gridworlds_torch.envs.island_navigation_ex_ma import (
+        IslandNavigationExMa,
+    )
+    from ai_safety_gridworlds_torch.ops.fused_island_ma import FusedIslandMa
+
+    dev = torch.device("cuda", 0)
+    kernel = "K7" if collect else "K6"
+    steps = COLLECT_STEPS if collect else MAIN_STEPS
+    mhz = sm_clock_max_mhz()
+    fused = FusedIslandMa(IslandNavigationExMa())
+    params = seeded_params(fused, dev, np) if collect else None
+    sweep = {}
+    for b in ISLAND_COLLECT_BATCHES if collect else ISLAND_GROUP_BATCHES:
+        S0 = fused.init_packed(SEED, b, dev)
+        if collect:
+            def run():
+                return fused.rollout_collect(S0, params, steps)
+        else:
+            def run():
+                return fused.rollout(S0, steps)
+        ref = fused.rollout_plain(S0, steps) if check and not collect else None
+        pick = island_pick(fused, b, HIDDEN if collect else 0)
+        times = {}
+        for g in (pick,) + ISLAND_GROUPS + (pick,):
+            if check:
+                got = with_island_group(g, run)
+                if collect:
+                    if ref is None:
+                        ref = got
+                    S_, traj, boot = got
+                    for name, x in {**S_, **traj, "boot": boot}.items():
+                        y = {**ref[0], **ref[1], "boot": ref[2]}[name]
+                        if x.is_floating_point():
+                            x, y = x.view(torch.int32), y.view(torch.int32)
+                        if not torch.equal(x.to(torch.int64), y.to(torch.int64)):
+                            fail(f"K7 {name} at g={g}, B={b} differs from "
+                                 f"g={pick}")
+                else:
+                    rollout_equal(f"K6 B={b} at g={g}", fused, got, ref, torch)
+                del got
+            times.setdefault(g, []).append(
+                with_island_group(g, lambda: cuda_ms(run, 3, torch)))
+        sweep[b] = times
+        first = times[pick]
+        log(f"{kernel} {'collect' if collect else 'rollout'}({steps}) at B={b} "
+            "by threads a lane: " + ", ".join(
+                f"{k}: " + " / ".join(f"{t:.3f}" for t in v)
+                for k, v in times.items())
+            + f" ms; the pick {pick}, its spread "
+            f"{abs(first[-1] - first[0]) / min(first):.2%}, "
+            f"{min(first) * 1e-3 * mhz * 1e6 / steps:.0f} cycles a lane-step at "
+            f"{mhz:.0f} MHz"
+            + ("; each equal to the plain version's" if check and not collect
+               else "; each equal to the pick's" if check else "")
+            + f"  [{card}]")
+        del S0, ref
+    return sweep
+
+
 def island_phases(torch, np, dev, card, reset_counts, counts):
     """Phases 15-19: K6 and K7 against their plain versions, the island main
     path with K6's lane sweep, the island training path and the island
@@ -1421,24 +1585,30 @@ def island_phases(torch, np, dev, card, reset_counts, counts):
     )
 
     # ---- 15. K6 against the plain rollout
-    log("== 15. K6 fused_island_ma_rollout vs plain rollout")
+    log("== 15. K6 fused_island_ma_rollout vs plain rollout, at the picked "
+        f"lane group and at {ISLAND_GROUPS} threads a lane")
     k6_err = 0.0
-    for label, kw, K, steps, start in K6_CHECKS:
+    for label, kw, K, steps, start, batch in K6_CHECKS + (
+            ("ragged", {}, 1, 300, "init", BATCH + 3),):
         fused = FusedIslandMa(IslandNavigationExMa(**kw))
         if start == "init":
-            S0 = fused.init_packed(SEED, BATCH, dev, layout_pool=K)
+            S0 = fused.init_packed(SEED, batch, dev, layout_pool=K)
         else:
             fused.layout_pool = K
-            S0 = interop.busy_island_ma_state(fused, SEED, BATCH, dev)
-        Sk = fused.rollout(S0, steps)
+            S0 = interop.busy_island_ma_state(fused, SEED, batch, dev)
         Sp = fused.rollout_plain(S0, steps)
-        k6_err = max(k6_err, rollout_equal(f"K6 {label}", fused, Sk, Sp, torch))
+        for g in (None,) + ISLAND_GROUPS:
+            Sk = with_island_group(g, lambda: fused.rollout(S0, steps))
+            k6_err = max(k6_err, rollout_equal(
+                f"K6 {label} at {g or 'the pick'}", fused, Sk, Sp, torch))
         eps = Sk["stats_episodes"] - S0["stats_episodes"]
         regrown = int((Sk["drink_frac"] != 0).sum() + (Sk["food_frac"] != 0).sum())
-        log(f"K6 {label}: {steps} steps equal in all {len(fused.STATE_FIELDS)} "
-            f"fields; episodes per lane {int(eps.min())}..{int(eps.max())}; "
-            f"reward sums {Sk['stats_rewards'].sum(dim=1).tolist()}; lanes "
-            f"with a regrowth fraction {regrown}")
+        log(f"K6 {label} (B={batch}): {steps} steps equal in all "
+            f"{len(fused.STATE_FIELDS)} fields at the pick "
+            f"(g={island_pick(fused, batch)}) and at every g; episodes per "
+            f"lane {int(eps.min())}..{int(eps.max())}; reward sums "
+            f"{Sk['stats_rewards'].sum(dim=1).tolist()}; lanes with a "
+            f"regrowth fraction {regrown}")
         if start == "init" and K == 1 and int(eps.min()) < 2:
             fail(f"K6 {label} did not cross two auto-resets")
         if label == "rich" and regrown == 0:
@@ -1453,16 +1623,19 @@ def island_phases(torch, np, dev, card, reset_counts, counts):
     fused.set_policies(rng.normal(size=(BATCH, A, F)).astype(np.float32),
                        rng.normal(size=(BATCH, A)).astype(np.float32), 0.1)
     S0 = fused.init_packed(SEED, BATCH, dev)
+    Sp = fused.rollout_plain(S0, POLICY_STEPS)
     pol_before = fused_island_ma_rollout.launches
-    Sk, Sp = fused.rollout(S0, POLICY_STEPS), fused.rollout_plain(S0, POLICY_STEPS)
-    k6_err = max(k6_err, rollout_equal("K6 linear policy", fused, Sk, Sp, torch))
+    for g in (None,) + ISLAND_GROUPS:
+        Sk = with_island_group(g, lambda: fused.rollout(S0, POLICY_STEPS))
+        k6_err = max(k6_err, rollout_equal(
+            f"K6 linear policy at {g or 'the pick'}", fused, Sk, Sp, torch))
     k6_pol_launches = fused_island_ma_rollout.launches - pol_before
     k6_linear_ms = cuda_ms(lambda: fused.rollout(S0, POLICY_STEPS), 3, torch)
     fused.set_policies(None, None)
     k6_uniform_ms = cuda_ms(lambda: fused.rollout(S0, POLICY_STEPS), 3, torch)
-    log(f"K6 linear policy: {POLICY_STEPS} steps equal in all fields; "
-        f"rollout({POLICY_STEPS}) at B={BATCH}: linear {k6_linear_ms:.3f} ms, "
-        f"uniform {k6_uniform_ms:.3f} ms  [{card}]")
+    log(f"K6 linear policy: {POLICY_STEPS} steps equal in all fields at the "
+        f"pick and at every g; rollout({POLICY_STEPS}) at B={BATCH}: linear "
+        f"{k6_linear_ms:.3f} ms, uniform {k6_uniform_ms:.3f} ms  [{card}]")
 
     # ---- 16. the island main path
     log("== 16. island main path: BatchedEnv('island_navigation_ex_ma', 4096, "
@@ -1525,6 +1698,8 @@ def island_phases(torch, np, dev, card, reset_counts, counts):
         "K7", fused, seeded_params(fused, dev, np),
         lambda seed: interop.busy_island_ma_state(fused, seed, BATCH, dev),
         dev, torch,
+        pins=[(f"g={g}", lambda fn, g=g: with_island_group(g, fn))
+              for g in ISLAND_GROUPS],
     )
 
     # ---- 18. the island training path
@@ -2128,6 +2303,74 @@ def time_savanna(root):
     print(json.dumps(out), flush=True)
 
 
+def sweep_island():
+    """K6 and K7 by threads a lane at each batch (``island_group_sweep``,
+    each state checked as in phase 35); one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false; this sweep needs a card")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    card = gpu_line()
+    out = {"card": card, "sm_clock_max_mhz": sm_clock_max_mhz()}
+    out["k6"] = island_group_sweep(card, torch)
+    out["k7"] = island_group_sweep(card, torch, collect=True)
+    print(json.dumps(out), flush=True)
+
+
+def time_island(root):
+    """K6 per rollout(MAIN_STEPS) on the default, rich and pool3 configs and
+    with a numpy-seeded per-lane linear policy at B = BATCH, K7 per
+    collect(COLLECT_STEPS) at H = HIDDEN at B = BATCH, and K6 on the
+    default config at 16 and 64 times BATCH, each from
+    ``init_packed(SEED, B)`` with the port imported from the checkout at
+    ``root`` at that checkout's defaults; one JSON line of milliseconds,
+    with the cycles a lane-step at the largest SM clock."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false; this timing needs a card")
+    sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
+
+    from ai_safety_gridworlds_torch.envs.island_navigation_ex_ma import (
+        IslandNavigationExMa,
+    )
+    from ai_safety_gridworlds_torch.ops.fused_island_ma import FusedIslandMa
+
+    dev = torch.device("cuda", 0)
+    mhz = sm_clock_max_mhz()
+    out = {"root": os.path.abspath(root), "card": gpu_line(),
+           "sm_clock_max_mhz": mhz, "k6": {}, "k7": {}, "cycles": {}}
+    for label, kw, K, _, _, _ in K6_CHECKS[:3] + (
+            ("linear", {}, 1, 0, "init", BATCH),):
+        fused = FusedIslandMa(IslandNavigationExMa(**kw))
+        S0 = fused.init_packed(SEED, BATCH, dev, layout_pool=K)
+        if label == "linear":
+            A, F = fused.amax - fused.amin + 1, fused.POLICY_FEATURES
+            rng = np.random.default_rng(SEED)
+            fused.set_policies(
+                rng.normal(size=(BATCH, A, F)).astype(np.float32),
+                rng.normal(size=(BATCH, A)).astype(np.float32), 0.1)
+        out["k6"][label] = cuda_ms(lambda: fused.rollout(S0, MAIN_STEPS), 5,
+                                   torch)
+    fused = FusedIslandMa(IslandNavigationExMa())
+    S0 = fused.init_packed(SEED, BATCH, dev)
+    params = seeded_params(fused, dev, np)
+    out["k7"]["default"] = cuda_ms(
+        lambda: fused.rollout_collect(S0, params, COLLECT_STEPS), 5, torch)
+    for b in ISLAND_SWEEP[1:]:
+        S_b = fused.init_packed(SEED, b, dev)
+        out["k6"][f"default@{b}"] = cuda_ms(
+            lambda: fused.rollout(S_b, MAIN_STEPS), 5, torch)
+        del S_b
+    for k, ms in out["k6"].items():
+        out["cycles"]["k6_" + k] = ms * 1e-3 * mhz * 1e6 / MAIN_STEPS
+    out["cycles"]["k7_default"] = (out["k7"]["default"] * 1e-3 * mhz * 1e6
+                                   / COLLECT_STEPS)
+    print(json.dumps(out), flush=True)
+
+
 def scalar_paths():
     """(label, name, env kwargs, rollout steps) of K4's 18 main paths
     (phases 11, 26 and 30)."""
@@ -2280,6 +2523,10 @@ def main():
         return time_savanna(sys.argv[2])
     if sys.argv[1:] == ["--sweep-savanna"]:
         return sweep_savanna()
+    if len(sys.argv) == 3 and sys.argv[1] == "--time-island":
+        return time_island(sys.argv[2])
+    if sys.argv[1:] == ["--sweep-island"]:
+        return sweep_island()
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke run needs a card")
@@ -2354,6 +2601,10 @@ def main():
             if any(k in line for k in ("registers", "spill", "smem",
                                        "entry function")):
                 log(f"  [{name}] {line.strip()}")
+    for kernel, use in ptxas_use(logs.get("fused_island_ma", "")).items():
+        log(f"ptxas {kernel}: {use['registers']} registers, "
+            f"{use['spill_stores']} / {use['spill_loads']} bytes spilled "
+            "(stores / loads)")
 
     # ---- 3. K2 against the plain PRF
     log("== 3. K2 prf_words vs plain hash_u32/uniform01")
@@ -2679,7 +2930,14 @@ def main():
     savanna_kernels[0]["threads_per_lane_ms"] = savanna_group_sweep(
         card, torch, SAVANNA_TIMED[:2])
 
-    # ---- 35. results
+    # ---- 35. K6's and K7's lane groups
+    log(f"== 35. K6 and K7 by threads a lane on the island main and training "
+        f"paths at B = {ISLAND_GROUP_BATCHES} / {ISLAND_COLLECT_BATCHES}")
+    island_kernels[0]["threads_per_lane_ms"] = island_group_sweep(card, torch)
+    island_kernels[1]["threads_per_lane_ms"] = island_group_sweep(
+        card, torch, collect=True)
+
+    # ---- 36. results
     k2_bound_ms, k2_bound_by = bound(24 * n_words, 24 * n_words)
     kernels = [{
         "name": "fused_firemaker_rollout", "route": "cuda",

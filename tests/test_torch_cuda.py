@@ -896,6 +896,78 @@ def test_island_collect_kernel_matches_plain(dev, start):
     torch.testing.assert_close(bk[:, keep], boot[:, keep], rtol=0, atol=1e-5)
 
 
+ISLAND_GROUPS = (1, 2, 4, 8, 16, 32)
+
+
+@pytest.mark.parametrize("case", ISLAND, ids=[c[0] for c in ISLAND])
+def test_island_rollout_kernel_matches_plain_at_every_group(dev, case,
+                                                            monkeypatch):
+    """K6 with g threads a lane, at the default block and at 64 threads."""
+    from ai_safety_gridworlds_torch.ops import fused_island_ma
+
+    _, kw, K, start = case
+    fused, S0 = _island(kw, K, start, dev)  # ragged: 200 lanes
+    Sp = fused.rollout_plain(S0, 60)
+    for g in ISLAND_GROUPS:
+        monkeypatch.setattr(fused_island_ma, "_LANES_PER_GROUP", g)
+        for tile in (None, 64):
+            Sk = fused.rollout(S0, 60, tile=tile)
+            for k in fused.STATE_FIELDS:
+                assert _equal(Sk[k], Sp[k]), (g, tile, k)
+
+
+@pytest.mark.parametrize("g", ISLAND_GROUPS)
+def test_island_collect_kernel_matches_plain_at_every_group(dev, g,
+                                                            monkeypatch):
+    from ai_safety_gridworlds_torch.ops import fused_island_ma
+
+    monkeypatch.setattr(fused_island_ma, "_LANES_PER_GROUP", g)
+    fused, S0 = _island({"max_iterations": 30}, 1, "busy", dev, B=256, seed=4)
+    params = _params(fused, dev)
+    Sk, tk, bk = fused.rollout_collect(S0, params, 40)
+    statics = fused._collect_statics(S0, params)
+    S, exempt = S0, torch.zeros(256, dtype=torch.bool, device=dev)
+    recs = []
+    for _ in range(40):
+        S, rec, ex = fused._collect_step(S, statics)
+        exempt |= (ex["pol"]["cdf_gap"] < 1e-6).any(dim=0)
+        recs.append(rec)
+    keep = ~exempt
+    assert int(exempt.sum()) <= 2
+    for k in fused.STATE_FIELDS:
+        assert _equal(Sk[k], S[k], keep), k
+    for k in ("feats", "action", "reward", "done"):
+        assert _equal(tk[k], torch.stack([r[k] for r in recs]), keep), k
+    for k in ("logp", "value"):
+        torch.testing.assert_close(
+            tk[k][..., keep], torch.stack([r[k] for r in recs])[..., keep],
+            rtol=0, atol=1e-5,
+        )
+    boot = fused._bootstrap_value(S, statics)
+    torch.testing.assert_close(bk[:, keep], boot[:, keep], rtol=0, atol=1e-5)
+
+
+def test_island_smem_bytes_match_the_library(dev):
+    import ctypes
+
+    from ai_safety_gridworlds_torch.ops import fused_island_ma
+
+    lib = fused_island_ma._island_lib()
+    for kw, K in (({}, 1), (ISLAND_RICH, 1),
+                  ({"map_randomization_frequency": 1}, 3),
+                  ({"level": 10, "amount_agents": 1}, 1)):
+        fused, S = _island(kw, K, "init", dev, B=64)
+        out = {k: torch.empty_like(S[k]) for k in fused.STATE_FIELDS}
+        p = fused_island_ma._params(fused, S, out, dev)
+        for g in ISLAND_GROUPS:
+            p.group = g
+            for threads in (32, 128, 256):
+                for hidden in (0, 64):
+                    assert lib.im_smem_bytes(ctypes.byref(p), fused.n, threads,
+                                             hidden) == \
+                        fused_island_ma._smem_bytes(fused, g, threads, hidden)
+
+
 def test_island_kernels_reject_bad_inputs(dev):
     fused, S = _island({"map_randomization_frequency": 1}, 1, "init", dev,
                        B=64)
