@@ -1,7 +1,8 @@
 """Action and direction enums and the dense direction tables.
 
-Port of ``ai_safety_gridworlds_tpu/core/actions.py``: the enums and the
-numpy tables the fused kernels read. All direction tables are
+Port of ``ai_safety_gridworlds_tpu/core/actions.py``: the enums, the
+numpy tables the fused kernels read, and the direction functions of the
+generic path on ``[B]`` tensors. All direction tables are
 ``[action_id 0..9, Directions 0..3] -> Directions``.
 """
 
@@ -10,6 +11,7 @@ from __future__ import annotations
 import enum
 
 import numpy as np
+import torch
 
 
 class Actions(enum.IntEnum):
@@ -69,6 +71,9 @@ ACTION_DELTAS_MO = _delta_table({
     int(ActionsMo.RIGHT): (0, 1),
 })
 
+# Direction unit vectors indexed by Directions id (LEFT, RIGHT, UP, DOWN).
+DIRECTION_DELTAS = np.array([(0, -1), (0, 1), (-1, 0), (1, 0)], dtype=np.int32)
+
 _L, _R, _U, _D = (int(d) for d in Directions)
 
 
@@ -112,3 +117,66 @@ DIR_TO_ACTION_MO = np.array(
 # Action-direction update table per mode: MODE_DIR_TABLES[mode][action, dir].
 # Mode 0 (fixed) keeps the direction for every action.
 MODE_DIR_TABLES = (_identity_dir_table(), REL_MOVE_DIR, REL_TURN_DIR)
+
+
+_TABLES = {0: MODE_DIR_TABLES[0], 1: MODE_DIR_TABLES[1],
+           2: MODE_DIR_TABLES[2], "turn": REL_TURN_DIR,
+           "dir_to_action": DIR_TO_ACTION_MO}
+# The tables as tensors, made once per device: a host-to-device copy in
+# every step would wait for the card's queue.
+_device_tables: dict = {}
+
+
+def _table(name, device) -> torch.Tensor:
+    key = (name, str(device))
+    if key not in _device_tables:
+        _device_tables[key] = torch.as_tensor(_TABLES[name], device=device)
+    return _device_tables[key]
+
+
+def _dir_lookup(table_name, proposed, current):
+    p = proposed.to(torch.int64).clamp(0, N_ACTION_IDS - 1)
+    return _table(table_name, proposed.device)[p, current.to(torch.int64)]
+
+
+def new_action_direction(proposed, current, mode: int):
+    """New facing after an action (``[B]`` int32): ``proposed`` is the
+    ``action_direction`` entry when given, else the step action. NOOP
+    keeps the facing in every mode."""
+    return _dir_lookup(mode, proposed, current)
+
+
+def new_observation_direction(
+    proposed, current, action_direction_mode: int,
+    observation_direction_mode: int,
+):
+    """New observation facing (``[B]`` int32). In observation mode 1 the
+    relative mapping consults the ACTION direction mode: a fixed action
+    mode leaves the observation facing unchanged, as in the reference."""
+    odm = observation_direction_mode
+    if odm == 0:
+        return current.to(torch.int32)
+    if odm == 1:
+        mode = 1 if action_direction_mode in (1, 2) else 0
+        return _dir_lookup(mode, proposed, current)
+    if odm == 2:
+        if action_direction_mode == 0:
+            raise NotImplementedError(
+                "observation mode 2 with fixed action mode"
+            )
+        return _dir_lookup("turn", proposed, current)
+    raise ValueError("observation_direction_mode")
+
+
+def absolute_move_action(step_action, action_direction, mode: int):
+    """The absolute move executed for a relative step action (``[B]``
+    int32): in modes 1/2 a LEFT/RIGHT/UP/DOWN step moves relative to the
+    current facing; turns and NOOP pass through (and move nothing)."""
+    a = step_action.to(torch.int32)
+    if mode == 0:
+        return a
+    is_move = (a >= int(ActionsMo.LEFT)) & (a <= int(ActionsMo.DOWN))
+    rel = _dir_lookup(1, a, action_direction)
+    return torch.where(
+        is_move, _table("dir_to_action", a.device)[rel.to(torch.int64)], a
+    )

@@ -1,12 +1,13 @@
 """ASCII-art map compiler: maps become static numpy tables on the host.
 
-Port of the parts of ``ai_safety_gridworlds_tpu/core/art.py`` that the
-ported environments read.
+Port of ``ai_safety_gridworlds_tpu/core/art.py``: boards as uint8 char
+codes, per-char masks and the 256-entry lookup tables that the step and
+render functions index with a board.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Sequence
+from typing import Iterable, Mapping, Sequence
 
 import numpy as np
 
@@ -32,9 +33,14 @@ def chars_mask(board: np.ndarray, chars: Iterable[str]) -> np.ndarray:
     return mask
 
 
+def positions_of(board: np.ndarray, char: str) -> np.ndarray:
+    """All (row, col) positions of ``char``, int32 [n, 2], row-major order."""
+    return np.argwhere(char_mask(board, char)).astype(np.int32).reshape(-1, 2)
+
+
 def position_of(board: np.ndarray, char: str) -> np.ndarray:
     """The unique (row, col) of ``char``; raises if not exactly one."""
-    pos = np.argwhere(char_mask(board, char)).astype(np.int32)
+    pos = positions_of(board, char)
     if pos.shape[0] != 1:
         raise ValueError(
             f"Expected exactly one {char!r} on the map, found {pos.shape[0]}."
@@ -49,3 +55,47 @@ def replace_chars(
     out = board.copy()
     out[chars_mask(board, chars)] = np.uint8(ord(what_lies_beneath))
     return out
+
+
+def char_lut(
+    mapping: Mapping[str, float], default: float = 0.0, dtype=np.float32
+) -> np.ndarray:
+    """Dense 256-entry lookup table from a char -> scalar mapping."""
+    lut = np.full((256,), default, dtype=dtype)
+    for char, value in mapping.items():
+        lut[ord(char)] = value
+    return lut
+
+
+def char_vector_lut(
+    mapping: Mapping[str, Sequence[float]],
+    width: int = 3,
+    default: float = 0.0,
+    dtype=np.float32,
+) -> np.ndarray:
+    """Dense [256, width] lookup table from a char -> vector mapping."""
+    lut = np.full((256, width), default, dtype=dtype)
+    for char, values in mapping.items():
+        lut[ord(char)] = np.asarray(values, dtype=dtype)
+    return lut
+
+
+def char_set_lut(chars: Iterable[str]) -> np.ndarray:
+    """Dense 256-entry bool table: True where the char code is in ``chars``."""
+    lut = np.zeros((256,), dtype=bool)
+    for c in chars:
+        lut[ord(c)] = True
+    return lut
+
+
+def rgb_lut_from_colours(
+    colours: Mapping[str, tuple[int, int, int]]
+) -> np.ndarray:
+    """[256, 3] uint8 LUT from pycolab-style 0..999 colour triples, scaled
+    as ``(value / 999 * 255).astype(uint8)``."""
+    lut = np.zeros((256, 3), dtype=np.uint8)
+    for char, rgb in colours.items():
+        lut[ord(char)] = (
+            np.asarray(rgb, dtype=np.float64) / 999.0 * 255.0
+        ).astype(np.uint8)
+    return lut

@@ -1,0 +1,145 @@
+"""JAX's threefry key chain in PyTorch, bit for bit.
+
+The JAX package's generic path draws with ``jax.random`` (threefry-2x32
+with ``jax_threefry_partitionable`` on, JAX's default since 0.5). The port
+reproduces the same key chain so that a port rollout equals a JAX rollout
+from the same seed: ``PRNGKey``, ``split``, ``fold_in``, ``random_bits``,
+``uniform``, ``randint`` and ``permutation``, each on a batch of keys.
+
+A key is a ``[..., 2]`` int64 tensor holding two uint32 words (PyTorch's
+``uint32`` lacks the shifts and the wrapping adds the hash needs); every
+function takes a batch of keys with any leading shape and draws for each
+key independently, as ``jax.vmap`` of the JAX function would. Every
+intermediate stays below 2**33, so int64 never overflows.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+_M = 0xFFFF_FFFF
+_I64 = torch.int64
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD1_1BDA
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The threefry-2x32 block cipher (20 rounds) on uint32 words held in
+    int64 tensors that broadcast together; returns the two output words.
+
+    Only ``x1`` must stay below 2**32 (its rotation shifts right); ``x0``
+    gathers carries above bit 31 (below 2**38 over the 20 rounds), which
+    addition mod 2**32 ignores, and is masked where it mixes into ``x1``
+    and at the end: one op a round fewer than masking every sum."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x0 = x1 + ks[0]
+    x1 = (x2 + ks[1]) & _M
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = x0 + x1
+            x1 = (((x1 << r) | (x1 >> (32 - r))) ^ x0) & _M
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M
+    return x0 & _M, x1
+
+
+def PRNGKey(seed: int, device=None) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` with 32-bit JAX: ``[0, seed mod 2**32]``."""
+    return torch.tensor([0, int(seed) & _M], dtype=_I64, device=device)
+
+
+def _iota_2x32(shape, device):
+    """The row-major flat index of ``shape`` as (high, low) uint32 words."""
+    n = math.prod(shape)
+    idx = torch.arange(n, dtype=_I64, device=device).reshape(shape)
+    return idx >> 32, idx & _M
+
+
+def _words(keys: torch.Tensor, shape):
+    """Both threefry output words of each key over the iota of ``shape``:
+    ``[*keys.shape[:-1], *shape]`` each."""
+    shape = tuple(shape)
+    lead = keys.shape[:-1]
+    view = lead + (1,) * len(shape)
+    k1 = keys[..., 0].reshape(view)
+    k2 = keys[..., 1].reshape(view)
+    hi, lo = _iota_2x32(shape, keys.device)
+    return threefry2x32(k1, k2, hi, lo)
+
+
+def split(keys: torch.Tensor, num=2) -> torch.Tensor:
+    """``jax.random.split`` of each key: ``[..., 2]`` -> ``[..., *num, 2]``."""
+    shape = (num,) if isinstance(num, int) else tuple(num)
+    b1, b2 = _words(keys, shape)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in`` of each key with its own ``data`` (an int or
+    a tensor that broadcasts to ``keys.shape[:-1]``, taken mod 2**32)."""
+    if isinstance(data, torch.Tensor):
+        data = data.to(device=keys.device, dtype=_I64) & _M
+    else:
+        data = int(data) & _M
+    b1, b2 = threefry2x32(keys[..., 0], keys[..., 1], 0, data)
+    return torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)
+
+
+def random_bits(keys: torch.Tensor, shape) -> torch.Tensor:
+    """32 random bits per element: ``[*keys.shape[:-1], *shape]`` uint32
+    values in int64 (the partitionable form: the two words XORed)."""
+    b1, b2 = _words(keys, shape)
+    return b1 ^ b2
+
+
+def uniform(keys: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` on [0, 1) in float32 for each
+    key."""
+    bits = random_bits(keys, shape)
+    fbits = ((bits >> 9) | 0x3F80_0000).to(torch.int32)
+    return fbits.view(torch.float32) - 1.0
+
+
+def randint(keys: torch.Tensor, shape, minval, maxval) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, int32)`` for each
+    key; ``minval`` and ``maxval`` are ints in the int32 range or tensors
+    that broadcast to the output."""
+    # Both halves' bits in one pass over the two split keys.
+    bits = random_bits(split(keys, 2), shape)
+    higher, lower = bits.unbind(dim=keys.dim() - 1)
+    if isinstance(minval, torch.Tensor) or isinstance(maxval, torch.Tensor):
+        lo = torch.as_tensor(minval, dtype=_I64, device=keys.device)
+        hi = torch.as_tensor(maxval, dtype=_I64, device=keys.device)
+        span = (hi - lo) & _M
+        span = torch.where(hi <= lo, torch.ones_like(span), span)
+    else:
+        lo, hi = int(minval), int(maxval)
+        span = 1 if hi <= lo else (hi - lo) & _M
+    multiplier = (1 << 16) % span
+    multiplier = ((multiplier * multiplier) & _M) % span
+    if isinstance(span, int) and span <= 1 << 16:
+        # No uint32 sum can wrap, nor can lo + offset (< maxval) leave the
+        # int32 range: the same values with fewer ops.
+        offset = ((higher % span) * multiplier + lower % span) % span
+        return (offset + lo).to(torch.int32)
+    offset = (((higher % span) * multiplier) & _M) + (lower % span)
+    offset = (offset & _M) % span
+    out = (lo + offset) & _M
+    return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
+
+
+def permutation(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` for each key: ``[..., n]`` int32,
+    rounds of a stable sort by fresh 32-bit words, as JAX's ``_shuffle``."""
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(_M))
+    x = torch.arange(n, dtype=torch.int32, device=keys.device).expand(
+        keys.shape[:-1] + (n,)
+    )
+    for _ in range(rounds):
+        k = split(keys, 2)
+        keys, sub = k[..., 0, :], k[..., 1, :]
+        order = torch.sort(random_bits(sub, (n,)), dim=-1, stable=True).indices
+        x = x.gather(-1, order)
+    return x.contiguous()

@@ -1,35 +1,39 @@
-"""One-call batched rollouts behind the fused kernel.
+"""One-call batched rollouts behind the fused kernel, or the generic path.
 
 Port of ``ai_safety_gridworlds_tpu/helpers/batched.py``:
 ``BatchedEnv(name, batch_size, device=...)`` resolves the registered env,
 asks :func:`ai_safety_gridworlds_torch.ops.make_fused` for its fused driver
-(firemaker_ex_ma, island_navigation_ex_ma, aintelope_savanna and every
-scalar env: each name the JAX ``make_fused`` routes; any other name raises
-``NotImplementedError``) and packs ``batch_size`` auto-resetting lanes on
-``device``. On a CUDA
-device every ``rollout`` is one launch of the hand-written kernel
+and packs ``batch_size`` auto-resetting lanes on ``device``. On a CUDA
+device every fused ``rollout`` is one launch of the hand-written kernel
 (``kernel == "fused_cuda"``); on the CPU it runs the plain PyTorch version
-(``kernel == "fused_torch"``). Nothing falls back to the CPU: asking for
-``device="cuda"`` without a CUDA device raises.
+(``kernel == "fused_torch"``).
 
-The generic vmapped path of the JAX package (``backend="generic"``) is not
-ported yet (``ROADMAP.md``, Queue A item 4) and raises.
+``backend="generic"``, and ``"auto"`` when no kernel takes the
+configuration (``make_fused`` gives ``None`` or ``init_packed`` refuses
+it; logged as a warning), run the generic batched path instead:
+``core.base.rollout`` or ``ma.safety_game_ma.ma_rollout`` in plain PyTorch
+on ``device`` (``kernel == "generic_torch"``), the per-env chain ported
+for boat_race, island_navigation and firemaker_ex_ma so far (any other
+name raises ``NotImplementedError``; ``ROADMAP.md`` lists the rest). The
+generic path is eager PyTorch, hundreds of small launches a step, and
+much slower than the fused kernels. Nothing falls back to the CPU: asking
+for ``device="cuda"`` without a CUDA device raises, and
+``backend="fused"`` never falls back.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Optional
 
 
 class BatchedEnv:
-    """A batch of auto-resetting environments behind the fused kernel.
+    """A batch of auto-resetting environments behind the fused kernel or
+    the generic path.
 
     ``BatchedEnv("firemaker_ex_ma", 4096).rollout(256)`` steps a uniform
-    random policy on every lane and returns per-call statistics.
-
-    ``backend`` mirrors the JAX signature and has no effect yet: ``"auto"``
-    and ``"fused"`` both select the fused path, the only one ported, and
-    ``"generic"`` raises until the generic path is ported.
+    random policy on every lane and returns per-call statistics; ``kernel``
+    says which path runs.
     """
 
     def __init__(
@@ -47,37 +51,73 @@ class BatchedEnv:
             raise ValueError(
                 f"backend must be auto|fused|generic, got {backend!r}"
             )
-        if backend == "generic":
-            raise NotImplementedError(
-                "the generic batched path is not ported yet, see ROADMAP.md"
-            )
         from ai_safety_gridworlds_torch import ops
-
-        self.device = ops.resolve_device(device)
         from ai_safety_gridworlds_torch.helpers import factory
 
+        self.device = ops.resolve_device(device)
         self.name = name
         self.batch_size = batch_size
         self.seed = seed
         self.tile = tile
         self.env = factory.get_raw_env(name, **env_kwargs)
-        self._fused = ops.make_fused(self.env)
-        self._S = self._fused.init_packed(seed, batch_size, self.device)
-        self._eps0 = 0
-        self._rew0 = self._reward_sums()
+        self._fused = None
+        if backend != "generic":
+            self._fused = ops.make_fused(self.env)
+        if backend == "fused" and self._fused is None:
+            raise NotImplementedError(
+                f"{name!r} has no fused kernel for this configuration"
+            )
+        if self._fused is not None:
+            try:
+                self._S = self._fused.init_packed(
+                    seed, batch_size, self.device
+                )
+            except (ValueError, NotImplementedError):
+                # A kernel exists for the env but its packer refuses this
+                # configuration (the layout and top-up checks raise these);
+                # on "auto" fall back loudly. Any other error, a CUDA one
+                # included, reaches the caller.
+                if backend == "fused":
+                    raise
+                logging.getLogger(__name__).warning(
+                    "fused kernel for %r rejected this configuration at "
+                    "init_packed; falling back to the generic path (much "
+                    "slower)", name, exc_info=True,
+                )
+                self._fused = None
+        if self._fused is not None:
+            self._eps0 = 0
+            self._rew0 = self._reward_sums()
+        else:
+            from ai_safety_gridworlds_torch.core import threefry
+            from ai_safety_gridworlds_torch.core.base import SafetyGridworld
+
+            if not isinstance(self.env, SafetyGridworld):
+                raise NotImplementedError(
+                    f"the generic path of {name!r} (its per-env step "
+                    "chain) is not ported yet, see ROADMAP.md"
+                )
+            self._key = threefry.PRNGKey(seed, self.device)
+        self._is_ma = hasattr(self.env, "n_agents")
 
     @property
     def kernel(self) -> str:
+        if self._fused is None:
+            return "generic_torch"
         return "fused_cuda" if self.device.type == "cuda" else "fused_torch"
 
     @property
     def state(self) -> dict:
         """The packed kernel state (dict of ``[rows, B]`` tensors)."""
+        if self._fused is None:
+            raise AttributeError(
+                "generic path keeps no persistent packed state"
+            )
         return self._S
 
     @property
     def fused(self):
-        """The fused kernel driver."""
+        """The fused kernel driver, or None on the generic path."""
         return self._fused
 
     def _reward_sums(self):
@@ -88,16 +128,49 @@ class BatchedEnv:
     def rollout(self, n_steps: int) -> dict:
         """Advance every lane ``n_steps`` env steps under a uniform-random
         policy and return PER-CALL aggregate statistics: ``episodes``
-        finished during this call, ``sum_rewards`` (observed-reward sums
-        over all lanes this call, one per agent and reward dimension), ``steps``
-        (``n_steps * batch_size``) and ``kernel``."""
-        self._S = self._fused.rollout(self._S, n_steps, tile=self.tile)
-        # The kernel's stats_* accumulate since init; report deltas so
-        # repeated calls do not double-count.
-        eps = int(self._S["stats_episodes"].sum())
-        rew = self._reward_sums()
-        stats = {"episodes": eps - self._eps0, "sum_rewards": rew - self._rew0}
-        self._eps0, self._rew0 = eps, rew
+        finished during this call, ``sum_rewards``, ``steps``
+        (``n_steps * batch_size``) and ``kernel``. On the fused path
+        ``sum_rewards`` sums the observed rewards of all lanes this call
+        (one per agent and reward dimension); on the generic path it sums
+        the final returns of the episodes that finished, and every call
+        starts fresh episodes from the next key, as JAX's generic path."""
+        if self._fused is not None:
+            self._S = self._fused.rollout(self._S, n_steps, tile=self.tile)
+            # The kernel's stats_* accumulate since init; report deltas so
+            # repeated calls do not double-count.
+            eps = int(self._S["stats_episodes"].sum())
+            rew = self._reward_sums()
+            stats = {
+                "episodes": eps - self._eps0, "sum_rewards": rew - self._rew0,
+            }
+            self._eps0, self._rew0 = eps, rew
+        else:
+            from ai_safety_gridworlds_torch.core import threefry
+
+            k = threefry.split(self._key)
+            self._key, sub = k[0], k[1]
+            if self._is_ma:
+                from ai_safety_gridworlds_torch.ma.safety_game_ma import (
+                    ma_rollout,
+                )
+
+                _, raw = ma_rollout(
+                    self.env, sub, n_steps, self.batch_size,
+                    device=self.device,
+                )
+                rewards = raw["sum_final_returns"]
+            else:
+                from ai_safety_gridworlds_torch.core.base import rollout
+
+                _, raw = rollout(
+                    self.env, sub, n_steps, self.batch_size,
+                    device=self.device,
+                )
+                rewards = raw["sum_final_return"]
+            stats = {
+                "episodes": int(raw["episodes"]),
+                "sum_rewards": rewards.cpu().numpy(),
+            }
         stats["steps"] = n_steps * self.batch_size
         stats["kernel"] = self.kernel
         return stats

@@ -4,8 +4,11 @@ CPU tensors.
 Port of ``ai_safety_gridworlds_tpu/ops/__init__.py``: the
 ``firemaker_ex_ma``, ``island_navigation_ex_ma`` and ``aintelope_savanna``
 kernels and the scalar shell with every body of the JAX package, so every
-name the JAX ``make_fused`` routes has its fused class here.
+name the JAX ``make_fused`` routes has its fused class here. The fused
+classes are also exported lazily (``ops.FusedFiremaker``, ...).
 """
+
+import logging
 
 import torch
 
@@ -43,33 +46,61 @@ def resolve_device(device) -> torch.device:
 
 
 def make_fused(env):
-    """The fused rollout driver for an env instance.
-
-    Raises ``NotImplementedError`` for envs without a fused kernel (the
-    port has no generic fallback path), and for configurations the kernel
-    does not support."""
+    """The fused rollout driver for an env instance, or ``None`` when the
+    env has no fused kernel or its fused class refuses the configuration
+    at construction (``NotImplementedError``); callers then run the
+    generic path. A refused configuration is logged as a warning: the
+    generic path is much slower. Refusals at launch (``_check_launch``,
+    ``_check_geometry``, ``mxu_stencil`` on CUDA) stay errors."""
     name = getattr(env, "name", None)
-    if name == "firemaker_ex_ma":
-        from ai_safety_gridworlds_torch.ops.fused_firemaker import (
-            FusedFiremaker,
+    try:
+        if name == "firemaker_ex_ma":
+            from ai_safety_gridworlds_torch.ops.fused_firemaker import (
+                FusedFiremaker,
+            )
+
+            return FusedFiremaker(env)
+        if name == "island_navigation_ex_ma":
+            from ai_safety_gridworlds_torch.ops.fused_island_ma import (
+                FusedIslandMa,
+            )
+
+            return FusedIslandMa(env)
+        if name == "aintelope_savanna":
+            from ai_safety_gridworlds_torch.ops.fused_savanna import (
+                FusedSavanna,
+            )
+
+            return FusedSavanna(env)
+        if name in _SCALAR:
+            from ai_safety_gridworlds_torch.ops import fused_scalar
+
+            return getattr(fused_scalar, _SCALAR[name])(env)
+    except NotImplementedError as e:
+        logging.getLogger(__name__).warning(
+            "%s has a fused kernel, but this configuration is not "
+            "supported by it (%s); falling back to the generic path "
+            "(much slower).", name, e,
         )
+    return None
 
-        return FusedFiremaker(env)
-    if name == "island_navigation_ex_ma":
-        from ai_safety_gridworlds_torch.ops.fused_island_ma import (
-            FusedIslandMa,
-        )
 
-        return FusedIslandMa(env)
-    if name == "aintelope_savanna":
-        from ai_safety_gridworlds_torch.ops.fused_savanna import FusedSavanna
+_LAZY = {
+    "FusedFiremaker": "fused_firemaker",
+    "FusedIslandMa": "fused_island_ma",
+    "FusedSavanna": "fused_savanna",
+}
 
-        return FusedSavanna(env)
-    if name in _SCALAR:
-        from ai_safety_gridworlds_torch.ops import fused_scalar
 
-        return getattr(fused_scalar, _SCALAR[name])(env)
-    raise NotImplementedError(
-        f"{name!r} has no fused kernel (the JAX package routes no other "
-        "name to one)"
-    )
+def __getattr__(name):
+    # The kernel classes, imported on first use (they pull in env modules).
+    import importlib
+
+    if name in _LAZY:
+        module = importlib.import_module(f"{__name__}.{_LAZY[name]}")
+        return getattr(module, name)
+    if name.startswith("Fused"):
+        fused_scalar = importlib.import_module(f"{__name__}.fused_scalar")
+        if hasattr(fused_scalar, name):
+            return getattr(fused_scalar, name)
+    raise AttributeError(name)

@@ -580,6 +580,44 @@ class FusedFiremaker(FusedMaBase):
             }
         return out
 
+    # ------------------------------------------------------------- interop
+
+    def unpack_lane(self, S: dict, lane: int):
+        """The packed lane as the generic path's ``FiremakerState``, a
+        batch of one lane on ``S``'s device (key ``PRNGKey(0)``, as JAX's
+        ``unpack_lane``)."""
+        from ai_safety_gridworlds_torch.core import threefry
+        from ai_safety_gridworlds_torch.envs.firemaker_ex_ma import (
+            FiremakerState,
+        )
+
+        n, h, w = self.n, self.h, self.w
+        dev = S["t"].device
+
+        def col(name):
+            return S[name][:, lane]
+
+        def dirs(name):
+            if name in S:
+                return col(name).to(_I32).view(1, n)
+            return torch.full((1, n), UP_DIR, dtype=_I32, device=dev)
+
+        pos = col("pos").to(_I32)
+        return FiremakerState(
+            t=col("t").to(_I32),
+            key=threefry.PRNGKey(0, dev).view(1, 2),
+            pos=torch.stack([pos // w, pos % w], dim=1).view(1, n, 2),
+            step_types=col("step_types").view(1, n),
+            termination_reasons=col("reasons").view(1, n),
+            action_direction=dirs("act_dir"),
+            observation_direction=dirs("obs_dir"),
+            fire=(col("fire") > 0.5).view(1, h, w),
+            countdown=col("countdown").to(_I32),
+            ext_fires=col("ext_fires").to(_I32),
+            is_at_workshop=(col("at_workshop") > 0.5).view(1, n),
+            visits=col("visits").view(1, n, 5),
+        )
+
     # ----------------------------------------------------------- CUDA path
 
     def _rollout_kernel(self, S, n_steps, tile):

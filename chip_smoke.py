@@ -222,7 +222,28 @@ Phases, in order; any failure exits non-zero before the last line:
    run's spread), and at 1, 2, 4, 8, 16 and 32 between; every K6 state
    bit-equal to the plain version's, every K7 output bit-equal to the
    pick's; with the cycles a lane-step at the largest SM clock;
-36. one JSON line of kernel results: ``kernels`` holds K1 with its launches
+36. the generic batched path (no fused kernel; plain PyTorch on the card):
+   threefry's ``split``, ``fold_in``, ``randint``, ``uniform`` and
+   ``permutation`` on the card bit-equal to the same calls on the CPU over
+   2**16 numpy-seeded keys;
+37. ``BatchedEnv(name, 4096, backend="generic", device="cuda").rollout(256)``
+   for boat_race and island_navigation (``kernel == "generic_torch"``, no
+   fused kernel launched), then the same call three times through
+   ``core.base.rollout`` with BatchedEnv's keys and policy and the board
+   observation rendered and summed each step, with env-steps/s; the first
+   call's final episode states (keys included) and stats equal to a CPU
+   run from its key, and BatchedEnv's stats to both;
+38. ``BatchedEnv("firemaker_ex_ma", 1024, backend="generic",
+   device="cuda").rollout(128)`` three times with env-steps/s; then a
+   64-step ``ma_rollout`` at B = 1024 on the card against the CPU, exact
+   except on lanes with a spread draw within 1e-6 of its cum (at most 0.1%
+   of lanes);
+39. the generic path's ATen ops (a dispatch counter), kernel launches,
+   device events and busy time a step (``torch.profiler``) and the
+   device's idle share, each as 8 steps less 4 so that the set-up
+   cancels (boat_race at B = 4096, firemaker at B = 1024), and the fused
+   firemaker rollout(128) at B = 1024 against the generic one;
+40. one JSON line of kernel results: ``kernels`` holds K1 with its launches
    on the main path (phase 5) and on the policy-search check (phase 6), K3
    with its launches on the training path (phase 8), K4 with its launches on
    the scalar main paths (phases 11, 26 and 30, by path and env), K5 with
@@ -235,6 +256,7 @@ Phases, in order; any failure exits non-zero before the last line:
    inputs) and ``library_ms`` (null: no single PyTorch call computes these
    functions); ``checked_off_path`` holds K2, which no driven path launches
    (K1 and K3-K9 inline the same PRF header), with its phase-3 launches;
+   ``generic`` holds phases 36-39's rates, launches and idle shares;
    then the card's name and power limit and the last line ``{"ok": true,
    "device": {...}}``.
 
@@ -279,6 +301,11 @@ change, change, parent in one call.
 
 runs phase 35's sweep of K6 and K7 by threads a lane and batch alone and
 prints one JSON line.
+
+    python3 chip_smoke.py --generic
+
+runs phases 36-39 (the generic path) alone, without building the kernels
+(phase 39's fused comparison then builds K1), and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -2485,6 +2512,358 @@ def scalar_lane_sweep(card, torch):
     return sweep
 
 
+GENERIC_SCALAR = ("boat_race", "island_navigation")
+GENERIC_SCALAR_STEPS = 256
+GENERIC_FM_BATCH = 1024
+GENERIC_FM_STEPS = 128
+GENERIC_FM_CHECK_STEPS = 64
+GENERIC_PRF_KEYS = 1 << 16
+GENERIC_PROFILE_STEPS = 4
+
+
+def device_profile(fn, torch):
+    """(kernel launches, device events, kernels, fill kernels, device busy
+    ms) of one call of ``fn`` under ``torch.profiler``: the host's launch
+    calls, and the kernels, copies and fills the card ran (each counted
+    once: the ops that issued them carry their time too and are not
+    summed)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launches, events, kernels, fills, busy_us, op_us = 0, 0, 0, 0, 0.0, 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if ev.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                      "cuLaunchKernel", "cuLaunchKernelEx"):
+            launches += ev.count
+        if getattr(ev, "device_type", None) == DeviceType.CUDA:
+            events += ev.count
+            busy_us += us
+            if not ev.key.startswith(("Memcpy", "Memset")):
+                kernels += ev.count
+            if "FillFunctor" in ev.key:
+                fills += ev.count
+        else:
+            op_us += us
+    return (launches, events, kernels, fills,
+            (busy_us if events else op_us) / 1e3)
+
+
+def aten_ops(fn):
+    """ATen ops dispatched by one call of ``fn`` (views included)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as count:
+        fn()
+    return count.ops
+
+
+def host_s(fn, torch):
+    """Host seconds of one call of ``fn`` ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def generic_phases(torch, np, dev, card, reset_counts, counts):
+    """Phases 36-39: the generic batched path (threefry keys,
+    ``core/base.py``, ``ma_rollout``) on the card. It launches none of the
+    fused kernels; its numbers go into the results line's ``generic``."""
+    from ai_safety_gridworlds_torch.core import base, threefry
+    from ai_safety_gridworlds_torch.envs.firemaker_ex_ma import FiremakerExMa
+    from ai_safety_gridworlds_torch.helpers import factory
+    from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv
+    from ai_safety_gridworlds_torch.ma.safety_game_ma import ma_rollout
+
+    t_gen = time.perf_counter()
+    out = {"card": card}
+
+    # ---- 36. (a) threefry on the card against the CPU
+    log(f"== 36. threefry on the card vs the CPU over {GENERIC_PRF_KEYS} "
+        "numpy-seeded keys")
+    rng = np.random.default_rng(SEED)
+    keys = torch.from_numpy(rng.integers(
+        0, 2**32, size=(GENERIC_PRF_KEYS, 2), dtype=np.uint64
+    ).astype(np.int64))
+    data = torch.from_numpy(rng.integers(
+        0, 2**32, size=GENERIC_PRF_KEYS, dtype=np.uint64).astype(np.int64))
+    cases = {
+        "split": lambda k, d: threefry.split(k, 2),
+        "fold_in": lambda k, d: threefry.fold_in(k, d),
+        "randint[0,5)": lambda k, d: threefry.randint(k, (), 0, 5),
+        "randint[-3,4)x2": lambda k, d: threefry.randint(k, (2,), -3, 4),
+        "uniform(4)": lambda k, d: threefry.uniform(k, (4,)),
+        "permutation(3)": lambda k, d: threefry.permutation(k, 3),
+        "uniform(2,17,17) on 4096 keys":
+            lambda k, d: threefry.uniform(k[:4096], (2, 17, 17)),
+    }
+    kg, dg = keys.to(dev), data.to(dev)
+    prf_ms = {}
+    for label, fn in cases.items():
+        want = fn(keys, data)
+        got = fn(kg, dg)
+        if want.dtype != got.dtype or not torch.equal(want, got.cpu()):
+            fail(f"threefry {label} on the card differs from the CPU")
+        prf_ms[label] = cuda_ms(lambda: fn(kg, dg), 5, torch)
+        log(f"threefry {label}: {tuple(got.shape)} equal to the CPU; "
+            f"{prf_ms[label]:.4f} ms on the card  [{card}]")
+    out["threefry_ms"] = prf_ms
+
+    log(f"phase 36: {time.perf_counter() - t_gen:.1f} s")
+
+    # ---- 37. (b) boat_race and island_navigation: BatchedEnv's rollout,
+    # and the same calls (BatchedEnv's keys, its policy) with the board
+    # observation rendered and summed each step, as the JAX package's
+    # profiling.py measures the generic path.
+    out["scalar"] = {}
+    for name in GENERIC_SCALAR:
+        log(f"== 37. generic path: BatchedEnv({name!r}, {BATCH}, "
+            "backend='generic', device='cuda')")
+        env = BatchedEnv(name, BATCH, seed=SEED, backend="generic",
+                         device="cuda")
+        if env.kernel != "generic_torch":
+            fail(f"{name}: BatchedEnv reports kernel {env.kernel!r}")
+        raw = factory.get_raw_env(name)
+        call_keys, key = [], threefry.PRNGKey(SEED, dev)
+        for _ in range(MAIN_CALLS):  # BatchedEnv's key for each call
+            key, sub = threefry.split(key)
+            call_keys.append(sub)
+        lane_policy = base.random_policy(raw)
+        acc = []
+
+        def observing(k, ep, raw=raw, lane_policy=lane_policy, acc=acc):
+            # The board of the state the action is drawn for; the sum
+            # keeps every render.
+            acc[0] = acc[0] + raw.observe(ep.env_state)["board"].sum()
+            return lane_policy(threefry.split(k, BATCH), None)
+
+        reset_counts()
+        t0 = time.perf_counter()
+        stats = env.rollout(GENERIC_SCALAR_STEPS)  # fetches: syncs
+        plain_rate = BATCH * GENERIC_SCALAR_STEPS / (time.perf_counter() - t0)
+        if stats["kernel"] != "generic_torch":
+            fail(f"{name}: rollout reports kernel {stats['kernel']!r}")
+        calls, obs = [], []
+        for call in range(MAIN_CALLS):
+            acc[:] = [torch.zeros((), device=dev)]
+            t0 = time.perf_counter()
+            eps_g, st_g = base.rollout(raw, call_keys[call],
+                                       GENERIC_SCALAR_STEPS, BATCH,
+                                       policy=observing, device=dev)
+            obs.append((eps_g, {k: v.cpu() for k, v in st_g.items()},
+                        float(acc[0])))  # fetches: syncs
+            calls.append(time.perf_counter() - t0)
+        launched = counts()
+        if any(launched.values()):
+            fail(f"{name}: the generic path launched a fused kernel "
+                 f"{launched}")
+        if not all(np.isfinite(o[2]) for o in obs):
+            fail(f"{name}: non-finite board sums")
+        rates = [BATCH * GENERIC_SCALAR_STEPS / c for c in calls]
+        log(f"{name} BatchedEnv.rollout({GENERIC_SCALAR_STEPS}): "
+            f"{plain_rate:.0f} env-steps/s without the board  [{card}]")
+        for call, c in enumerate(calls):
+            log(f"{name} generic rollout({GENERIC_SCALAR_STEPS}) with the "
+                f"board each step, call {call}: {c * 1e3:.1f} ms host clock, "
+                f"{rates[call]:.0f} env-steps/s  [{card}]")
+        # The first call on the CPU, from the same key, without the board.
+        t0 = time.perf_counter()
+        eps_c, st_c = base.rollout(raw, call_keys[0].cpu(),
+                                   GENERIC_SCALAR_STEPS, BATCH, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        eps_g, st_g, _ = obs[0]
+        for f in vars(eps_c.env_state):
+            if not torch.equal(getattr(eps_c.env_state, f),
+                               getattr(eps_g.env_state, f).cpu()):
+                fail(f"{name}: final state field {f} differs from the CPU")
+        for f in ("last_step_type", "episode_return", "hidden_return"):
+            if not torch.equal(getattr(eps_c, f), getattr(eps_g, f).cpu()):
+                fail(f"{name}: episode field {f} differs from the CPU")
+        for k, v in st_c.items():
+            if not torch.equal(v, st_g[k]):
+                fail(f"{name}: stat {k} differs from the CPU")
+        if (stats["episodes"] != int(st_c["episodes"])
+                or float(stats["sum_rewards"]) != float(
+                    st_c["sum_final_return"])):
+            fail(f"{name}: BatchedEnv's stats differ from the CPU run")
+        log(f"{name}: the first call's final states (keys included) and "
+            f"stats equal to a CPU run from its key ({cpu_s:.1f} s on the "
+            f"CPU), and BatchedEnv's stats to both: episodes "
+            f"{int(st_c['episodes'])}, sum of final returns "
+            f"{float(st_c['sum_final_return'])}, hidden "
+            f"{float(st_c['sum_final_hidden'])}")
+        out["scalar"][name] = {
+            "env_steps_per_s": rates, "batched_env_steps_per_s": plain_rate,
+            "launches": launched, "episodes": int(st_c["episodes"]),
+        }
+
+    log(f"phases 36-37: {time.perf_counter() - t_gen:.1f} s")
+
+    # ---- 38. (c) firemaker_ex_ma
+    Bf = GENERIC_FM_BATCH
+    log(f"== 38. generic path: BatchedEnv('firemaker_ex_ma', {Bf}, "
+        "backend='generic', device='cuda')")
+    env = BatchedEnv("firemaker_ex_ma", Bf, seed=SEED, backend="generic",
+                     device="cuda")
+    if env.kernel != "generic_torch":
+        fail(f"firemaker: BatchedEnv reports kernel {env.kernel!r}")
+    reset_counts()
+    calls = []
+    for call in range(MAIN_CALLS):
+        t0 = time.perf_counter()
+        stats = env.rollout(GENERIC_FM_STEPS)
+        calls.append(time.perf_counter() - t0)
+        if stats["kernel"] != "generic_torch":
+            fail(f"firemaker: rollout reports kernel {stats['kernel']!r}")
+        if not np.isfinite(stats["sum_rewards"]).all():
+            fail("firemaker: non-finite reward sums")
+    launched = counts()
+    if any(launched.values()):
+        fail(f"firemaker: the generic path launched a fused kernel {launched}")
+    fm_rates = [Bf * GENERIC_FM_STEPS / c for c in calls]
+    for call, c in enumerate(calls):
+        log(f"firemaker generic rollout({GENERIC_FM_STEPS}) call {call}: "
+            f"{c * 1e3:.1f} ms host clock, {fm_rates[call]:.0f} env-steps/s  "
+            f"[{card}]")
+    # 64 steps at B = 1024 on the card and on the CPU from one key; a lane
+    # may differ only from a sub-step where one of its spread draws lay
+    # within CDF_GAP of its cum (on either side), at most 0.1% of lanes.
+    runs = {}
+    for d in ("cpu", dev):
+        fm = FiremakerExMa()
+        fm.draw_gaps = []
+        t0 = time.perf_counter()
+        eps, st = ma_rollout(fm, SEED, GENERIC_FM_CHECK_STEPS, Bf, device=d)
+        runs[str(d)] = (eps, st, torch.stack(fm.draw_gaps).cpu(),
+                        time.perf_counter() - t0)
+    (ec, sc, gc, tc), (eg, sg, gg, tg) = runs["cpu"], runs[str(dev)]
+    close = ((gc < CDF_GAP) | (gg < CDF_GAP)).any(dim=0)
+    diff = torch.zeros(Bf, dtype=torch.bool)
+    for f in vars(ec.env_state):
+        a, b = getattr(ec.env_state, f), getattr(eg.env_state, f).cpu()
+        diff |= (a != b).reshape(Bf, -1).any(dim=1)
+    diff |= (ec.episode_returns != eg.episode_returns.cpu()).reshape(
+        Bf, -1).any(dim=1)
+    if bool((diff & ~close).any()):
+        fail("firemaker: a lane without a close draw differs from the CPU")
+    if int(diff.sum()) > MAX_DIVERGED_SHARE * Bf:
+        fail(f"firemaker: {int(diff.sum())} lanes differ from the CPU")
+    fires = int(eg.env_state.fire.sum())
+    log(f"firemaker ma_rollout({GENERIC_FM_CHECK_STEPS}) at B={Bf}: card "
+        f"{tg:.1f} s, CPU {tc:.1f} s; {int(close.sum())} lanes with a draw "
+        f"within {CDF_GAP} of its cum, {int(diff.sum())} lanes differ; "
+        f"burning cells {fires}; least gap {float(torch.min(gc.min(), gg.min())):.3g}")
+    if fires == 0:
+        fail("firemaker: no fire burned in the check run")
+    out["firemaker"] = {
+        "env_steps_per_s": fm_rates, "launches": launched,
+        "close_lanes": int(close.sum()), "diverged_lanes": int(diff.sum()),
+    }
+
+    log(f"phases 36-38: {time.perf_counter() - t_gen:.1f} s")
+
+    # ---- 39. (d) costs: launches a step, the device's idle share, and
+    # fused against generic at the same B
+    log("== 39. the generic path's launches a step and idle share "
+        "(torch.profiler), fused vs generic")
+    out["profile"] = {}
+    for name, batch in (("boat_race", BATCH), ("firemaker_ex_ma", Bf)):
+        raw = factory.get_raw_env(name)
+        run = base.rollout if name != "firemaker_ex_ma" else ma_rollout
+
+        def short(raw=raw, run=run, batch=batch,
+                  steps=GENERIC_PROFILE_STEPS):
+            run(raw, SEED, steps, batch, device=dev)
+
+        # Every count a step: twice the steps less once, so the set-up
+        # (the reset and the key splits) cancels.
+        n = GENERIC_PROFILE_STEPS
+        ops = (aten_ops(lambda: short(steps=2 * n)) - aten_ops(short)) / n
+        prof = [device_profile(lambda: short(steps=2 * n), torch),
+                device_profile(short, torch)]
+        launches, events, kernels, fills, busy_ms = (
+            (x2 - x1) / n for x2, x1 in zip(*prof))
+        # The wall time unprofiled, the least of three calls each.
+        wall_ms = (min(host_s(lambda: short(steps=2 * n), torch)
+                       for _ in range(3))
+                   - min(host_s(short, torch) for _ in range(3))) * 1e3 / n
+        # A trace that holds fewer kernels than the host launched lost
+        # some: its busy time is then too short to give an idle share.
+        complete = busy_ms > 0 and kernels >= launches
+        idle = 1 - busy_ms / wall_ms if complete else None
+        log(f"{name} generic at B={batch}, a step ({2 * n} steps less {n}): "
+            f"{ops:.1f} ATen ops, {launches:.1f} kernel launches, "
+            f"{events:.1f} device events ({fills:.1f} of them fill kernels), "
+            f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms unprofiled"
+            + (f", idle share {idle:.2%}" if idle is not None else
+               f", {kernels:.1f} kernels in the trace: idle share not "
+               "measured")
+            + f"  [{card}]")
+        out["profile"][name] = {
+            "aten_ops_per_step": ops, "launches_per_step": launches,
+            "device_events_per_step": events, "kernels_per_step": kernels,
+            "fills_per_step": fills,
+            "busy_ms_per_step": busy_ms, "wall_ms_per_step": wall_ms,
+            "idle_share": idle, "batch": batch,
+        }
+    log(f"phases 36-39 profiled: {time.perf_counter() - t_gen:.1f} s")
+    fenv = BatchedEnv("firemaker_ex_ma", Bf, seed=SEED, device="cuda")
+    if fenv.kernel != "fused_cuda":
+        fail(f"fused firemaker at B={Bf} reports {fenv.kernel!r}")
+    fcalls = [host_s(lambda: fenv.rollout(GENERIC_FM_STEPS), torch)
+              for _ in range(MAIN_CALLS)]
+    fused_rate = Bf * GENERIC_FM_STEPS / sorted(fcalls)[len(fcalls) // 2]
+    gen_rate = sorted(fm_rates)[len(fm_rates) // 2]
+    out["firemaker"]["fused_env_steps_per_s"] = fused_rate
+    out["firemaker"]["fused_over_generic"] = fused_rate / gen_rate
+    log(f"firemaker at B={Bf}, rollout({GENERIC_FM_STEPS}): fused "
+        f"{fused_rate:.0f} env-steps/s, generic {gen_rate:.0f}: fused / "
+        f"generic {fused_rate / gen_rate:.1f}x  [{card}]")
+    out["seconds"] = time.perf_counter() - t_gen
+    log(f"generic phases: {out['seconds']:.1f} s")
+    return out
+
+
+def generic_only():
+    """Phases 36-39 alone (no kernel build): one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false; this run needs a card")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+
+    from ai_safety_gridworlds_torch.ops import _cuda, fused_firemaker
+
+    _cuda.build(("fused_firemaker",))  # phase 39's fused comparison
+    wrapper = fused_firemaker.fused_firemaker_rollout
+
+    def reset_counts():
+        wrapper.launches = 0
+
+    def counts():
+        return {"fused_firemaker_rollout": wrapper.launches}
+
+    out = generic_phases(torch, np, torch.device("cuda", 0), gpu_line(),
+                         reset_counts, counts)
+    print(json.dumps(out), flush=True)
+
+
 def time_firemaker(root):
     """K1 per rollout(MAIN_STEPS) and K3 per collect(COLLECT_STEPS) at
     H = HIDDEN, B = BATCH, from ``init_packed(SEED, BATCH)``, each at the
@@ -2527,6 +2906,8 @@ def main():
         return time_island(sys.argv[2])
     if sys.argv[1:] == ["--sweep-island"]:
         return sweep_island()
+    if sys.argv[1:] == ["--generic"]:
+        return generic_only()
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke run needs a card")
@@ -2937,7 +3318,9 @@ def main():
     island_kernels[1]["threads_per_lane_ms"] = island_group_sweep(
         card, torch, collect=True)
 
-    # ---- 36. results
+    generic = generic_phases(torch, np, dev, card, reset_counts, counts)
+
+    # ---- 40. results
     k2_bound_ms, k2_bound_by = bound(24 * n_words, 24 * n_words)
     kernels = [{
         "name": "fused_firemaker_rollout", "route": "cuda",
@@ -2969,7 +3352,8 @@ def main():
         "bound_ms": k2_bound_ms, "bound_by": k2_bound_by, "library_ms": None,
     }]
     log(f"run time {time.perf_counter() - t_run:.1f} s")
-    log(json.dumps({"kernels": kernels, "checked_off_path": checked_off_path}))
+    log(json.dumps({"kernels": kernels, "checked_off_path": checked_off_path,
+                    "generic": generic}))
     log(gpu_line())
     log(json.dumps({
         "ok": True,

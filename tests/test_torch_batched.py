@@ -200,24 +200,116 @@ def test_batched_rollout_one_call():
 
 
 def test_unported_names_and_backends_raise():
-    # The experiment presets are not ported yet; an env object no fused
-    # kernel serves has no generic fallback.
+    # The experiment presets are not ported yet.
     with pytest.raises(NotImplementedError, match="not ported yet"):
         BatchedEnv("food_sharing", batch_size=8, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         factory.get_raw_env("food_sharing")
-    with pytest.raises(NotImplementedError, match="no fused kernel"):
-        tops.make_fused(type("Env", (), {"name": "food_sharing"})())
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        BatchedEnv("firemaker_ex_ma", batch_size=8, device="cpu",
+    # An env object that no fused kernel serves: make_fused gives None, as
+    # the JAX package's does, and callers take the generic path.
+    assert tops.make_fused(type("Env", (), {"name": "food_sharing"})()) is None
+    # backend="generic" runs the generic path (two sub-steps a step, so
+    # max_iterations=6 ends every lane's episode at step 3).
+    env = BatchedEnv("firemaker_ex_ma", batch_size=8, device="cpu",
+                     backend="generic", max_iterations=6)
+    assert env.kernel == "generic_torch" and env.fused is None
+    stats = env.rollout(4)
+    assert stats["kernel"] == "generic_torch" and stats["episodes"] == 8
+    assert stats["sum_rewards"].shape == (2, 4)
+    with pytest.raises(AttributeError):
+        env.state
+    # A name whose per-env chain is not ported yet still raises there.
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        BatchedEnv("aintelope_savanna", batch_size=8, device="cpu",
                    backend="generic")
     with pytest.raises(ValueError):
         BatchedEnv("firemaker_ex_ma", batch_size=8, device="cpu",
                    backend="bogus")
-    # An unsupported configuration of a ported env has no generic fallback.
+    # Observation mode 2 with a fixed action mode, as the JAX BatchedEnv
+    # takes it: the fused kernel refuses the configuration, "auto" falls
+    # back to the generic path, whose rollout refuses it; "fused" raises.
+    from ai_safety_gridworlds_tpu.helpers.batched import BatchedEnv as JB
+
+    jenv = JB("firemaker_ex_ma", 8, observation_direction_mode=2)
+    tenv = BatchedEnv("firemaker_ex_ma", batch_size=8, device="cpu",
+                      observation_direction_mode=2)
+    assert (jenv.kernel, tenv.kernel) == ("generic_vmap", "generic_torch")
+    assert jenv.fused is None and tenv.fused is None
+    for env in (jenv, tenv):
+        with pytest.raises(NotImplementedError, match="observation mode 2"):
+            env.rollout(1)
+    with pytest.raises(NotImplementedError):
+        JB("firemaker_ex_ma", 8, observation_direction_mode=2,
+           backend="fused")
     with pytest.raises(NotImplementedError):
         BatchedEnv("firemaker_ex_ma", batch_size=8, device="cpu",
-                   observation_direction_mode=2)
+                   observation_direction_mode=2, backend="fused")
+
+
+@pytest.mark.parametrize("error,falls_back", [
+    (ValueError("layout refused"), True),
+    (NotImplementedError("configuration refused"), True),
+    (RuntimeError("CUDA error: an illegal memory access"), False),
+    (torch.cuda.OutOfMemoryError("CUDA out of memory"), False),
+], ids=["ValueError", "NotImplementedError", "RuntimeError", "OutOfMemory"])
+def test_auto_falls_back_only_on_a_packer_refusal(monkeypatch, caplog, error,
+                                                   falls_back):
+    # "auto" takes the generic path, with a warning, only when the packer
+    # refuses the configuration; any other error of init_packed reaches
+    # the caller. "fused" never falls back.
+    def refuse(self, seed, batch, device):
+        raise error
+
+    monkeypatch.setattr(TF, "init_packed", refuse)
+    if falls_back:
+        with caplog.at_level("WARNING"):
+            env = BatchedEnv("firemaker_ex_ma", batch_size=4, device="cpu")
+        assert env.kernel == "generic_torch" and env.fused is None
+        assert "falling back to the generic path" in caplog.text
+    else:
+        with pytest.raises(type(error)):
+            BatchedEnv("firemaker_ex_ma", batch_size=4, device="cpu")
+    with pytest.raises(type(error)):
+        BatchedEnv("firemaker_ex_ma", batch_size=4, device="cpu",
+                   backend="fused")
+
+
+# Configurations the JAX package's fused tests route through make_fused,
+# and the refused ones: None (the generic path) on both sides or neither.
+MAKE_FUSED_CASES = [
+    ("firemaker_ex_ma", {}),
+    ("firemaker_ex_ma", {"amount_agents": 3}),
+    ("firemaker_ex_ma", {"action_direction_mode": 2,
+                         "observation_direction_mode": 2}),
+    ("firemaker_ex_ma", {"observation_direction_mode": 2}),
+    ("island_navigation_ex_ma", {}),
+    ("island_navigation_ex_ma", {"observation_direction_mode": 2,
+                                 "action_direction_mode": 0}),
+    ("aintelope_savanna", {}),
+    ("aintelope_savanna", {"sustainability_challenge": True}),
+    ("aintelope_savanna", {"amount_food_patches": 200}),
+    ("whisky_gold", {}),
+    ("whisky_gold", {"human_player": True}),
+    ("boat_race", {}),
+    ("island_navigation", {}),
+    ("side_effects_sokoban", {"level": 1}),
+    ("tomato_crmdp", {}),
+    ("conveyor_belt_sushi", {}),
+]
+
+
+@pytest.mark.parametrize("name,kw", MAKE_FUSED_CASES,
+                         ids=[f"{n}-{i}" for i, (n, _) in
+                              enumerate(MAKE_FUSED_CASES)])
+def test_make_fused_refusals_match_jax(name, kw):
+    from ai_safety_gridworlds_tpu import ops as jops
+    from ai_safety_gridworlds_tpu.helpers import factory as jfactory
+
+    jf = jops.make_fused(jfactory.get_raw_env(name, **kw))
+    tf = tops.make_fused(factory.get_raw_env(name, **kw))
+    assert (jf is None) == (tf is None)
+    if tf is not None:
+        assert type(tf).__name__ == type(jf).__name__
 
 
 def test_cuda_device_without_a_card_raises():
@@ -255,6 +347,8 @@ def test_port_imports_without_jax():
         "           map_randomization_frequency=1).rollout(2)\n"
         "BatchedEnv('aintelope_savanna', 4, device='cpu',\n"
         "           sustainability_challenge=True).rollout(2)\n"
+        "for n in ('firemaker_ex_ma', 'boat_race', 'island_navigation'):\n"
+        "    BatchedEnv(n, 4, device='cpu', backend='generic').rollout(2)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ai_safety_gridworlds_tpu')]\n"
         "assert not bad, bad\n"

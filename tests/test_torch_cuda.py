@@ -1186,3 +1186,66 @@ def test_savanna_batched_env_and_train_step_on_the_card(dev):
         assert bool(torch.isfinite(v).all()), k
     assert max(float((state.params[k].detach() - p0[k]).abs().max())
                for k in p0) > 0
+
+
+# ------------------------------------------------------- the generic path
+
+
+def test_threefry_on_the_card_equals_the_cpu(dev):
+    from ai_safety_gridworlds_torch.core import threefry
+
+    rng = np.random.default_rng(0)
+    keys = torch.from_numpy(
+        rng.integers(0, 2**32, size=(4096, 2), dtype=np.uint64)
+        .astype(np.int64)
+    )
+    data = torch.from_numpy(rng.integers(0, 2**32, size=4096,
+                                         dtype=np.uint64).astype(np.int64))
+    for fn in (
+        lambda k, d: threefry.split(k, 3),
+        lambda k, d: threefry.fold_in(k, d),
+        lambda k, d: threefry.randint(k, (), 0, 5),
+        lambda k, d: threefry.randint(k, (7,), -3, 4),
+        lambda k, d: threefry.uniform(k, (2, 17, 17)),
+        lambda k, d: threefry.permutation(k, 3),
+    ):
+        want = fn(keys, data)
+        got = fn(keys.to(dev), data.to(dev)).cpu()
+        assert want.dtype == got.dtype and torch.equal(want, got)
+
+
+@pytest.mark.parametrize("name", ["boat_race", "island_navigation"])
+def test_generic_rollout_on_the_card_equals_the_cpu(dev, name):
+    from ai_safety_gridworlds_torch.core import base
+
+    env = factory.get_raw_env(name)
+    eps_c, st_c = base.rollout(env, 7, 150, 256, device="cpu")
+    eps_g, st_g = base.rollout(env, 7, 150, 256, device=dev)
+    for f in ("t", "key", "pos"):
+        assert torch.equal(getattr(eps_c.env_state, f),
+                           getattr(eps_g.env_state, f).cpu()), f
+    for k in st_c:
+        assert torch.equal(st_c[k], st_g[k].cpu()), k
+    stats = BatchedEnv(name, 256, backend="generic", device=dev).rollout(8)
+    assert stats["kernel"] == "generic_torch"
+
+
+def test_generic_firemaker_on_the_card_equals_the_cpu(dev):
+    """Exact but for lanes with a spread draw within 1e-6 of its cum
+    (``exp`` may round differently on the card), at most 0.1% of lanes."""
+    from ai_safety_gridworlds_torch.ma.safety_game_ma import ma_rollout
+
+    out = {}
+    for d in ("cpu", dev):
+        env = FiremakerExMa(max_iterations=40)
+        env.draw_gaps = []
+        eps, _ = ma_rollout(env, 3, 48, 256, device=d)
+        out[str(d)] = (eps, torch.stack(env.draw_gaps).cpu())
+    (ec, gc), (eg, gg) = out["cpu"], out[str(dev)]
+    close = ((gc < 1e-6) | (gg < 1e-6)).any(dim=0)
+    diff = torch.zeros(256, dtype=torch.bool)
+    for f in ("pos", "fire", "visits", "termination_reasons", "key"):
+        a, b = getattr(ec.env_state, f), getattr(eg.env_state, f).cpu()
+        diff |= (a != b).reshape(256, -1).any(dim=1)
+    assert not (diff & ~close).any()
+    assert int(diff.sum()) <= 0.001 * 256

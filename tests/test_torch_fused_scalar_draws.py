@@ -329,12 +329,13 @@ def test_tomato_reset_sweep_and_drying():
 
 def test_whisky_gold_limits():
     """The exploration-rate hijack acts for human players only: the fused
-    kernel refuses ``human_player=True``, as the JAX class does, and so
-    does ``make_fused``."""
+    kernel refuses ``human_player=True``, as the JAX class does, and
+    ``make_fused`` then gives None (the generic path), as JAX's does."""
     with pytest.raises(NotImplementedError, match="human_player"):
         T.FusedWhiskyGold(twg.WhiskyGold(human_player=True))
-    with pytest.raises(NotImplementedError, match="human_player"):
-        tops.make_fused(factory.get_raw_env("whisky_gold", human_player=True))
+    assert tops.make_fused(
+        factory.get_raw_env("whisky_gold", human_player=True)
+    ) is None
     with pytest.raises(NotImplementedError):
         J.FusedWhiskyGold(jwg.WhiskyGold(human_player=True))
 
