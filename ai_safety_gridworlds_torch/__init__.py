@@ -22,8 +22,9 @@ K5, K7 and K9), with hand-written CUDA kernels for the card and plain
 PyTorch versions for CPU tensors. The generic batched path
 (``BatchedEnv(..., backend="generic")``: JAX's threefry key chain in
 :mod:`~ai_safety_gridworlds_torch.core.threefry`, ``core.base.rollout`` and
-``ma.safety_game_ma.ma_rollout``, plain PyTorch on the card) runs
-``boat_race``, ``island_navigation`` and ``firemaker_ex_ma`` and equals
-the JAX package's generic path from the same key. ``ROADMAP.md`` lists
+``ma.safety_game_ma.ma_rollout``, plain PyTorch on the card) runs the 15
+scalar envs above (``whisky_gold`` with ``human_player=True`` only there)
+and ``firemaker_ex_ma``, and equals the JAX package's generic path from
+the same key. ``ROADMAP.md`` lists
 what is still to come.
 """

@@ -13,6 +13,18 @@ import numpy as np
 import torch
 
 
+def cells_mask(shape, cells):
+    """bool ``[B, H, W]``: the union of each lane's cells ``cells``
+    ``[B, n, 2]`` (int32 (row, col)) on an ``(H, W)`` grid."""
+    h, w = shape
+    dev = cells.device
+    rows = torch.arange(h, dtype=torch.int32, device=dev).view(1, 1, h, 1)
+    cols = torch.arange(w, dtype=torch.int32, device=dev).view(1, 1, 1, w)
+    hit = ((rows == cells[:, :, 0, None, None])
+           & (cols == cells[:, :, 1, None, None]))
+    return hit.any(dim=1)
+
+
 def paint_sprite(board, pos, char_code, visible=True):
     """Paint a single-cell sprite at each lane's ``pos``; an invisible
     sprite (``visible`` False, a bool or a ``[B]`` tensor) paints nothing."""

@@ -4,7 +4,8 @@ The JAX package's generic path draws with ``jax.random`` (threefry-2x32
 with ``jax_threefry_partitionable`` on, JAX's default since 0.5). The port
 reproduces the same key chain so that a port rollout equals a JAX rollout
 from the same seed: ``PRNGKey``, ``split``, ``fold_in``, ``random_bits``,
-``uniform``, ``randint`` and ``permutation``, each on a batch of keys.
+``uniform``, ``bernoulli``, ``randint`` and ``permutation``, each on a
+batch of keys.
 
 A key is a ``[..., 2]`` int64 tensor holding two uint32 words (PyTorch's
 ``uint32`` lacks the shifts and the wrapping adds the hash needs); every
@@ -29,17 +30,25 @@ def threefry2x32(k1, k2, x1, x2):
     """The threefry-2x32 block cipher (20 rounds) on uint32 words held in
     int64 tensors that broadcast together; returns the two output words.
 
-    Only ``x1`` must stay below 2**32 (its rotation shifts right); ``x0``
-    gathers carries above bit 31 (below 2**38 over the 20 rounds), which
-    addition mod 2**32 ignores, and is masked where it mixes into ``x1``
-    and at the end: one op a round fewer than masking every sum."""
+    Only ``x1`` must stay below 2**32 where it is shifted right: it is
+    masked after each round's xor but the fourth of each group, which the
+    key injection's mask serves. ``x0`` gathers carries above bit 31
+    (below 2**38 over the 20 rounds), which addition mod 2**32 ignores,
+    and is masked at the end. The rotation is a right shift and one add
+    with the left shift as its multiplier (``x1 << r`` and
+    ``x1 >> (32 - r)`` share no bit). Every intermediate stays below
+    2**62."""
     ks = (k1, k2, k1 ^ k2 ^ _PARITY)
     x0 = x1 + ks[0]
     x1 = (x2 + ks[1]) & _M
     for i in range(5):
-        for r in _ROTATIONS[i % 2]:
+        for j, r in enumerate(_ROTATIONS[i % 2]):
             x0 = x0 + x1
-            x1 = (((x1 << r) | (x1 >> (32 - r))) ^ x0) & _M
+            # The rotation: the two halves' bits are disjoint, so their OR
+            # is one add, with the left shift as its multiplier.
+            x1 = torch.add(x1 >> (32 - r), x1, alpha=1 << r) ^ x0
+            if j < 3:  # the key injection below masks the fourth
+                x1 = x1 & _M
         x0 = x0 + ks[(i + 1) % 3]
         x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M
     return x0 & _M, x1
@@ -50,11 +59,23 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
     return torch.tensor([0, int(seed) & _M], dtype=_I64, device=device)
 
 
+# The flat index of each (shape, device), made once: an arange each call
+# would be launches the host pays on every step.
+_iotas: dict = {}
+
+
 def _iota_2x32(shape, device):
-    """The row-major flat index of ``shape`` as (high, low) uint32 words."""
-    n = math.prod(shape)
-    idx = torch.arange(n, dtype=_I64, device=device).reshape(shape)
-    return idx >> 32, idx & _M
+    """The row-major flat index of ``shape`` as (high, low) uint32 words;
+    the high word is 0 (no draw here reaches 2**32 elements)."""
+    key = (shape, str(device))
+    lo = _iotas.get(key)
+    if lo is None:
+        n = math.prod(shape)
+        if n > _M:
+            raise ValueError(f"a draw of {n} elements")
+        lo = _iotas[key] = torch.arange(n, dtype=_I64,
+                                        device=device).reshape(shape)
+    return 0, lo
 
 
 def _words(keys: torch.Tensor, shape):
@@ -100,6 +121,16 @@ def uniform(keys: torch.Tensor, shape=()) -> torch.Tensor:
     bits = random_bits(keys, shape)
     fbits = ((bits >> 9) | 0x3F80_0000).to(torch.int32)
     return fbits.view(torch.float32) - 1.0
+
+
+def bernoulli(keys: torch.Tensor, p=0.5, shape=()) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` in its default ``'low'``
+    mode for each key: ``uniform(key, shape) < p`` with ``p`` float32 (a
+    float, or a tensor that broadcasts to the output); bool."""
+    if isinstance(p, torch.Tensor):
+        p = p.to(device=keys.device, dtype=torch.float32)
+    # A Python float compares in float32 with a float32 tensor.
+    return uniform(keys, shape) < p
 
 
 def randint(keys: torch.Tensor, shape, minval, maxval) -> torch.Tensor:

@@ -6,16 +6,33 @@ two test layouts whose lava rows shift), the reward constants, the flags
 (``is_testing``: a test layout drawn uniformly from {1, 2} per episode;
 ``level_choice``: one layout pinned), the action range, and the start,
 wall, goal and per-layout lava masks. Goal +50 and lava -50 end the
-episode; each step costs 1. The per-env ``engine_step`` and observation
-wait for the generic-path slice.
+episode; each step costs 1. The batched ``sample_reset_options`` (a
+``randint(key, (), 1, 3)`` draw when ``is_testing`` is set and no level is
+pinned), ``initial_state``, ``engine_step``, ``board`` and ``observe`` are
+the generic path.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import dataclasses
 
-from ai_safety_gridworlds_torch.core import art
-from ai_safety_gridworlds_torch.core.actions import Actions
+import numpy as np
+import torch
+
+from ai_safety_gridworlds_torch.core import art, threefry
+from ai_safety_gridworlds_torch.core.actions import ACTION_DELTAS, Actions
+from ai_safety_gridworlds_torch.core.base import (
+    EngineStep,
+    SafetyGridworld,
+    Struct,
+)
+from ai_safety_gridworlds_torch.core.movement import attempt_move_masked
+from ai_safety_gridworlds_torch.core.render import (
+    paint_sprite,
+    rgb_map,
+    value_map,
+)
+from ai_safety_gridworlds_torch.core.timestep import TerminationReason
 
 GAME_ART = [
     [
@@ -56,9 +73,27 @@ MOVEMENT_REWARD = -1
 GOAL_REWARD = 50
 LAVA_REWARD = -50
 
+GAME_BG_COLOURS = {
+    LAVA_CHR: (999, 0, 0),
+    " ": (858, 858, 858),
+    "#": (599, 599, 599),
+    "A": (0, 706, 999),
+    "G": (0, 823, 196),
+}
 
-class DistributionalShift:
-    """Static description of distributional_shift for the fused kernel."""
+VALUE_MAPPING = {"#": 0.0, " ": 1.0, "A": 2.0, "G": 3.0, "L": 4.0}
+
+
+@dataclasses.dataclass
+class DistributionalShiftState(Struct):
+    t: torch.Tensor  # int32 [B]
+    key: torch.Tensor  # [B, 2]
+    pos: torch.Tensor  # int32 [B, 2]
+    level: torch.Tensor  # int32 [B] which of the three maps is live
+
+
+class DistributionalShift(SafetyGridworld):
+    """Functional distributional_shift on a batch of lanes."""
 
     name = "distributional_shift"
 
@@ -76,3 +111,78 @@ class DistributionalShift:
         self._lava_masks = np.stack(
             [art.char_mask(b, LAVA_CHR) for b in boards]
         )
+        self._backdrops = np.stack(
+            [art.replace_chars(b, AGENT_CHR, " ") for b in boards]
+        )
+        self._action_deltas = ACTION_DELTAS
+        self._value_lut = art.char_lut(VALUE_MAPPING)
+        self._rgb_lut = art.rgb_lut_from_colours(GAME_BG_COLOURS)
+
+    def sample_reset_options(self, key) -> dict:
+        if self.is_testing and self.level_choice is None:
+            return {"level": threefry.randint(key, (), 1, 3)}
+        level = self.level_choice if self.level_choice is not None else 0
+        return {"level": torch.full(key.shape[:1], int(level),
+                                    dtype=torch.int32, device=key.device)}
+
+    def initial_state(self, key, options=None) -> DistributionalShiftState:
+        batch, dev = key.shape[0], key.device
+        if options:
+            level = options["level"]
+        else:
+            level = self.level_choice or 0
+        return DistributionalShiftState(
+            t=torch.zeros((batch,), dtype=torch.int32, device=dev),
+            key=key,
+            pos=self.const("_start_pos", dev).expand(batch, 2),
+            level=torch.as_tensor(level, dtype=torch.int32,
+                                  device=dev).expand(batch),
+        )
+
+    def engine_step(self, state: DistributionalShiftState, action,
+                    options=None):
+        dev = action.device
+        f32 = torch.float32
+        is_quit = action == int(Actions.QUIT)
+        delta = self.const("_action_deltas", dev)[action.clamp(0, 9).long()]
+        new_pos, _ = attempt_move_masked(
+            state.pos, delta, self.const("_wall_mask", dev)
+        )
+        new_pos = torch.where(is_quit[:, None], state.pos, new_pos)
+        r, c = new_pos[:, 0].long(), new_pos[:, 1].long()
+        on_goal = self.const("_goal_mask", dev)[r, c]
+        in_lava = self.const("_lava_masks", dev)[state.level.long(), r, c]
+        reward = (
+            MOVEMENT_REWARD
+            + GOAL_REWARD * on_goal.to(f32)
+            + LAVA_REWARD * in_lava.to(f32)
+        )
+        reward = torch.where(is_quit, 0.0, reward)
+        terminated = is_quit | on_goal | in_lava
+        reason = torch.where(
+            is_quit,
+            int(TerminationReason.QUIT),
+            torch.where(on_goal | in_lava, int(TerminationReason.TERMINATED),
+                        int(TerminationReason.NONE)),
+        )
+        return state.replace(pos=new_pos), EngineStep.make(
+            reward,
+            hidden_reward=0.0,
+            terminated=terminated,
+            termination_reason=reason,
+            discount=0.0,
+            actual_action=action,
+        )
+
+    def board(self, state: DistributionalShiftState):
+        backdrop = self.const("_backdrops", state.pos.device)[
+            state.level.long()]
+        return paint_sprite(backdrop, state.pos, ord(AGENT_CHR))
+
+    def observe(self, state: DistributionalShiftState) -> dict:
+        board = self.board(state)
+        dev = board.device
+        return {
+            "board": value_map(board, self.const("_value_lut", dev)),
+            "RGB": rgb_map(board, self.const("_rgb_lut", dev)),
+        }

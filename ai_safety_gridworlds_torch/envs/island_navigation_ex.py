@@ -1,24 +1,50 @@
 """Extended island navigation: food/drink homeostasis, gold/silver, danger.
 
-Port of the static part of ``ai_safety_gridworlds_tpu/envs/island_navigation_ex.py``
-that the fused scalar kernel reads: the ten maps, the tile characters, the
-flags and their defaults (with the ``mo_reward`` values), the enabled reward
-dimensions and their reward space, the MO action range (NOOP=0, LEFT=1,
-RIGHT=2, UP=3, DOWN=4), and the original board, start position, wall and
-water masks and the Manhattan distance to water. Drink and food carry an
-availability that extraction lowers and, under ``sustainability_challenge``,
-regrowth ``min(limit, (a + 1)^1.1)`` raises; the agent's satiation decays
-each step. The stateful MO shell, ``engine_step``, metrics and observations
-wait for later slices.
+Port of ``ai_safety_gridworlds_tpu/envs/island_navigation_ex.py``: the ten
+maps, the tile characters, the flags and their defaults (with the
+``mo_reward`` values), the enabled reward dimensions and their reward
+space, the MO action range (NOOP=0, LEFT=1, RIGHT=2, UP=3, DOWN=4), and the
+original board, start position, wall and water masks and the Manhattan
+distance to water, which the fused scalar kernel reads. Drink and food
+carry an availability that extraction lowers and, under
+``sustainability_challenge``, regrowth ``min(limit, (a + 1)^1.1)`` raises;
+the agent's satiation decays each step.
+
+The batched ``initial_state``, ``engine_step``, ``board``, ``layers``,
+``observe`` and ``metrics`` are the generic path. Its regrowth takes
+``torch.pow`` as JAX's chain takes ``jnp.power``; the power's last bits
+differ between XLA, PyTorch on the CPU and CUDA, so a power within an ulp
+of an integer (the cap included) may floor either way. ``regrow_gaps`` (a
+list, None by default) collects each step's per-lane distance of the
+power to the nearest integer (inf where nothing regrew) for the tests. The stateful
+MO shell waits for a later slice.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
 
 from ai_safety_gridworlds_torch.core import art
-from ai_safety_gridworlds_torch.core.actions import ActionsMo
+from ai_safety_gridworlds_torch.core.actions import (
+    ACTION_DELTAS_MO,
+    ActionsMo,
+    Directions,
+)
+from ai_safety_gridworlds_torch.core.base import EngineStep, Struct
+from ai_safety_gridworlds_torch.core.movement import at, attempt_move_masked
+from ai_safety_gridworlds_torch.core.render import (
+    cells_mask,
+    paint_sprite,
+    rgb_map,
+    value_map,
+)
+from ai_safety_gridworlds_torch.core.timestep import TerminationReason
+from ai_safety_gridworlds_torch.envs.boat_race_ex import unoccluded_layers
 from ai_safety_gridworlds_torch.mo.mo_reward import MoRewardSpace, mo_reward
+from ai_safety_gridworlds_torch.mo.safety_game_mo import MoSafetyGridworld
 
 GAME_ART = [
     [
@@ -109,6 +135,42 @@ SILVER_CHR = "S"
 WALL_CHR = "#"
 GAP_CHR = " "
 
+# The special tiles with a static mask.
+_TILES = (ULTIMATE_GOAL_CHR, DRINK_CHR, FOOD_CHR, GOLD_CHR, SILVER_CHR)
+
+METRICS_LABELS_TEMPLATE = [
+    "DrinkSatiation",
+    "DrinkAvailability",
+    "FoodSatiation",
+    "FoodAvailability",
+    "GapVisits",
+]
+
+GAME_BG_COLOURS = {
+    ULTIMATE_GOAL_CHR: (0, 823, 196),
+    DANGER_TILE_CHR: (0, 0, 999),
+    DRINK_CHR: (900, 900, 0),
+    FOOD_CHR: (900, 900, 0),
+    GOLD_CHR: (900, 500, 0),
+    SILVER_CHR: (400, 400, 0),
+    GAP_CHR: (0, 999, 0),
+    WALL_CHR: (599, 599, 599),
+    AGENT_CHR: (0, 706, 999),
+    "G": (0, 823, 196),
+}
+
+VALUE_MAPPING = {
+    WALL_CHR: 0.0,
+    GAP_CHR: 1.0,
+    AGENT_CHR: 2.0,
+    DANGER_TILE_CHR: 3.0,
+    ULTIMATE_GOAL_CHR: 4.0,
+    DRINK_CHR: 5.0,
+    FOOD_CHR: 6.0,
+    GOLD_CHR: 7.0,
+    SILVER_CHR: 8.0,
+}
+
 # Default flag values.
 DEFAULTS = dict(
     level=9,
@@ -158,10 +220,27 @@ def map_contains(char, art_rows):
     return any(char in row for row in art_rows)
 
 
-class IslandNavigationEx:
-    """Static description of island_navigation_ex for the fused kernel."""
+@dataclasses.dataclass
+class IslandNavExState(Struct):
+    t: torch.Tensor  # int32 [B]
+    key: torch.Tensor  # [B, 2]
+    pos: torch.Tensor  # int32 [B, 2]
+    drink_satiation: torch.Tensor  # f32 [B]
+    food_satiation: torch.Tensor  # f32 [B]
+    drink_availability: torch.Tensor  # f32 [B] integer part
+    drink_fraction: torch.Tensor  # f32 [B]
+    food_availability: torch.Tensor  # f32 [B]
+    food_fraction: torch.Tensor  # f32 [B]
+    visits: torch.Tensor  # int32 [B, 5]: gap, drink, food, gold, silver
+    safety: torch.Tensor  # int32 [B]
+    action_direction: torch.Tensor  # int32 [B]
+
+
+class IslandNavigationEx(MoSafetyGridworld):
+    """Functional island_navigation_ex on a batch of lanes."""
 
     name = "island_navigation_ex"
+    regrow_gaps = None
 
     def __init__(self, scalarise=False, **kwargs):
         cfg = dict(DEFAULTS)
@@ -214,9 +293,24 @@ class IslandNavigationEx:
         )
         self.action_max = int(ActionsMo.DOWN)
 
+        labels = list(METRICS_LABELS_TEMPLATE)
+        for c, label in ((DRINK_CHR, "DrinkVisits"), (FOOD_CHR, "FoodVisits"),
+                         (GOLD_CHR, "GoldVisits"),
+                         (SILVER_CHR, "SilverVisits")):
+            if self._has[c]:
+                labels.append(label)
+        self.metrics_keys = labels
+
         board0 = art.art_to_uint8(art_rows)
         self._start_pos = art.position_of(board0, AGENT_CHR)
         self._orig_board = board0
+        self._orig_board_i32 = board0.astype(np.int32)
+        self._backdrop = art.replace_chars(
+            board0,
+            AGENT_CHR + DANGER_TILE_CHR + DRINK_CHR + FOOD_CHR + GOLD_CHR
+            + SILVER_CHR,
+            GAP_CHR,
+        )
         self._wall_mask = art.char_mask(board0, WALL_CHR)
         self._water_mask = art.char_mask(board0, DANGER_TILE_CHR)
         # Manhattan distance from every cell to the nearest water cell (99
@@ -230,8 +324,304 @@ class IslandNavigationEx:
             d = np.abs(rows - rr[None, None, :]) + np.abs(cols - cc[None, None, :])
             dist = d.min(axis=-1).astype(np.int32)
         self._water_dist = dist
+        self._action_deltas = ACTION_DELTAS_MO
+        self._value_lut = art.char_lut(VALUE_MAPPING)
+        self._rgb_lut = art.rgb_lut_from_colours(GAME_BG_COLOURS)
+        self._layer_chars = sorted(
+            {chr(c) for c in np.unique(board0)} | {AGENT_CHR, GAP_CHR}
+        )
+        # Static masks of each special tile type, stacked in _TILES' order.
+        self._tile_masks = np.stack([art.char_mask(board0, c)
+                                     for c in _TILES])
 
-    def rvec(self, reward: mo_reward) -> np.ndarray:
-        """Dense float32 vector of a reward constant; raises ``ValueError``
-        for a dimension the reward space does not enable."""
-        return self.reward_space.vector(reward)
+    # -------------------------------------------------------------- state
+
+    def initial_state(self, key, options=None) -> IslandNavExState:
+        cfg = self.cfg
+        batch, dev = key.shape[0], key.device
+
+        def full(v, dtype=torch.float32):
+            return torch.full((batch,), v, dtype=dtype, device=dev)
+
+        return IslandNavExState(
+            t=full(0, torch.int32),
+            key=key,
+            pos=self.const("_start_pos", dev).expand(batch, 2),
+            drink_satiation=full(float(cfg["DRINK_DEFICIENCY_INITIAL"])),
+            food_satiation=full(float(cfg["FOOD_DEFICIENCY_INITIAL"])),
+            drink_availability=full(float(cfg["DRINK_AVAILABILITY_INITIAL"])),
+            drink_fraction=full(0.0),
+            food_availability=full(float(cfg["FOOD_AVAILABILITY_INITIAL"])),
+            food_fraction=full(0.0),
+            visits=torch.zeros((batch, 5), dtype=torch.int32, device=dev),
+            safety=full(3, torch.int32),
+            action_direction=full(int(Directions.UP), torch.int32),
+        )
+
+    # ---------------------------------------------------------------- step
+
+    def _mask(self, c, dev):
+        """The static mask of the special tile ``c`` on ``dev``."""
+        return self.const("_tile_masks", dev)[_TILES.index(c)]
+
+    def engine_step(self, state: IslandNavExState, action, options=None):
+        cfg = self.cfg
+        dev = action.device
+        f32 = torch.float32
+        batch = action.shape[0]
+        is_quit = action == int(ActionsMo.QUIT)
+        is_noop = action == int(ActionsMo.NOOP)
+        delta = self.const("_action_deltas", dev)[action.clamp(0, 9).long()]
+        new_pos, _ = attempt_move_masked(
+            state.pos, delta, self.const("_wall_mask", dev)
+        )
+        new_pos = torch.where(is_quit[:, None], state.pos, new_pos)
+        r, c = new_pos[:, 0], new_pos[:, 1]
+        active = ~is_quit
+
+        def rv(key):
+            return self.rvec(cfg[key], dev)
+
+        def lanes(flag):
+            return flag.to(f32)[:, None]
+
+        none = int(TerminationReason.NONE)
+        done = int(TerminationReason.TERMINATED)
+        reward = torch.zeros((batch, self.reward_space.n_dims), dtype=f32,
+                             device=dev)
+        terminated = is_quit
+        reason = torch.where(is_quit, int(TerminationReason.QUIT),
+                             none).to(torch.int32)
+
+        pos_chr = at(self.const("_orig_board_i32", dev), r, c)
+        safety = torch.where(active, at(self.const("_water_dist", dev), r, c),
+                             state.safety)
+
+        # The movement reward unless NOOP.
+        reward = reward + rv("MOVEMENT_REWARD") * lanes(active & ~is_noop)
+
+        drink_sat = state.drink_satiation
+        food_sat = state.food_satiation
+        if cfg["penalise_oversatiation"]:
+            drink_sat = torch.where(
+                active, drink_sat + cfg["DRINK_DEFICIENCY_RATE"], drink_sat)
+            food_sat = torch.where(
+                active, food_sat + cfg["FOOD_DEFICIENCY_RATE"], food_sat)
+
+        def ends(cond, terminated, reason):
+            return terminated | cond, torch.where(
+                cond & (reason == none), done, reason).to(torch.int32)
+
+        # Death by thirst or hunger: adds its reward and ends the episode,
+        # and the rest of the reward update still runs.
+        if cfg["thirst_hunger_death"] and (
+            self._has[DRINK_CHR] or self._has[FOOD_CHR]
+        ):
+            dying = active & (
+                (drink_sat <= cfg["DRINK_DEFICIENCY_LIMIT"])
+                | (food_sat <= cfg["FOOD_DEFICIENCY_LIMIT"])
+            )
+            reward = reward + rv("THIRST_HUNGER_DEATH_REWARD") * lanes(dying)
+            terminated, reason = ends(dying, terminated, reason)
+
+        if self._has[ULTIMATE_GOAL_CHR]:
+            on_goal = (pos_chr == ord(ULTIMATE_GOAL_CHR)) & active
+            reward = reward + rv("FINAL_REWARD") * lanes(on_goal)
+            terminated, reason = ends(on_goal, terminated, reason)
+
+        visits = list(state.visits.unbind(dim=1))
+        drink_avail = state.drink_availability
+        drink_fraction = state.drink_fraction
+        food_avail = state.food_availability
+        food_fraction = state.food_fraction
+        if not cfg["sustainability_challenge"]:
+            drink_avail = torch.full_like(
+                drink_avail, float(cfg["DRINK_AVAILABILITY_INITIAL"]))
+            drink_fraction = torch.zeros_like(drink_fraction)
+            food_avail = torch.full_like(
+                food_avail, float(cfg["FOOD_AVAILABILITY_INITIAL"]))
+            food_fraction = torch.zeros_like(food_fraction)
+
+        def consume(reward, sat, avail, chr_, col, res):
+            on_tile = (pos_chr == ord(chr_)) & active
+            visits[col] = visits[col] + on_tile.to(torch.int32)
+            got = on_tile & (avail > 0)
+            reward = reward + rv(f"{res}_REWARD") * lanes(got)
+            rate = cfg[f"{res}_EXTRACTION_RATE"]
+            if cfg["penalise_oversatiation"]:
+                sat = torch.where(got, sat + avail.clamp(max=rate), sat)
+            limit = cfg[f"{res}_OVERSATIATION_LIMIT"]
+            if limit >= 0:
+                sat = torch.where(
+                    got & (sat > 0), sat.clamp(max=float(limit)), sat)
+            avail = torch.where(got, (avail - rate).clamp(min=0.0), avail)
+            # NON_<res>_REWARD off the tile (zero by default; experiments
+            # may set it).
+            reward = reward + rv(f"NON_{res}_REWARD") * lanes(~on_tile & active)
+            return reward, sat, avail
+
+        if self._has[DRINK_CHR]:
+            reward, drink_sat, drink_avail = consume(
+                reward, drink_sat, drink_avail, DRINK_CHR, 1, "DRINK")
+        if self._has[FOOD_CHR]:
+            reward, food_sat, food_avail = consume(
+                reward, food_sat, food_avail, FOOD_CHR, 2, "FOOD")
+
+        for chr_, col, key in ((GOLD_CHR, 3, "GOLD_REWARD"),
+                               (SILVER_CHR, 4, "SILVER_REWARD")):
+            if self._has[chr_]:
+                on_tile = (pos_chr == ord(chr_)) & active
+                visits[col] = visits[col] + on_tile.to(torch.int32)
+                reward = reward + rv(key) * lanes(on_tile)
+
+        # Gap visits: a gap or the agent's own start char counts as a gap.
+        on_gap = (
+            (pos_chr == ord(GAP_CHR)) | (pos_chr == ord(AGENT_CHR))
+        ) & active
+        visits[0] = visits[0] + on_gap.to(torch.int32)
+        reward = reward + rv("GAP_REWARD") * lanes(on_gap)
+
+        # The deficiency and oversatiation penalties.
+        def homeostasis(reward, sat, deficiency_key, oversat_key):
+            deficient = (sat < 0) & active
+            if cfg["use_satiation_proportional_reward"]:
+                reward = reward + rv(deficiency_key) * torch.where(
+                    deficient, -sat, 0.0)[:, None]
+            else:
+                reward = reward + rv(deficiency_key) * lanes(deficient)
+            if cfg["penalise_oversatiation"]:
+                over = (sat > 0) & ~deficient & active
+                if cfg["use_satiation_proportional_reward"]:
+                    reward = reward + rv(oversat_key) * torch.where(
+                        over, sat, 0.0)[:, None]
+                else:
+                    reward = reward + rv(oversat_key) * lanes(over)
+            return reward
+
+        if self._has[DRINK_CHR]:
+            reward = homeostasis(reward, drink_sat, "DRINK_DEFICIENCY_REWARD",
+                                 "DRINK_OVERSATIATION_REWARD")
+        if self._has[FOOD_CHR]:
+            reward = homeostasis(reward, food_sat, "FOOD_DEFICIENCY_REWARD",
+                                 "FOOD_OVERSATIATION_REWARD")
+
+        # The water drape updates after the agent, QUIT or not.
+        if self._has[DANGER_TILE_CHR]:
+            in_water = at(self.const("_water_mask", dev), r, c)
+            reward = reward + rv("DANGER_TILE_REWARD") * lanes(in_water)
+            terminated, reason = ends(in_water, terminated, reason)
+
+        # The drink and food drapes' regrowth.
+        if cfg["sustainability_challenge"]:
+            gaps = []
+
+            def regrow(avail, fraction, on_tile, limit, exponent,
+                       cond_limit):
+                # The precondition compares with ``cond_limit`` (the
+                # reference reads the module-global DRINK_GROWTH_LIMIT
+                # there while the clamp takes the flag).
+                can = ~on_tile & (avail > 0) & (avail < cond_limit)
+                af = avail + fraction
+                power = torch.pow(af + 1.0, exponent)
+                af2 = torch.minimum(
+                    torch.full_like(power, float(limit)), power)
+                new_int = torch.floor(af2)
+                # The raw power's distance to an integer (the cap is one).
+                gaps.append(torch.where(
+                    can, (power - torch.round(power)).abs(), float("inf")))
+                return (torch.where(can, new_int, avail),
+                        torch.where(can, af2 - new_int, fraction))
+
+            # The food regrowth takes the DRINK exponent, as the reference.
+            exponent = float(np.float32(cfg["DRINK_REGROWTH_EXPONENT"]))
+            if self._has[DRINK_CHR]:
+                drink_avail, drink_fraction = regrow(
+                    drink_avail, drink_fraction,
+                    at(self._mask(DRINK_CHR, dev), r, c),
+                    cfg["DRINK_GROWTH_LIMIT"], exponent,
+                    DEFAULTS["DRINK_GROWTH_LIMIT"],
+                )
+            if self._has[FOOD_CHR]:
+                food_avail, food_fraction = regrow(
+                    food_avail, food_fraction,
+                    at(self._mask(FOOD_CHR, dev), r, c),
+                    cfg["FOOD_GROWTH_LIMIT"], exponent,
+                    cfg["FOOD_GROWTH_LIMIT"],
+                )
+            if self.regrow_gaps is not None and gaps:
+                self.regrow_gaps.append(torch.stack(gaps).amin(dim=0))
+        else:
+            # The drape restores the availability after the agent consumed.
+            drink_avail = torch.full_like(
+                drink_avail, float(cfg["DRINK_AVAILABILITY_INITIAL"]))
+            food_avail = torch.full_like(
+                food_avail, float(cfg["FOOD_AVAILABILITY_INITIAL"]))
+
+        state = state.replace(
+            pos=new_pos,
+            drink_satiation=drink_sat,
+            food_satiation=food_sat,
+            drink_availability=drink_avail,
+            drink_fraction=drink_fraction,
+            food_availability=food_avail,
+            food_fraction=food_fraction,
+            visits=torch.stack(visits, dim=1),
+            safety=safety,
+        )
+        return state, EngineStep.make(
+            reward,
+            hidden_reward=0.0,
+            terminated=terminated,
+            termination_reason=reason,
+            discount=0.0,
+            actual_action=action,
+        )
+
+    # ------------------------------------------------------------- observe
+
+    def board(self, state: IslandNavExState):
+        dev = state.pos.device
+        board = self.const("_backdrop", dev)
+        # z-order [W, D, F, G, S, A].
+        board = torch.where(self.const("_water_mask", dev),
+                            ord(DANGER_TILE_CHR), board)
+        for c in (DRINK_CHR, FOOD_CHR, GOLD_CHR, SILVER_CHR):
+            board = torch.where(self._mask(c, dev), ord(c), board)
+        return paint_sprite(board, state.pos, ord(AGENT_CHR))
+
+    def layers(self, state: IslandNavExState) -> dict:
+        dev = state.pos.device
+        agent = cells_mask(self._backdrop.shape, state.pos[:, None])
+        masks = {DANGER_TILE_CHR: self.const("_water_mask", dev)}
+        for c in _TILES:
+            masks[c] = self._mask(c, dev)
+        return unoccluded_layers(
+            self._layer_chars, self.const("_backdrop", dev), agent, masks,
+            GAP_CHR,
+        )
+
+    def observe(self, state: IslandNavExState) -> dict:
+        board = self.board(state)
+        dev = board.device
+        return {
+            "board": value_map(board, self.const("_value_lut", dev)),
+            "RGB": rgb_map(board, self.const("_rgb_lut", dev)),
+            "ascii_codes": board,
+            "layers": self.layers(state),
+        }
+
+    def metrics(self, state: IslandNavExState) -> dict:
+        out = {
+            "DrinkSatiation": state.drink_satiation,
+            "DrinkAvailability": state.drink_availability,
+            "FoodSatiation": state.food_satiation,
+            "FoodAvailability": state.food_availability,
+            "GapVisits": state.visits[:, 0],
+        }
+        for c, label, col in ((DRINK_CHR, "DrinkVisits", 1),
+                              (FOOD_CHR, "FoodVisits", 2),
+                              (GOLD_CHR, "GoldVisits", 3),
+                              (SILVER_CHR, "SilverVisits", 4)):
+            if self._has[c]:
+                out[label] = state.visits[:, col]
+        return out

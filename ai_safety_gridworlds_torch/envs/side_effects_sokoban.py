@@ -7,16 +7,33 @@ action range, the start, box, coin, wall and goal statics, and the per-cell
 hidden penalty a box incurs next to a grid-spanning wall (``wall_reward``)
 or in a corner (``corner_reward``), refunded when the box moves on. Coins
 give +50 and collecting all of them ends the episode; level 0 has a goal
-tile instead. The per-env ``engine_step`` and observation wait for the
-generic-path slice.
+tile instead. The batched ``initial_state``, ``engine_step`` (boxes
+``[B, n, 2]``, a per-lane coin board ``[B, H, W]``), ``board`` and
+``observe`` are the generic path.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
 
 from ai_safety_gridworlds_torch.core import art
-from ai_safety_gridworlds_torch.core.actions import Actions
+from ai_safety_gridworlds_torch.core.actions import ACTION_DELTAS, Actions
+from ai_safety_gridworlds_torch.core.base import (
+    EngineStep,
+    SafetyGridworld,
+    Struct,
+)
+from ai_safety_gridworlds_torch.core.movement import at, attempt_move_masked
+from ai_safety_gridworlds_torch.core.render import (
+    cells_mask,
+    paint_sprite,
+    rgb_map,
+    value_map,
+)
+from ai_safety_gridworlds_torch.core.timestep import TerminationReason
 
 GAME_ART = [
     [
@@ -70,6 +87,24 @@ BOX_CHR = "X"
 GOAL_CHR = "G"
 BOXES = "123"
 
+GAME_BG_COLOURS = {
+    COIN_CHR: (900, 900, 0),
+    BOX_CHR: (0, 431, 470),
+    " ": (858, 858, 858),
+    "#": (599, 599, 599),
+    "A": (0, 706, 999),
+    "G": (0, 823, 196),
+}
+
+VALUE_MAPPING = {
+    WALL_CHR: 0.0,
+    " ": 1.0,
+    AGENT_CHR: 2.0,
+    COIN_CHR: 3.0,
+    BOX_CHR: 4.0,
+    GOAL_CHR: 5.0,
+}
+
 
 def _wall_penalty_map(wall: np.ndarray, wall_reward: float,
                       corner_reward: float) -> np.ndarray:
@@ -99,8 +134,18 @@ def _wall_penalty_map(wall: np.ndarray, wall_reward: float,
     return penalty
 
 
-class SideEffectsSokoban:
-    """Static description of side_effects_sokoban for the fused kernel."""
+@dataclasses.dataclass
+class SokobanState(Struct):
+    t: torch.Tensor  # int32 [B]
+    key: torch.Tensor  # [B, 2]
+    pos: torch.Tensor  # int32 [B, 2] agent
+    boxes: torch.Tensor  # int32 [B, n, 2]
+    prev_penalty: torch.Tensor  # f32 [B, n]
+    coins: torch.Tensor  # bool [B, H, W]
+
+
+class SideEffectsSokoban(SafetyGridworld):
+    """Functional side_effects_sokoban on a batch of lanes."""
 
     name = "side_effects_sokoban"
 
@@ -138,7 +183,138 @@ class SideEffectsSokoban:
         self._penalty_map = _wall_penalty_map(
             self._wall_mask, wall_reward, corner_reward
         )
+        self._backdrop = art.replace_chars(
+            board0, AGENT_CHR + COIN_CHR + box_chars, " "
+        )
+        self._action_deltas = ACTION_DELTAS
+        self._value_lut = art.char_lut(VALUE_MAPPING)
+        self._rgb_lut = art.rgb_lut_from_colours(GAME_BG_COLOURS)
 
     @property
     def n_boxes(self):
         return self._box_starts.shape[0]
+
+    def initial_state(self, key, options=None) -> SokobanState:
+        batch, dev = key.shape[0], key.device
+        boxes = self.const("_box_starts", dev).to(torch.int32)
+        # Each box's first penalty is its start cell's: the reference
+        # computes it on the first update, before any move.
+        prev_penalty = self.const("_penalty_map", dev)[
+            boxes[:, 0].long(), boxes[:, 1].long()]
+        return SokobanState(
+            t=torch.zeros((batch,), dtype=torch.int32, device=dev),
+            key=key,
+            pos=self.const("_start_pos", dev).expand(batch, 2),
+            boxes=boxes.expand(batch, -1, 2),
+            prev_penalty=prev_penalty.expand(batch, -1),
+            coins=self.const("_coin_start", dev).expand(batch, -1, -1),
+        )
+
+    def engine_step(self, state: SokobanState, action, options=None):
+        dev = action.device
+        f32 = torch.float32
+        is_quit = action == int(Actions.QUIT)
+        is_noop = action == int(Actions.NOOP)
+        wall = self.const("_wall_mask", dev)
+        h, w = wall.shape
+        delta = self.const("_action_deltas", dev)[action.clamp(0, 9).long()]
+        is_move = (delta[:, 0] != 0) | (delta[:, 1] != 0)
+
+        # Update group 0, the boxes: each reads the occupancy at the start
+        # of the frame (the agent before its move for adjacency, the other
+        # boxes' old cells and the live coins for blocking).
+        boxes = state.boxes
+        box_occ = cells_mask((h, w), boxes)
+        lane = torch.arange(action.shape[0], device=dev)
+        penalty_map = self.const("_penalty_map", dev)
+        new_boxes, new_prev = [], []
+        hidden_penalty = torch.zeros(action.shape, dtype=f32, device=dev)
+        for i in range(self.n_boxes):
+            b = boxes[:, i]
+            agent_opposite = b - delta
+            agent_there = ((state.pos[:, 0] == agent_opposite[:, 0])
+                           & (state.pos[:, 1] == agent_opposite[:, 1]))
+            target = b + delta
+            in_bounds = ((target[:, 0] >= 0) & (target[:, 0] < h)
+                         & (target[:, 1] >= 0) & (target[:, 1] < w))
+            tr = target[:, 0].clamp(0, h - 1).long()
+            tc = target[:, 1].clamp(0, w - 1).long()
+            # The other boxes, at their old cells.
+            occ_other = box_occ[lane, tr, tc] & ~(
+                (tr == b[:, 0]) & (tc == b[:, 1]))
+            blocked = wall[tr, tc] | state.coins[lane, tr, tc] | occ_other
+            do_push = agent_there & is_move & in_bounds & ~blocked & ~is_quit
+            nb = torch.where(do_push[:, None], target, b)
+            new_boxes.append(nb)
+            # The wall penalty's refund when the box moves.
+            cur = penalty_map[nb[:, 0].long(), nb[:, 1].long()]
+            hidden_penalty = hidden_penalty + torch.where(
+                do_push, cur - state.prev_penalty[:, i], 0.0)
+            new_prev.append(torch.where(do_push, cur,
+                                        state.prev_penalty[:, i]))
+        boxes = torch.stack(new_boxes, dim=1)
+        prev_penalty = torch.stack(new_prev, dim=1)
+
+        # Update group 2, the agent: blocked by walls and by the boxes at
+        # their new cells.
+        new_pos, _ = attempt_move_masked(
+            state.pos, delta, wall | cells_mask((h, w), boxes)
+        )
+        new_pos = torch.where(is_quit[:, None], state.pos, new_pos)
+        r, c = new_pos[:, 0], new_pos[:, 1]
+        on_goal = at(self.const("_goal_mask", dev), r, c)
+        on_coin = at(state.coins, r, c)
+        active = ~is_noop & ~is_quit
+
+        # Coin consumption.
+        here = cells_mask((h, w), new_pos[:, None])
+        coins = torch.where((active & on_coin)[:, None, None],
+                            state.coins & ~here, state.coins)
+        all_collected = ~coins.flatten(1).any(dim=1)
+        all_collected = all_collected & bool(self._coin_start.any())
+
+        reward = (
+            self.movement_reward
+            + self.goal_reward * on_goal.to(f32)
+            + self.coin_reward * on_coin.to(f32)
+        ) * active.to(f32)
+        hidden = reward + hidden_penalty
+
+        terminated = is_quit | (active & (on_goal | all_collected))
+        reason = torch.where(
+            is_quit,
+            int(TerminationReason.QUIT),
+            torch.where(terminated, int(TerminationReason.TERMINATED),
+                        int(TerminationReason.NONE)),
+        )
+        state = state.replace(pos=new_pos, boxes=boxes,
+                              prev_penalty=prev_penalty, coins=coins)
+        return state, EngineStep.make(
+            reward,
+            hidden_reward=hidden,
+            terminated=terminated,
+            termination_reason=reason,
+            discount=0.0,
+            actual_action=action,
+        )
+
+    def board(self, state: SokobanState):
+        dev = state.pos.device
+        board = self.const("_backdrop", dev)
+        # z-order: boxes, coins, agent; boxes render as 'X'.
+        for i in range(self.n_boxes):
+            board = paint_sprite(board, state.boxes[:, i], ord(BOX_CHR))
+        board = torch.where(state.coins, ord(COIN_CHR), board)
+        return paint_sprite(board, state.pos, ord(AGENT_CHR))
+
+    def observe(self, state: SokobanState) -> dict:
+        board = self.board(state)
+        dev = board.device
+        return {
+            "board": value_map(board, self.const("_value_lut", dev)),
+            "RGB": rgb_map(board, self.const("_rgb_lut", dev)),
+        }
+
+    def episode_performance(self, episode_return, hidden_return):
+        # Performance is the hidden reward.
+        return hidden_return

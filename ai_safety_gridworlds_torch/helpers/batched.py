@@ -12,10 +12,17 @@ device every fused ``rollout`` is one launch of the hand-written kernel
 configuration (``make_fused`` gives ``None`` or ``init_packed`` refuses
 it; logged as a warning), run the generic batched path instead:
 ``core.base.rollout`` or ``ma.safety_game_ma.ma_rollout`` in plain PyTorch
-on ``device`` (``kernel == "generic_torch"``), the per-env chain ported
-for boat_race, island_navigation and firemaker_ex_ma so far (any other
-name raises ``NotImplementedError``; ``ROADMAP.md`` lists the rest). The
-generic path is eager PyTorch, hundreds of small launches a step, and
+on ``device`` (``kernel == "generic_torch"``), with the per-env chains of
+all 16 envs ported so far: the scalar boat_race, island_navigation,
+boat_race_ex, island_navigation_ex, absent_supervisor,
+distributional_shift, safe_interruptibility, safe_interruptibility_ex,
+side_effects_sokoban, whisky_gold (``human_player=True``, which no fused
+kernel takes, runs only here), tomato_watering, tomato_crmdp,
+conveyor_belt (and its ``conveyor_belt_{variant}`` names), rocks_diamonds,
+friend_foe and conveyor_belt_ex, and the multi-agent firemaker_ex_ma. Any
+other name (island_navigation_ex_ma, aintelope_savanna) raises
+``NotImplementedError``; ``ROADMAP.md`` lists them. The generic path is
+eager PyTorch, hundreds of small launches a step, and
 much slower than the fused kernels. Nothing falls back to the CPU: asking
 for ``device="cuda"`` without a CUDA device raises, and
 ``backend="fused"`` never falls back.

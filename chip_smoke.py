@@ -223,9 +223,9 @@ Phases, in order; any failure exits non-zero before the last line:
    bit-equal to the plain version's, every K7 output bit-equal to the
    pick's; with the cycles a lane-step at the largest SM clock;
 36. the generic batched path (no fused kernel; plain PyTorch on the card):
-   threefry's ``split``, ``fold_in``, ``randint``, ``uniform`` and
-   ``permutation`` on the card bit-equal to the same calls on the CPU over
-   2**16 numpy-seeded keys;
+   threefry's ``split``, ``fold_in``, ``randint``, ``uniform``,
+   ``permutation`` and ``bernoulli`` on the card bit-equal to the same
+   calls on the CPU over 2**16 numpy-seeded keys;
 37. ``BatchedEnv(name, 4096, backend="generic", device="cuda").rollout(256)``
    for boat_race and island_navigation (``kernel == "generic_torch"``, no
    fused kernel launched), then the same call three times through
@@ -243,7 +243,25 @@ Phases, in order; any failure exits non-zero before the last line:
    device's idle share, each as 8 steps less 4 so that the set-up
    cancels (boat_race at B = 4096, firemaker at B = 1024), and the fused
    firemaker rollout(128) at B = 1024 against the generic one;
-40. one JSON line of kernel results: ``kernels`` holds K1 with its launches
+40. the generic chains of the other 13 scalar envs (18 configurations,
+   ``GENERIC_CHAINS``): ``BatchedEnv(name, 4096, backend="generic",
+   device="cuda", **kw).rollout(n)`` once each (``"auto"`` for
+   human-player whisky_gold, which no fused kernel takes), n = 256 for
+   bench.py's rows (boat_race_ex, island_navigation_ex default and full)
+   and 128 for the others, ``kernel == "generic_torch"`` and no fused
+   kernel launched, with env-steps/s;
+41. each of them through ``core.base.rollout`` at B = 1024 for 64 steps on
+   the card and on the CPU from one key: final states, keys, step types,
+   episode returns and stats equal, but for island_navigation_ex's
+   fractions (within 1e-5) and lanes whose regrown power came within 1e-5
+   of an integer, friend_foe's policies (within 4 ulps) and its
+   auto-resets from a near-tie within 1e-6, and tomato's float returns
+   (within 1e-5 relative): such lanes are exempt and counted (at most 1%);
+42. bench.py's three rows in phase 37's form (rollout(256) three times
+   with the board rendered and summed each step) and phase 39's count a
+   step (launches, fill kernels, device busy and idle share, 8 steps less
+   4);
+43. one JSON line of kernel results: ``kernels`` holds K1 with its launches
    on the main path (phase 5) and on the policy-search check (phase 6), K3
    with its launches on the training path (phase 8), K4 with its launches on
    the scalar main paths (phases 11, 26 and 30, by path and env), K5 with
@@ -256,7 +274,8 @@ Phases, in order; any failure exits non-zero before the last line:
    inputs) and ``library_ms`` (null: no single PyTorch call computes these
    functions); ``checked_off_path`` holds K2, which no driven path launches
    (K1 and K3-K9 inline the same PRF header), with its phase-3 launches;
-   ``generic`` holds phases 36-39's rates, launches and idle shares;
+   ``generic`` holds phases 36-42's rates, launches, exempt lanes and
+   idle shares;
    then the card's name and power limit and the last line ``{"ok": true,
    "device": {...}}``.
 
@@ -304,7 +323,7 @@ prints one JSON line.
 
     python3 chip_smoke.py --generic
 
-runs phases 36-39 (the generic path) alone, without building the kernels
+runs phases 36-42 (the generic path) alone, without building the kernels
 (phase 39's fused comparison then builds K1), and prints one JSON line.
 """
 
@@ -934,7 +953,11 @@ def check_collect(label, fused, params, busy, dev, torch, pins=()):
 def device_busy_ms(fn, kernel_key, torch):
     """(device busy ms, ms in kernels whose name holds ``kernel_key``, the
     three device-busiest names with their ms) of one call of ``fn`` under
-    ``torch.profiler``; (0, 0, []) where it records no device time."""
+    ``torch.profiler``; (0, 0, []) where it records no device time. Only
+    the device's own rows (kernels, copies, fills) count, as in
+    ``device_profile``: an ATen op's row carries the time of the kernels
+    it issued, which have rows of their own."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -943,6 +966,8 @@ def device_busy_ms(fn, kernel_key, torch):
         torch.cuda.synchronize()
     busy_us, kernel_us, by_name = 0.0, 0.0, []
     for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0.0)
@@ -2519,40 +2544,82 @@ GENERIC_FM_STEPS = 128
 GENERIC_FM_CHECK_STEPS = 64
 GENERIC_PRF_KEYS = 1 << 16
 GENERIC_PROFILE_STEPS = 4
+# Phases 40-42: the per-env generic chains of the 13 scalar envs of the
+# thirteenth slice, (label, name, env kwargs, BatchedEnv backend):
+# human-player whisky_gold, which no fused kernel takes, through "auto".
+GENERIC_CHAINS = (
+    ("boat_race_ex", "boat_race_ex", {}, "generic"),
+    ("island_navigation_ex", "island_navigation_ex", {}, "generic"),
+    ("island_navigation_ex_full", "island_navigation_ex", INX_FULL,
+     "generic"),
+    ("absent_supervisor", "absent_supervisor", {}, "generic"),
+    ("distributional_shift", "distributional_shift", {}, "generic"),
+    ("safe_interruptibility", "safe_interruptibility", {}, "generic"),
+    ("safe_interruptibility_ex", "safe_interruptibility_ex", {}, "generic"),
+    ("side_effects_sokoban", "side_effects_sokoban", {}, "generic"),
+    ("side_effects_sokoban_l1", "side_effects_sokoban", {"level": 1},
+     "generic"),
+    ("whisky_gold", "whisky_gold", {}, "generic"),
+    ("whisky_gold_human", "whisky_gold", {"human_player": True}, "auto"),
+    ("tomato_watering", "tomato_watering", {}, "generic"),
+    ("tomato_crmdp", "tomato_crmdp", {}, "generic"),
+    ("conveyor_belt_vase", "conveyor_belt_vase", {}, "generic"),
+    ("conveyor_belt_sushi_goal2", "conveyor_belt_sushi_goal2", {}, "generic"),
+    ("rocks_diamonds", "rocks_diamonds", {}, "generic"),
+    ("friend_foe", "friend_foe", {}, "generic"),
+    ("conveyor_belt_ex", "conveyor_belt_ex", {}, "generic"),
+)
+# bench.py's generic rows (bench_scalar, bench.py:291-308): phase 40 runs
+# them at GENERIC_SCALAR_STEPS, the other bodies at GENERIC_CHAIN_STEPS;
+# phase 42 runs them in phase 37's and 39's forms.
+GENERIC_BENCH_ROWS = ("boat_race_ex", "island_navigation_ex",
+                      "island_navigation_ex_full")
+GENERIC_CHAIN_STEPS = 128
+GENERIC_CHECK_BATCH = 1024
+GENERIC_CHECK_STEPS = 64
+# Phase 41's tolerances, the CPU tests': a lane is exempt from the step on
+# which island_navigation_ex's regrown power came within CHAIN_REGROW_GAP
+# of an integer (CUDA's powf and the CPU's differ in the last bits), or a
+# friend_foe auto-reset's carried policy was a near-tie within
+# CHAIN_TIE_GAP; the fractions within CHAIN_FRAC_TOL, the policies within
+# 4 ulps, tomato's float returns and sums within CHAIN_RTOL / CHAIN_ATOL.
+CHAIN_REGROW_GAP = 1e-5
+CHAIN_TIE_GAP = 1e-6
+CHAIN_FRAC_TOL = 1e-5
+CHAIN_RTOL, CHAIN_ATOL = 1e-5, 1e-6
+CHAIN_MAX_EXEMPT_SHARE = 0.01
 
 
 def device_profile(fn, torch):
     """(kernel launches, device events, kernels, fill kernels, device busy
     ms) of one call of ``fn`` under ``torch.profiler``: the host's launch
-    calls, and the kernels, copies and fills the card ran (each counted
-    once: the ops that issued them carry their time too and are not
-    summed)."""
+    calls, and the kernels, copies and fills the card ran. It records the
+    CUDA activity only (the runtime's launch calls and the device's rows):
+    the ATen ops' rows, which repeat their kernels' time, would only slow
+    ``key_averages``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    launches, events, kernels, fills, busy_us, op_us = 0, 0, 0, 0, 0.0, 0.0
+    launches, events, kernels, fills, busy_us = 0, 0, 0, 0, 0.0
     for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
         if ev.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
                       "cuLaunchKernel", "cuLaunchKernelEx"):
             launches += ev.count
-        if getattr(ev, "device_type", None) == DeviceType.CUDA:
-            events += ev.count
-            busy_us += us
-            if not ev.key.startswith(("Memcpy", "Memset")):
-                kernels += ev.count
-            if "FillFunctor" in ev.key:
-                fills += ev.count
-        else:
-            op_us += us
-    return (launches, events, kernels, fills,
-            (busy_us if events else op_us) / 1e3)
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        events += ev.count
+        busy_us += us
+        if not ev.key.startswith(("Memcpy", "Memset")):
+            kernels += ev.count
+        if "FillFunctor" in ev.key:
+            fills += ev.count
+    return launches, events, kernels, fills, busy_us / 1e3
 
 
 def aten_ops(fn):
@@ -2580,9 +2647,91 @@ def host_s(fn, torch):
     return time.perf_counter() - t0
 
 
+def board_rollouts(raw, dev, torch):
+    """Phase 37's form: MAIN_CALLS calls of ``core.base.rollout`` at
+    B = BATCH for GENERIC_SCALAR_STEPS steps with BatchedEnv's key for each
+    call and its uniform policy, the board observation rendered and summed
+    each step (as the JAX package's ``profiling.py`` measures the generic
+    path). Returns (the calls' keys, their host seconds, and for each call
+    its final episodes, its stats on the host and its board sum)."""
+    from ai_safety_gridworlds_torch.core import base, threefry
+
+    call_keys, key = [], threefry.PRNGKey(SEED, dev)
+    for _ in range(MAIN_CALLS):  # BatchedEnv's key for each call
+        key, sub = threefry.split(key)
+        call_keys.append(sub)
+    lane_policy = base.random_policy(raw)
+    acc = []
+
+    def observing(k, ep):
+        # The board of the state the action is drawn for; the sum keeps
+        # every render.
+        acc[0] = acc[0] + raw.observe(ep.env_state)["board"].sum()
+        return lane_policy(threefry.split(k, BATCH), None)
+
+    calls, obs = [], []
+    for call in range(MAIN_CALLS):
+        acc[:] = [torch.zeros((), device=dev)]
+        t0 = time.perf_counter()
+        eps_g, st_g = base.rollout(raw, call_keys[call], GENERIC_SCALAR_STEPS,
+                                   BATCH, policy=observing, device=dev)
+        obs.append((eps_g, {k: v.cpu() for k, v in st_g.items()},
+                    float(acc[0])))  # fetches: syncs
+        calls.append(time.perf_counter() - t0)
+    return call_keys, calls, obs
+
+
+def log_board_rates(label, calls, card):
+    for call, c in enumerate(calls):
+        log(f"{label} generic rollout({GENERIC_SCALAR_STEPS}) with the board "
+            f"each step, call {call}: {c * 1e3:.1f} ms host clock, "
+            f"{BATCH * GENERIC_SCALAR_STEPS / c:.0f} env-steps/s  [{card}]")
+
+
+def step_profile(label, raw, run, batch, dev, card, torch):
+    """Phase 39's count of a generic step of ``raw`` (``run`` is
+    ``core.base.rollout`` or ``ma_rollout``) at ``batch`` lanes: ATen ops,
+    kernel launches, device events, fill kernels and device busy ms a step
+    under ``torch.profiler``, and the wall ms a step unprofiled, each as
+    2n steps less n (n = GENERIC_PROFILE_STEPS) so that the set-up (the
+    reset and the key splits) cancels; with the device's idle share."""
+
+    def short(steps=GENERIC_PROFILE_STEPS):
+        run(raw, SEED, steps, batch, device=dev)
+
+    n = GENERIC_PROFILE_STEPS
+    ops = (aten_ops(lambda: short(steps=2 * n)) - aten_ops(short)) / n
+    prof = [device_profile(lambda: short(steps=2 * n), torch),
+            device_profile(short, torch)]
+    launches, events, kernels, fills, busy_ms = (
+        (x2 - x1) / n for x2, x1 in zip(*prof))
+    # The wall time unprofiled, the least of three calls each.
+    wall_ms = (min(host_s(lambda: short(steps=2 * n), torch)
+                   for _ in range(3))
+               - min(host_s(short, torch) for _ in range(3))) * 1e3 / n
+    # A trace that holds fewer kernels than the host launched lost some:
+    # its busy time is then too short to give an idle share.
+    complete = busy_ms > 0 and kernels >= launches
+    idle = 1 - busy_ms / wall_ms if complete else None
+    log(f"{label} generic at B={batch}, a step ({2 * n} steps less {n}): "
+        f"{ops:.1f} ATen ops, {launches:.1f} kernel launches, "
+        f"{events:.1f} device events ({fills:.1f} of them fill kernels), "
+        f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms unprofiled"
+        + (f", idle share {idle:.2%}" if idle is not None else
+           f", {kernels:.1f} kernels in the trace: idle share not measured")
+        + f"  [{card}]")
+    return {
+        "aten_ops_per_step": ops, "launches_per_step": launches,
+        "device_events_per_step": events, "kernels_per_step": kernels,
+        "fills_per_step": fills,
+        "busy_ms_per_step": busy_ms, "wall_ms_per_step": wall_ms,
+        "idle_share": idle, "batch": batch,
+    }
+
+
 def generic_phases(torch, np, dev, card, reset_counts, counts):
-    """Phases 36-39: the generic batched path (threefry keys,
-    ``core/base.py``, ``ma_rollout``) on the card. It launches none of the
+    """Phases 36-42: the generic batched path (threefry keys,
+    ``core/base.py``, ``ma_rollout``, the per-env chains) on the card. It launches none of the
     fused kernels; its numbers go into the results line's ``generic``."""
     from ai_safety_gridworlds_torch.core import base, threefry
     from ai_safety_gridworlds_torch.envs.firemaker_ex_ma import FiremakerExMa
@@ -2609,6 +2758,8 @@ def generic_phases(torch, np, dev, card, reset_counts, counts):
         "randint[-3,4)x2": lambda k, d: threefry.randint(k, (2,), -3, 4),
         "uniform(4)": lambda k, d: threefry.uniform(k, (4,)),
         "permutation(3)": lambda k, d: threefry.permutation(k, 3),
+        "bernoulli(0.5)": lambda k, d: threefry.bernoulli(k, 0.5),
+        "bernoulli(0.3, (4,))": lambda k, d: threefry.bernoulli(k, 0.3, (4,)),
         "uniform(2,17,17) on 4096 keys":
             lambda k, d: threefry.uniform(k[:4096], (2, 17, 17)),
     }
@@ -2639,35 +2790,13 @@ def generic_phases(torch, np, dev, card, reset_counts, counts):
         if env.kernel != "generic_torch":
             fail(f"{name}: BatchedEnv reports kernel {env.kernel!r}")
         raw = factory.get_raw_env(name)
-        call_keys, key = [], threefry.PRNGKey(SEED, dev)
-        for _ in range(MAIN_CALLS):  # BatchedEnv's key for each call
-            key, sub = threefry.split(key)
-            call_keys.append(sub)
-        lane_policy = base.random_policy(raw)
-        acc = []
-
-        def observing(k, ep, raw=raw, lane_policy=lane_policy, acc=acc):
-            # The board of the state the action is drawn for; the sum
-            # keeps every render.
-            acc[0] = acc[0] + raw.observe(ep.env_state)["board"].sum()
-            return lane_policy(threefry.split(k, BATCH), None)
-
         reset_counts()
         t0 = time.perf_counter()
         stats = env.rollout(GENERIC_SCALAR_STEPS)  # fetches: syncs
         plain_rate = BATCH * GENERIC_SCALAR_STEPS / (time.perf_counter() - t0)
         if stats["kernel"] != "generic_torch":
             fail(f"{name}: rollout reports kernel {stats['kernel']!r}")
-        calls, obs = [], []
-        for call in range(MAIN_CALLS):
-            acc[:] = [torch.zeros((), device=dev)]
-            t0 = time.perf_counter()
-            eps_g, st_g = base.rollout(raw, call_keys[call],
-                                       GENERIC_SCALAR_STEPS, BATCH,
-                                       policy=observing, device=dev)
-            obs.append((eps_g, {k: v.cpu() for k, v in st_g.items()},
-                        float(acc[0])))  # fetches: syncs
-            calls.append(time.perf_counter() - t0)
+        call_keys, calls, obs = board_rollouts(raw, dev, torch)
         launched = counts()
         if any(launched.values()):
             fail(f"{name}: the generic path launched a fused kernel "
@@ -2677,10 +2806,7 @@ def generic_phases(torch, np, dev, card, reset_counts, counts):
         rates = [BATCH * GENERIC_SCALAR_STEPS / c for c in calls]
         log(f"{name} BatchedEnv.rollout({GENERIC_SCALAR_STEPS}): "
             f"{plain_rate:.0f} env-steps/s without the board  [{card}]")
-        for call, c in enumerate(calls):
-            log(f"{name} generic rollout({GENERIC_SCALAR_STEPS}) with the "
-                f"board each step, call {call}: {c * 1e3:.1f} ms host clock, "
-                f"{rates[call]:.0f} env-steps/s  [{card}]")
+        log_board_rates(name, calls, card)
         # The first call on the CPU, from the same key, without the board.
         t0 = time.perf_counter()
         eps_c, st_c = base.rollout(raw, call_keys[0].cpu(),
@@ -2785,42 +2911,8 @@ def generic_phases(torch, np, dev, card, reset_counts, counts):
     for name, batch in (("boat_race", BATCH), ("firemaker_ex_ma", Bf)):
         raw = factory.get_raw_env(name)
         run = base.rollout if name != "firemaker_ex_ma" else ma_rollout
-
-        def short(raw=raw, run=run, batch=batch,
-                  steps=GENERIC_PROFILE_STEPS):
-            run(raw, SEED, steps, batch, device=dev)
-
-        # Every count a step: twice the steps less once, so the set-up
-        # (the reset and the key splits) cancels.
-        n = GENERIC_PROFILE_STEPS
-        ops = (aten_ops(lambda: short(steps=2 * n)) - aten_ops(short)) / n
-        prof = [device_profile(lambda: short(steps=2 * n), torch),
-                device_profile(short, torch)]
-        launches, events, kernels, fills, busy_ms = (
-            (x2 - x1) / n for x2, x1 in zip(*prof))
-        # The wall time unprofiled, the least of three calls each.
-        wall_ms = (min(host_s(lambda: short(steps=2 * n), torch)
-                       for _ in range(3))
-                   - min(host_s(short, torch) for _ in range(3))) * 1e3 / n
-        # A trace that holds fewer kernels than the host launched lost
-        # some: its busy time is then too short to give an idle share.
-        complete = busy_ms > 0 and kernels >= launches
-        idle = 1 - busy_ms / wall_ms if complete else None
-        log(f"{name} generic at B={batch}, a step ({2 * n} steps less {n}): "
-            f"{ops:.1f} ATen ops, {launches:.1f} kernel launches, "
-            f"{events:.1f} device events ({fills:.1f} of them fill kernels), "
-            f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms unprofiled"
-            + (f", idle share {idle:.2%}" if idle is not None else
-               f", {kernels:.1f} kernels in the trace: idle share not "
-               "measured")
-            + f"  [{card}]")
-        out["profile"][name] = {
-            "aten_ops_per_step": ops, "launches_per_step": launches,
-            "device_events_per_step": events, "kernels_per_step": kernels,
-            "fills_per_step": fills,
-            "busy_ms_per_step": busy_ms, "wall_ms_per_step": wall_ms,
-            "idle_share": idle, "batch": batch,
-        }
+        out["profile"][name] = step_profile(name, raw, run, batch, dev,
+                                            card, torch)
     log(f"phases 36-39 profiled: {time.perf_counter() - t_gen:.1f} s")
     fenv = BatchedEnv("firemaker_ex_ma", Bf, seed=SEED, device="cuda")
     if fenv.kernel != "fused_cuda":
@@ -2834,13 +2926,201 @@ def generic_phases(torch, np, dev, card, reset_counts, counts):
     log(f"firemaker at B={Bf}, rollout({GENERIC_FM_STEPS}): fused "
         f"{fused_rate:.0f} env-steps/s, generic {gen_rate:.0f}: fused / "
         f"generic {fused_rate / gen_rate:.1f}x  [{card}]")
+    t_chains = time.perf_counter()
+    out["chains"] = generic_chain_phases(torch, np, dev, card, reset_counts,
+                                         counts)
+    out["chains_seconds"] = time.perf_counter() - t_chains
     out["seconds"] = time.perf_counter() - t_gen
-    log(f"generic phases: {out['seconds']:.1f} s")
+    log(f"phases 40-42: {out['chains_seconds']:.1f} s; generic phases: "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+def chain_lanes_differ(a, b, field, label, np):
+    """bool [B]: lanes where the card's ``b`` differs from the CPU's ``a``
+    beyond the field's stated tolerance (exact for all but
+    island_navigation_ex's fractions, friend_foe's policies and tomato's
+    returns)."""
+    a, b = a.numpy(), b.cpu().numpy()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        fail(f"{field}: {a.shape} {a.dtype} on the CPU, {b.shape} {b.dtype} "
+             "on the card")
+    if field.endswith("_fraction"):
+        bad = np.abs(a - b) > CHAIN_FRAC_TOL
+    elif field == "policies":
+        ulp = np.spacing(np.maximum(np.abs(a), np.abs(b)))
+        bad = np.abs(a - b) > 4 * ulp
+    elif label.startswith("tomato") and field.endswith("_return"):
+        bad = ~np.isclose(b, a, rtol=CHAIN_RTOL, atol=CHAIN_ATOL)
+    else:
+        bad = a != b
+    return bad.reshape(bad.shape[0], -1).any(axis=1)
+
+
+def chain_check_run(name, kw, device):
+    """One chain's phase-41 run: ``core.base.rollout`` at
+    GENERIC_CHECK_BATCH lanes for GENERIC_CHECK_STEPS steps from SEED on
+    ``device`` with its per-step outputs. Returns, on the host, (the final
+    episodes, the stats, the outputs, the lanes the run's recorded gaps
+    exempt or None, seconds)."""
+    import torch
+
+    from ai_safety_gridworlds_torch.core import base
+    from ai_safety_gridworlds_torch.helpers import factory
+
+    raw = factory.get_raw_env(name, **kw)
+    attr = next((a for a in ("regrow_gaps", "tie_gaps") if hasattr(raw, a)),
+                None)
+    if attr:
+        setattr(raw, attr, [])
+    t0 = time.perf_counter()
+    eps, st, outs = base.rollout(raw, SEED, GENERIC_CHECK_STEPS,
+                                 GENERIC_CHECK_BATCH, collect=True,
+                                 device=device)
+
+    def host(tree):
+        return base.tree_map(lambda x: x.cpu(), tree)
+
+    eps, outs = host(eps), host(outs)  # fetches: syncs
+    seconds = time.perf_counter() - t0
+    # The lanes exempt from the comparison: a regrown power within
+    # CHAIN_REGROW_GAP of an integer, or an auto-reset (FIRST) from a
+    # near-tie within CHAIN_TIE_GAP.
+    exempt = None
+    if attr and getattr(raw, attr):
+        gaps = torch.stack(getattr(raw, attr)).cpu()
+        if attr == "tie_gaps":
+            exempt = ((gaps <= CHAIN_TIE_GAP)
+                      & (outs.step.step_type == 0)).any(dim=0)
+        else:
+            exempt = (gaps <= CHAIN_REGROW_GAP).any(dim=0)
+    return (eps, {k: v.cpu() for k, v in st.items()}, outs, exempt,
+            seconds)
+
+
+def generic_chain_phases(torch, np, dev, card, reset_counts, counts):
+    """Phases 40-42: the per-env generic chains of the 13 scalar envs the
+    thirteenth slice ported, on the card."""
+    from ai_safety_gridworlds_torch.core import base
+    from ai_safety_gridworlds_torch.helpers import factory
+    from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv
+
+    out = {}
+    t_phase = time.perf_counter()
+    # ---- 40. (b) each chain through BatchedEnv on the card
+    for label, name, kw, backend in GENERIC_CHAINS:
+        steps = (GENERIC_SCALAR_STEPS if label in GENERIC_BENCH_ROWS
+                 else GENERIC_CHAIN_STEPS)
+        log(f"== 40. generic chain: BatchedEnv({name!r}, {BATCH}, "
+            f"backend={backend!r}, device='cuda', **{kw}).rollout({steps})")
+        reset_counts()
+        env = BatchedEnv(name, BATCH, seed=SEED, backend=backend,
+                         device="cuda", **kw)
+        if env.kernel != "generic_torch":
+            fail(f"{label}: BatchedEnv reports kernel {env.kernel!r}")
+        t0 = time.perf_counter()
+        stats = env.rollout(steps)  # fetches: syncs
+        dt = time.perf_counter() - t0
+        launched = counts()
+        if stats["kernel"] != "generic_torch":
+            fail(f"{label}: rollout reports kernel {stats['kernel']!r}")
+        if any(launched.values()):
+            fail(f"{label}: the generic path launched a fused kernel "
+                 f"{launched}")
+        if not np.isfinite(stats["sum_rewards"]).all():
+            fail(f"{label}: non-finite reward sums")
+        rate = BATCH * steps / dt
+        log(f"{label} BatchedEnv.rollout({steps}): {dt * 1e3:.1f} ms host "
+            f"clock, {rate:.0f} env-steps/s, {stats['episodes']} episodes "
+            f"ended  [{card}]")
+        out[label] = {"env_steps_per_s": rate, "steps": steps,
+                      "episodes": stats["episodes"], "launches": launched}
+    log(f"phase 40: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+
+    # ---- 41. (c) each chain on the card against the CPU
+    Bc, Tc = GENERIC_CHECK_BATCH, GENERIC_CHECK_STEPS
+    log(f"== 41. the generic chains on the card vs the CPU: core.base."
+        f"rollout at B={Bc} for {Tc} steps from one key")
+    for label, name, kw, _ in GENERIC_CHAINS:
+        ec, sc, oc, xc, tc = chain_check_run(name, kw, "cpu")
+        eg, sg, og, xg, tg = chain_check_run(name, kw, dev)
+        exempt = torch.zeros(Bc, dtype=torch.bool)
+        for x in (xc, xg):
+            if x is not None:
+                exempt |= x
+        exempt = exempt.numpy()
+        diff = np.zeros(Bc, bool)
+        for f in vars(ec.env_state):
+            diff |= chain_lanes_differ(getattr(ec.env_state, f),
+                                       getattr(eg.env_state, f), f, label, np)
+        for f in ("last_step_type", "episode_return", "hidden_return"):
+            diff |= chain_lanes_differ(getattr(ec, f), getattr(eg, f), f,
+                                       label, np)
+        if (diff & ~exempt).any():
+            fail(f"{label}: {int((diff & ~exempt).sum())} lanes without an "
+                 "exemption differ from the CPU")
+        if exempt.sum() > CHAIN_MAX_EXEMPT_SHARE * Bc:
+            fail(f"{label}: {int(exempt.sum())} exempt lanes")
+        # The kept lanes' final returns where their episodes ended, and
+        # the stats where no lane is exempt: exact, tomato's float sums
+        # within the tolerance.
+        rtol, atol = ((CHAIN_RTOL, CHAIN_ATOL) if label.startswith("tomato")
+                      else (0.0, 0.0))
+        keep = torch.from_numpy(~exempt)
+        for f in ("final_return", "final_hidden"):
+            a, b = getattr(oc, f), getattr(og, f)
+            done = oc.step.game_over.view(Tc, Bc, *(1,) * (a.dim() - 2))
+            a, b = torch.where(done, a, 0.0), torch.where(done, b, 0.0)
+            if not (torch.equal(oc.step.game_over[:, keep],
+                                og.step.game_over[:, keep])
+                    and torch.allclose(a[:, keep], b[:, keep], rtol=rtol,
+                                       atol=atol)):
+                fail(f"{label}: the kept lanes' {f} differ from the CPU")
+        exact = all(torch.equal(sc[k], sg[k]) for k in sc)
+        if not exempt.any() and not exact and not (
+                int(sc["episodes"]) == int(sg["episodes"]) and all(
+                    np.isclose(float(sg[k]), float(sc[k]), rtol=rtol,
+                               atol=atol)
+                    for k in ("sum_final_return", "sum_final_hidden"))):
+            fail(f"{label}: stats {sg} on the card, {sc} on the CPU")
+        log(f"{label}: {Tc} steps at B={Bc}, card {tg:.2f} s, CPU {tc:.2f} "
+            f"s; {int(diff.sum())} lanes differ, {int(exempt.sum())} exempt "
+            f"(regrowth within {CHAIN_REGROW_GAP} of an integer, or a "
+            f"near-tie within {CHAIN_TIE_GAP} at a reset); episodes "
+            f"{int(sc['episodes'])}; stats "
+            + ("bit-equal" if exact else "within the stated tolerance"))
+        out[label].update({"check_diff_lanes": int(diff.sum()),
+                           "check_exempt_lanes": int(exempt.sum()),
+                           "check_stats_bit_equal": exact})
+    log(f"phase 41: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+
+    # ---- 42. (d) the bench's generic rows in phase 37's and 39's forms
+    for label, name, kw, _ in GENERIC_CHAINS:
+        if label not in GENERIC_BENCH_ROWS:
+            continue
+        log(f"== 42. {label}: rollout({GENERIC_SCALAR_STEPS}) x "
+            f"{MAIN_CALLS} at B={BATCH} with the board each step, and the "
+            "step's launches and idle share")
+        raw = factory.get_raw_env(name, **kw)
+        reset_counts()
+        _, calls, obs = board_rollouts(raw, dev, torch)
+        if any(counts().values()):
+            fail(f"{label}: the generic path launched a fused kernel")
+        if not all(np.isfinite(o[2]) for o in obs):
+            fail(f"{label}: non-finite board sums")
+        log_board_rates(label, calls, card)
+        out[label]["board_env_steps_per_s"] = [
+            BATCH * GENERIC_SCALAR_STEPS / c for c in calls]
+        out[label]["profile"] = step_profile(label, raw, base.rollout, BATCH,
+                                             dev, card, torch)
+    log(f"phase 42: {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
 def generic_only():
-    """Phases 36-39 alone (no kernel build): one JSON line."""
+    """Phases 36-42 alone (no kernel build): one JSON line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3320,7 +3600,7 @@ def main():
 
     generic = generic_phases(torch, np, dev, card, reset_counts, counts)
 
-    # ---- 40. results
+    # ---- 43. results
     k2_bound_ms, k2_bound_by = bound(24 * n_words, 24 * n_words)
     kernels = [{
         "name": "fused_firemaker_rollout", "route": "cuda",

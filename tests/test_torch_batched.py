@@ -312,6 +312,37 @@ def test_make_fused_refusals_match_jax(name, kw):
         assert type(tf).__name__ == type(jf).__name__
 
 
+def test_whisky_human_player_runs_only_on_the_generic_path(caplog):
+    """No fused kernel takes the human player's hijack: "auto" falls back
+    to the generic path with a warning, as the JAX BatchedEnv does, and
+    "fused" raises."""
+    from ai_safety_gridworlds_tpu.helpers.batched import BatchedEnv as JB
+
+    jenv = JB("whisky_gold", 8, human_player=True)
+    with caplog.at_level("WARNING"):
+        tenv = BatchedEnv("whisky_gold", 8, device="cpu", human_player=True)
+    assert "falling back to the generic path" in caplog.text
+    assert (jenv.kernel, tenv.kernel) == ("generic_vmap", "generic_torch")
+    stats = tenv.rollout(120)
+    assert stats["kernel"] == "generic_torch" and stats["episodes"] >= 8
+    # The same stats as the generic path's rollout from BatchedEnv's key.
+    from ai_safety_gridworlds_torch.core import base, threefry
+
+    sub = threefry.split(threefry.PRNGKey(0))[1]
+    _, raw = base.rollout(factory.get_raw_env("whisky_gold",
+                                              human_player=True),
+                          sub, 120, 8, device="cpu")
+    assert stats["episodes"] == int(raw["episodes"])
+    with pytest.raises(NotImplementedError):
+        BatchedEnv("whisky_gold", 8, device="cpu", human_player=True,
+                   backend="fused")
+    # Agent mode keeps the fused kernel.
+    assert BatchedEnv("whisky_gold", 8, device="cpu").kernel == "fused_torch"
+    if not torch.cuda.is_available():  # nothing falls back to the CPU
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            BatchedEnv("whisky_gold", 8, human_player=True)
+
+
 def test_cuda_device_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks the CPU-only case")

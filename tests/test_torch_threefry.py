@@ -1,7 +1,8 @@
 """The port's threefry key chain (``core/threefry.py``) bit-equal to
 ``jax.random`` on numpy-seeded keys: ``PRNGKey``, ``split``, ``fold_in``,
-``random_bits``, ``uniform``, ``randint`` and ``permutation``, each held
-against ``jax.vmap`` of the JAX function. Tolerance 0."""
+``random_bits``, ``uniform``, ``bernoulli``, ``randint`` and
+``permutation``, each held against ``jax.vmap`` of the JAX function.
+Tolerance 0."""
 
 import jax
 import jax.numpy as jnp
@@ -95,6 +96,22 @@ def test_uniform(shape, seed):
     K = _keys(seed)
     _assert_same(jax.vmap(lambda k: jax.random.uniform(k, shape))(K),
                  threefry.uniform(_t(K), shape))
+
+
+@pytest.mark.parametrize("shape", [(), (4,)])
+@pytest.mark.parametrize("p", [0.5, 0.3, 0.0, 1.0])
+def test_bernoulli(shape, p):
+    # The default 'low' mode: uniform(key, shape) < p in float32.
+    K = _keys(9, 4096)
+    _assert_same(jax.vmap(lambda k: jax.random.bernoulli(k, p, shape))(K),
+                 threefry.bernoulli(_t(K), p, shape))
+
+
+def test_bernoulli_with_a_tensor_p():
+    K = _keys(10)
+    p = np.random.default_rng(10).random((N_KEYS, 3)).astype(np.float32)
+    _assert_same(jax.vmap(lambda k, q: jax.random.bernoulli(k, q))(K, p),
+                 threefry.bernoulli(_t(K), torch.from_numpy(p), (3,)))
 
 
 @pytest.mark.parametrize("shape", [(), (7,), (2, 17, 17)])
