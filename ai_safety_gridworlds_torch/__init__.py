@@ -23,8 +23,8 @@ PyTorch versions for CPU tensors. The generic batched path
 (``BatchedEnv(..., backend="generic")``: JAX's threefry key chain in
 :mod:`~ai_safety_gridworlds_torch.core.threefry`, ``core.base.rollout`` and
 ``ma.safety_game_ma.ma_rollout``, plain PyTorch on the card) runs the 15
-scalar envs above (``whisky_gold`` with ``human_player=True`` only there)
-and ``firemaker_ex_ma``, and equals the JAX package's generic path from
-the same key. ``ROADMAP.md`` lists
+scalar envs above (``whisky_gold`` with ``human_player=True`` only there),
+``firemaker_ex_ma``, ``island_navigation_ex_ma`` and ``aintelope_savanna``,
+and equals the JAX package's generic path from the same key. ``ROADMAP.md`` lists
 what is still to come.
 """

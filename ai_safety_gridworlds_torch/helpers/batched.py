@@ -10,22 +10,24 @@ device every fused ``rollout`` is one launch of the hand-written kernel
 
 ``backend="generic"``, and ``"auto"`` when no kernel takes the
 configuration (``make_fused`` gives ``None`` or ``init_packed`` refuses
-it; logged as a warning), run the generic batched path instead:
-``core.base.rollout`` or ``ma.safety_game_ma.ma_rollout`` in plain PyTorch
-on ``device`` (``kernel == "generic_torch"``), with the per-env chains of
-all 16 envs ported so far: the scalar boat_race, island_navigation,
-boat_race_ex, island_navigation_ex, absent_supervisor,
-distributional_shift, safe_interruptibility, safe_interruptibility_ex,
-side_effects_sokoban, whisky_gold (``human_player=True``, which no fused
-kernel takes, runs only here), tomato_watering, tomato_crmdp,
-conveyor_belt (and its ``conveyor_belt_{variant}`` names), rocks_diamonds,
-friend_foe and conveyor_belt_ex, and the multi-agent firemaker_ex_ma. Any
-other name (island_navigation_ex_ma, aintelope_savanna) raises
-``NotImplementedError``; ``ROADMAP.md`` lists them. The generic path is
-eager PyTorch, hundreds of small launches a step, and
-much slower than the fused kernels. Nothing falls back to the CPU: asking
-for ``device="cuda"`` without a CUDA device raises, and
-``backend="fused"`` never falls back.
+it, on a CUDA device also for the limits the island_navigation_ex_ma and
+aintelope_savanna kernels have whatever the state; logged as a warning),
+run the generic batched path instead: ``core.base.rollout`` or
+``ma.safety_game_ma.ma_rollout`` in plain PyTorch on ``device``
+(``kernel == "generic_torch"``), with the per-env chains of all 18
+registered envs: the scalar boat_race, island_navigation, boat_race_ex,
+island_navigation_ex, absent_supervisor, distributional_shift,
+safe_interruptibility, safe_interruptibility_ex, side_effects_sokoban,
+whisky_gold (``human_player=True``, which no fused kernel takes, runs only
+here), tomato_watering, tomato_crmdp, conveyor_belt (and its
+``conveyor_belt_{variant}`` names), rocks_diamonds, friend_foe and
+conveyor_belt_ex, and the multi-agent firemaker_ex_ma,
+island_navigation_ex_ma and aintelope_savanna (a savanna top-up beyond the
+free cells, which its kernel refuses, runs here). The generic path is
+eager PyTorch, hundreds of small launches a step, and much slower than
+the fused kernels. Nothing falls back to the CPU: asking for
+``device="cuda"`` without a CUDA device raises, and ``backend="fused"``
+never falls back.
 """
 
 from __future__ import annotations
@@ -76,14 +78,16 @@ class BatchedEnv:
             )
         if self._fused is not None:
             try:
+                # The packer tests its kernel's static limits at the
+                # launches' tile on a CUDA device.
                 self._S = self._fused.init_packed(
-                    seed, batch_size, self.device
+                    seed, batch_size, self.device, tile=tile
                 )
             except (ValueError, NotImplementedError):
                 # A kernel exists for the env but its packer refuses this
-                # configuration (the layout and top-up checks raise these);
-                # on "auto" fall back loudly. Any other error, a CUDA one
-                # included, reaches the caller.
+                # configuration (the layout, top-up and static-limit checks
+                # raise these); on "auto" fall back loudly. Any other
+                # error, a CUDA one included, reaches the caller.
                 if backend == "fused":
                     raise
                 logging.getLogger(__name__).warning(
@@ -97,13 +101,7 @@ class BatchedEnv:
             self._rew0 = self._reward_sums()
         else:
             from ai_safety_gridworlds_torch.core import threefry
-            from ai_safety_gridworlds_torch.core.base import SafetyGridworld
 
-            if not isinstance(self.env, SafetyGridworld):
-                raise NotImplementedError(
-                    f"the generic path of {name!r} (its per-env step "
-                    "chain) is not ported yet, see ROADMAP.md"
-                )
             self._key = threefry.PRNGKey(seed, self.device)
         self._is_ma = hasattr(self.env, "n_agents")
 

@@ -8,11 +8,9 @@ island_navigation_ex, absent_supervisor, distributional_shift,
 safe_interruptibility(_ex), side_effects_sokoban, whisky_gold,
 tomato_watering, tomato_crmdp, conveyor_belt with its four
 ``conveyor_belt_{variant}`` names, rocks_diamonds, friend_foe and
-conveyor_belt_ex). Every scalar env and firemaker_ex_ma also has its
-per-env generic chain (16 envs); island_navigation_ex_ma and
-aintelope_savanna hold the statics of their fused kernels only. The
-experiment presets, the stateful shells and the adapters come with later
-slices (``ROADMAP.md``).
+conveyor_belt_ex). Every one of these 18 envs also has its per-env
+generic chain. The experiment presets, the stateful shells and the
+adapters come with later slices (``ROADMAP.md``).
 """
 
 from __future__ import annotations

@@ -237,6 +237,7 @@ def ma_rollout(
     batch_size: int,
     policy=None,
     device="cuda",
+    lane_stats: bool = False,
 ):
     """Batched auto-resetting MA rollout on ``device``.
 
@@ -245,7 +246,10 @@ def ma_rollout(
     key per step (``randint(step_key, (B, n))``). Returns (final episode
     state, stats): ``episodes`` (int32) and ``sum_final_returns``
     (float32 [n_agents, n_dims], the finished episodes' returns summed per
-    step, then over steps, as JAX's scan).
+    step, then over steps, as JAX's scan). ``lane_stats`` adds the same
+    per lane, ``lane_episodes`` (int32 [B]) and ``lane_final_returns``
+    (float32 [B, n_agents, n_dims], added step by step), so that lanes can
+    be compared one by one.
     """
     device = resolve_device(device)
     if not isinstance(key, torch.Tensor):
@@ -263,6 +267,8 @@ def ma_rollout(
     eps = ma_episode_reset(env, init_keys[1:])
     step_keys = threefry.split(init_keys[0], n_steps)
     per_step = []
+    lane_eps = torch.zeros((batch_size,), dtype=_I32, device=device)
+    lane_rets = env.zero_rewards(batch_size, device)
     for s in range(n_steps):
         actions = policy(step_keys[s], eps)
         eps, outs = ma_episode_step(env, eps, actions)
@@ -270,4 +276,11 @@ def ma_rollout(
             "episodes": outs.step.game_over.sum(dtype=_I32),
             "sum_final_returns": outs.final_returns.sum(dim=0),
         })
-    return eps, sum_steps(per_step)
+        if lane_stats:
+            lane_eps = lane_eps + outs.step.game_over.to(_I32)
+            lane_rets = lane_rets + outs.final_returns
+    stats = sum_steps(per_step)
+    if lane_stats:
+        stats["lane_episodes"] = lane_eps
+        stats["lane_final_returns"] = lane_rets
+    return eps, stats

@@ -10,6 +10,10 @@ tiles of a type at Generator-chosen cells, and a shuffle of the interior
 ``numpy.random.Generator`` in the reference's order, so the same
 Generator state gives the same board byte for byte. The per-experiment
 cache and its key wait for the stateful shells (``ROADMAP.md``).
+
+:func:`shuffle_interior_device` is the generic path's interior shuffle on
+a batch of boards, one threefry key a lane, as the JAX package's
+``shuffle_interior_device`` under ``jax.vmap``.
 """
 
 from __future__ import annotations
@@ -17,6 +21,9 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
+
+from ai_safety_gridworlds_torch.core import threefry
 
 
 def randomize_map(
@@ -85,3 +92,20 @@ def randomize_map(
     else:
         board = submap
     return board
+
+
+def shuffle_interior_device(board: torch.Tensor, keys: torch.Tensor):
+    """Each lane's board with its interior (the board less its edge rows and
+    columns) permuted by ``threefry.permutation`` of the lane's key, the
+    interior gathered in row-major order as ``flat[perm]``: ``board`` is
+    ``[H, W]`` (shared) or ``[B, H, W]``, ``keys`` ``[B, 2]``; returns
+    ``[B, H, W]``."""
+    batch = keys.shape[0]
+    h, w = board.shape[-2:]
+    board = board.expand(batch, h, w)
+    interior = board[:, 1:-1, 1:-1].reshape(batch, -1)
+    perm = threefry.permutation(keys, interior.shape[1])
+    shuffled = interior.gather(1, perm.long()).view(batch, h - 2, w - 2)
+    out = board.clone()
+    out[:, 1:-1, 1:-1] = shuffled
+    return out

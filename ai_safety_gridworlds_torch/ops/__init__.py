@@ -50,7 +50,12 @@ def make_fused(env):
     env has no fused kernel or its fused class refuses the configuration
     at construction (``NotImplementedError``); callers then run the
     generic path. A refused configuration is logged as a warning: the
-    generic path is much slower. Refusals at launch (``_check_launch``,
+    generic path is much slower. The island_navigation_ex_ma and
+    aintelope_savanna packers refuse on a CUDA device, at
+    ``init_packed``, the limits their kernels have whatever the state
+    (``check_static_limits``: agents, reward dims, actions, cells, layout
+    pool, board size at the tile), and ``BatchedEnv(..., "auto")`` then
+    takes the generic path too. Refusals at launch (``_check_launch``,
     ``_check_geometry``, ``mxu_stencil`` on CUDA) stay errors."""
     name = getattr(env, "name", None)
     try:

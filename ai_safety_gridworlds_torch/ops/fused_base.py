@@ -16,8 +16,9 @@ run the plain body on any device; they are what the tests and the on-card
 comparison hold the kernels against.
 
 Subclasses implement ``_step(S, statics, collect_draws)``,
-``_rollout_kernel(S, n_steps, tile)``, ``init_packed(seed, batch, device)``
-and, where ``POLICY_FEATURES > 0``, ``feats_of(S)`` and
+``_rollout_kernel(S, n_steps, tile)``, ``init_packed(seed, batch, device,
+tile=None)`` (on a CUDA device it raises ``NotImplementedError`` for a
+configuration its kernels cannot take at ``tile``) and, where ``POLICY_FEATURES > 0``, ``feats_of(S)`` and
 ``_collect_kernel(S, params, n_steps, tile)``; they declare
 ``STATE_FIELDS`` and ``DEFAULT_TILE``.
 

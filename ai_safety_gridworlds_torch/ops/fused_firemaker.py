@@ -222,9 +222,12 @@ class FusedFiremaker(FusedMaBase):
 
     # ------------------------------------------------------------- packing
 
-    def init_packed(self, seed: int, batch: int, device) -> dict:
+    def init_packed(self, seed: int, batch: int, device, tile=None) -> dict:
         """The packed initial state of ``batch`` lanes on ``device``; equal
-        field by field to the JAX package's ``init_packed(seed, batch)``."""
+        field by field to the JAX package's ``init_packed(seed, batch)``.
+        The kernels take every configuration at every tile, so ``tile`` is
+        unused."""
+        del tile
         n = self.n
         keys = torch.from_numpy(prng.derive_keys(seed, batch))
         state = {

@@ -251,7 +251,7 @@ class FusedIslandMa(FusedMaBase):
         return code + 16.0 * dist.astype(np.float32)
 
     def init_packed(self, seed: int, batch: int, device,
-                    layout_pool: int = 1) -> dict:
+                    layout_pool: int = 1, tile=None) -> dict:
         """The packed initial state of ``batch`` lanes on ``device``; equal
         field by field, and in the statics ``_kstatics_np``, to the JAX
         package's ``init_packed(seed, batch, layout_pool)``.
@@ -260,7 +260,11 @@ class FusedIslandMa(FusedMaBase):
         (the interior shuffle of ``mo.map_randomization.randomize_map``,
         from ``PCG64(seed ^ 0x15A17D)``), and the auto-reset restores the
         lane's own map; ``layout_pool=K > 1`` draws K layouts per lane and
-        the auto-reset cycles them per episode."""
+        the auto-reset cycles them per episode.
+
+        On a CUDA device a configuration that K6 and K7 lack whatever the
+        state raises ``NotImplementedError`` here (``check_static_limits``
+        at ``tile``, the launches' threads per block)."""
         from ai_safety_gridworlds_torch.envs.island_navigation_ex_ma import (
             AGENT_CHRS,
             GAME_ART,
@@ -364,6 +368,8 @@ class FusedIslandMa(FusedMaBase):
             state["ep_idx"] = torch.zeros((1, batch), dtype=_I32)
             fields = fields + ("ep_idx",)
         self.STATE_FIELDS = fields
+        if torch.device(device).type == "cuda":
+            check_static_limits(self, tile)
         return {k: v.to(device) for k, v in state.items()}
 
     def _on(self, device) -> dict:
@@ -795,30 +801,41 @@ class FusedIslandMa(FusedMaBase):
         col = b[:, lane] if b.shape[1] > 1 else b[:, 0]
         return col.reshape(self.h, self.w)
 
-    def unpack_lane(self, S, lane: int) -> dict:
-        """One packed lane as numpy arrays under the field names of the JAX
-        package's ``IslandNavExMaState`` (the per-env key excepted)."""
-        def col(name):
-            return S[name][:, lane].cpu().numpy()
+    def unpack_lane(self, S, lane: int):
+        """The packed lane as the generic path's ``IslandNavExMaState``, a
+        batch of one lane on ``S``'s device (key ``PRNGKey(0)``, as JAX's
+        ``unpack_lane``)."""
+        from ai_safety_gridworlds_torch.core import threefry
+        from ai_safety_gridworlds_torch.envs.island_navigation_ex_ma import (
+            IslandNavExMaState,
+        )
 
-        pos_flat = col("pos")
-        return {
-            "t": np.int32(col("t")[0]),
-            "pos": np.stack([pos_flat // self.w, pos_flat % self.w],
-                            axis=1).astype(np.int32),
-            "step_types": col("step_types"),
-            "termination_reasons": col("reasons"),
-            "action_direction": col("act_dir"),
-            "observation_direction": col("obs_dir"),
-            "drink_satiation": col("drink_sat"),
-            "food_satiation": col("food_sat"),
-            "drink_availability": np.float32(col("drink_avail")[0]),
-            "drink_fraction": np.float32(col("drink_frac")[0]),
-            "food_availability": np.float32(col("food_avail")[0]),
-            "food_fraction": np.float32(col("food_frac")[0]),
-            "visits": col("visits").reshape(self.n, 5),
-            "safety": col("safety"),
-        }
+        n, w = self.n, self.w
+
+        def col(name):
+            return S[name][:, lane]
+
+        def row(name):  # [n] -> [1, n]
+            return col(name).view(1, n)
+
+        pos = col("pos").to(_I32)
+        return IslandNavExMaState(
+            t=col("t").to(_I32),
+            key=threefry.PRNGKey(0, S["t"].device).view(1, 2),
+            pos=torch.stack([pos // w, pos % w], dim=1).view(1, n, 2),
+            step_types=row("step_types"),
+            termination_reasons=row("reasons"),
+            action_direction=row("act_dir"),
+            observation_direction=row("obs_dir"),
+            drink_satiation=row("drink_sat"),
+            food_satiation=row("food_sat"),
+            drink_availability=col("drink_avail").to(_F32),
+            drink_fraction=col("drink_frac").to(_F32),
+            food_availability=col("food_avail").to(_F32),
+            food_fraction=col("food_frac").to(_F32),
+            visits=col("visits").view(1, n, 5),
+            safety=row("safety"),
+        )
 
     # ----------------------------------------------------------- CUDA path
 
@@ -1172,14 +1189,14 @@ def _block(fused, B, tile, hidden=0, schedulers=_H100_SCHEDULERS):
     return g, threads, smem
 
 
-def _check_launch(fused, S, n_steps, tile, hidden=0):
-    """The checks both kernels share; returns ``(device, B, n_steps,
-    block)`` with ``block`` from ``_block``. Configurations the kernels
-    lack raise ``NotImplementedError``, bad inputs ``ValueError``, both
-    before any launch."""
-    device = S["t"].device
-    if device.type != "cuda":
-        raise NotImplementedError(f"no island_ma kernel for {device}")
+def check_static_limits(fused, tile=None) -> None:
+    """Raise ``NotImplementedError`` for what K6 and K7 lack whatever the
+    state: more than 4 agents, 12 reward dims or 5 actions, a layout pool
+    of more than 8, boards of more than 4096 cells, and (once the layouts
+    are drawn) step tables that fit no block of ``tile`` threads even at
+    32 threads a lane. ``init_packed`` calls it on a CUDA device, so that
+    ``BatchedEnv(..., backend="auto")`` takes the generic path for such a
+    configuration; the plain version runs all of them."""
     if not 1 <= fused.n <= _MAX_N:
         raise NotImplementedError(
             f"the island_ma kernels take 1..{_MAX_N} agents, not {fused.n}"
@@ -1197,6 +1214,22 @@ def _check_launch(fused, S, n_steps, tile, hidden=0):
         raise NotImplementedError(
             f"the island_ma kernels take boards of at most {_MAX_HW} cells"
         )
+    if fused._kstatics_np and _geometry(fused, 32, tile)[1] > _MAX_SMEM:
+        raise NotImplementedError(
+            "the island_ma kernels' step tables fit no block of "
+            f"{tile or 32} threads"
+        )
+
+
+def _check_launch(fused, S, n_steps, tile, hidden=0):
+    """The checks both kernels share; returns ``(device, B, n_steps,
+    block)`` with ``block`` from ``_block``. Configurations the kernels
+    lack raise ``NotImplementedError``, bad inputs ``ValueError``, both
+    before any launch."""
+    device = S["t"].device
+    if device.type != "cuda":
+        raise NotImplementedError(f"no island_ma kernel for {device}")
+    check_static_limits(fused)
     if not fused._kstatics_np:
         raise ValueError("call init_packed before launching the kernels")
     B, n_steps = check_kernel_state(

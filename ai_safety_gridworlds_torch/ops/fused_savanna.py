@@ -354,7 +354,7 @@ class FusedSavanna(FusedMaBase):
     # ------------------------------------------------------------- packing
 
     def init_packed(self, seed: int, batch: int, device, layout_pool: int = 1,
-                    exact_reset=None) -> dict:
+                    exact_reset=None, tile=None) -> dict:
         """The packed initial state of ``batch`` lanes on ``device``; equal
         field by field, and in the statics ``_kstatics_np``, to the JAX
         package's ``init_packed(seed, batch, layout_pool, exact_reset)``.
@@ -365,7 +365,11 @@ class FusedSavanna(FusedMaBase):
         ``layout_pool == 1``) redraws each lane's map from the PRF at every
         auto-reset, and the layout boards ``wall`` and ``sboard`` become
         state; ``layout_pool=K > 1`` draws K layouts per lane instead and
-        the auto-reset cycles them per episode."""
+        the auto-reset cycles them per episode.
+
+        On a CUDA device a configuration that K8 and K9 lack whatever the
+        state raises ``NotImplementedError`` here (``check_static_limits``
+        at ``tile``, the launches' threads per block)."""
         from ai_safety_gridworlds_torch.envs.aintelope_savanna import GAP_CHR
 
         env = self.env
@@ -499,6 +503,8 @@ class FusedSavanna(FusedMaBase):
         self._kstatics_np = kstatics
         self.packed_batch = int(batch)
         self._device_cache = {}
+        if torch.device(device).type == "cuda":
+            check_static_limits(self, tile)
         return {k: v.to(device) for k, v in state.items()}
 
     def _layout_statics(self, boards):
@@ -1161,20 +1167,47 @@ class FusedSavanna(FusedMaBase):
 
     # ------------------------------------------------------------- interop
 
-    def unpack_lane(self, S, lane: int) -> dict:
-        """One packed lane as numpy arrays under the field names of the JAX
-        package's ``SavannaState`` (the per-env key excepted). Under
-        ``exact_reset`` the layout masks are decoded from the lane's
-        ``sboard`` and ``wall``."""
+    def lane_prf_ctx(self, S, lane: int, slot: int) -> dict:
+        """One lane's counter-based PRF context for sub-step ``slot`` of the
+        step taken from ``S``, in the ``options`` format of the generic
+        ``engine_substep`` (``prf_key_hi``, ``prf_key_lo``,
+        ``prf_site_base``; ``[1]`` int64 tensors holding uint32 words, a
+        batch of one lane as ``unpack_lane``'s): its predator and drape
+        draws then take the words this kernel draws there."""
+        def word(x):
+            return x.to(torch.int64).view(1) & 0xFFFF_FFFF
+
+        ctr0 = word(S["draw_ctr"][0, lane]) * self.n_sites
+        return {
+            "prf_key_hi": word(S["key"][0, lane]),
+            "prf_key_lo": word(S["key"][1, lane]),
+            "prf_site_base": (ctr0 + 2 + slot * self.sites_per_slot)
+            & 0xFFFF_FFFF,
+        }
+
+    def unpack_lane(self, S, lane: int):
+        """The packed lane as the generic path's ``SavannaState``, a batch of
+        one lane on ``S``'s device (key ``PRNGKey(0)``, as JAX's
+        ``unpack_lane``). Under ``exact_reset`` the layout masks are decoded
+        from the lane's ``sboard`` and ``wall``."""
+        from ai_safety_gridworlds_torch.core import threefry
+        from ai_safety_gridworlds_torch.envs.aintelope_savanna import (
+            SavannaState,
+        )
+
         h, w, n = self.h, self.w, self.n
+        dev = S["t"].device
 
         def col(name):
-            return S[name][:, lane].cpu().numpy()
+            return S[name][:, lane]
+
+        def row(name):  # [n] -> [1, n]
+            return col(name).view(1, n)
 
         st = self._statics_np
         if self.layout_pool > 1 and "ep_idx" in S:
             st = self._statics_np_pool[int(col("ep_idx")[0]) % self.layout_pool]
-        masks = {k: st[k][:, lane] for k in (
+        masks = {k: torch.as_tensor(st[k][:, lane], device=dev) for k in (
             "wall", "water", "gold", "silver", "drink", "food", "small_drink",
             "small_food")}
         if self.exact_reset and "sboard" in S:
@@ -1182,10 +1215,10 @@ class FusedSavanna(FusedMaBase):
             masks["wall"] = col("wall")
             for name, cid in TILE_CODES.items():
                 if name not in ("gap", "wall"):
-                    masks[name] = (code == float(cid)).astype(np.float32)
+                    masks[name] = (code == float(cid)).to(_F32)
 
         def grid(v):
-            return v.reshape(h, w) > 0.5
+            return (v > 0.5).view(1, h, w)
 
         def curtain(name):
             if self.sustain and ("res_" + name) in S:
@@ -1194,39 +1227,41 @@ class FusedSavanna(FusedMaBase):
 
         def avail_of(name, amount_flag):
             if self.sustain and ("avail_" + name) in S:
-                return np.float32(col("avail_" + name)[0])
-            return np.float32(self.cfg[amount_flag])
+                return col("avail_" + name).to(_F32)
+            return torch.full((1,), self.cfg[amount_flag], dtype=_F32,
+                              device=dev)
 
-        pos_flat = col("pos")
-        return {
-            "t": np.int32(col("t")[0]),
-            "pos": np.stack([pos_flat // w, pos_flat % w], axis=1).astype(np.int32),
-            "step_types": col("step_types"),
-            "termination_reasons": col("reasons"),
-            "action_direction": col("act_dir"),
-            "observation_direction": col("obs_dir"),
-            "step_count": col("step_count"),
-            "wall": grid(masks["wall"]),
-            "water": grid(masks["water"]),
-            "gold": grid(masks["gold"]),
-            "silver": grid(masks["silver"]),
-            "drink_curtain": curtain("drink"),
-            "food_curtain": curtain("food"),
-            "small_drink_curtain": curtain("small_drink"),
-            "small_food_curtain": curtain("small_food"),
-            "predator_curtain": grid(col("predator")),
-            "drink_avail": avail_of("drink", "amount_drink_holes"),
-            "food_avail": avail_of("food", "amount_food_patches"),
-            "small_drink_avail": avail_of("small_drink",
-                                          "amount_small_drink_holes"),
-            "small_food_avail": avail_of("small_food",
-                                         "amount_small_food_patches"),
-            "drink_satiation": col("drink_sat"),
-            "food_satiation": col("food_sat"),
-            "visits": col("visits").reshape(n, 7),
-            "safety": col("safety"),
-            "safety2": col("safety2"),
-        }
+        pos = col("pos").to(_I32)
+        return SavannaState(
+            t=col("t").to(_I32),
+            key=threefry.PRNGKey(0, dev).view(1, 2),
+            pos=torch.stack([pos // w, pos % w], dim=1).view(1, n, 2),
+            step_types=row("step_types"),
+            termination_reasons=row("reasons"),
+            action_direction=row("act_dir"),
+            observation_direction=row("obs_dir"),
+            step_count=row("step_count"),
+            wall=grid(masks["wall"]),
+            water=grid(masks["water"]),
+            gold=grid(masks["gold"]),
+            silver=grid(masks["silver"]),
+            drink_curtain=curtain("drink"),
+            food_curtain=curtain("food"),
+            small_drink_curtain=curtain("small_drink"),
+            small_food_curtain=curtain("small_food"),
+            predator_curtain=grid(col("predator")),
+            drink_avail=avail_of("drink", "amount_drink_holes"),
+            food_avail=avail_of("food", "amount_food_patches"),
+            small_drink_avail=avail_of("small_drink",
+                                       "amount_small_drink_holes"),
+            small_food_avail=avail_of("small_food",
+                                      "amount_small_food_patches"),
+            drink_satiation=row("drink_sat"),
+            food_satiation=row("food_sat"),
+            visits=col("visits").view(1, n, 7),
+            safety=row("safety"),
+            safety2=row("safety2"),
+        )
 
     # ----------------------------------------------------------- CUDA path
 
@@ -1468,10 +1503,14 @@ def _static_params(fused: FusedSavanna, tables: dict) -> _SvParams:
     return p
 
 
-def _check_supported(fused, B: int) -> None:
-    """The configurations K8 and K9 lack raise ``NotImplementedError``, and
-    layouts drawn for another batch than ``B`` ``ValueError``; the plain
-    version runs all of them."""
+def check_static_limits(fused, tile=None) -> None:
+    """Raise ``NotImplementedError`` for what K8 and K9 lack whatever the
+    state: more than 4 agents, 12 reward dims or 5 actions, a layout pool
+    of more than 8, more than 256 redraw tiles, tile spawning on more than
+    512 cells, and boards that fit no block of ``tile`` threads even at 32
+    threads a lane. ``init_packed`` calls it on a CUDA device, so that
+    ``BatchedEnv(..., backend="auto")`` takes the generic path for such a
+    configuration; the plain version runs all of them."""
     if not 1 <= fused.n <= _MAX_N:
         raise NotImplementedError(
             f"the savanna kernels take 1..{_MAX_N} agents, not {fused.n}"
@@ -1498,6 +1537,18 @@ def _check_supported(fused, B: int) -> None:
             f"{_MAX_DRAPE_HW} cells (the drape scores hold the cell in 9 "
             f"bits), not {fused.HW}"
         )
+    if _geometry(fused, 32, tile, 0)[2] > _MAX_SMEM:
+        raise NotImplementedError(
+            f"the savanna kernels' boards ({_lane_bytes(fused)} bytes a lane) "
+            f"fit no block of {tile or 32} threads"
+        )
+
+
+def _check_supported(fused, B: int) -> None:
+    """The configurations K8 and K9 lack raise ``NotImplementedError``
+    (``check_static_limits``), and layouts drawn for another batch than
+    ``B`` ``ValueError``; the plain version runs all of them."""
+    check_static_limits(fused)
     if fused.packed_batch is None:
         raise ValueError("call init_packed before launching the kernels")
     if fused.packed_batch != B:

@@ -195,9 +195,12 @@ class FusedScalarBase(FusedMaBase):
             for k in self.EXTRA_FIELDS
         }
 
-    def init_packed(self, seed: int, batch: int, device) -> dict:
+    def init_packed(self, seed: int, batch: int, device, tile=None) -> dict:
         """The packed initial state of ``batch`` lanes on ``device``; equal
-        field by field to the JAX package's ``init_packed(seed, batch)``."""
+        field by field to the JAX package's ``init_packed(seed, batch)``.
+        The kernels take every configuration at every tile, so ``tile`` is
+        unused."""
+        del tile
         D = self.D
         state = {
             "pos": torch.full((1, batch), self.pos0, dtype=_I32),

@@ -261,7 +261,27 @@ Phases, in order; any failure exits non-zero before the last line:
    with the board rendered and summed each step) and phase 39's count a
    step (launches, fill kernels, device busy and idle share, 8 steps less
    4);
-43. one JSON line of kernel results: ``kernels`` holds K1 with its launches
+43. the generic chains of island_navigation_ex_ma and aintelope_savanna
+   (``GENERIC_MA_CHAINS``: island default, savanna default and under
+   sustainability): ``BatchedEnv(name, 4096, backend="generic",
+   device="cuda", **kw).rollout(128)`` three times each, ``kernel ==
+   "generic_torch"`` and no fused kernel launched (K6's and K8's counters
+   read 0), with env-steps/s; then ``BatchedEnv("aintelope_savanna", 4096,
+   amount_food_patches=200)`` on ``"auto"``: the top-up K8's packer refuses
+   takes the generic chain, one rollout(64);
+44. ``ma_rollout`` at B = 1024 for 64 steps on the card and on the CPU from
+   one key (``GENERIC_MA_CHECKS``: both chains, ``SAVANNA_FULL`` with and
+   without sustainability; the savanna's at ``max_iterations=40``, so that
+   every lane resets at least once): final states, keys, curtains, step types,
+   returns and stats equal, but for the regrown floats (within 1e-5), the
+   gold and silver returns (1e-5 relative, 1e-4 absolute; their sums 1e-3)
+   and lanes whose regrown power came within 1e-5 of an integer, which are
+   exempt and counted (at most 1%);
+45. phase 39's count for both chains at B = 4096 (ATen ops, launches, fill
+   kernels, device busy ms and idle share a step, 8 steps less 4), and the
+   fused main path of phases 16 and 21 (``BatchedEnv(name, 4096,
+   device="cuda").rollout(128)``, timed again here) over the generic one;
+46. one JSON line of kernel results: ``kernels`` holds K1 with its launches
    on the main path (phase 5) and on the policy-search check (phase 6), K3
    with its launches on the training path (phase 8), K4 with its launches on
    the scalar main paths (phases 11, 26 and 30, by path and env), K5 with
@@ -274,7 +294,7 @@ Phases, in order; any failure exits non-zero before the last line:
    inputs) and ``library_ms`` (null: no single PyTorch call computes these
    functions); ``checked_off_path`` holds K2, which no driven path launches
    (K1 and K3-K9 inline the same PRF header), with its phase-3 launches;
-   ``generic`` holds phases 36-42's rates, launches, exempt lanes and
+   ``generic`` holds phases 36-45's rates, launches, exempt lanes and
    idle shares;
    then the card's name and power limit and the last line ``{"ok": true,
    "device": {...}}``.
@@ -323,7 +343,7 @@ prints one JSON line.
 
     python3 chip_smoke.py --generic
 
-runs phases 36-42 (the generic path) alone, without building the kernels
+runs phases 36-45 (the generic path) alone, without building the kernels
 (phase 39's fused comparison then builds K1), and prints one JSON line.
 """
 
@@ -2588,6 +2608,36 @@ CHAIN_TIE_GAP = 1e-6
 CHAIN_FRAC_TOL = 1e-5
 CHAIN_RTOL, CHAIN_ATOL = 1e-5, 1e-6
 CHAIN_MAX_EXEMPT_SHARE = 0.01
+# Phases 43-45: the multi-agent chains of the fourteenth slice, (label,
+# name, env kwargs): phase 43 runs them through BatchedEnv at B = BATCH,
+# rollout(GENERIC_MA_STEPS) x MAIN_CALLS, phase 45 profiles them.
+GENERIC_MA_CHAINS = (
+    ("island_navigation_ex_ma", "island_navigation_ex_ma", {}),
+    ("aintelope_savanna", "aintelope_savanna", {}),
+    ("aintelope_savanna_sustain", "aintelope_savanna", SAVANNA_SUSTAIN),
+)
+GENERIC_MA_STEPS = 128
+GENERIC_MA_TOPUP = {"amount_food_patches": 200}
+GENERIC_MA_TOPUP_STEPS = 64
+# Phase 44's runs on the card against the CPU, at GENERIC_CHECK_BATCH lanes
+# for GENERIC_CHECK_STEPS steps.
+# The savanna's episodes end at max_iterations=40 (step 40 with one agent,
+# 20 with two), so that the runs select the reset branch's board draws.
+GENERIC_MA_CHECKS = (
+    ("island_navigation_ex_ma", "island_navigation_ex_ma", {}),
+    ("aintelope_savanna", "aintelope_savanna", {"max_iterations": 40}),
+    ("savanna_full", "aintelope_savanna",
+     dict(SAVANNA_FULL, max_iterations=40)),
+    ("savanna_full_sustain", "aintelope_savanna",
+     dict(SAVANNA_FULL, max_iterations=40, **SAVANNA_SUSTAIN)),
+)
+# Phase 44's tolerances, the CPU tests': the regrown fractions and
+# availabilities within CHAIN_FRAC_TOL, the gold and silver dims of the
+# returns within MA_GOLD_RTOL / MA_GOLD_ATOL (logf) per episode, so a
+# lane's sum over its episodes within MA_GOLD_ATOL times their count, and
+# their sums over the lanes within MA_GOLD_SUM_ATOL (summed in another
+# order on the card).
+MA_GOLD_RTOL, MA_GOLD_ATOL, MA_GOLD_SUM_ATOL = 1e-5, 1e-4, 1e-3
 
 
 def device_profile(fn, torch):
@@ -2730,7 +2780,7 @@ def step_profile(label, raw, run, batch, dev, card, torch):
 
 
 def generic_phases(torch, np, dev, card, reset_counts, counts):
-    """Phases 36-42: the generic batched path (threefry keys,
+    """Phases 36-45: the generic batched path (threefry keys,
     ``core/base.py``, ``ma_rollout``, the per-env chains) on the card. It launches none of the
     fused kernels; its numbers go into the results line's ``generic``."""
     from ai_safety_gridworlds_torch.core import base, threefry
@@ -2930,9 +2980,208 @@ def generic_phases(torch, np, dev, card, reset_counts, counts):
     out["chains"] = generic_chain_phases(torch, np, dev, card, reset_counts,
                                          counts)
     out["chains_seconds"] = time.perf_counter() - t_chains
+    log(f"phases 40-42: {out['chains_seconds']:.1f} s")
+    t_ma = time.perf_counter()
+    out["ma_chains"] = generic_ma_phases(torch, np, dev, card, reset_counts,
+                                         counts)
+    out["ma_chains_seconds"] = time.perf_counter() - t_ma
     out["seconds"] = time.perf_counter() - t_gen
-    log(f"phases 40-42: {out['chains_seconds']:.1f} s; generic phases: "
+    log(f"phases 43-45: {out['ma_chains_seconds']:.1f} s; generic phases: "
         f"{out['seconds']:.1f} s")
+    return out
+
+
+def ma_lanes_differ(a, b, field, gold, np):
+    """bool [B]: lanes where the card's ``b`` differs from the CPU's ``a``
+    beyond phase 44's tolerance (exact but for the regrown fractions and
+    availabilities and the ``gold`` dims of the returns)."""
+    a, b = a.numpy(), b.cpu().numpy()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        fail(f"{field}: {a.shape} {a.dtype} on the CPU, {b.shape} {b.dtype} "
+             "on the card")
+    if field.endswith(("_fraction", "_avail")):
+        bad = np.abs(a - b) > CHAIN_FRAC_TOL
+    else:
+        bad = a != b
+        if field == "episode_returns" and gold:
+            bad[..., gold] = ~np.isclose(b[..., gold], a[..., gold],
+                                         rtol=MA_GOLD_RTOL, atol=MA_GOLD_ATOL)
+    return bad.reshape(bad.shape[0], -1).any(axis=1)
+
+
+def ma_check_run(name, kw, device):
+    """One of phase 44's runs: ``ma_rollout`` at GENERIC_CHECK_BATCH lanes
+    for GENERIC_CHECK_STEPS steps from SEED on ``device``. Returns, on the
+    host, (the final episodes, the stats, the lanes whose regrown power
+    came within CHAIN_REGROW_GAP of an integer, the env, seconds)."""
+    import torch
+
+    from ai_safety_gridworlds_torch.core import base
+    from ai_safety_gridworlds_torch.helpers import factory
+    from ai_safety_gridworlds_torch.ma.safety_game_ma import ma_rollout
+
+    raw = factory.get_raw_env(name, **kw)
+    raw.regrow_gaps = []
+    t0 = time.perf_counter()
+    eps, st = ma_rollout(raw, SEED, GENERIC_CHECK_STEPS, GENERIC_CHECK_BATCH,
+                         device=device, lane_stats=True)
+    eps = base.tree_map(lambda x: x.cpu(), eps)  # fetches: syncs
+    st = {k: v.cpu() for k, v in st.items()}
+    seconds = time.perf_counter() - t0
+    exempt = torch.zeros(GENERIC_CHECK_BATCH, dtype=torch.bool)
+    if raw.regrow_gaps:
+        exempt = (torch.stack(raw.regrow_gaps).cpu()
+                  <= CHAIN_REGROW_GAP).any(dim=0)
+    return eps, st, exempt, raw, seconds
+
+
+def generic_ma_phases(torch, np, dev, card, reset_counts, counts):
+    """Phases 43-45: the generic chains of island_navigation_ex_ma and
+    aintelope_savanna on the card (eager PyTorch, no kernel of their
+    own)."""
+    from ai_safety_gridworlds_torch.helpers import factory
+    from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv
+    from ai_safety_gridworlds_torch.ma.safety_game_ma import ma_rollout
+
+    out = {}
+    t_phase = time.perf_counter()
+    # ---- 43. each chain through BatchedEnv on the card
+    for label, name, kw in GENERIC_MA_CHAINS:
+        log(f"== 43. generic chain: BatchedEnv({name!r}, {BATCH}, "
+            f"backend='generic', device='cuda', **{kw}).rollout("
+            f"{GENERIC_MA_STEPS}) x {MAIN_CALLS}")
+        env = BatchedEnv(name, BATCH, seed=SEED, backend="generic",
+                         device="cuda", **kw)
+        if env.kernel != "generic_torch":
+            fail(f"{label}: BatchedEnv reports kernel {env.kernel!r}")
+        reset_counts()
+        calls, episodes = [], []
+        for call in range(MAIN_CALLS):
+            t0 = time.perf_counter()
+            stats = env.rollout(GENERIC_MA_STEPS)  # fetches: syncs
+            calls.append(time.perf_counter() - t0)
+            if stats["kernel"] != "generic_torch":
+                fail(f"{label}: rollout reports kernel {stats['kernel']!r}")
+            if not np.isfinite(stats["sum_rewards"]).all():
+                fail(f"{label}: non-finite reward sums")
+            episodes.append(stats["episodes"])
+        launched = counts()
+        if any(launched.values()):
+            fail(f"{label}: the generic path launched a fused kernel "
+                 f"{launched}")
+        rates = [BATCH * GENERIC_MA_STEPS / c for c in calls]
+        for call, c in enumerate(calls):
+            log(f"{label} generic rollout({GENERIC_MA_STEPS}) call {call}: "
+                f"{c * 1e3:.1f} ms host clock, {rates[call]:.0f} "
+                f"env-steps/s, {episodes[call]} episodes ended  [{card}]")
+        out[label] = {"env_steps_per_s": rates, "episodes": episodes,
+                      "launches": launched}
+    log(f"== 43. BatchedEnv('aintelope_savanna', {BATCH}, device='cuda', "
+        f"**{GENERIC_MA_TOPUP}) on 'auto': the top-up K8 refuses")
+    reset_counts()
+    env = BatchedEnv("aintelope_savanna", BATCH, seed=SEED, device="cuda",
+                     **GENERIC_MA_TOPUP)
+    if env.kernel != "generic_torch" or env.fused is not None:
+        fail(f"the savanna top-up reports kernel {env.kernel!r}")
+    t0 = time.perf_counter()
+    stats = env.rollout(GENERIC_MA_TOPUP_STEPS)
+    dt = time.perf_counter() - t0
+    launched = counts()
+    if stats["kernel"] != "generic_torch" or any(launched.values()):
+        fail(f"the savanna top-up: {stats['kernel']!r}, launches {launched}")
+    if not np.isfinite(stats["sum_rewards"]).all():
+        fail("the savanna top-up: non-finite reward sums")
+    rate = BATCH * GENERIC_MA_TOPUP_STEPS / dt
+    log(f"savanna top-up on 'auto': kernel {env.kernel!r}, rollout("
+        f"{GENERIC_MA_TOPUP_STEPS}) {dt * 1e3:.1f} ms host clock, "
+        f"{rate:.0f} env-steps/s  [{card}]")
+    out["savanna_topup_auto"] = {"kernel": env.kernel,
+                                 "env_steps_per_s": rate,
+                                 "launches": launched}
+    log(f"phase 43: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+
+    # ---- 44. each chain on the card against the CPU
+    Bc, Tc = GENERIC_CHECK_BATCH, GENERIC_CHECK_STEPS
+    log(f"== 44. the multi-agent chains on the card vs the CPU: ma_rollout "
+        f"at B={Bc} for {Tc} steps from one key")
+    out["checks"] = {}
+    for label, name, kw in GENERIC_MA_CHECKS:
+        ec, sc, xc, raw, tc = ma_check_run(name, kw, "cpu")
+        eg, sg, xg, _, tg = ma_check_run(name, kw, dev)
+        exempt = (xc | xg).numpy()
+        gold = [k for k, dim in enumerate(raw.reward_space.keys)
+                if dim in ("GOLD", "SILVER")]
+        diff = np.zeros(Bc, bool)
+        for f in vars(ec.env_state):
+            diff |= ma_lanes_differ(getattr(ec.env_state, f),
+                                    getattr(eg.env_state, f), f, gold, np)
+        diff |= ma_lanes_differ(ec.episode_returns, eg.episode_returns,
+                                "episode_returns", gold, np)
+        # Each lane's episode count and summed final returns: a lane's
+        # final state cannot show a divergence in an earlier episode. The
+        # gold tolerance grows with the episodes summed.
+        lane_eps = sc["lane_episodes"].numpy()
+        diff |= lane_eps != sg["lane_episodes"].numpy()
+        a = sc["lane_final_returns"].numpy()
+        b = sg["lane_final_returns"].numpy()
+        bad = a != b
+        if gold:
+            atol = MA_GOLD_ATOL * np.maximum(lane_eps, 1)[:, None, None]
+            bad[..., gold] = ~(np.abs(b - a) <= atol + MA_GOLD_RTOL
+                               * np.abs(a))[..., gold]
+        diff |= bad.reshape(Bc, -1).any(axis=1)
+        if (diff & ~exempt).any():
+            fail(f"{label}: {int((diff & ~exempt).sum())} lanes without an "
+                 "exemption differ from the CPU")
+        if exempt.sum() > CHAIN_MAX_EXEMPT_SHARE * Bc:
+            fail(f"{label}: {int(exempt.sum())} exempt lanes")
+        exact = all(torch.equal(sc[k], sg[k]) for k in sc)
+        if not exempt.any() and not exact:
+            a = sc["sum_final_returns"].numpy()
+            b = sg["sum_final_returns"].numpy()
+            close = a == b
+            close[..., gold] = np.isclose(b[..., gold], a[..., gold],
+                                          rtol=MA_GOLD_RTOL,
+                                          atol=MA_GOLD_SUM_ATOL)
+            if (int(sc["episodes"]) != int(sg["episodes"])
+                    or not close.all()):
+                fail(f"{label}: stats {sg} on the card, {sc} on the CPU")
+        log(f"{label}: {Tc} steps at B={Bc}, card {tg:.2f} s, CPU {tc:.2f} "
+            f"s; {int(diff.sum())} lanes differ, {int(exempt.sum())} exempt "
+            f"(regrowth within {CHAIN_REGROW_GAP} of an integer); episodes "
+            f"{int(sc['episodes'])}; stats "
+            + ("bit-equal" if exact else "within the stated tolerance"))
+        out["checks"][label] = {
+            "diff_lanes": int(diff.sum()), "exempt_lanes": int(exempt.sum()),
+            "stats_bit_equal": exact, "episodes": int(sc["episodes"]),
+            "card_s": tg, "cpu_s": tc,
+        }
+    log(f"phase 44: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+
+    # ---- 45. launches a step and the idle share; fused over generic
+    log("== 45. the multi-agent chains' launches a step and idle share "
+        "(torch.profiler), fused vs generic")
+    for label, name, kw in GENERIC_MA_CHAINS:
+        raw = factory.get_raw_env(name, **kw)
+        out[label]["profile"] = step_profile(label, raw, ma_rollout, BATCH,
+                                             dev, card, torch)
+        fenv = BatchedEnv(name, BATCH, seed=SEED, device="cuda", **kw)
+        if fenv.kernel != "fused_cuda":
+            fail(f"fused {label} at B={BATCH} reports {fenv.kernel!r}")
+        fcalls = [host_s(lambda: fenv.rollout(GENERIC_MA_STEPS), torch)
+                  for _ in range(MAIN_CALLS)]
+        fused_rate = (BATCH * GENERIC_MA_STEPS
+                      / sorted(fcalls)[len(fcalls) // 2])
+        rates = out[label]["env_steps_per_s"]
+        gen_rate = sorted(rates)[len(rates) // 2]
+        out[label]["fused_env_steps_per_s"] = fused_rate
+        out[label]["fused_over_generic"] = fused_rate / gen_rate
+        log(f"{label} at B={BATCH}, rollout({GENERIC_MA_STEPS}): fused "
+            f"{fused_rate:.0f} env-steps/s, generic {gen_rate:.0f}: fused / "
+            f"generic {fused_rate / gen_rate:.1f}x  [{card}]")
+    log(f"phase 45: {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -3120,7 +3369,7 @@ def generic_chain_phases(torch, np, dev, card, reset_counts, counts):
 
 
 def generic_only():
-    """Phases 36-42 alone (no kernel build): one JSON line."""
+    """Phases 36-45 alone (no kernel build): one JSON line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3128,16 +3377,25 @@ def generic_only():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
-    from ai_safety_gridworlds_torch.ops import _cuda, fused_firemaker
+    from ai_safety_gridworlds_torch.ops import (
+        _cuda,
+        fused_firemaker,
+        fused_island_ma,
+        fused_savanna,
+    )
 
-    _cuda.build(("fused_firemaker",))  # phase 39's fused comparison
-    wrapper = fused_firemaker.fused_firemaker_rollout
+    # Phase 39's and 45's fused comparisons.
+    _cuda.build(("fused_firemaker", "fused_island_ma", "fused_savanna"))
+    wrappers = (fused_firemaker.fused_firemaker_rollout,
+                fused_island_ma.fused_island_ma_rollout,
+                fused_savanna.fused_savanna_rollout)
 
     def reset_counts():
-        wrapper.launches = 0
+        for w in wrappers:
+            w.launches = 0
 
     def counts():
-        return {"fused_firemaker_rollout": wrapper.launches}
+        return {w.__name__: w.launches for w in wrappers}
 
     out = generic_phases(torch, np, torch.device("cuda", 0), gpu_line(),
                          reset_counts, counts)
@@ -3600,7 +3858,7 @@ def main():
 
     generic = generic_phases(torch, np, dev, card, reset_counts, counts)
 
-    # ---- 43. results
+    # ---- 46. results
     k2_bound_ms, k2_bound_by = bound(24 * n_words, 24 * n_words)
     kernels = [{
         "name": "fused_firemaker_rollout", "route": "cuda",

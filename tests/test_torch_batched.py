@@ -218,10 +218,15 @@ def test_unported_names_and_backends_raise():
     assert stats["sum_rewards"].shape == (2, 4)
     with pytest.raises(AttributeError):
         env.state
-    # A name whose per-env chain is not ported yet still raises there.
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchedEnv("aintelope_savanna", batch_size=8, device="cpu",
-                   backend="generic")
+    # Every registered name has its per-env chain now: the generic path
+    # runs the island and savanna multi-agent chains too.
+    for name in ("island_navigation_ex_ma", "aintelope_savanna"):
+        env = BatchedEnv(name, batch_size=8, device="cpu",
+                         backend="generic", max_iterations=6)
+        stats = env.rollout(7)
+        assert stats["kernel"] == "generic_torch" and stats["episodes"] >= 8
+        assert stats["sum_rewards"].shape == (env.env.n_agents,
+                                              env.env.reward_space.n_dims)
     with pytest.raises(ValueError):
         BatchedEnv("firemaker_ex_ma", batch_size=8, device="cpu",
                    backend="bogus")
@@ -246,6 +251,62 @@ def test_unported_names_and_backends_raise():
                    observation_direction_mode=2, backend="fused")
 
 
+def test_savanna_topup_beyond_the_free_cells_runs_generic_as_jax():
+    """The top-up that K8's packer refuses (``amount_food_patches=200``):
+    "auto" falls back to the generic chain, whose per-call stats equal the
+    JAX BatchedEnv's generic path; "fused" raises the packer's ValueError
+    on both."""
+    from ai_safety_gridworlds_tpu.helpers.batched import BatchedEnv as JB
+
+    jenv = JB("aintelope_savanna", 8, amount_food_patches=200,
+              max_iterations=10)
+    tenv = BatchedEnv("aintelope_savanna", batch_size=8, device="cpu",
+                      amount_food_patches=200, max_iterations=10)
+    assert (jenv.kernel, tenv.kernel) == ("generic_vmap", "generic_torch")
+    for _ in range(2):
+        a, b = jenv.rollout(12), tenv.rollout(12)
+        assert a["episodes"] == b["episodes"] == 8
+        np.testing.assert_array_equal(a["sum_rewards"], b["sum_rewards"])
+    for make in (JB, lambda *a, **k: BatchedEnv(*a, device="cpu", **k)):
+        with pytest.raises(ValueError, match="top up"):
+            make("aintelope_savanna", 8, backend="fused",
+                 amount_food_patches=200)
+
+
+def test_static_kernel_limits_are_one_predicate():
+    """``check_static_limits`` holds what K6/K7 and K8/K9 lack whatever the
+    state; ``_check_launch`` and (on a CUDA device) ``init_packed`` raise
+    it. On the CPU the plain versions take such configurations."""
+    from ai_safety_gridworlds_torch.ops import fused_island_ma as IM
+    from ai_safety_gridworlds_torch.ops import fused_savanna as SV
+
+    island = IM.FusedIslandMa(factory.get_raw_env("island_navigation_ex_ma"))
+    island.init_packed(0, 4, "cpu")
+    IM.check_static_limits(island)
+    island.n = 5
+    with pytest.raises(NotImplementedError, match="agents"):
+        IM.check_static_limits(island)
+    island.n, island.layout_pool = 2, 9
+    with pytest.raises(NotImplementedError, match="layout pool"):
+        IM.check_static_limits(island)
+    island.layout_pool, island.HW = 1, 4097
+    with pytest.raises(NotImplementedError, match="cells"):
+        IM.check_static_limits(island)
+    # Five savanna agents: K8 takes four; the CPU runs the plain version.
+    five = SV.FusedSavanna(factory.get_raw_env("aintelope_savanna",
+                                               amount_agents=5))
+    with pytest.raises(NotImplementedError, match="agents"):
+        SV.check_static_limits(five)
+    env = BatchedEnv("aintelope_savanna", batch_size=4, device="cpu",
+                     amount_agents=5)
+    assert env.kernel == "fused_torch"
+    # A board no block holds even at 32 threads a lane.
+    big = SV.FusedSavanna(factory.get_raw_env(
+        "aintelope_savanna", map_width=250, map_height=250))
+    with pytest.raises(NotImplementedError, match="fit no block"):
+        SV.check_static_limits(big)
+
+
 @pytest.mark.parametrize("error,falls_back", [
     (ValueError("layout refused"), True),
     (NotImplementedError("configuration refused"), True),
@@ -257,7 +318,7 @@ def test_auto_falls_back_only_on_a_packer_refusal(monkeypatch, caplog, error,
     # "auto" takes the generic path, with a warning, only when the packer
     # refuses the configuration; any other error of init_packed reaches
     # the caller. "fused" never falls back.
-    def refuse(self, seed, batch, device):
+    def refuse(self, seed, batch, device, tile=None):
         raise error
 
     monkeypatch.setattr(TF, "init_packed", refuse)

@@ -1291,3 +1291,105 @@ def test_generic_scalar_ex_on_the_card_equals_the_cpu(dev, name, kw):
     stats = BatchedEnv(name, 256, backend="generic", device=dev,
                        **kw).rollout(8)
     assert stats["kernel"] == "generic_torch"
+
+
+SAVANNA_FULL_KW = dict(
+    level=0, amount_agents=2, amount_predators=3, amount_water_tiles=3,
+    amount_gold_deposits=2, amount_silver_deposits=2, amount_drink_holes=2,
+    amount_small_food_patches=1, amount_small_drink_holes=1,
+    penalise_oversatiation=True, thirst_hunger_death=True,
+)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("island_navigation_ex_ma", {}),
+    ("island_navigation_ex_ma", dict(
+        level=3, sustainability_challenge=True, thirst_hunger_death=True,
+        penalise_oversatiation=True, use_satiation_proportional_reward=True)),
+    ("aintelope_savanna", {"max_iterations": 20}),
+    ("aintelope_savanna", {"sustainability_challenge": True,
+                           "max_iterations": 20}),
+    ("aintelope_savanna", dict(SAVANNA_FULL_KW, max_iterations=20)),
+], ids=["island_ma", "island_ma_rich", "savanna", "savanna_sustain",
+        "savanna_full"])
+def test_generic_ma_chains_on_the_card_equal_the_cpu(dev, name, kw):
+    """``ma_rollout`` at B = 256 for 32 steps from one key: exact but for
+    the regrown floats (fractions and availabilities within 1e-5: CUDA's
+    powf and the CPU's pow differ in the last bits), the gold and silver
+    dims of the returns (1e-5 relative, 1e-4 absolute per episode: logf)
+    and lanes whose regrown power came within 1e-5 of an integer, at most
+    1%. Each lane's episode count and summed final returns are compared
+    too, on every lane that is not exempt."""
+    from ai_safety_gridworlds_torch.ma.safety_game_ma import ma_rollout
+
+    out = {}
+    for d in ("cpu", dev):
+        env = factory.get_raw_env(name, **kw)
+        env.regrow_gaps = []
+        eps, st = ma_rollout(env, 7, 32, 256, device=d, lane_stats=True)
+        gaps = (torch.stack(env.regrow_gaps).cpu() if env.regrow_gaps
+                else torch.full((1, 256), float("inf")))
+        out[str(d)] = (eps, st, gaps)
+    (ec, sc, gc), (eg, sg, gg) = out["cpu"], out[str(dev)]
+    close = ((gc <= 1e-5) | (gg <= 1e-5)).any(dim=0)
+    diff = torch.zeros(256, dtype=torch.bool)
+    for f in vars(ec.env_state):
+        a, b = getattr(ec.env_state, f), getattr(eg.env_state, f).cpu()
+        assert a.dtype == b.dtype, f
+        tol = 1e-5 if f.endswith(("_fraction", "_avail")) else 0.0
+        if a.dtype == torch.bool:
+            d = a != b
+        else:
+            d = (a.to(torch.float64) - b.to(torch.float64)).abs() > tol
+        diff |= d.reshape(256, -1).any(dim=1)
+    gold = [k for k, n in enumerate(env.reward_space.keys)
+            if n in ("GOLD", "SILVER")]
+    rc, rg = ec.episode_returns, eg.episode_returns.cpu()
+    rdiff = rc != rg
+    if gold:
+        rdiff[..., gold] = ~torch.isclose(rg[..., gold], rc[..., gold],
+                                          rtol=1e-5, atol=1e-4)
+    diff |= rdiff.reshape(256, -1).any(dim=1)
+    # Each lane's episodes and summed final returns, so that a divergence
+    # in an earlier episode shows on its lane; the gold tolerance is per
+    # episode summed.
+    lane_eps = sc["lane_episodes"]
+    diff |= lane_eps != sg["lane_episodes"].cpu()
+    lc, lg = sc["lane_final_returns"], sg["lane_final_returns"].cpu()
+    ldiff = lc != lg
+    if gold:
+        atol = 1e-4 * lane_eps.clamp(min=1).to(torch.float32)[:, None, None]
+        ldiff[..., gold] = ((lg - lc).abs() > atol + 1e-5 * lc.abs())[..., gold]
+    diff |= ldiff.reshape(256, -1).any(dim=1)
+    assert not (diff & ~close).any()
+    assert int(close.sum()) <= 0.01 * 256
+    if not close.any():
+        assert torch.equal(sc["episodes"], sg["episodes"].cpu())
+        assert torch.allclose(sc["sum_final_returns"],
+                              sg["sum_final_returns"].cpu(), rtol=1e-5,
+                              atol=1e-3 if gold else 0.0)
+    stats = BatchedEnv(name, 256, backend="generic", device=dev,
+                       **kw).rollout(8)
+    assert stats["kernel"] == "generic_torch"
+
+
+def test_auto_takes_the_generic_chain_for_static_kernel_limits(dev):
+    """On the card ``init_packed`` refuses what K6-K9 lack whatever the
+    state (``check_static_limits``): "auto" runs such a configuration on
+    the generic chain, "fused" and a direct pack raise."""
+    env = BatchedEnv("aintelope_savanna", 64, device=dev, amount_agents=5,
+                     max_iterations=10)
+    assert env.kernel == "generic_torch" and env.fused is None
+    # Five frames a step: every lane's episode ends at steps 2, 5, 8, 11.
+    assert env.rollout(12)["episodes"] == 4 * 64
+    with pytest.raises(NotImplementedError, match="agents"):
+        BatchedEnv("aintelope_savanna", 64, device=dev, amount_agents=5,
+                   backend="fused")
+    island = FusedIslandMa(IslandNavigationExMa(map_randomization_frequency=1))
+    with pytest.raises(NotImplementedError, match="layout pool"):
+        island.init_packed(0, 8, dev, layout_pool=9)
+    # The default configurations keep their kernels.
+    assert BatchedEnv("aintelope_savanna", 64, device=dev).kernel == \
+        "fused_cuda"
+    assert BatchedEnv("island_navigation_ex_ma", 64, device=dev).kernel == \
+        "fused_cuda"
