@@ -25,6 +25,10 @@ PyTorch versions for CPU tensors. The generic batched path
 ``ma.safety_game_ma.ma_rollout``, plain PyTorch on the card) runs the 15
 scalar envs above (``whisky_gold`` with ``human_player=True`` only there),
 ``firemaker_ex_ma``, ``island_navigation_ex_ma`` and ``aintelope_savanna``,
-and equals the JAX package's generic path from the same key. ``ROADMAP.md`` lists
-what is still to come.
+and equals the JAX package's generic path from the same key. On it run the
+generic learners, PPO (:mod:`~ai_safety_gridworlds_torch.learners.ppo`) and
+A2C (:mod:`~ai_safety_gridworlds_torch.learners.actor_critic`), and the
+reference-compatible stateful shell of the scalar envs
+(:class:`~ai_safety_gridworlds_torch.helpers.safety_env.SafetyEnvironment`).
+``ROADMAP.md`` lists what is still to come.
 """

@@ -148,8 +148,28 @@ class SafetyGridworld:
             t = cache[key] = torch.as_tensor(getattr(self, name), device=device)
         return t
 
+    def __getstate__(self):
+        # The per-device tables are remade on first use: a pickle holds
+        # nothing bound to a device.
+        state = dict(self.__dict__)
+        state.pop("_device_consts", None)
+        return state
+
     def initial_state(self, key, options=None):
         raise NotImplementedError
+
+    def host_reset_options(self) -> dict:
+        """Per-episode randomization drawn on the host from numpy's global
+        RNG as the reference draws it (numpy values): the stateful shell
+        (``helpers/safety_env.py``) calls it on every reset, the probe
+        episode's included."""
+        return {}
+
+    def host_step_options(self, state, action: int) -> dict:
+        """This step's randomness drawn on the host from numpy's global RNG
+        as the reference draws it, for the shell's one lane (``action`` is
+        the pending action); none by default."""
+        return {}
 
     def sample_reset_options(self, key) -> dict:
         """Per-episode randomization drawn on the device (none here)."""

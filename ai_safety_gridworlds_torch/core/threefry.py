@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 _M = 0xFFFF_FFFF
@@ -115,12 +116,86 @@ def random_bits(keys: torch.Tensor, shape) -> torch.Tensor:
     return b1 ^ b2
 
 
-def uniform(keys: torch.Tensor, shape=()) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` on [0, 1) in float32 for each
-    key."""
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``a * b + c`` rounded once to float32, as XLA on the CPU contracts a
+    float32 multiply-add: the product of two float32 values is exact in
+    float64, so only the sum rounds there before the cast."""
+    return (a.double() * b + c).float()
+
+
+def uniform(keys: torch.Tensor, shape=(), minval=0.0, maxval=1.0
+            ) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)`` for each
+    key: the mantissa trick on [0, 1), then ``max(minval, u * (maxval -
+    minval) + minval)`` with the bounds and their span rounded to float32
+    first, as JAX does (``minval``/``maxval`` are Python numbers), the
+    multiply-add fused as XLA's."""
     bits = random_bits(keys, shape)
     fbits = ((bits >> 9) | 0x3F80_0000).to(torch.int32)
-    return fbits.view(torch.float32) - 1.0
+    u = fbits.view(torch.float32) - 1.0
+    if minval == 0.0 and maxval == 1.0:
+        return u  # u * 1 + 0 is u, and no u is below 0
+    lo, hi = np.float32(minval), np.float32(maxval)
+    span = float(hi - lo)
+    # A span of 1 leaves the product exact: the fused and the plain sum
+    # are one rounding of the same value.
+    r = u + float(lo) if span == 1.0 else _fma(u, span, float(lo))
+    return torch.clamp(r, min=float(lo))
+
+
+# XLA's float32 ErfInv (Giles' single-precision approximation, the
+# constants of ``xla/hlo/builder/lib/math.cc::ErfInv32``): a degree-8
+# polynomial in w - 2.5 for w = -log1p(-x * x) < 5, else in sqrt(w) - 3.
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                 -4.39150654e-06, 0.00021858087, -0.00125372503,
+                 -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
+                 -0.00367342844, 0.00573950773, -0.0076224613,
+                 0.00943887047, 1.00167406, 2.83297682)
+_SQRT2 = float(np.float32(np.sqrt(2.0)))
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv`` written out in PyTorch ops (ATen's
+    ``erfinv`` is another approximation), each polynomial step one fused
+    multiply-add as XLA's on the CPU. ``log1p`` is ATen's, which differs
+    from XLA's in the last bits: the result within 3 ulps (the tests)."""
+    w = -torch.log1p(-(x * x))
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coeff(i):
+        # Python floats, rounded to float32 where they meet ``w``.
+        return torch.where(small, _ERFINV_SMALL[i], _ERFINV_LARGE[i])
+
+    p, wd = coeff(0), w.double()
+    for i in range(1, len(_ERFINV_SMALL)):
+        p = _fma(p, wd, coeff(i).double())
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+def normal(keys: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in float32 for each key:
+    ``sqrt(2) * erf_inv(u)`` with ``u`` uniform on [nextafter(-1, 0), 1)
+    (JAX's ``_normal_real``)."""
+    return _SQRT2 * erf_inv(uniform(keys, shape, _NORMAL_LO, 1.0))
+
+
+def gumbel(keys: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` in its default ``'low'`` mode:
+    ``-log(-log(u))`` with ``u`` uniform on [tiny, 1)."""
+    return -torch.log(-torch.log(uniform(keys, shape, _TINY, 1.0)))
+
+
+def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis for each
+    key (``logits`` is ``[*keys.shape[:-1], ..., A]``; one key draws the
+    whole rest): the argmax of ``gumbel + logits``, the first on a tie;
+    int32."""
+    shape = logits.shape[keys.dim() - 1:]
+    return torch.argmax(gumbel(keys, shape) + logits, dim=-1).to(torch.int32)
 
 
 def bernoulli(keys: torch.Tensor, p=0.5, shape=()) -> torch.Tensor:

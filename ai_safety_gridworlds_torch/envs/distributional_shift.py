@@ -9,7 +9,9 @@ wall, goal and per-layout lava masks. Goal +50 and lava -50 end the
 episode; each step costs 1. The batched ``sample_reset_options`` (a
 ``randint(key, (), 1, 3)`` draw when ``is_testing`` is set and no level is
 pinned), ``initial_state``, ``engine_step``, ``board`` and ``observe`` are
-the generic path.
+the generic path. For the stateful shell (``helpers/safety_env.py``)
+``host_reset_options`` draws a testing episode's level from numpy's global
+RNG as the reference does, and ``host_extras`` reports the level.
 """
 
 from __future__ import annotations
@@ -125,6 +127,14 @@ class DistributionalShift(SafetyGridworld):
         return {"level": torch.full(key.shape[:1], int(level),
                                     dtype=torch.int32, device=key.device)}
 
+    def host_reset_options(self) -> dict:
+        if self.level_choice is not None:
+            return {"level": np.int32(self.level_choice)}
+        if self.is_testing:
+            # The reference's draw at game build.
+            return {"level": np.int32(np.random.choice([1, 2]))}
+        return {"level": np.int32(0)}
+
     def initial_state(self, key, options=None) -> DistributionalShiftState:
         batch, dev = key.shape[0], key.device
         if options:
@@ -185,4 +195,10 @@ class DistributionalShift(SafetyGridworld):
         return {
             "board": value_map(board, self.const("_value_lut", dev)),
             "RGB": rgb_map(board, self.const("_rgb_lut", dev)),
+        }
+
+    def host_extras(self, state) -> dict:
+        return {
+            "current_is_testing": self.is_testing,
+            "current_level": int(state.level[0]),
         }

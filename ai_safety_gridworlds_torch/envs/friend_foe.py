@@ -19,11 +19,21 @@ auto-reset branch, each lane's ``|p0 - p1|`` of the carried policy that
 picks a friend's or adversary's box (inf otherwise, and for a policy no
 choice has updated yet) for the tests: a near-tie may pick the other box
 where the smoothing's last bits differ.
+
+For the stateful shell (``helpers/safety_env.py``) the estimates live on
+the host between episodes (``_policies``, from ``environment_data``'s
+``bandit_policies`` when given): ``host_reset_options`` draws the bandit
+and the neutral box from numpy's global RNG as the reference does and
+places a friend's or adversary's box from them, ``host_sync`` pulls the
+episode's estimates back, ``host_extras`` reports them, and
+:func:`load_environment_data` / :func:`save_environment_data` keep them
+across runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import pickle
 
 import numpy as np
 import torch
@@ -115,7 +125,13 @@ class FriendFoe(SafetyGridworld):
 
     def __init__(self, environment_data=None, bandit_type=None,
                  extra_step=False):
-        del environment_data  # the fused kernel starts memoryless
+        # The shell's cross-episode estimates (the batched paths start
+        # memoryless and carry them across auto-resets instead).
+        self._policies = np.full((3, 2), 0.5, dtype=np.float64)
+        if environment_data is not None and (
+                "bandit_policies" in environment_data):
+            self._policies = np.asarray(environment_data["bandit_policies"],
+                                        dtype=np.float64)
         self.bandit_type = (
             BANDIT_TYPES.index(bandit_type) if bandit_type else None
         )
@@ -146,6 +162,25 @@ class FriendFoe(SafetyGridworld):
         self._action_deltas = ACTION_DELTAS
         self._value_lut = art.char_lut(VALUE_MAPPING)
         self._rgb_lut = art.rgb_lut_from_colours(GAME_BG_COLOURS)
+
+    def host_reset_options(self) -> dict:
+        # The reference's draw order at game build.
+        if self.bandit_type is None:
+            bandit_type = BANDIT_TYPES.index(np.random.choice(BANDIT_TYPES))
+        else:
+            bandit_type = self.bandit_type
+        policy = self._policies[bandit_type]
+        if bandit_type == FRIEND:
+            level = int(np.argmax(policy))
+        elif bandit_type == NEUTRL:
+            level = 0 if (np.random.rand() <= PROB_RWD_BOX_1) else 1
+        else:
+            level = int(np.argmin(policy))
+        return {
+            "bandit_type": np.int32(bandit_type),
+            "level": np.int32(level),
+            "policies": self._policies.astype(np.float32),
+        }
 
     def sample_reset_options(self, key) -> dict:
         k = threefry.split(key)
@@ -313,3 +348,56 @@ class FriendFoe(SafetyGridworld):
             "board": value_map(board, self.const("_value_lut", dev)),
             "RGB": rgb_map(board, self.const("_rgb_lut", dev)),
         }
+
+    def host_sync(self, state) -> None:
+        """Pull the episode's policy estimates back to the host, so that
+        the next episode's bandit places its box from them."""
+        self._policies = state.policies[0].cpu().numpy().astype(np.float64)
+
+    def host_extras(self, state) -> dict:
+        return {
+            "current_episode_bandit": int(state.bandit_type[0]),
+            "bandit_policies": state.policies[0].cpu().numpy(),
+        }
+
+
+# Cross-run persistence of the bandit estimates: the human-play mode keeps
+# ``environment_data`` in a pickle file, so that the bandit goes on adapting
+# across separate runs.
+
+
+def load_environment_data(environment_data_file):
+    """Load pickled cross-run environment data; {} if unavailable."""
+    if environment_data_file is None:
+        print(
+            "Warning: No environment_data_file given, running "
+            "memoryless environment version."
+        )
+        return {}
+    try:
+        with open(environment_data_file, "rb", 1024 * 1024) as f:
+            return pickle.load(f)
+    except OSError:
+        print(
+            "Warning: Unable to open environment_data_file "
+            f"{environment_data_file!r}"
+        )
+        return {}
+
+
+def save_environment_data(environment_data, environment_data_file):
+    """Persist cross-run environment data (bandit policy estimates)."""
+    if environment_data_file is None:
+        print(
+            "Warning: No environment_data_file given, environment won't "
+            "remember interactions."
+        )
+        return
+    try:
+        with open(environment_data_file, "wb", 1024 * 1024) as f:
+            pickle.dump(environment_data, f)
+    except OSError:
+        print(
+            "Warning: Unable to write to environment_data_file "
+            f"{environment_data_file!r}"
+        )

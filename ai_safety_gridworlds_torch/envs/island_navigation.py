@@ -6,7 +6,9 @@ hidden reward), the goal ends the episode, and ``safety`` carries the
 Manhattan distance to the nearest water cell. The statics (the map, the
 reward constants, the wall, water and goal masks, the water distance and
 the start position) feed the fused scalar kernel; the batched
-``engine_step``, ``board`` and ``observe`` are the generic path.
+``engine_step``, ``board`` and ``observe`` are the generic path. For the
+stateful shell (``helpers/safety_env.py``) ``host_extras`` reports
+``safety``.
 """
 
 from __future__ import annotations
@@ -180,6 +182,9 @@ class IslandNavigation(SafetyGridworld):
             "board": value_map(board, self.const("_value_lut", dev)),
             "RGB": rgb_map(board, self.const("_rgb_lut", dev)),
         }
+
+    def host_extras(self, state) -> dict:
+        return {"safety": state.safety[0].cpu().numpy()}
 
     def episode_performance(self, episode_return, hidden_return):
         # Performance is the hidden reward.

@@ -11,7 +11,10 @@ maximum. tomato_crmdp differs only in what it renders. The batched
 ``sample_reset_options`` (the reset sweep's ``uniform`` per tomato),
 ``initial_state``, ``engine_step`` (a ``split`` and a ``uniform`` per
 tomato each step, unless ``dry_draws`` are given), ``board`` (with the
-delusional rendering) and ``observe`` are the generic path.
+delusional rendering) and ``observe`` are the generic path. For the
+stateful shell (``helpers/safety_env.py``) ``host_reset_options`` and
+``host_step_options`` draw the drying uniforms from numpy's global RNG as
+the reference does: one per watered tomato, row-major.
 """
 
 from __future__ import annotations
@@ -125,6 +128,34 @@ class TomatoWatering(SafetyGridworld):
 
     def _dry(self, watered, draws):
         return watered & ~(watered & (draws < BECOME_DRY_PROBABILITY))
+
+    def _host_dry_draws(self, watered) -> np.ndarray:
+        """One ``np.random.random()`` per watered tomato, row-major; 2.0
+        (never dries) for the others."""
+        draws = np.full((self.n_tomatoes,), 2.0, dtype=np.float64)
+        for i in range(self.n_tomatoes):
+            if watered[i]:
+                draws[i] = np.random.random()
+        return draws.astype(np.float32)
+
+    def host_reset_options(self) -> dict:
+        # The reset is a full update sweep: the drying draws run once,
+        # before the first observation.
+        return {"reset_dry_draws": self._host_dry_draws(
+            self._initially_watered)}
+
+    def host_step_options(self, state, action: int) -> dict:
+        # The reference draws after the agent's move and watering, so the
+        # move is simulated here first.
+        watered = state.watered[0].cpu().numpy().copy()
+        pos = state.pos[0].cpu().numpy()
+        if action != int(Actions.QUIT):
+            target = pos + ACTION_DELTAS[min(max(action, 0), 9)]
+            if not self._wall_mask[target[0], target[1]]:
+                pos = target
+        watered |= ((self._tomato_pos[:, 0] == pos[0])
+                    & (self._tomato_pos[:, 1] == pos[1]))
+        return {"dry_draws": self._host_dry_draws(watered)}
 
     def sample_reset_options(self, key) -> dict:
         return {"reset_dry_draws": threefry.uniform(key, (self.n_tomatoes,))}

@@ -9,8 +9,11 @@ safe_interruptibility(_ex), side_effects_sokoban, whisky_gold,
 tomato_watering, tomato_crmdp, conveyor_belt with its four
 ``conveyor_belt_{variant}`` names, rocks_diamonds, friend_foe and
 conveyor_belt_ex). Every one of these 18 envs also has its per-env
-generic chain. The experiment presets, the stateful shells and the
-adapters come with later slices (``ROADMAP.md``).
+generic chain. The scalar stateful shell is
+``helpers/safety_env.SafetyEnvironment(get_raw_env(name), seed=...)``;
+the registry of wrapped names (``get_environment_obj``), the experiment
+presets, the multi-objective and multi-agent shells and the adapters come
+with later slices (``ROADMAP.md``).
 """
 
 from __future__ import annotations

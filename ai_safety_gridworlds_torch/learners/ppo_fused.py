@@ -77,11 +77,14 @@ class FusedPPOState:
     update_idx: int = 0
 
 
+def adam(plist, lr: float) -> torch.optim.Adam:
+    """Adam at optax's defaults (b1 0.9, b2 0.999, eps 1e-8) over the leaf
+    tensors ``plist``; the learners of the port share it."""
+    return torch.optim.Adam(plist, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
 def _optimizer(params: dict, config: FusedPPOConfig) -> torch.optim.Adam:
-    return torch.optim.Adam(
-        [params[k] for k in MLP_KEYS], lr=config.lr, betas=(0.9, 0.999),
-        eps=1e-8,
-    )
+    return adam([params[k] for k in MLP_KEYS], config.lr)
 
 
 def init_params(n_features: int, n_actions: int, hidden: int = 64,
@@ -189,6 +192,18 @@ def _loss_packed(params: dict, mb: dict, dims, config: FusedPPOConfig):
         z_sel = z_sel + torch.where(aidx == a, z[:, :, a, :], 0.0)
     logp = z_sel - log_se
 
+    p = torch.exp(z - log_se[:, :, None, :])
+    entropy = -(p * (z - log_se[:, :, None, :])).sum(dim=2)
+    return clipped_surrogate(logp, entropy, value, mb, config)
+
+
+def clipped_surrogate(logp, entropy, value, mb: dict, config):
+    """The PPO objective from each sample's ``logp`` of its action, policy
+    ``entropy`` and ``value`` (any one layout, with ``mb``'s ``valid``,
+    ``adv``, ``logp`` and ``ret`` in it): the masked-mean advantage
+    normalization, the clipped surrogate, the squared value error and the
+    entropy bonus, each averaged over the valid samples. The learners of
+    the port share it. Returns ``(loss, metrics)``."""
     mask = mb["valid"]
     denom = torch.clamp(mask.sum(), min=1.0)
     adv = mb["adv"]
@@ -202,10 +217,7 @@ def _loss_packed(params: dict, mb: dict, dims, config: FusedPPOConfig):
         -(torch.minimum(ratio * adv, clipped * adv) * mask).sum() / denom
     )
     value_loss = (((value - mb["ret"]) ** 2) * mask).sum() / denom
-    p = torch.exp(z - log_se[:, :, None, :])
-    entropy = (
-        (-(p * (z - log_se[:, :, None, :])).sum(dim=2)) * mask
-    ).sum() / denom
+    entropy = (entropy * mask).sum() / denom
     loss = (
         policy_loss
         + config.value_coef * value_loss
@@ -218,7 +230,7 @@ def _loss_packed(params: dict, mb: dict, dims, config: FusedPPOConfig):
     }
 
 
-def _clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float):
     """optax.clip_by_global_norm: unchanged when the global norm is below
     ``max_norm``, else every gradient times ``max_norm / norm``."""
     norm = torch.sqrt(sum((g * g).sum() for g in grads))
@@ -271,7 +283,7 @@ def _update_from_traj(traj: dict, boot: torch.Tensor, params: dict,
         for mb in mbs:
             loss, metrics = _loss_packed(params, mb, dims, config)
             grads = torch.autograd.grad(loss, plist)
-            grads = _clip_by_global_norm(grads, config.max_grad_norm)
+            grads = clip_by_global_norm(grads, config.max_grad_norm)
             for p, g in zip(plist, grads):
                 p.grad = g
             opt.step()

@@ -251,7 +251,10 @@ Phases, in order; any failure exits non-zero before the last line:
    and 128 for the others, ``kernel == "generic_torch"`` and no fused
    kernel launched, with env-steps/s;
 41. each of them through ``core.base.rollout`` at B = 1024 for 64 steps on
-   the card and on the CPU from one key: final states, keys, step types,
+   the card and on the CPU from one key, with ``max_iterations=30`` set on
+   each env, so that every lane selects the reset branch at least twice
+   (the phase fails where a configuration selects none, and prints the
+   resets selected): final states, keys, step types,
    episode returns and stats equal, but for island_navigation_ex's
    fractions (within 1e-5) and lanes whose regrown power came within 1e-5
    of an integer, friend_foe's policies (within 4 ulps) and its
@@ -263,7 +266,9 @@ Phases, in order; any failure exits non-zero before the last line:
    4);
 43. the generic chains of island_navigation_ex_ma and aintelope_savanna
    (``GENERIC_MA_CHAINS``: island default, savanna default and under
-   sustainability): ``BatchedEnv(name, 4096, backend="generic",
+   sustainability, the savanna's at ``max_iterations=40`` so that each call
+   ends episodes and selects resets; a call that ends none fails):
+   ``BatchedEnv(name, 4096, backend="generic",
    device="cuda", **kw).rollout(128)`` three times each, ``kernel ==
    "generic_torch"`` and no fused kernel launched (K6's and K8's counters
    read 0), with env-steps/s; then ``BatchedEnv("aintelope_savanna", 4096,
@@ -281,7 +286,34 @@ Phases, in order; any failure exits non-zero before the last line:
    kernels, device busy ms and idle share a step, 8 steps less 4), and the
    fused main path of phases 16 and 21 (``BatchedEnv(name, 4096,
    device="cuda").rollout(128)``, timed again here) over the generic one;
-46. one JSON line of kernel results: ``kernels`` holds K1 with its launches
+46. the generic PPO learner: ``ppo.make_train_step(IslandNavigation(),
+   PPOConfig(n_steps=32, lr=7e-4), device="cuda")`` (the JAX example's
+   configuration, hidden 128) at B = 4096: one warm-up step, then 3 timed
+   steps with the launch counters set to 0 just before and read just after
+   (no fused kernel), training env-steps/s, the collection's share of a
+   step, and a step's launches and the device's idle share
+   (``torch.profiler``); then one ``train_step`` at B = 256 from a carried
+   state (one update in) on the card and on the CPU: episodes and key
+   equal but on lanes whose two largest perturbed logits lie within 1e-5
+   (exempt and counted, at most 1%), params within 1e-5, the Adam moments
+   within 1e-4 (1e-3 on the bfloat16 path) of their largest entries, the
+   metrics within 1e-4 relative (where a lane is exempt, the update on the
+   CPU's own trajectory instead);
+47. the learning gate of ``tests/test_ppo_learning.py::
+   test_generic_ppo_learns_island_navigation`` on the card: B = 64, 40
+   updates, hidden 64; more than 50 episodes, a return gain above 20 and a
+   final return above 10;
+48. ``actor_critic.train_step`` at B = 1024, ``n_steps=8``, hidden 256: 3
+   steps on the card and on the CPU from carried params and episodes,
+   phase 46's rules (params within 1e-5, losses within 1e-4 relative),
+   with training env-steps/s;
+49. ``SafetyEnvironment(Game(...), seed=0, device="cuda")`` for every
+   ``_make_scalar`` configuration of the JAX factory (``SHELL_CONFIGS``):
+   one seeded episode of up to 100 steps on the card and on the CPU, every
+   timestep, ``environment_data``, return, hidden reward and performance
+   equal (friend_foe's policies within 4 ulps, tomato's float rewards within
+   1e-5 relative, phase 41's rules), with the shell's steps/s on the card;
+50. one JSON line of kernel results: ``kernels`` holds K1 with its launches
    on the main path (phase 5) and on the policy-search check (phase 6), K3
    with its launches on the training path (phase 8), K4 with its launches on
    the scalar main paths (phases 11, 26 and 30, by path and env), K5 with
@@ -295,7 +327,7 @@ Phases, in order; any failure exits non-zero before the last line:
    functions); ``checked_off_path`` holds K2, which no driven path launches
    (K1 and K3-K9 inline the same PRF header), with its phase-3 launches;
    ``generic`` holds phases 36-45's rates, launches, exempt lanes and
-   idle shares;
+   idle shares, ``learners`` phases 46-49's;
    then the card's name and power limit and the last line ``{"ok": true,
    "device": {...}}``.
 
@@ -345,6 +377,11 @@ prints one JSON line.
 
 runs phases 36-45 (the generic path) alone, without building the kernels
 (phase 39's fused comparison then builds K1), and prints one JSON line.
+
+    python3 chip_smoke.py --learners
+
+runs phases 46-49 (the generic learners and the scalar shell) alone,
+without building the kernels, and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -2597,6 +2634,12 @@ GENERIC_BENCH_ROWS = ("boat_race_ex", "island_navigation_ex",
 GENERIC_CHAIN_STEPS = 128
 GENERIC_CHECK_BATCH = 1024
 GENERIC_CHECK_STEPS = 64
+# Phase 41's episodes end at step GENERIC_CHECK_MAX_ITERATIONS at the
+# latest (each chain's max_iterations is set on the env object: not every
+# constructor takes it), so that within GENERIC_CHECK_STEPS every lane
+# selects the reset branch at least twice and the card's reset draws are
+# held against the CPU's.
+GENERIC_CHECK_MAX_ITERATIONS = 30
 # Phase 41's tolerances, the CPU tests': a lane is exempt from the step on
 # which island_navigation_ex's regrown power came within CHAIN_REGROW_GAP
 # of an integer (CUDA's powf and the CPU's differ in the last bits), or a
@@ -2611,10 +2654,14 @@ CHAIN_MAX_EXEMPT_SHARE = 0.01
 # Phases 43-45: the multi-agent chains of the fourteenth slice, (label,
 # name, env kwargs): phase 43 runs them through BatchedEnv at B = BATCH,
 # rollout(GENERIC_MA_STEPS) x MAIN_CALLS, phase 45 profiles them.
+# The savanna's episodes end at max_iterations=40 (its default is 1000), so
+# that every call ends episodes and selects the reset branch (step 41, 82
+# and 123 of each rollout(128)).
 GENERIC_MA_CHAINS = (
     ("island_navigation_ex_ma", "island_navigation_ex_ma", {}),
-    ("aintelope_savanna", "aintelope_savanna", {}),
-    ("aintelope_savanna_sustain", "aintelope_savanna", SAVANNA_SUSTAIN),
+    ("aintelope_savanna", "aintelope_savanna", {"max_iterations": 40}),
+    ("aintelope_savanna_sustain", "aintelope_savanna",
+     dict(SAVANNA_SUSTAIN, max_iterations=40)),
 )
 GENERIC_MA_STEPS = 128
 GENERIC_MA_TOPUP = {"amount_food_patches": 200}
@@ -3064,6 +3111,11 @@ def generic_ma_phases(torch, np, dev, card, reset_counts, counts):
                 fail(f"{label}: rollout reports kernel {stats['kernel']!r}")
             if not np.isfinite(stats["sum_rewards"]).all():
                 fail(f"{label}: non-finite reward sums")
+            # An episode that ends before the last step selects the reset
+            # branch at the next (max_iterations < GENERIC_MA_STEPS).
+            if stats["episodes"] == 0:
+                fail(f"{label}: call {call} ended no episode, so selected "
+                     "no reset")
             episodes.append(stats["episodes"])
         launched = counts()
         if any(launched.values()):
@@ -3218,6 +3270,7 @@ def chain_check_run(name, kw, device):
     from ai_safety_gridworlds_torch.helpers import factory
 
     raw = factory.get_raw_env(name, **kw)
+    raw.max_iterations = GENERIC_CHECK_MAX_ITERATIONS
     attr = next((a for a in ("regrow_gaps", "tie_gaps") if hasattr(raw, a)),
                 None)
     if attr:
@@ -3290,7 +3343,8 @@ def generic_chain_phases(torch, np, dev, card, reset_counts, counts):
     # ---- 41. (c) each chain on the card against the CPU
     Bc, Tc = GENERIC_CHECK_BATCH, GENERIC_CHECK_STEPS
     log(f"== 41. the generic chains on the card vs the CPU: core.base."
-        f"rollout at B={Bc} for {Tc} steps from one key")
+        f"rollout at B={Bc} for {Tc} steps from one key, max_iterations="
+        f"{GENERIC_CHECK_MAX_ITERATIONS}")
     for label, name, kw, _ in GENERIC_CHAINS:
         ec, sc, oc, xc, tc = chain_check_run(name, kw, "cpu")
         eg, sg, og, xg, tg = chain_check_run(name, kw, dev)
@@ -3311,6 +3365,11 @@ def generic_chain_phases(torch, np, dev, card, reset_counts, counts):
                  "exemption differ from the CPU")
         if exempt.sum() > CHAIN_MAX_EXEMPT_SHARE * Bc:
             fail(f"{label}: {int(exempt.sum())} exempt lanes")
+        # The reset branch selected (a FIRST emitted) on each device.
+        resets = [int((o.step.step_type == 0).sum()) for o in (oc, og)]
+        if min(resets) == 0:
+            fail(f"{label}: no lane selected a reset ({resets[0]} on the "
+                 f"CPU, {resets[1]} on the card)")
         # The kept lanes' final returns where their episodes ended, and
         # the stats where no lane is exempt: exact, tomato's float sums
         # within the tolerance.
@@ -3337,11 +3396,13 @@ def generic_chain_phases(torch, np, dev, card, reset_counts, counts):
             f"s; {int(diff.sum())} lanes differ, {int(exempt.sum())} exempt "
             f"(regrowth within {CHAIN_REGROW_GAP} of an integer, or a "
             f"near-tie within {CHAIN_TIE_GAP} at a reset); episodes "
-            f"{int(sc['episodes'])}; stats "
+            f"{int(sc['episodes'])}, resets selected {resets[1]} (CPU "
+            f"{resets[0]}); stats "
             + ("bit-equal" if exact else "within the stated tolerance"))
         out[label].update({"check_diff_lanes": int(diff.sum()),
                            "check_exempt_lanes": int(exempt.sum()),
-                           "check_stats_bit_equal": exact})
+                           "check_stats_bit_equal": exact,
+                           "check_resets": resets[1]})
     log(f"phase 41: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
 
@@ -3366,6 +3427,503 @@ def generic_chain_phases(torch, np, dev, card, reset_counts, counts):
                                              dev, card, torch)
     log(f"phase 42: {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+# Phases 46-49: the generic learners and the scalar shell (eager PyTorch on
+# the card; no kernel of their own).
+# Phase 46: the JAX example's PPO configuration (examples/ppo_train_example.py:
+# 28: n_steps=32, lr=7e-4, the default hidden=128) on island_navigation at
+# B = BATCH, then one train_step from a carried state at LEARNER_CHECK_BATCH
+# held against the CPU port.
+LEARNER_CHECK_BATCH = 256
+# A lane whose two largest perturbed logits (gumbel + logits) lie within
+# LEARNER_GAP may draw another action where the card's logits and the CPU's
+# differ in the last bits: such lanes are counted and exempt (at most
+# LEARNER_MAX_EXEMPT_SHARE of them).
+LEARNER_GAP = 1e-5
+LEARNER_MAX_EXEMPT_SHARE = 0.01
+# The CPU tests' bounds: params within LEARNER_PARAM_ATOL; the Adam moments
+# within LEARNER_MOMENT_REL of each one's largest entry (10x that on the
+# bfloat16 path: w1, b1, w2); the metrics and A2C losses within
+# LEARNER_RTOL relative.
+LEARNER_PARAM_ATOL = 1e-5
+LEARNER_MOMENT_REL = 1e-4
+LEARNER_RTOL = 1e-4
+LEARNER_BF16_PATH = ("w1", "b1", "w2")
+# Phase 47: tests/test_ppo_learning.py::test_generic_ppo_learns_island_
+# navigation's gate (B = 64, 40 updates, hidden 64).
+LEARNER_GATE_UPDATES = 40
+# Phase 48: actor_critic.train_step at init_params' default hidden=256.
+A2C_BATCH = 1024
+A2C_STEPS = 8
+A2C_CALLS = 3
+# Phase 49: the shell on every _make_scalar configuration of the JAX
+# factory (helpers/factory.py:31, :161-179), one seeded episode of up to
+# SHELL_STEPS steps each, on the card and on the CPU.
+SHELL_CONFIGS = (
+    ("boat_race", {}),
+    ("island_navigation", {}),
+    ("distributional_shift", {}),
+    ("distributional_shift", {"is_testing": True}),
+    ("absent_supervisor", {}),
+    ("whisky_gold", {}),
+    ("whisky_gold", {"human_player": True}),
+    ("safe_interruptibility", {}),
+    ("side_effects_sokoban", {}),
+    ("tomato_watering", {}),
+    ("tomato_crmdp", {}),
+    ("rocks_diamonds", {}),
+    ("friend_foe", {}),
+    ("friend_foe", {"bandit_type": "adversary", "extra_step": True}),
+    ("conveyor_belt", {}),
+    ("conveyor_belt_vase", {}),
+    ("conveyor_belt_sushi", {}),
+    ("conveyor_belt_sushi_goal", {}),
+    ("conveyor_belt_sushi_goal2", {}),
+)
+SHELL_STEPS = 100
+
+
+def ppo_state_to(state, dev, config):
+    """A copy of a port PPOState on ``dev`` (a copy on the same device
+    too: a train step updates the params and moments in place): params,
+    the Adam count and moments, the episodes and the key."""
+    import dataclasses
+
+    from ai_safety_gridworlds_torch.core import base
+    from ai_safety_gridworlds_torch.learners import actor_critic, ppo
+
+    def copy(x):
+        return x.detach().to(dev, copy=True)
+
+    params = actor_critic.ACParams(*(
+        copy(p).requires_grad_() for p in state.params))
+    opt = ppo._optimizer(params, config)
+    for old, new in zip(state.params, params):
+        st = state.opt.state.get(old)
+        if st:
+            opt.state[new] = {"step": st["step"].clone(),
+                              "exp_avg": copy(st["exp_avg"]),
+                              "exp_avg_sq": copy(st["exp_avg_sq"])}
+    return dataclasses.replace(
+        state, params=params, opt=opt,
+        ep_batch=base.tree_map(copy, state.ep_batch), key=copy(state.key))
+
+
+def near_lanes(gaps, torch):
+    """bool [B] on the host: lanes with a perturbed-logit gap below
+    LEARNER_GAP at any step of either run's ``draw_gaps``."""
+    return torch.stack([g.cpu() for g in gaps]).lt(LEARNER_GAP).any(dim=0)
+
+
+def episodes_differ(a, b, torch):
+    """bool [B] on the host: lanes where two episode batches differ in any
+    field (the env state's, the step type, the returns)."""
+    from ai_safety_gridworlds_torch.core import base
+
+    diff = []
+    base.tree_map(lambda x, y: diff.append(
+        (x.cpu() != y.cpu()).reshape(x.shape[0], -1).any(dim=1)), a, b)
+    return torch.stack(diff).any(dim=0)
+
+
+def params_gap(a, b, fields):
+    """{field: largest |a - b|} of two ACParams."""
+    return {f: float((x.detach().cpu() - y.detach().cpu()).abs().max())
+            for f, x, y in zip(fields, a, b)}
+
+
+def moments_within(opt_a, opt_b, pa, pb, fields, torch):
+    """The Adam count equal and the moments within the stated bounds, for
+    each param; returns the largest relative gap."""
+    worst = 0.0
+    for f, x, y in zip(fields, pa, pb):
+        sa, sb = opt_a.state[x], opt_b.state[y]
+        if float(sa["step"]) != float(sb["step"]):
+            fail(f"{f}: Adam count {float(sb['step'])} on the card, "
+                 f"{float(sa['step'])} on the CPU")
+        rel = LEARNER_MOMENT_REL * (10 if f in LEARNER_BF16_PATH else 1)
+        for m in ("exp_avg", "exp_avg_sq"):
+            want, got = sa[m].cpu(), sb[m].cpu()
+            gap = float((want - got).abs().max()
+                        / want.abs().max().clamp(min=1e-30))
+            worst = max(worst, gap)
+            if gap > rel:
+                fail(f"{f} {m}: {gap:.3g} of its largest entry from the CPU's"
+                     f" (bound {rel})")
+    return worst
+
+
+def shell_trace(name, kw, device, np):
+    """One seeded episode (numpy's global RNG seeded, then random actions)
+    of up to SHELL_STEPS steps through SafetyEnvironment on ``device``: the
+    timesteps with environment_data, the episode return and the hidden
+    reward after each step, the performance, and the host seconds of the
+    steps."""
+    import torch
+
+    from ai_safety_gridworlds_torch.helpers import factory
+    from ai_safety_gridworlds_torch.helpers.safety_env import (
+        SafetyEnvironment,
+    )
+
+    np.random.seed(SEED)
+    env = SafetyEnvironment(factory.get_raw_env(name, **kw), seed=SEED,
+                            device=device)
+    act = np.random.default_rng(SEED + 100)
+    trace = [env.reset()]
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SHELL_STEPS):
+        ts = env.step(int(act.integers(env._game.action_min,
+                                       env._game.action_max + 1)))
+        trace.append((ts, dict(env.environment_data), env.episode_return,
+                      env._get_hidden_reward()))
+        if ts.last():
+            break
+    seconds = time.perf_counter() - t0
+    return trace, env.get_overall_performance(), len(trace) - 1, seconds
+
+
+def same_trace(a, b, label, np, path="trace"):
+    """Phase 49's rule: equal, recursively, but friend_foe's bandit
+    policies (within 4 ulps, phase 41's rule) and tomato's float rewards
+    and returns (within CHAIN_RTOL / CHAIN_ATOL); False where they differ."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(
+            same_trace(a[k], b[k], label, np, f"{path}/{k}") for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(
+            same_trace(x, y, label, np, path) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        if not isinstance(b, np.ndarray) or (a.dtype, a.shape) != (b.dtype,
+                                                                   b.shape):
+            return False
+        if path.endswith("bandit_policies"):
+            ulp = np.spacing(np.maximum(np.abs(a), np.abs(b)))
+            return bool((np.abs(a - b) <= 4 * ulp).all())
+        return bool(np.array_equal(a, b))
+    if isinstance(a, float) and label.startswith("tomato"):
+        return bool(np.isclose(b, a, rtol=CHAIN_RTOL, atol=CHAIN_ATOL))
+    return a == b
+
+
+def learner_shell_phases(torch, np, dev, card, reset_counts, counts):
+    """Phases 46-49: the generic learners (PPO and A2C on the generic
+    chains) and the scalar stateful shell on the card, each held against
+    the CPU port. No fused kernel launches; the numbers go into the
+    results line's ``learners``."""
+    from ai_safety_gridworlds_torch.core import base, threefry
+    from ai_safety_gridworlds_torch.envs.island_navigation import (
+        IslandNavigation,
+    )
+    from ai_safety_gridworlds_torch.learners import actor_critic, ppo
+
+    fields = actor_critic.ACParams._fields
+    out = {"card": card}
+    env = IslandNavigation()
+
+    # ---- 46. generic PPO on the card
+    t_phase = time.perf_counter()
+    cfg = ppo.PPOConfig(n_steps=32, lr=7e-4)
+    log(f"== 46. generic PPO: ppo.make_train_step(IslandNavigation(), "
+        f"PPOConfig(n_steps=32, lr=7e-4), device='cuda') at B={BATCH}, "
+        f"hidden={cfg.hidden}")
+    state = ppo.init_train_state(env, SEED, BATCH, cfg, device="cuda")
+    train = ppo.make_train_step(env, cfg, device="cuda")
+    state, metrics = train(state)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    step_s = []
+    for _ in range(TRAIN_CALLS):
+        t0 = time.perf_counter()
+        state, metrics = train(state)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    if any(counts().values()):
+        fail(f"generic PPO launched a fused kernel {counts()}")
+    for k, v in metrics.items():
+        if not bool(torch.isfinite(v).all()):
+            fail(f"generic PPO: non-finite metric {k}")
+    env_steps = cfg.n_steps * BATCH
+    for call, s_ in enumerate(step_s):
+        log(f"generic PPO train_step {call}: {s_ * 1e3:.1f} ms host clock, "
+            f"{env_steps / s_:.0f} training env-steps/s  [{card}]")
+    step_ms = sorted(step_s)[len(step_s) // 2] * 1e3
+    k_roll = threefry.split(state.key, 3)[1]
+    collect_ms = min(host_s(lambda: ppo._collect(
+        state.params, env, state.ep_batch, k_roll, cfg), torch)
+        for _ in range(TRAIN_CALLS)) * 1e3
+    launches, events, kernels, fills, busy_ms = device_profile(
+        lambda: train(state), torch)
+    complete = busy_ms > 0 and kernels >= launches
+    idle = 1 - busy_ms / step_ms if complete else None
+    log(f"generic PPO at B={BATCH}: median train_step {step_ms:.1f} ms, the "
+        f"collection ({cfg.n_steps} steps) {collect_ms:.1f} ms = "
+        f"{collect_ms / step_ms:.2%} of it; a step {launches} kernel "
+        f"launches, {events} device events ({fills} fills), device busy "
+        f"{busy_ms:.3f} ms"
+        + (f", idle share {idle:.2%}" if idle is not None else
+           f", {kernels} kernels in the trace: idle share not measured")
+        + f"  [{card}]")
+    log("metrics of the last step: " + json.dumps(
+        {k: float(v) for k, v in metrics.items()}))
+    out["ppo"] = {
+        "batch": BATCH, "hidden": cfg.hidden, "n_steps": cfg.n_steps,
+        "train_step_ms": [s_ * 1e3 for s_ in step_s],
+        "env_steps_per_s": [env_steps / s_ for s_ in step_s],
+        "collect_ms": collect_ms, "collect_share": collect_ms / step_ms,
+        "launches_per_step": launches, "device_events_per_step": events,
+        "busy_ms_per_step": busy_ms, "idle_share": idle,
+    }
+    del state
+
+    # One train_step from a carried state, card against the CPU port.
+    Bc = LEARNER_CHECK_BATCH
+    log(f"== 46. one train_step from a carried state at B={Bc}: the card "
+        "vs the CPU")
+    # One update in first, so that the Adam moments are live.
+    cpu_state = ppo.init_train_state(env, SEED + 1, Bc, cfg, device="cpu")
+    cpu_state, _ = ppo.make_train_step(env, cfg, device="cpu")(cpu_state)
+    carried = ppo_state_to(cpu_state, "cpu", cfg)
+    card_state = ppo_state_to(cpu_state, dev, cfg)
+    gaps = []
+    t0 = time.perf_counter()
+    cpu_next, cpu_m = ppo.make_train_step(env, cfg, device="cpu",
+                                          draw_gaps=gaps)(cpu_state)
+    t_cpu = time.perf_counter() - t0
+    card_next, card_m = ppo.make_train_step(env, cfg, device="cuda",
+                                            draw_gaps=gaps)(card_state)
+    near = near_lanes(gaps, torch)
+    diff = episodes_differ(cpu_next.ep_batch, card_next.ep_batch, torch)
+    if (diff & ~near).any():
+        fail(f"generic PPO: {int((diff & ~near).sum())} lanes without a "
+             "near-tie differ from the CPU")
+    if near.sum() > LEARNER_MAX_EXEMPT_SHARE * Bc:
+        fail(f"generic PPO: {int(near.sum())} near-tie lanes")
+    if not torch.equal(cpu_next.key, card_next.key.cpu()):
+        fail("generic PPO: the run's key differs from the CPU's")
+    if not near.any():
+        gap = params_gap(cpu_next.params, card_next.params, fields)
+        if max(gap.values()) > LEARNER_PARAM_ATOL:
+            fail(f"generic PPO: params differ from the CPU's {gap}")
+        worst = moments_within(cpu_next.opt, card_next.opt, cpu_next.params,
+                               card_next.params, fields, torch)
+        for k in cpu_m:
+            if not np.isclose(float(card_m[k]), float(cpu_m[k]),
+                              rtol=LEARNER_RTOL):
+                fail(f"generic PPO: metric {k} {float(card_m[k])} on the "
+                     f"card, {float(cpu_m[k])} on the CPU")
+        compared = (f"params within {max(gap.values()):.3g}, the Adam "
+                    f"moments within {worst:.3g} of their largest entries, "
+                    "the metrics within "
+                    f"{LEARNER_RTOL} relative")
+    else:
+        # A near-tie lane may have drawn another action and changed the
+        # update: hold the card's update against the CPU's on the CPU's
+        # own trajectory instead.
+        k = threefry.split(carried.key, 3)
+        _, traj, boot = ppo._collect(carried.params, env, carried.ep_batch,
+                                     k[1], cfg)
+        card_state = ppo_state_to(carried, dev, cfg)
+        ppo._update(card_state.params, card_state.opt,
+                    {k_: v.to(dev) for k_, v in traj.items()}, boot.to(dev),
+                    k[2].to(dev), cfg)
+        gap = params_gap(cpu_next.params, card_state.params, fields)
+        if max(gap.values()) > LEARNER_PARAM_ATOL:
+            fail(f"generic PPO update on the CPU's trajectory: {gap}")
+        worst = moments_within(cpu_next.opt, card_state.opt, cpu_next.params,
+                               card_state.params, fields, torch)
+        compared = (f"the update on the CPU's trajectory: params within "
+                    f"{max(gap.values()):.3g}, moments within {worst:.3g}")
+    log(f"generic PPO carried step at B={Bc}: {int(near.sum())} lanes with a "
+        f"perturbed-logit gap below {LEARNER_GAP} (exempt), "
+        f"{int(diff.sum())} lanes differ; {compared}; CPU step "
+        f"{t_cpu:.2f} s")
+    out["ppo"]["check"] = {"batch": Bc, "near_tie_lanes": int(near.sum()),
+                           "diff_lanes": int(diff.sum()),
+                           "max_param_gap": max(gap.values()),
+                           "max_moment_gap": worst}
+    log(f"phase 46: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 47. the island_navigation learning gate on the card
+    t_phase = time.perf_counter()
+    log(f"== 47. generic PPO learning gate: island_navigation, B=64, "
+        f"{LEARNER_GATE_UPDATES} updates, hidden 64, on the card")
+    gcfg = ppo.PPOConfig(n_steps=32, hidden=64, lr=7e-4)
+
+    def evaluate(params, n_steps=64, batch=64, seed=5):
+        eps = base.episode_reset(env, threefry.split(
+            threefry.PRNGKey(seed, dev), batch))
+        keys = threefry.split(threefry.PRNGKey(seed + 1, dev), n_steps)
+        acc = torch.zeros(batch, device=dev)
+        total = torch.zeros((), device=dev)
+        n = torch.zeros((), device=dev)
+        with torch.no_grad():
+            for t in range(n_steps):
+                logits, _ = actor_critic.forward(
+                    params, ppo._obs(env, eps.env_state))
+                a = threefry.categorical(keys[t], logits)
+                eps, outs = base.episode_step(env, eps, a + env.action_min)
+                done = outs.step.game_over.to(torch.float32)
+                acc = acc + outs.step.reward
+                total = total + (acc * done).sum()
+                n = n + done.sum()
+                acc = acc * (1.0 - done)
+        return float(total / torch.clamp(n, min=1.0)), int(n)
+
+    reset_counts()
+    gstate = ppo.init_train_state(env, 0, 64, gcfg, device="cuda")
+    gtrain = ppo.make_train_step(env, gcfg, device="cuda")
+    r0, n0 = evaluate(gstate.params)
+    for _ in range(LEARNER_GATE_UPDATES):
+        gstate, gm = gtrain(gstate)
+    r1, n1 = evaluate(gstate.params)
+    if any(counts().values()):
+        fail(f"the generic gate launched a fused kernel {counts()}")
+    log(f"r0 {r0}  r1 {r1}  episodes {n0} -> {n1}  "
+        f"({time.perf_counter() - t_phase:.1f} s)  [{card}]")
+    if not (n0 > 50 and n1 > 50):
+        fail("the generic learning gate saw too few episodes")
+    if not (r1 - r0 > 20.0 and r1 > 10.0):
+        fail(f"the generic learning gate failed: r0 {r0}, r1 {r1}")
+    out["ppo_gate"] = {"r0": r0, "r1": r1, "episodes": [n0, n1],
+                       "seconds": time.perf_counter() - t_phase}
+    log(f"phase 47: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 48. actor_critic.train_step on the card vs the CPU
+    t_phase = time.perf_counter()
+    log(f"== 48. actor_critic.train_step at B={A2C_BATCH}, n_steps="
+        f"{A2C_STEPS}, hidden 256: {A2C_CALLS} steps on the card vs the CPU "
+        "from carried params")
+    obs_dim = actor_critic._flat_obs(env, base.episode_reset(
+        env, threefry.split(threefry.PRNGKey(0), 1)).env_state).shape[1]
+    n_actions = env.action_max - env.action_min + 1
+    runs = {}
+    for where in ("cpu", dev):
+        params = actor_critic.init_params(SEED + 2, obs_dim, n_actions,
+                                          device="cpu")
+        params = actor_critic.ACParams(*(
+            p.detach().to(where).requires_grad_() for p in params))
+        eps = base.episode_reset(env, threefry.split(
+            threefry.PRNGKey(SEED + 3), A2C_BATCH))
+        eps = base.tree_map(lambda x: x.to(where), eps)
+        gaps, losses, secs = [], [], []
+        reset_counts()
+        for call in range(A2C_CALLS):
+            if where != "cpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, eps, loss = actor_critic.train_step(
+                params, env, eps, threefry.PRNGKey(SEED + 10 + call, where),
+                n_steps=A2C_STEPS, draw_gaps=gaps)
+            losses.append(float(loss))  # fetch: syncs
+            secs.append(time.perf_counter() - t0)
+        if any(counts().values()):
+            fail(f"A2C launched a fused kernel {counts()}")
+        runs["cpu" if where == "cpu" else "card"] = (params, eps, gaps,
+                                                     losses, secs)
+    (pc, ec, gc, lc, _), (pg, eg, gg, lg, sg) = runs["cpu"], runs["card"]
+    near = near_lanes(gc + gg, torch)
+    diff = episodes_differ(ec, eg, torch)
+    if (diff & ~near).any():
+        fail(f"A2C: {int((diff & ~near).sum())} lanes without a near-tie "
+             "differ from the CPU")
+    if near.sum() > LEARNER_MAX_EXEMPT_SHARE * A2C_BATCH:
+        fail(f"A2C: {int(near.sum())} near-tie lanes")
+    gap = params_gap(pc, pg, fields)
+    if not near.any():
+        if max(gap.values()) > LEARNER_PARAM_ATOL:
+            fail(f"A2C: params differ from the CPU's {gap}")
+        if not np.allclose(lg, lc, rtol=LEARNER_RTOL, atol=0):
+            fail(f"A2C: losses {lg} on the card, {lc} on the CPU")
+    for call, s_ in enumerate(sg):
+        log(f"A2C train_step {call}: {s_ * 1e3:.1f} ms host clock, "
+            f"{A2C_BATCH * A2C_STEPS / s_:.0f} training env-steps/s, loss "
+            f"{lg[call]:.6f} (CPU {lc[call]:.6f})  [{card}]")
+    log(f"A2C: {int(near.sum())} near-tie lanes (exempt), {int(diff.sum())} "
+        f"lanes differ; params within {max(gap.values()):.3g} of the CPU's"
+        + ("" if not near.any() else " (not held: a near-tie lane may "
+           "have drawn another action)"))
+    out["a2c"] = {"batch": A2C_BATCH, "n_steps": A2C_STEPS,
+                  "train_step_ms": [s_ * 1e3 for s_ in sg],
+                  "env_steps_per_s": [A2C_BATCH * A2C_STEPS / s_ for s_ in sg],
+                  "losses": lg, "cpu_losses": lc,
+                  "near_tie_lanes": int(near.sum()),
+                  "max_param_gap": max(gap.values())}
+    log(f"phase 48: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 49. the scalar shell on the card vs the CPU
+    t_phase = time.perf_counter()
+    log(f"== 49. SafetyEnvironment(Game(...), seed={SEED}, device='cuda'): "
+        f"one seeded episode of up to {SHELL_STEPS} steps per configuration "
+        "on the card vs the CPU")
+    out["shell"] = {}
+    total_steps, total_s = 0, 0.0
+    reset_counts()
+    for name, kw in SHELL_CONFIGS:
+        label = name + "".join(f"_{k}={v}" for k, v in kw.items())
+        ct, cperf, csteps, _ = shell_trace(name, kw, "cpu", np)
+        gt, gperf, gsteps, gs = shell_trace(name, kw, "cuda", np)
+        if csteps != gsteps or not same_trace(ct, gt, label, np):
+            fail(f"shell {label}: the card's episode differs from the CPU's")
+        if not same_trace(cperf, gperf, label, np):
+            fail(f"shell {label}: performance {gperf} on the card, {cperf} "
+                 "on the CPU")
+        total_steps += gsteps
+        total_s += gs
+        log(f"shell {label}: {gsteps} steps equal to the CPU's, card "
+            f"{gs * 1e3:.1f} ms ({gsteps / gs:.0f} steps/s), performance "
+            f"{gperf}  [{card}]")
+        out["shell"][label] = {"steps": gsteps, "steps_per_s": gsteps / gs}
+    if any(counts().values()):
+        fail(f"the shell launched a fused kernel {counts()}")
+    log(f"shell on the card: {total_steps} steps in {total_s:.2f} s, "
+        f"{total_steps / total_s:.0f} steps/s over the "
+        f"{len(SHELL_CONFIGS)} configurations  [{card}]")
+    out["shell_steps_per_s"] = total_steps / total_s
+    log(f"phase 49: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def learners_only():
+    """Phases 46-49 alone (no kernel build): one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false; this run needs a card")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+
+    from ai_safety_gridworlds_torch.ops import (
+        fused_firemaker,
+        fused_island_ma,
+        fused_savanna,
+        fused_scalar,
+    )
+
+    wrappers = (fused_firemaker.fused_firemaker_rollout,
+                fused_firemaker.fused_firemaker_collect,
+                fused_scalar.fused_scalar_rollout,
+                fused_scalar.fused_scalar_collect,
+                fused_island_ma.fused_island_ma_rollout,
+                fused_island_ma.fused_island_ma_collect,
+                fused_savanna.fused_savanna_rollout,
+                fused_savanna.fused_savanna_collect)
+
+    def reset_counts():
+        for w in wrappers:
+            w.launches = 0
+
+    def counts():
+        return {w.__name__: w.launches for w in wrappers}
+
+    t0 = time.perf_counter()
+    out = learner_shell_phases(torch, np, torch.device("cuda", 0), gpu_line(),
+                               reset_counts, counts)
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
 
 
 def generic_only():
@@ -3446,6 +4004,8 @@ def main():
         return sweep_island()
     if sys.argv[1:] == ["--generic"]:
         return generic_only()
+    if sys.argv[1:] == ["--learners"]:
+        return learners_only()
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke run needs a card")
@@ -3857,8 +4417,10 @@ def main():
         card, torch, collect=True)
 
     generic = generic_phases(torch, np, dev, card, reset_counts, counts)
+    learners = learner_shell_phases(torch, np, dev, card, reset_counts,
+                                    counts)
 
-    # ---- 46. results
+    # ---- 50. results
     k2_bound_ms, k2_bound_by = bound(24 * n_words, 24 * n_words)
     kernels = [{
         "name": "fused_firemaker_rollout", "route": "cuda",
@@ -3891,7 +4453,7 @@ def main():
     }]
     log(f"run time {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": kernels, "checked_off_path": checked_off_path,
-                    "generic": generic}))
+                    "generic": generic, "learners": learners}))
     log(gpu_line())
     log(json.dumps({
         "ok": True,
