@@ -148,12 +148,18 @@ class SafetyGridworld:
             t = cache[key] = torch.as_tensor(getattr(self, name), device=device)
         return t
 
+    def drop_device_tables(self):
+        """Forget every per-device table (the ``_device_*`` caches); each is
+        remade from the host tables on first use, so a board that changed
+        on the host is uploaded anew."""
+        for name in [k for k in self.__dict__ if k.startswith("_device_")]:
+            del self.__dict__[name]
+
     def __getstate__(self):
         # The per-device tables are remade on first use: a pickle holds
         # nothing bound to a device.
-        state = dict(self.__dict__)
-        state.pop("_device_consts", None)
-        return state
+        return {k: v for k, v in self.__dict__.items()
+                if not k.startswith("_device_")}
 
     def initial_state(self, key, options=None):
         raise NotImplementedError

@@ -16,13 +16,19 @@ The batched ``initial_state``, ``engine_step``, ``board``, ``layers``,
 differ between XLA, PyTorch on the CPU and CUDA, so a power within an ulp
 of an integer (the cap included) may floor either way. ``regrow_gaps`` (a
 list, None by default) collects each step's per-lane distance of the
-power to the nearest integer (inf where nothing regrew) for the tests. The stateful
-MO shell waits for a later slice.
+power to the nearest integer (inf where nothing regrew) for the tests.
+
+The stateful MO shell (``mo/safety_game_mo.SafetyEnvironmentMo``) reads the
+host hooks: ``host_step_options`` replays the pending move on the host and
+regrows drink and food in float64 with ``math.pow``, as the reference does,
+and ``engine_step`` then takes that step's availabilities and fractions
+from the options; ``host_extras`` reports the distance to water.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -43,6 +49,7 @@ from ai_safety_gridworlds_torch.core.render import (
 )
 from ai_safety_gridworlds_torch.core.timestep import TerminationReason
 from ai_safety_gridworlds_torch.envs.boat_race_ex import unoccluded_layers
+from ai_safety_gridworlds_torch.helpers.safety_env import _lane0
 from ai_safety_gridworlds_torch.mo.mo_reward import MoRewardSpace, mo_reward
 from ai_safety_gridworlds_torch.mo.safety_game_mo import MoSafetyGridworld
 
@@ -220,6 +227,13 @@ def map_contains(char, art_rows):
     return any(char in row for row in art_rows)
 
 
+def _regrow_host(avail: float, fraction: float, limit: float, exponent: float):
+    """One float64 regrowth step; the caller checks its precondition."""
+    af = avail + fraction
+    af = min(limit, math.pow(af + 1, exponent))
+    return float(int(af)), af - int(af)
+
+
 @dataclasses.dataclass
 class IslandNavExState(Struct):
     t: torch.Tensor  # int32 [B]
@@ -357,6 +371,63 @@ class IslandNavigationEx(MoSafetyGridworld):
             safety=full(3, torch.int32),
             action_direction=full(int(Directions.UP), torch.int32),
         )
+
+    def _host_simulate_move(self, state, action):
+        """The lane's position after ``action``, on the host."""
+        pos = _lane0(state.pos)
+        if action not in (int(ActionsMo.QUIT),):
+            delta = np.asarray(ACTION_DELTAS_MO)[min(max(action, 0), 9)]
+            target = pos + delta
+            h, w = self._wall_mask.shape
+            if (
+                0 <= target[0] < h
+                and 0 <= target[1] < w
+                and not self._wall_mask[target[0], target[1]]
+            ):
+                pos = target
+        return pos
+
+    def host_step_options(self, state, action) -> dict:
+        """The step's drink and food availabilities and fractions, regrown
+        in float64 with the reference's ``math.pow`` (the shell's lane)."""
+        cfg = self.cfg
+        pos = self._host_simulate_move(state, action)
+        out = {}
+        for res, c in (("drink", DRINK_CHR), ("food", FOOD_CHR)):
+            mask = self._tile_masks[_TILES.index(c)]
+            avail = float(_lane0(getattr(state, f"{res}_availability")))
+            fraction = float(_lane0(getattr(state, f"{res}_fraction")))
+            on_tile = bool(mask[pos[0], pos[1]]) if mask.any() else False
+            if on_tile and avail > 0:
+                # The agent consumes before the drape updates.
+                avail = max(0.0, avail - cfg[f"{res.upper()}_EXTRACTION_RATE"])
+            if not cfg["sustainability_challenge"]:
+                # The drape restores the availability at the top of its own
+                # update, after the agent consumed: the step ends at the
+                # initial value.
+                avail = float(cfg[f"{res.upper()}_AVAILABILITY_INITIAL"])
+            elif not on_tile:
+                # The drink drape's precondition reads the module-global
+                # growth limit, not the flag, and the food regrowth takes
+                # the DRINK exponent, as the reference's code does.
+                cond_limit = (
+                    DEFAULTS["DRINK_GROWTH_LIMIT"]
+                    if res == "drink"
+                    else cfg["FOOD_GROWTH_LIMIT"]
+                )
+                if 0 < avail < cond_limit:
+                    avail, fraction = _regrow_host(
+                        avail,
+                        fraction,
+                        float(cfg[f"{res.upper()}_GROWTH_LIMIT"]),
+                        float(cfg["DRINK_REGROWTH_EXPONENT"]),
+                    )
+            out[f"{res}_avail"] = np.float32(avail)
+            out[f"{res}_fraction"] = np.float32(fraction)
+        return out
+
+    def host_extras(self, state) -> dict:
+        return {"safety": int(_lane0(state.safety))}
 
     # ---------------------------------------------------------------- step
 
@@ -511,8 +582,14 @@ class IslandNavigationEx(MoSafetyGridworld):
             reward = reward + rv("DANGER_TILE_REWARD") * lanes(in_water)
             terminated, reason = ends(in_water, terminated, reason)
 
-        # The drink and food drapes' regrowth.
-        if cfg["sustainability_challenge"]:
+        # The drink and food drapes' regrowth: from the options when the
+        # shell's host hook computed it in float64.
+        if options is not None and "drink_avail" in options:
+            drink_avail = options["drink_avail"]
+            drink_fraction = options["drink_fraction"]
+            food_avail = options["food_avail"]
+            food_fraction = options["food_fraction"]
+        elif cfg["sustainability_challenge"]:
             gaps = []
 
             def regrow(avail, fraction, on_tile, limit, exponent,

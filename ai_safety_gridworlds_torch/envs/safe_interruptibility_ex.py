@@ -11,10 +11,14 @@ interruption wrapper still returns the scalar UP id 1, which the MO action
 order dispatches as LEFT, and the movement and goal rewards are added twice
 in episodes that are not interrupted. The batched ``engine_step`` is the
 generic path, on safe_interruptibility's state, draws and observations.
+For the stateful MO shell, ``should_interrupt`` comes from the shell's
+Generator (``host_reset_options_with_generator``), not from numpy's global
+RNG, as the reference draws it.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ai_safety_gridworlds_torch.core.actions import ACTION_DELTAS_MO, ActionsMo
@@ -56,6 +60,17 @@ class SafeInterruptibilityEx(MoSafetyGridworld, SafeInterruptibility):
         self.action_min = int(ActionsMo.NOOP) if noops else int(ActionsMo.LEFT)
         self.action_max = int(ActionsMo.DOWN)
         self._action_deltas = ACTION_DELTAS_MO
+
+    def host_reset_options(self) -> dict:
+        return {}
+
+    def host_reset_options_with_generator(self, np_random) -> dict:
+        # One uniform from the env's Generator (note ``<=``).
+        return {
+            "should_interrupt": np.bool_(
+                np_random.random() <= self.interruption_probability
+            )
+        }
 
     def engine_step(self, state: SafeInterruptibilityState, action,
                     options=None):

@@ -8,12 +8,18 @@ island_navigation_ex, absent_supervisor, distributional_shift,
 safe_interruptibility(_ex), side_effects_sokoban, whisky_gold,
 tomato_watering, tomato_crmdp, conveyor_belt with its four
 ``conveyor_belt_{variant}`` names, rocks_diamonds, friend_foe and
-conveyor_belt_ex). Every one of these 18 envs also has its per-env
-generic chain. The scalar stateful shell is
-``helpers/safety_env.SafetyEnvironment(get_raw_env(name), seed=...)``;
-the registry of wrapped names (``get_environment_obj``), the experiment
-presets, the multi-objective and multi-agent shells and the adapters come
-with later slices (``ROADMAP.md``).
+conveyor_belt_ex), and the 12 experiment presets of
+``experiments/presets.py`` (island_navigation_ex under preset flags).
+Every one of the 18 envs also has its per-env generic chain. The stateful
+shells: ``helpers/safety_env.SafetyEnvironment(get_raw_env(name),
+seed=...)`` for the scalar envs,
+``mo/safety_game_mo.SafetyEnvironmentMo(get_raw_env(name), seed=...)``
+for boat_race_ex, conveyor_belt_ex, safe_interruptibility_ex and
+island_navigation_ex, and ``experiments.presets.make_experiment(name,
+seed=...)`` for a preset. The multi-agent shell
+(``SafetyEnvironmentMoMa``), the aintelope presets, the registry of
+wrapped names (``get_environment_obj``) and the adapters come with later
+slices (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ def _raw_registry() -> dict:
         TomatoWatering,
     )
     from ai_safety_gridworlds_torch.envs.whisky_gold import WhiskyGold
+    from ai_safety_gridworlds_torch.experiments import presets
 
     registry = {
         "firemaker_ex_ma": FiremakerExMa,
@@ -85,6 +92,10 @@ def _raw_registry() -> dict:
     for variant in ("vase", "sushi", "sushi_goal", "sushi_goal2"):
         registry[f"conveyor_belt_{variant}"] = (
             lambda v: lambda **kw: ConveyorBelt(variant=v, **kw))(variant)
+    # The experiment presets' functional envs.
+    for name in presets.experiment_names():
+        registry[name] = (
+            lambda n: lambda **kw: presets.make_experiment_raw(n, **kw))(name)
     return registry
 
 

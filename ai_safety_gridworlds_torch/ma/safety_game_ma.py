@@ -10,8 +10,12 @@ MID -> LAST -> DEAD, and rewards are ``[B, n_agents, n_dims]``.
 
 Subclasses implement ``engine_substep(state, agent_idx [B], action [B],
 options, slot) -> (state, rewards [B, n, D])``; the base runs the
-sub-steps in the drawn order, each gated on its agent acting. The agent
-perspective crop belongs to the stateful shells (``ROADMAP.md``).
+sub-steps in the drawn order, each gated on its agent acting.
+
+For the stateful multi-agent shells, two host pieces: ``host_agent_order``
+(the reference's ``Generator.shuffle`` of the acting agents, passed to the
+step as ``agent_order``) and :func:`agent_perspective` (the agent-centric
+crop, pad and rotation of a board or layer stack on the host).
 """
 
 from __future__ import annotations
@@ -19,9 +23,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
 from ai_safety_gridworlds_torch.core import threefry
+from ai_safety_gridworlds_torch.core.actions import Directions
 from ai_safety_gridworlds_torch.core.base import Struct, sum_steps, tree_where
 from ai_safety_gridworlds_torch.core.timestep import StepType, TerminationReason
 from ai_safety_gridworlds_torch.mo.mo_reward import mo_reward
@@ -161,6 +167,104 @@ class MaSafetyGridworld(MoSafetyGridworld):
             )
             rewards = rewards + delta
         return self.finalize_step(state, rewards)
+
+    def host_agent_order(self, np_random, acting_agents) -> np.ndarray:
+        """The acting agents shuffled by ``np_random.shuffle`` as the
+        reference shuffles its actions, then the agents that do not act:
+        int32 [n_agents], the step's ``agent_order`` for one lane."""
+        items = list(acting_agents)
+        if self.randomize_agent_actions_order and len(items) > 1:
+            np_random.shuffle(items)
+        rest = [i for i in range(self.n_agents) if i not in set(items)]
+        return np.asarray(items + rest, dtype=np.int32)
+
+
+def agent_perspective(
+    board: np.ndarray,
+    position,
+    observation_direction: int,
+    what_lies_outside,
+    observation_radius=None,
+    observation_direction_mode: int = 0,
+) -> np.ndarray:
+    """The agent-centric view of a board ([H, W]) or layer stack ([H, W,
+    ...]) on the host: crop by the visibility in each direction, pad
+    outside the board with ``what_lies_outside``, then turn by quarter
+    turns so that the agent's observation direction faces up (only when
+    the direction mode is not fixed). ``observation_radius`` is None (the
+    whole board, agent-centric), a scalar, a 4-list indexed by
+    ``Directions``, or -1 (the global view, unchanged)."""
+    h, w = board.shape[:2]
+    row, col = int(position[0]), int(position[1])
+
+    if observation_radius is None:
+        if observation_direction_mode == 0:
+            left = right = w - 1
+            top = bottom = h - 1
+        else:
+            m = max(h, w)
+            left = right = top = bottom = m - 1
+    elif np.isscalar(observation_radius):
+        if observation_radius == -1:
+            return board
+        left = right = top = bottom = int(observation_radius)
+    else:
+        r = observation_radius
+        if observation_direction_mode == 0:
+            left, right = r[Directions.LEFT], r[Directions.RIGHT]
+            top, bottom = r[Directions.UP], r[Directions.DOWN]
+        else:
+            d = observation_direction
+            if d == Directions.UP:
+                left, right = r[Directions.LEFT], r[Directions.RIGHT]
+                top, bottom = r[Directions.UP], r[Directions.DOWN]
+            elif d == Directions.DOWN:
+                left, right = r[Directions.RIGHT], r[Directions.LEFT]
+                top, bottom = r[Directions.DOWN], r[Directions.UP]
+            elif d == Directions.LEFT:
+                left, right = r[Directions.UP], r[Directions.DOWN]
+                top, bottom = r[Directions.RIGHT], r[Directions.LEFT]
+            elif d == Directions.RIGHT:
+                left, right = r[Directions.DOWN], r[Directions.UP]
+                top, bottom = r[Directions.LEFT], r[Directions.RIGHT]
+            else:
+                raise ValueError("Invalid observation_direction")
+
+    out = board[
+        max(0, row - top) : row + bottom + 1,
+        max(0, col - left) : col + right + 1,
+    ]
+    fill = what_lies_outside
+    if row - top < 0:
+        pad = np.full((top - row,) + out.shape[1:], fill, board.dtype)
+        out = np.concatenate([pad, out], axis=0)
+    if row + bottom + 1 > h:
+        pad = np.full(
+            (row + bottom + 1 - h,) + out.shape[1:], fill, board.dtype
+        )
+        out = np.concatenate([out, pad], axis=0)
+    if col - left < 0:
+        pad = np.full(
+            (out.shape[0], left - col) + out.shape[2:], fill, board.dtype
+        )
+        out = np.concatenate([pad, out], axis=1)
+    if col + right + 1 > w:
+        pad = np.full(
+            (out.shape[0], col + right + 1 - w) + out.shape[2:],
+            fill,
+            board.dtype,
+        )
+        out = np.concatenate([out, pad], axis=1)
+
+    if observation_direction_mode != 0:
+        d = observation_direction
+        if d == Directions.DOWN:
+            out = np.rot90(out, k=2)
+        elif d == Directions.LEFT:
+            out = np.rot90(out, k=-1)
+        elif d == Directions.RIGHT:
+            out = np.rot90(out, k=1)
+    return out
 
 
 @dataclasses.dataclass

@@ -8,8 +8,11 @@ the host-side per-episode layout draw of the reference's
 tiles of a type at Generator-chosen cells, and a shuffle of the interior
 (or of the whole map). Every draw consumes the given
 ``numpy.random.Generator`` in the reference's order, so the same
-Generator state gives the same board byte for byte. The per-experiment
-cache and its key wait for the stateful shells (``ROADMAP.md``).
+Generator state gives the same board byte for byte. With a ``cache_key``
+(:func:`randomization_cache_key`: per experiment, layout seed or episode,
+by the randomization frequency) a board is drawn once and then read from
+``randomized_maps_per_environment`` until
+:func:`clear_randomization_cache`; the keys are the JAX package's strings.
 
 :func:`shuffle_interior_device` is the generic path's interior shuffle on
 a batch of boards, one threefry key a lane, as the JAX package's
@@ -25,6 +28,13 @@ import torch
 
 from ai_safety_gridworlds_torch.core import threefry
 
+# The boards drawn so far, by cache key.
+randomized_maps_per_environment: dict = {}
+
+
+def clear_randomization_cache():
+    randomized_maps_per_environment.clear()
+
 
 def randomize_map(
     board: np.ndarray,
@@ -37,12 +47,16 @@ def randomize_map(
     preserve_map_edges: bool = True,
     map_width: Optional[int] = None,
     map_height: Optional[int] = None,
+    cache_key: Optional[str] = None,
 ) -> np.ndarray:
     """Return the randomized uint8 board for a new episode."""
     board = board.copy()
 
     if not tile_type_counts or map_randomization_frequency < 1:
         return board
+
+    if cache_key is not None and cache_key in randomized_maps_per_environment:
+        return randomized_maps_per_environment[cache_key].copy()
 
     resize = (map_height is not None or map_width is not None) and (
         map_height != board.shape[0] or map_width != board.shape[1]
@@ -71,6 +85,8 @@ def randomize_map(
             board = out
         else:
             board = submap
+        if cache_key is not None:
+            randomized_maps_per_environment[cache_key] = board.copy()
         return board
 
     # Remove excess tiles per type.
@@ -91,7 +107,39 @@ def randomize_map(
         board[1:-1, 1:-1] = submap
     else:
         board = submap
+    if cache_key is not None:
+        randomized_maps_per_environment[cache_key] = board.copy()
     return board
+
+
+def randomization_cache_key(
+    env_class: str,
+    seed,
+    env_layout_seed,
+    episode_no,
+    tile_type_counts: dict,
+    ascii_art,
+    map_width,
+    map_height,
+    frequency: int,
+) -> Optional[str]:
+    """The cache key of a randomized board: once per experiment
+    (``frequency`` 1), per layout seed (2) or per episode (3)."""
+    counts_key = sorted(tile_type_counts.items())
+    art_key = "\n".join(ascii_art)
+    if frequency == 1:
+        return f"{env_class}|{seed}|{counts_key}|{art_key}|{map_width}|{map_height}"
+    if frequency == 2:
+        return (
+            f"{env_class}|{seed}|{env_layout_seed}|{counts_key}|{art_key}"
+            f"|{map_width}|{map_height}"
+        )
+    if frequency == 3:
+        return (
+            f"{env_class}|{seed}|{env_layout_seed}|{episode_no}|{counts_key}"
+            f"|{art_key}|{map_width}|{map_height}"
+        )
+    raise ValueError("map_randomization_frequency")
 
 
 def shuffle_interior_device(board: torch.Tensor, keys: torch.Tensor):

@@ -313,7 +313,21 @@ Phases, in order; any failure exits non-zero before the last line:
    timestep, ``environment_data``, return, hidden reward and performance
    equal (friend_foe's policies within 4 ulps, tomato's float rewards within
    1e-5 relative, phase 41's rules), with the shell's steps/s on the card;
-50. one JSON line of kernel results: ``kernels`` holds K1 with its launches
+50. ``SafetyEnvironmentMo(Game(...), seed=0, log_columns=<every LOG_*
+   column>, device="cuda")`` for every ``_make_mo`` configuration of the
+   JAX factory (``MO_SHELL_CONFIGS``: boat_race_ex levels 0-3,
+   conveyor_belt_ex's four variants, safe_interruptibility_ex levels 0-2,
+   island_navigation_ex levels 0-9) and ``presets.make_experiment(name,
+   seed=0, ...)`` for each of the 12 experiment presets: one seeded episode
+   of up to 100 steps with seeded Q values on the card, then on the CPU
+   (the class statics reset and the clock ticking alike from one instant
+   in each run); every timestep, ``environment_data`` (the Generator by its
+   state), seed, layout seed, episode number and performance equal, and the
+   CSV and arguments files byte-equal; steps/s per run and overall, and a
+   step's time split into the chain (the game's step and observe, the card
+   synchronised after them), the host hooks and fetches, and the
+   statistics with the CSV row;
+51. one JSON line of kernel results: ``kernels`` holds K1 with its launches
    on the main path (phase 5) and on the policy-search check (phase 6), K3
    with its launches on the training path (phase 8), K4 with its launches on
    the scalar main paths (phases 11, 26 and 30, by path and env), K5 with
@@ -327,7 +341,7 @@ Phases, in order; any failure exits non-zero before the last line:
    functions); ``checked_off_path`` holds K2, which no driven path launches
    (K1 and K3-K9 inline the same PRF header), with its phase-3 launches;
    ``generic`` holds phases 36-45's rates, launches, exempt lanes and
-   idle shares, ``learners`` phases 46-49's;
+   idle shares, ``learners`` phases 46-49's, ``mo_shell`` phase 50's;
    then the card's name and power limit and the last line ``{"ok": true,
    "device": {...}}``.
 
@@ -382,6 +396,11 @@ runs phases 36-45 (the generic path) alone, without building the kernels
 
 runs phases 46-49 (the generic learners and the scalar shell) alone,
 without building the kernels, and prints one JSON line.
+
+    python3 chip_smoke.py --shells
+
+runs phases 49-50 (the scalar and the MO shells) alone, without building
+the kernels, and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -3482,6 +3501,16 @@ SHELL_CONFIGS = (
     ("conveyor_belt_sushi_goal2", {}),
 )
 SHELL_STEPS = 100
+# Phase 50: the MO shell on every configuration the JAX factory wraps with
+# _make_mo (helpers/factory.py:42, :165-169) at its published maps, and on
+# the experiment presets (experiments/presets.py), with every log column.
+MO_SHELL_CONFIGS = (
+    tuple(("boat_race_ex", {"level": lv}) for lv in range(4))
+    + tuple(("conveyor_belt_ex", {"variant": v})
+            for v in ("vase", "sushi", "sushi_goal", "sushi_goal2"))
+    + tuple(("safe_interruptibility_ex", {"level": lv}) for lv in range(3))
+    + tuple(("island_navigation_ex", {"level": lv}) for lv in range(10))
+)
 
 
 def ppo_state_to(state, dev, config):
@@ -3854,6 +3883,13 @@ def learner_shell_phases(torch, np, dev, card, reset_counts, counts):
                   "max_param_gap": max(gap.values())}
     log(f"phase 48: {time.perf_counter() - t_phase:.1f} s")
 
+    out.update(scalar_shell_phase(np, card, reset_counts, counts))
+    return out
+
+
+def scalar_shell_phase(np, card, reset_counts, counts):
+    """Phase 49: the scalar stateful shell on the card against the CPU."""
+    out = {}
     # ---- 49. the scalar shell on the card vs the CPU
     t_phase = time.perf_counter()
     log(f"== 49. SafetyEnvironment(Game(...), seed={SEED}, device='cuda'): "
@@ -3884,6 +3920,182 @@ def learner_shell_phases(torch, np, dev, card, reset_counts, counts):
         f"{len(SHELL_CONFIGS)} configurations  [{card}]")
     out["shell_steps_per_s"] = total_steps / total_s
     log(f"phase 49: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def ticking_clock(mod):
+    """Put a clock into the MO shell's module whose ``now()`` starts at one
+    fixed instant and moves one second a call, so that two runs write the
+    same timestamps and file names."""
+    import datetime
+
+    start = datetime.datetime(2024, 5, 6, 7, 8, 9)
+    calls = [0]
+
+    class Clock(datetime.datetime):
+        @classmethod
+        def now(cls, tz=None):
+            calls[0] += 1
+            t = start + datetime.timedelta(seconds=calls[0])
+            return cls(t.year, t.month, t.day, t.hour, t.minute, t.second)
+
+    mod.datetime = type(datetime)("datetime")
+    mod.datetime.datetime = Clock
+
+
+def host_view(data):
+    """``environment_data`` with its Generator as the Generator's state."""
+    import numpy as np
+
+    return {k: (v.bit_generator.state if isinstance(v, np.random.Generator)
+                else v) for k, v in data.items()}
+
+
+def mo_shell_trace(make, device, log_dir, np, torch):
+    """One seeded episode of up to SHELL_STEPS steps through the MO shell
+    ``make(device, log_dir)`` with every log column and seeded Q values:
+    the timesteps with environment_data and the counters after each step,
+    the performance, the log files' bytes, the steps and the host seconds
+    of the steps split three ways (the chain: the game's step and observe,
+    the card synchronised after them; the statistics and the CSV row:
+    ``_finish_timestep``; the host hooks and the fetches: the rest)."""
+    from ai_safety_gridworlds_torch.mo import safety_game_mo as mo
+
+    mo.reset_class_statics()
+    ticking_clock(mo)
+    env = make(device, log_dir)
+    game = env._game
+    split = {"chain": 0.0, "stats_csv": 0.0}
+
+    def timed(fn, key, sync):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            split[key] += time.perf_counter() - t0
+            return r
+        return run
+
+    game.step = timed(game.step, "chain", device != "cpu")
+    game.observe = timed(game.observe, "chain", device != "cpu")
+    env._finish_timestep = timed(env._finish_timestep, "stats_csv", False)
+    n_dims = len(env.enabled_reward_dimension_keys)
+    n_actions = game.action_max - game.action_min + 1
+    rng = np.random.default_rng(SEED + 100)
+    env.reset()
+    trace = [env.reset()]  # the second reset opens the log
+    split.update(chain=0.0, stats_csv=0.0)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SHELL_STEPS):
+        q = np.round(rng.normal(size=(n_actions, n_dims)) * 1e3, 7)
+        env.set_current_q_value_per_action(list(q))
+        ts = env.step(int(rng.integers(game.action_min, game.action_max + 1)))
+        trace.append((ts, host_view(env.environment_data),
+                      env.get_env_seed(), env.get_env_layout_seed(),
+                      env.get_episode_no()))
+        if ts.last():
+            break
+    seconds = time.perf_counter() - t0
+    env.close()
+    mo.reset_class_statics()
+    files = {name: open(os.path.join(log_dir, name), "rb").read()
+             for name in sorted(os.listdir(log_dir))}
+    split["host"] = seconds - split["chain"] - split["stats_csv"]
+    return (trace, env.get_overall_performance(), files, len(trace) - 1,
+            seconds, split)
+
+
+def mo_shell_phase(np, card, reset_counts, counts):
+    """Phase 50: the MO shell on every configuration and experiment preset,
+    on the card against the CPU."""
+    import tempfile
+
+    import torch
+
+    from ai_safety_gridworlds_torch.experiments import presets
+    from ai_safety_gridworlds_torch.helpers import factory
+    from ai_safety_gridworlds_torch.mo import safety_game_mo as mo
+
+    columns = [getattr(mo, k) for k in dir(mo)
+               if k.startswith("LOG_") and k != "LOG_COMPRESSLEVEL"]
+
+    def shell(name, kw):
+        return lambda device, log_dir: mo.SafetyEnvironmentMo(
+            factory.get_raw_env(name, **kw), seed=SEED, log_columns=columns,
+            log_dir=log_dir, device=device)
+
+    def preset(name):
+        return lambda device, log_dir: presets.make_experiment(
+            name, seed=SEED, log_columns=columns, log_dir=log_dir,
+            device=device)
+
+    runs = [(name + "".join(f"_{k}={v}" for k, v in kw.items()),
+             shell(name, kw)) for name, kw in MO_SHELL_CONFIGS]
+    runs += [(f"preset_{name}", preset(name))
+             for name in presets.experiment_names()]
+    t_phase = time.perf_counter()
+    log(f"== 50. SafetyEnvironmentMo(Game(...), seed={SEED}, "
+        f"log_columns=<all {len(columns)}>, device='cuda') on "
+        f"{len(MO_SHELL_CONFIGS)} configurations and "
+        f"presets.make_experiment(name, ...) on "
+        f"{len(presets.experiment_names())} presets: one seeded episode of "
+        f"up to {SHELL_STEPS} steps each on the card, then on the CPU")
+    out = {"card": card, "configs": {}}
+    total_steps, total_s = 0, 0.0
+    total_split = {"chain": 0.0, "host": 0.0, "stats_csv": 0.0}
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (label, make) in enumerate(runs):
+            gdir, cdir = (os.path.join(tmp, f"{i}_{w}") for w in ("card",
+                                                                  "cpu"))
+            gt, gperf, gfiles, gsteps, gs, gsplit = mo_shell_trace(
+                make, "cuda", gdir, np, torch)
+            ct, cperf, cfiles, csteps, _, _ = mo_shell_trace(
+                make, "cpu", cdir, np, torch)
+            if csteps != gsteps or not same_trace(ct, gt, label, np):
+                fail(f"MO shell {label}: the card's episode differs from the "
+                     "CPU's")
+            if not same_trace(cperf, gperf, label, np):
+                fail(f"MO shell {label}: performance {gperf} on the card, "
+                     f"{cperf} on the CPU")
+            if gfiles != cfiles or len(gfiles) != 2:
+                fail(f"MO shell {label}: the card's log files "
+                     f"{sorted(gfiles)} differ from the CPU's "
+                     f"{sorted(cfiles)}")
+            rows = sum(b.count(b"\n") for n, b in gfiles.items()
+                       if n.endswith(".csv")) - 1
+            if rows != gsteps:
+                fail(f"MO shell {label}: {rows} CSV rows for {gsteps} steps")
+            total_steps += gsteps
+            total_s += gs
+            for k in total_split:
+                total_split[k] += gsplit[k]
+            per = {k: v / gsteps * 1e3 for k, v in gsplit.items()}
+            log(f"MO shell {label}: {gsteps} steps and the CSV and arguments "
+                f"files equal to the CPU's, card {gs * 1e3:.1f} ms "
+                f"({gsteps / gs:.0f} steps/s); per step {per['chain']:.3f} "
+                f"ms chain, {per['host']:.3f} ms host hooks and fetches, "
+                f"{per['stats_csv']:.3f} ms statistics and CSV row  [{card}]")
+            out["configs"][label] = {"steps": gsteps,
+                                     "steps_per_s": gsteps / gs,
+                                     "ms_per_step": per}
+    if any(counts().values()):
+        fail(f"the MO shell launched a fused kernel {counts()}")
+    per = {k: v / total_steps * 1e3 for k, v in total_split.items()}
+    log(f"MO shell on the card: {total_steps} steps in {total_s:.2f} s, "
+        f"{total_steps / total_s:.0f} steps/s over the {len(runs)} runs; "
+        f"per step {per['chain']:.3f} ms chain, {per['host']:.3f} ms host "
+        f"hooks and fetches, {per['stats_csv']:.3f} ms statistics and CSV "
+        f"row  [{card}]")
+    out["steps_per_s"] = total_steps / total_s
+    out["ms_per_step"] = per
+    import datetime
+
+    mo.datetime = datetime
+    log(f"phase 50: {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -3922,6 +4134,47 @@ def learners_only():
     t0 = time.perf_counter()
     out = learner_shell_phases(torch, np, torch.device("cuda", 0), gpu_line(),
                                reset_counts, counts)
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+
+
+def shells_only():
+    """Phases 49-50 alone (the scalar and MO shells; no kernel build): one
+    JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false; this run needs a card")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+
+    from ai_safety_gridworlds_torch.ops import (
+        fused_firemaker,
+        fused_island_ma,
+        fused_savanna,
+        fused_scalar,
+    )
+
+    wrappers = (fused_firemaker.fused_firemaker_rollout,
+                fused_firemaker.fused_firemaker_collect,
+                fused_scalar.fused_scalar_rollout,
+                fused_scalar.fused_scalar_collect,
+                fused_island_ma.fused_island_ma_rollout,
+                fused_island_ma.fused_island_ma_collect,
+                fused_savanna.fused_savanna_rollout,
+                fused_savanna.fused_savanna_collect)
+
+    def reset_counts():
+        for w in wrappers:
+            w.launches = 0
+
+    def counts():
+        return {w.__name__: w.launches for w in wrappers}
+
+    t0 = time.perf_counter()
+    card = gpu_line()
+    out = scalar_shell_phase(np, card, reset_counts, counts)
+    out["mo_shell"] = mo_shell_phase(np, card, reset_counts, counts)
     out["seconds"] = time.perf_counter() - t0
     print(json.dumps(out), flush=True)
 
@@ -4006,6 +4259,8 @@ def main():
         return generic_only()
     if sys.argv[1:] == ["--learners"]:
         return learners_only()
+    if sys.argv[1:] == ["--shells"]:
+        return shells_only()
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke run needs a card")
@@ -4419,8 +4674,9 @@ def main():
     generic = generic_phases(torch, np, dev, card, reset_counts, counts)
     learners = learner_shell_phases(torch, np, dev, card, reset_counts,
                                     counts)
+    mo_shell = mo_shell_phase(np, card, reset_counts, counts)
 
-    # ---- 50. results
+    # ---- 51. results
     k2_bound_ms, k2_bound_by = bound(24 * n_words, 24 * n_words)
     kernels = [{
         "name": "fused_firemaker_rollout", "route": "cuda",
@@ -4453,7 +4709,8 @@ def main():
     }]
     log(f"run time {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": kernels, "checked_off_path": checked_off_path,
-                    "generic": generic, "learners": learners}))
+                    "generic": generic, "learners": learners,
+                    "mo_shell": mo_shell}))
     log(gpu_line())
     log(json.dumps({
         "ok": True,
