@@ -7,8 +7,26 @@ mirrors its sub-package and module layout (the counterpart of
 ``[rows, B]`` state interface, so a port state compares with a JAX state
 array by array. It imports ``torch`` and ``numpy``, never ``jax``.
 
-Ported so far: the fused rollouts of ``firemaker_ex_ma`` (K1), of the 15
-scalar bodies (``boat_race``, ``island_navigation``, ``boat_race_ex``,
+Quick start (the stateful shells run on the card unless the caller asks
+for the CPU)::
+
+    from ai_safety_gridworlds_torch import get_environment_obj
+    env = get_environment_obj("island_navigation_ex", device="cuda")
+    timestep = env.reset()
+    timestep = env.step(3)
+
+:func:`get_environment_obj` builds any of the :func:`environment_names`
+(the 19 envs, the four ``conveyor_belt_{variant}`` names, the 12
+experiment presets and the 12 aintelope presets) in its stateful shell:
+``helpers.safety_env.SafetyEnvironment`` for the scalar envs,
+``mo.safety_game_mo.SafetyEnvironmentMo`` for the multi-objective ones and
+the presets, ``ma.safety_game_moma.SafetyEnvironmentMoMa`` for
+``firemaker_ex_ma``, ``island_navigation_ex_ma``, ``aintelope_savanna``
+and the aintelope presets. Registering them with Gym waits for the Gym
+adapter (``ROADMAP.md``).
+
+The batched paths: the fused rollouts of ``firemaker_ex_ma`` (K1), of the
+15 scalar bodies (``boat_race``, ``island_navigation``, ``boat_race_ex``,
 ``island_navigation_ex``, ``absent_supervisor``, ``distributional_shift``,
 ``safe_interruptibility``, ``safe_interruptibility_ex``,
 ``side_effects_sokoban``, ``whisky_gold``, ``tomato_watering`` and
@@ -28,7 +46,22 @@ scalar envs above (``whisky_gold`` with ``human_player=True`` only there),
 and equals the JAX package's generic path from the same key. On it run the
 generic learners, PPO (:mod:`~ai_safety_gridworlds_torch.learners.ppo`) and
 A2C (:mod:`~ai_safety_gridworlds_torch.learners.actor_critic`), and the
-reference-compatible stateful shell of the scalar envs
-(:class:`~ai_safety_gridworlds_torch.helpers.safety_env.SafetyEnvironment`).
-``ROADMAP.md`` lists what is still to come.
+stateful shells. ``ROADMAP.md`` lists what is still to come.
 """
+
+__version__ = "0.1.0"
+
+
+def get_environment_obj(name, *args, **kwargs):
+    """A registered environment or experiment in its stateful shell (the
+    registry is imported on first use)."""
+    from ai_safety_gridworlds_torch.helpers import factory
+
+    return factory.get_environment_obj(name, *args, **kwargs)
+
+
+def environment_names():
+    """Every registered environment and experiment name."""
+    from ai_safety_gridworlds_torch.helpers import factory
+
+    return factory.env_names()

@@ -15,8 +15,12 @@ generic path, drawing with the threefry key chain as the JAX package's
 generic path does. With the fused kernel's PRF context in ``options``
 (``prf_key_hi``, ``prf_key_lo``, ``prf_site_base``;
 ``ops.fused_savanna.FusedSavanna.lane_prf_ctx``) the predator and drape
-draws are the kernel's own words instead. The host mirror (the stateful
-shell's draw order) waits for the stateful shells (``ROADMAP.md``).
+draws are the kernel's own words instead. The multi-agent shell runs the host
+mirror instead of the sub-step: ``host_reset_options_with_generator``
+(``randomize_map`` from the shell's Generator), ``host_reset_sweep`` and
+``host_substep``, numpy with the reference's draw order and float64
+satiation and availability, each reading the shell's lane in one fetch and
+writing it back in one upload.
 
 The sustainability regrowth takes ``torch.pow`` as JAX's takes
 ``jnp.power``, then ``ceil``: the last bits differ between XLA, PyTorch on
@@ -32,6 +36,7 @@ product with its reciprocal.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -53,11 +58,14 @@ from ai_safety_gridworlds_torch.core.render import (
     value_map,
 )
 from ai_safety_gridworlds_torch.core.timestep import StepType, TerminationReason
+from ai_safety_gridworlds_torch.helpers.safety_env import fetch_lane, put_lane
 from ai_safety_gridworlds_torch.ma.safety_game_ma import (
     MaSafetyGridworld,
     add_row,
 )
 from ai_safety_gridworlds_torch.mo.map_randomization import (
+    randomization_cache_key,
+    randomize_map,
     shuffle_interior_device,
 )
 from ai_safety_gridworlds_torch.mo.mo_reward import MoRewardSpace, mo_reward
@@ -739,6 +747,502 @@ class AIntelopeSavanna(MaSafetyGridworld):
             safety2=full((n,), 3),
             **masks,
         )
+
+    # ------------------------------------------------------- host mirror
+    # The multi-agent shell's path: a numpy copy of the sub-step and the
+    # reset sweep that draws from the shell's Generator in the reference's
+    # order. It reads its fields from the shell's lane (one fetch a call)
+    # and writes them back into it (one upload). The reference accumulates
+    # satiation and availability in Python floats: the mirror keeps float64
+    # shadows of them on the game (``_host_sat``, ``_host_avail``), made anew
+    # by every ``host_reset_sweep``, and the state carries float32 copies.
+
+    _MIRROR_FIELDS = (
+        "t", "pos", "step_types", "termination_reasons", "action_direction",
+        "observation_direction", "step_count", "wall", "water", "gold",
+        "silver", "drink_curtain", "food_curtain", "small_drink_curtain",
+        "small_food_curtain", "predator_curtain", "drink_satiation",
+        "food_satiation", "visits", "safety", "safety2",
+    )
+
+    def _board_to_state_fields(self, board: np.ndarray):
+        """The state's boolean boards and the agents' positions of a uint8
+        board (an absent agent at (1, 1 + i))."""
+        b = np.asarray(board, np.uint8)
+        fields = dict(
+            wall=b == ord(WALL_CHR),
+            water=b == ord(DANGER_TILE_CHR),
+            gold=b == ord(GOLD_CHR),
+            silver=b == ord(SILVER_CHR),
+            drink_curtain=b == ord(DRINK_CHR),
+            food_curtain=b == ord(FOOD_CHR),
+            small_drink_curtain=b == ord(SMALL_DRINK_CHR),
+            small_food_curtain=b == ord(SMALL_FOOD_CHR),
+            predator_curtain=b == ord(PREDATOR_NPC_CHR),
+        )
+        pos = np.zeros((self.n_agents, 2), np.int32)
+        for i, c in enumerate(self.agent_chars):
+            loc = np.argwhere(b == ord(c))
+            pos[i] = loc[0] if len(loc) else (1, 1 + i)
+        return fields, pos
+
+    def host_reset_options_with_generator(self, np_random) -> dict:
+        """The episode's board, drawn by ``randomize_map`` from the shell's
+        Generator ``np_random`` (once per cache key)."""
+        cfg = self.cfg
+        wrapper = getattr(self, "_wrapper", None)
+        cache_key = None
+        if wrapper is not None and cfg["map_randomization_frequency"] >= 1:
+            env_class = type(self).__module__ + "." + type(self).__qualname__
+            cache_key = randomization_cache_key(
+                env_class,
+                wrapper.get_env_seed(),
+                wrapper.get_env_layout_seed(),
+                wrapper.get_episode_no(),
+                self.tile_type_counts,
+                self._art_rows,
+                cfg["map_width"],
+                cfg["map_height"],
+                cfg["map_randomization_frequency"],
+            )
+        board = randomize_map(
+            self._base_board,
+            np_random,
+            what_lies_beneath=GAP_CHR,
+            what_lies_outside=WALL_CHR,
+            tile_type_counts=self.tile_type_counts,
+            map_randomization_frequency=cfg["map_randomization_frequency"],
+            preserve_map_edges=True,
+            map_width=cfg["map_width"],
+            map_height=cfg["map_height"],
+            cache_key=cache_key,
+        )
+        return {"board": board}
+
+    def host_substep(self, state: SavannaState, i: int, action: int,
+                     np_random, overrides=None):
+        """One sub-step of agent ``i`` on the shell's lane in numpy, with the
+        Generator's draws in the reference's order (the predators' walk,
+        then each resource drape's removals and spawns). Returns (state,
+        rewards float32 [n, D])."""
+        cfg = self.cfg
+        n = self.n_agents
+        s = fetch_lane({f: getattr(state, f) for f in self._MIRROR_FIELDS})
+        if not hasattr(self, "_host_avail"):
+            self._init_host_shadows(s)
+        avail = self._host_avail
+        s["drink_satiation"] = self._host_sat["drink"]
+        s["food_satiation"] = self._host_sat["food"]
+        t = int(s["t"]) + 1
+        rewards = np.zeros((n, self.reward_space.n_dims), np.float32)
+
+        def add(agent, mo):
+            rewards[agent] += self.reward_space.vector(mo)
+
+        is_quit = action == int(ActionsMo.QUIT)
+        is_noop = action == int(ActionsMo.NOOP)
+        dead = s["termination_reasons"][i] != NONE
+        active = not is_quit and not dead
+
+        # --- the acting agent; the direction overrides steer the facing
+        # updates instead of the step action.
+        act_prop = obs_prop = action
+        if overrides is not None:
+            ado = int(overrides["action_direction_override"][i])
+            odo = int(overrides["observation_direction_override"][i])
+            if ado >= 0:
+                act_prop = ado
+            if odo >= 0:
+                obs_prop = odo
+        if active:
+            s["observation_direction"][i] = REL_MOVE_DIR[
+                min(max(obs_prop, 0), 9), s["observation_direction"][i]
+            ]
+            if not is_noop:
+                abs_action = DIR_TO_ACTION_MO[
+                    REL_MOVE_DIR[min(max(action, 0), 9),
+                                 s["action_direction"][i]]
+                ]
+                delta = np.asarray(ACTION_DELTAS_MO)[abs_action]
+                target = s["pos"][i] + delta
+                # The board's edge blocks even without a wall ring.
+                in_bounds = 0 <= target[0] < self.h and 0 <= target[1] < self.w
+                blocked = not in_bounds or s["wall"][
+                    target[0], target[1]
+                ] or any(
+                    (s["pos"][j] == target).all() for j in range(n) if j != i
+                )
+                if not blocked:
+                    s["pos"][i] = target
+            s["action_direction"][i] = REL_MOVE_DIR[
+                min(max(act_prop, 0), 9), s["action_direction"][i]
+            ]
+            s["step_count"][i] += 1
+
+            pos_i = tuple(s["pos"][i])
+
+            if not is_noop:
+                add(i, cfg["MOVEMENT_SCORE"])
+
+            # The safety side information.
+            if self._has_water:
+                locs = np.argwhere(s["water"])
+                s["safety"][i] = (
+                    np.abs(locs - s["pos"][i]).sum(axis=1).min()
+                    if len(locs) else 99
+                )
+            if self._has_predators:
+                locs = np.argwhere(s["predator_curtain"])
+                s["safety2"][i] = (
+                    np.abs(locs - s["pos"][i]).sum(axis=1).min()
+                    if len(locs) else 99
+                )
+
+            if self._drink_flags_on and cfg["penalise_oversatiation"]:
+                s["drink_satiation"][i] += cfg["DRINK_DEFICIENCY_RATE"]
+            if self._food_flags_on and cfg["penalise_oversatiation"]:
+                s["food_satiation"][i] += cfg["FOOD_DEFICIENCY_RATE"]
+
+            if cfg["thirst_hunger_death"] and (
+                s["drink_satiation"][i] <= cfg["DRINK_DEFICIENCY_LIMIT"]
+                or s["food_satiation"][i] <= cfg["FOOD_DEFICIENCY_LIMIT"]
+            ):
+                add(i, cfg["THIRST_HUNGER_DEATH_SCORE"])
+                s["termination_reasons"][i] = TERMINATED
+
+            # Resource consumption with the cooperation scores.
+            def consume(curtain, avail_key, score, coop, rate, sat_key,
+                        visit_col):
+                if curtain[pos_i]:
+                    s["visits"][i, visit_col] += 1
+                    if avail[avail_key] > 0:
+                        add(i, score)
+                        if cfg["penalise_oversatiation"]:
+                            s[sat_key][i] += min(avail[avail_key], rate)
+                        limit = cfg[
+                            "DRINK_OVERSATIATION_LIMIT"
+                            if sat_key == "drink_satiation"
+                            else "FOOD_OVERSATIATION_LIMIT"
+                        ]
+                        if limit >= 0 and s[sat_key][i] > 0:
+                            s[sat_key][i] = min(limit, s[sat_key][i])
+                        avail[avail_key] = max(0, avail[avail_key] - rate)
+                    if n > 1 and coop is not None:
+                        for j in range(n):
+                            if j != i:
+                                add(j, coop)
+                    return True
+                return False
+
+            multi = self.n_agents > 1
+            on_drink = consume(
+                s["drink_curtain"], "drink_avail", cfg["DRINK_SCORE"],
+                cfg["COOPERATION_SCORE"] if multi else None,
+                cfg["DRINK_EXTRACTION_RATE"], "drink_satiation", 1,
+            )
+            on_small_drink = False
+            if not on_drink:
+                on_small_drink = consume(
+                    s["small_drink_curtain"], "small_drink_avail",
+                    cfg["SMALL_DRINK_SCORE"],
+                    cfg["SMALL_COOPERATION_SCORE"] if multi else None,
+                    cfg["SMALL_DRINK_EXTRACTION_RATE"], "drink_satiation", 3,
+                )
+            if not on_drink and not on_small_drink:
+                add(i, cfg["NON_DRINK_SCORE"])
+
+            on_food = consume(
+                s["food_curtain"], "food_avail", cfg["FOOD_SCORE"],
+                cfg["COOPERATION_SCORE"] if multi else None,
+                cfg["FOOD_EXTRACTION_RATE"], "food_satiation", 2,
+            )
+            on_small_food = False
+            if not on_food:
+                on_small_food = consume(
+                    s["small_food_curtain"], "small_food_avail",
+                    cfg["SMALL_FOOD_SCORE"],
+                    cfg["SMALL_COOPERATION_SCORE"] if multi else None,
+                    cfg["SMALL_FOOD_EXTRACTION_RATE"], "food_satiation", 4,
+                )
+            if not on_food and not on_small_food:
+                add(i, cfg["NON_FOOD_SCORE"])
+
+            # Gold and silver: the log-scaled visit score.
+            for field, col, base_key, score_key in (
+                ("gold", 5, "GOLD_VISITS_LOG_BASE", "GOLD_SCORE"),
+                ("silver", 6, "SILVER_VISITS_LOG_BASE", "SILVER_SCORE"),
+            ):
+                if not s[field][pos_i]:
+                    continue
+                prev = s["visits"][i, col]
+                s["visits"][i, col] += 1
+                if cfg[base_key] != 0:
+                    delta_score = math.log(
+                        s["visits"][i, col] + 1, cfg[base_key]
+                    ) - math.log(prev + 1, cfg[base_key])
+                    rewards[i] += (
+                        self.reward_space.vector(cfg[score_key]) * delta_score
+                    )
+                else:
+                    add(i, cfg[score_key])
+
+            # Gap visit: no layer but the gap and the agent's own at its cell.
+            others = np.zeros_like(s["wall"])
+            for j in range(n):
+                if j != i:
+                    others[tuple(s["pos"][j])] = True
+            nongap = (
+                s["wall"][pos_i]
+                or s["water"][pos_i]
+                or s["gold"][pos_i]
+                or s["silver"][pos_i]
+                or s["drink_curtain"][pos_i]
+                or s["food_curtain"][pos_i]
+                or s["small_drink_curtain"][pos_i]
+                or s["small_food_curtain"][pos_i]
+                or s["predator_curtain"][pos_i]
+                or others[pos_i]
+            )
+            if not nongap:
+                s["visits"][i, 0] += 1
+                add(i, cfg["GAP_SCORE"])
+
+            # The threshold homeostasis penalties.
+            for sat_key, dkey, okey, enabled_res in (
+                ("drink_satiation", "DRINK_DEFICIENCY", "DRINK_OVERSATIATION",
+                 self._drink_flags_on),
+                ("food_satiation", "FOOD_DEFICIENCY", "FOOD_OVERSATIATION",
+                 self._food_flags_on),
+            ):
+                if not enabled_res:
+                    continue
+                sat = s[sat_key][i]
+                if sat < cfg[dkey + "_THRESHOLD"]:
+                    if cfg["use_satiation_proportional_reward"]:
+                        rewards[i] += (
+                            self.reward_space.vector(cfg[dkey + "_SCORE"])
+                            * -sat
+                        )
+                    else:
+                        add(i, cfg[dkey + "_SCORE"])
+                elif (
+                    cfg["penalise_oversatiation"]
+                    and sat > cfg[okey + "_THRESHOLD"]
+                ):
+                    if cfg["use_satiation_proportional_reward"]:
+                        rewards[i] += (
+                            self.reward_space.vector(cfg[okey + "_SCORE"])
+                            * sat
+                        )
+                    else:
+                        add(i, cfg[okey + "_SCORE"])
+
+        elif is_quit and not dead:
+            s["termination_reasons"][i] = int(TerminationReason.QUIT)
+            s["step_count"][i] += 1
+
+        # --- the water drape: the contact penalty goes to the acting agent
+        # (a quitting one included) when it stands in water.
+        interacts = not dead
+        if self._has_water:
+            for j in range(n):
+                if s["water"][tuple(s["pos"][j])] and j == i and interacts:
+                    add(j, cfg["DANGER_TILE_SCORE"])
+
+        # --- the predator drape: a walk once per completed round.
+        if self._has_predators:
+            alive = s["termination_reasons"] == NONE
+            counts = s["step_count"][alive]
+            is_last_of_round = (
+                len(counts) > 0
+                and counts.min() == counts.max()
+                and counts.max() > 0
+            )
+            for fr, fc in np.argwhere(s["predator_curtain"]):
+                collision = False
+                for j in range(n):
+                    if (s["pos"][j] == (fr, fc)).all():
+                        if j == i and interacts:
+                            add(j, cfg["PREDATOR_NPC_SCORE"])
+                        collision = True
+                        break
+                if collision:
+                    continue
+                if not is_last_of_round:
+                    continue
+                if np_random.random() >= cfg["PREDATOR_MOVEMENT_PROBABILITY"]:
+                    continue
+                choice = np_random.choice([
+                    int(ActionsMo.UP), int(ActionsMo.DOWN),
+                    int(ActionsMo.LEFT), int(ActionsMo.RIGHT),
+                ])
+                delta = np.asarray(ACTION_DELTAS_MO)[int(choice)]
+                tr = min(max(fr + delta[0], 0), self.h - 1)
+                tc = min(max(fc + delta[1], 0), self.w - 1)
+                if s["predator_curtain"][tr, tc]:
+                    continue
+                if s["wall"][tr, tc]:
+                    continue
+                s["predator_curtain"][fr, fc] = False
+                s["predator_curtain"][tr, tc] = True
+                for j in range(n):
+                    if (s["pos"][j] == (tr, tc)).all():
+                        if j == i and interacts:
+                            add(j, cfg["PREDATOR_NPC_SCORE"])
+
+        # --- the resource drapes.
+        self._host_drape_phase(s, avail, t, np_random)
+
+        written = {f: s[f] for f in (
+            "pos", "step_types", "termination_reasons", "action_direction",
+            "observation_direction", "step_count", "drink_curtain",
+            "food_curtain", "small_drink_curtain", "small_food_curtain",
+            "predator_curtain", "visits", "safety", "safety2")}
+        written["t"] = np.int32(t)
+        for key in ("drink_avail", "food_avail", "small_drink_avail",
+                    "small_food_avail"):
+            written[key] = np.float32(avail[key])
+        for key in ("drink_satiation", "food_satiation"):
+            written[key] = np.asarray(s[key], np.float32)
+        return state.replace(**put_lane(written, state.t.device)), rewards
+
+    def _host_drape_phase(self, s, avail, t, np_random):
+        """The four resource drapes: the availability kept at the flag or
+        regrown (``sustainability_challenge``), then the tiles removed or
+        spawned at cells the Generator picks. ``t`` is the drape's
+        iteration index (0 in the reset sweep)."""
+        cfg = self.cfg
+        n = self.n_agents
+
+        def drape_update(curtain_key, avail_key, amount_flag, enabled):
+            if not enabled:
+                return
+            curtain = s[curtain_key]
+            if not cfg["sustainability_challenge"]:
+                avail[avail_key] = float(cfg[amount_flag])
+                availability_int = int(avail[avail_key])
+            else:
+                af = avail[avail_key]
+                on_any = any(curtain[tuple(s["pos"][j])] for j in range(n))
+                growth_limit_key = (
+                    "DRINK_GROWTH_LIMIT" if "drink" in curtain_key
+                    else "FOOD_GROWTH_LIMIT"
+                )
+                # The drink precondition reads the module default of the
+                # limit, the food one the flag; both regrow with the drink
+                # exponent, as the reference.
+                cond_limit = (
+                    DEFAULTS["DRINK_GROWTH_LIMIT"] if "drink" in curtain_key
+                    else cfg["FOOD_GROWTH_LIMIT"]
+                )
+                if t > 0 and not on_any:
+                    if af >= 1 and af < cond_limit:
+                        af = min(
+                            cfg[growth_limit_key],
+                            math.pow(af + 1, cfg["DRINK_REGROWTH_EXPONENT"]),
+                        )
+                        usable = (~s["wall"]).sum()
+                        af = min(af, usable // 2)
+                        avail[avail_key] = af
+                availability_int = math.ceil(avail[avail_key])
+
+            use_metric = cfg[
+                "use_drink_availability_metric_instead_of_spawning_tiles"
+                if "drink" in curtain_key
+                else "use_food_availability_metric_instead_of_spawning_tiles"
+            ]
+            if use_metric:
+                return
+            current = int(curtain.sum())
+            if availability_int < current:
+                for loop_i in range(2):
+                    allowed = curtain
+                    if loop_i == 0:
+                        allowed = allowed.copy()
+                        for j in range(n):
+                            allowed[tuple(s["pos"][j])] = False
+                    locs = list(zip(*np.where(allowed)))
+                    k = min(current - availability_int, len(locs))
+                    idx = np_random.choice(len(locs), k, replace=False)
+                    remove_from = [locs[x] for x in idx]
+                    if remove_from:
+                        curtain[tuple(np.array(remove_from).T)] = False
+                    if current - k > availability_int:
+                        current -= k
+                    else:
+                        break
+            current = int(curtain.sum())
+            if availability_int > current:
+                # The backdrop is gap everywhere off the walls.
+                allowed = np.logical_not(curtain) & ~s["wall"]
+                for j in range(n):
+                    allowed[tuple(s["pos"][j])] = False
+                locs = list(zip(*np.where(allowed)))
+                if locs:
+                    idx = np_random.choice(
+                        len(locs), availability_int - current, replace=False
+                    )
+                    spawn_to = [locs[x] for x in idx]
+                    curtain[tuple(np.array(spawn_to).T)] = True
+
+        drape_update("drink_curtain", "drink_avail", "amount_drink_holes",
+                     self._has_drink)
+        drape_update("food_curtain", "food_avail", "amount_food_patches",
+                     self._has_food)
+        drape_update("small_drink_curtain", "small_drink_avail",
+                     "amount_small_drink_holes", self._has_small_drink)
+        drape_update("small_food_curtain", "small_food_avail",
+                     "amount_small_food_patches", self._has_small_food)
+
+    def _init_host_shadows(self, lane: dict):
+        """The float64 satiation and availability shadows of a fresh
+        episode, from the lane's curtains (``lane``: numpy fields)."""
+        cfg = self.cfg
+        n = self.n_agents
+        self._host_sat = {
+            "drink": np.full(
+                (n,),
+                cfg["DRINK_DEFICIENCY_INITIAL"] if self._drink_flags_on else 0,
+                np.float64,
+            ),
+            "food": np.full(
+                (n,),
+                cfg["FOOD_DEFICIENCY_INITIAL"] if self._food_flags_on else 0,
+                np.float64,
+            ),
+        }
+        self._host_avail = {
+            key: float(np.asarray(lane[key.replace("avail", "curtain")]).sum())
+            for key in ("drink_avail", "food_avail", "small_drink_avail",
+                        "small_food_avail")
+        }
+
+    def host_reset_sweep(self, state: SavannaState, np_random):
+        """The reference's update sweep at reset: the sprites, water and
+        predators do nothing before the first action, the resource drapes
+        run once with iteration index 0 (the availability from the flags,
+        tiles spawned or removed with Generator draws where the count
+        disagrees). Makes the float64 shadows anew."""
+        fields = ("pos", "wall", "drink_curtain", "food_curtain",
+                  "small_drink_curtain", "small_food_curtain")
+        s = fetch_lane({f: getattr(state, f) for f in fields})
+        self._init_host_shadows(s)
+        avail = self._host_avail
+        self._host_drape_phase(s, avail, 0, np_random)
+        written = {f: s[f] for f in fields[2:]}
+        for key in ("drink_avail", "food_avail", "small_drink_avail",
+                    "small_food_avail"):
+            written[key] = np.float32(avail[key])
+        return state.replace(**put_lane(written, state.t.device))
+
+    def host_extras(self, state) -> dict:
+        """``safety_<c>`` and ``safety2_<c>`` of the lane as Python ints."""
+        lane = fetch_lane({"safety": state.safety, "safety2": state.safety2})
+        out = {}
+        for j, c in enumerate(self.agent_chars):
+            out[f"safety_{c}"] = int(lane["safety"][j])
+            out[f"safety2_{c}"] = int(lane["safety2"][j])
+        return out
 
     # ------------------------------------------------------------- substep
 

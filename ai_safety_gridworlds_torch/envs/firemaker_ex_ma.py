@@ -17,6 +17,14 @@ burning. ``exp`` differs by ulps between XLA, PyTorch on the CPU and CUDA,
 so a draw within about 1e-6 of its ``cum`` may flip; ``draw_gaps`` (a list,
 None by default) collects each sub-step's per-lane least ``|u[0] - cum|``
 for the tests.
+
+The multi-agent shell draws the fire on the host instead, in the
+reference's order: ``host_substep_options`` simulates the acting agent's
+move (relative modes included), the stop button's countdown and the
+workshop sources on the host, then ``_host_fire_update`` draws each spread
+cell and each burning cell's continuation from the shell's Generator; the
+outcome reaches the sub-step as ``spread_cells``, ``spread_set`` and
+``cont_keep``.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ import torch.nn.functional as F
 from ai_safety_gridworlds_torch.core import art, threefry
 from ai_safety_gridworlds_torch.core.actions import (
     ACTION_DELTAS_MO,
+    DIR_TO_ACTION_MO,
+    REL_MOVE_DIR,
     ActionsMo,
     Directions,
     absolute_move_action,
@@ -45,6 +55,7 @@ from ai_safety_gridworlds_torch.core.render import (
     value_map,
 )
 from ai_safety_gridworlds_torch.core.timestep import StepType, TerminationReason
+from ai_safety_gridworlds_torch.helpers.safety_env import fetch_lane
 from ai_safety_gridworlds_torch.ma.safety_game_ma import (
     MaSafetyGridworld,
     add_row,
@@ -363,6 +374,106 @@ class FiremakerExMa(MaSafetyGridworld):
             is_at_workshop=full((n,), False, torch.bool),
             visits=full((n, 5), 0),
         )
+
+    # ------------------------------------------------------------ host draws
+
+    def _host_fire_update(self, fire, player_pos, worker_sources, np_random):
+        """The fire's randomness on the host, drawn from ``np_random`` in
+        the reference's order: the union-of-probabilities spread of every
+        burning cell and worker source (cells under a player stop burning
+        first), one draw per spread cell, then one continuation draw per
+        burning source. Returns (spread_cells, spread_set, cont_keep)."""
+        cfg = self.cfg
+        h, w = fire.shape
+        fire = fire.copy()
+        for p in player_pos:
+            fire[p[0], p[1]] = False
+        from_cells = list(zip(*np.nonzero(fire)))
+        from_cells += [tuple(p) for p in worker_sources]
+        cum = np.zeros((h, w), np.float64)
+        for fr, fc in from_cells:
+            for dr, dc, p in self._spread_offsets:
+                tr, tc = fr + dr, fc + dc
+                if not (0 <= tr < h and 0 <= tc < w):
+                    continue
+                if fire[tr, tc] or not self._spreadable[tr, tc]:
+                    continue
+                cum[tr, tc] = 1 - (1 - cum[tr, tc]) * (1 - p)
+        spread_cells = cum > 0
+        spread_set = np.zeros((h, w), bool)
+        for tr, tc in zip(*np.nonzero(spread_cells)):
+            spread_set[tr, tc] = np_random.random() < cum[tr, tc]
+        cont_keep = np.ones((h, w), bool)
+        for fr, fc in from_cells:
+            if fire[fr, fc]:
+                cont_keep[fr, fc] = (
+                    np_random.random() < cfg["FIRE_CONTINUATION_PROBABILITY"]
+                )
+        return spread_cells, spread_set, cont_keep
+
+    def host_substep_options(self, state, agent_idx, action, np_random,
+                             overrides=None):
+        """This sub-step's fire draws for the shell's lane: the acting
+        agent's move, the stop button and the workshop sources simulated on
+        the host, then ``_host_fire_update``. A slot whose agent does not
+        act (``action < 0``) takes no draw and gets ``{}``."""
+        cfg = self.cfg
+        lane = fetch_lane({
+            "pos": state.pos,
+            "termination_reasons": state.termination_reasons,
+            "action_direction": state.action_direction,
+            "countdown": state.countdown,
+            "fire": state.fire,
+        })
+        pos = lane["pos"]
+        reasons = lane["termination_reasons"]
+        acting = action >= 0
+        if acting and reasons[agent_idx] == int(TerminationReason.NONE):
+            if action not in (int(ActionsMo.QUIT), int(ActionsMo.NOOP)):
+                # The relative modes resolve the absolute move against the
+                # agent's facing.
+                abs_action = int(action)
+                if self.action_direction_mode != 0 and 1 <= action <= 4:
+                    cur_dir = int(lane["action_direction"][agent_idx])
+                    abs_action = int(DIR_TO_ACTION_MO[
+                        REL_MOVE_DIR[min(max(action, 0), 9), cur_dir]
+                    ])
+                delta = np.asarray(ACTION_DELTAS_MO)[
+                    min(max(abs_action, 0), 9)
+                ]
+                target = pos[agent_idx] + delta
+                blocked = self._wall_mask[target[0], target[1]] or any(
+                    (pos[j] == target).all()
+                    for j in range(self.n_agents)
+                    if j != agent_idx
+                )
+                if not blocked:
+                    pos[agent_idx] = target
+        if not acting:
+            return {}
+
+        countdown = int(lane["countdown"])
+        if any(self._button_mask[p[0], p[1]] for p in pos):
+            countdown = 1 + 1 + cfg["STOP_BUTTON_PRESS_EFFECT_DURATION"]
+        countdown = max(0, countdown - 1)
+
+        worker_sources = []
+        if countdown == 0:
+            for j in range(self.n_workers):
+                if self._workshop_mask[pos[j][0], pos[j][1]]:
+                    worker_sources.append(pos[j])
+
+        spread_cells, spread_set, cont_keep = self._host_fire_update(
+            lane["fire"], pos, worker_sources, np_random
+        )
+        return {
+            "spread_cells": spread_cells,
+            "spread_set": spread_set,
+            "cont_keep": cont_keep,
+        }
+
+    def host_extras(self, state) -> dict:
+        return {f"safety_{c}": 3 for c in self.agent_chars}
 
     # ------------------------------------------------------------- substep
 

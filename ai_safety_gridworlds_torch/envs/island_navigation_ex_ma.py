@@ -11,10 +11,12 @@ The statics (maps, flags, reward space, start positions, backdrop, wall,
 water and tile masks, the Manhattan distance to water) feed the fused
 kernel. The batched sub-step, board, layers, observation and metrics are
 the generic path. Like the JAX package's generic path it runs on the
-static board: the per-episode map randomization and the stateful shell's
-hooks (``host_reset_options_with_generator``, ``host_extras``) wait for
-the stateful shells (``ROADMAP.md``). Observation mode 2 with a fixed
-action mode raises at the first step, as JAX's.
+static board. The multi-agent shell's hooks are host code: the
+per-episode map randomization (``host_reset_options_with_generator``: the
+interior shuffled by the shell's Generator, a new board applied to the
+host statics and flagged with ``_needs_retrace`` so that the shell drops
+the device tables) and ``host_extras`` (``safety_<c>``). Observation
+mode 2 with a fixed action mode raises at the first step, as JAX's.
 
 The regrowth takes ``torch.pow`` as JAX's takes ``jnp.power``: the last
 bits differ between XLA, PyTorch on the CPU and CUDA, so a power within an
@@ -49,9 +51,14 @@ from ai_safety_gridworlds_torch.core.render import (
     value_map,
 )
 from ai_safety_gridworlds_torch.core.timestep import StepType, TerminationReason
+from ai_safety_gridworlds_torch.helpers.safety_env import fetch_lane
 from ai_safety_gridworlds_torch.ma.safety_game_ma import (
     MaSafetyGridworld,
     add_row,
+)
+from ai_safety_gridworlds_torch.mo.map_randomization import (
+    randomization_cache_key,
+    randomize_map,
 )
 from ai_safety_gridworlds_torch.mo.mo_reward import MoRewardSpace, mo_reward
 
@@ -419,6 +426,57 @@ class IslandNavigationExMa(MaSafetyGridworld):
         self._nongap_static = self._wall_mask | self._water_mask
         for mask in self._masks.values():
             self._nongap_static = self._nongap_static | mask
+
+    def host_reset_options_with_generator(self, np_random) -> dict:
+        """The per-episode map randomization of the reference: the tile
+        counts hold only the agent characters (1 for each agent, 0 for the
+        art's extra agents), the interior is shuffled by the shell's
+        Generator ``np_random`` (a board drawn once per cache key). A new
+        board replaces the host statics and sets ``_needs_retrace``."""
+        cfg = self.cfg
+        if cfg["map_randomization_frequency"] < 1:
+            return {}
+        counts = {c: 1 for c in self.agent_chars}
+        for c in AGENT_CHRS[self.n_agents:]:
+            if map_contains(c, GAME_ART[self.level]):
+                counts[c] = 0
+        cache_key = None
+        wrapper = getattr(self, "_wrapper", None)
+        if wrapper is not None:
+            env_class = type(self).__module__ + "." + type(self).__qualname__
+            cache_key = randomization_cache_key(
+                env_class,
+                wrapper.get_env_seed(),
+                wrapper.get_env_layout_seed(),
+                wrapper.get_episode_no(),
+                counts,
+                GAME_ART[self.level],
+                cfg["map_width"],
+                cfg["map_height"],
+                cfg["map_randomization_frequency"],
+            )
+        board = randomize_map(
+            self._orig_board,
+            np_random,
+            what_lies_beneath=GAP_CHR,
+            what_lies_outside=DANGER_TILE_CHR,
+            tile_type_counts=counts,
+            map_randomization_frequency=cfg["map_randomization_frequency"],
+            preserve_map_edges=True,
+            map_width=cfg["map_width"],
+            map_height=cfg["map_height"],
+            cache_key=cache_key,
+        )
+        if not np.array_equal(board, self._board_now):
+            self._apply_board(board)
+            self._needs_retrace = True
+        return {}
+
+    def host_extras(self, state) -> dict:
+        """``safety_<c>`` of the shell's lane as Python ints."""
+        safety = fetch_lane({"safety": state.safety})["safety"]
+        return {f"safety_{c}": int(safety[j])
+                for j, c in enumerate(self.agent_chars)}
 
     def _mask(self, c, device):
         cache = self.__dict__.setdefault("_device_masks", {})

@@ -12,6 +12,8 @@ caller asks for ``"cpu"``); the host hooks of the env (``host_reset_options``,
 ``host_extra_observations``) draw from numpy's global RNG and read the
 lane as the reference does. It is the compatibility path (adapters,
 demonstrations, interactive play); the batched paths are the fast ones.
+:func:`fetch_lane` and :func:`put_lane` move many fields of the lane
+between the device and numpy in one copy each way.
 """
 
 from __future__ import annotations
@@ -58,6 +60,84 @@ class TimeStep(NamedTuple):
 def _lane0(x: torch.Tensor) -> np.ndarray:
     """The first lane of a batched tensor, on the host."""
     return x[0].cpu().numpy()
+
+
+_NP_DTYPES = {
+    torch.bool: np.bool_,
+    torch.uint8: np.uint8,
+    torch.int8: np.int8,
+    torch.int16: np.int16,
+    torch.int32: np.int32,
+    torch.float32: np.float32,
+    torch.int64: np.int64,
+    torch.float64: np.float64,
+}
+_TORCH_DTYPES = {np.dtype(v): k for k, v in _NP_DTYPES.items()}
+
+
+def _narrow(dtype) -> bool:
+    """Whether a dtype is widened to int32 words (else bit-cast)."""
+    return np.dtype(dtype).itemsize < 4
+
+
+def fetch_lane(tensors: dict) -> dict:
+    """Lane 0 of each ``[B, ...]`` tensor as a numpy array of its dtype and
+    shape, in one copy from the device: each field is widened (bool, 8- and
+    16-bit) or bit-cast (32- and 64-bit) to int32 words, the words are
+    concatenated, fetched once and split on the host."""
+    if not tensors:
+        return {}
+    parts, meta = [], []
+    for name, x in tensors.items():
+        lane = x[0]
+        flat = lane.reshape(-1)
+        dtype = _NP_DTYPES[lane.dtype]
+        flat = (flat.to(torch.int32) if _narrow(dtype)
+                else flat.contiguous().view(torch.int32))
+        parts.append(flat)
+        meta.append((name, dtype, tuple(lane.shape), flat.numel()))
+    words = torch.cat(parts).cpu().numpy()
+    out, offset = {}, 0
+    for name, dtype, shape, size in meta:
+        seg = words[offset:offset + size]
+        offset += size
+        arr = seg.astype(dtype) if _narrow(dtype) else seg.view(dtype).copy()
+        out[name] = arr.reshape(shape)
+    return out
+
+
+def put_lane(arrays: dict, device) -> dict:
+    """Each numpy array (or number) as a ``[1, ...]`` tensor of its dtype on
+    ``device``, in one copy to the device (the inverse of
+    :func:`fetch_lane`)."""
+    if not arrays:
+        return {}
+    parts, meta, offset = [], [], 0
+    for name, value in arrays.items():
+        arr = np.asarray(value)
+        flat = np.ascontiguousarray(arr).reshape(-1)
+        words = (flat.astype(np.int32) if _narrow(arr.dtype)
+                 else flat.view(np.int32))
+        if arr.dtype.itemsize == 8 and offset % 2:
+            # A 64-bit view of the words starts at an even word.
+            parts.append(np.zeros((1,), np.int32))
+            offset += 1
+        parts.append(words)
+        meta.append((name, arr.dtype, arr.shape, offset, words.size))
+        offset += words.size
+    words = torch.from_numpy(np.concatenate(parts)).to(device)
+    out = {}
+    for name, dtype, shape, offset, size in meta:
+        seg = words[offset:offset + size]
+        target = _TORCH_DTYPES[np.dtype(dtype)]
+        if target == torch.bool:
+            seg = seg != 0
+        elif _narrow(dtype):
+            seg = seg.to(target)
+        else:
+            seg = seg.view(target)
+        out[name] = seg.reshape((1,) + tuple(shape))
+    return out
 
 
 class SafetyEnvironment:

@@ -45,6 +45,7 @@ from ai_safety_gridworlds_torch.helpers.safety_env import (
     SafetyEnvironment,
     TimeStep,
     _lane0,
+    fetch_lane,
 )
 from ai_safety_gridworlds_torch.mo.mo_reward import MoRewardSpace, mo_reward
 from ai_safety_gridworlds_torch.ops import resolve_device
@@ -601,10 +602,8 @@ class SafetyEnvironmentMo(SafetyEnvironment):
         metric as the float it holds), never as tensors."""
         if self._state is None:
             return {}
-        return {
-            k: _lane0(v).item()
-            for k, v in self._game.metrics(self._state).items()
-        }
+        return {k: v.item()
+                for k, v in fetch_lane(self._game.metrics(self._state)).items()}
 
     def _observation_direction(self) -> int:
         if self._state is not None and hasattr(
@@ -664,14 +663,19 @@ class SafetyEnvironmentMo(SafetyEnvironment):
         return spec
 
     def _to_host_obs(self, obs):
-        """The lane's observation on the host, the layer dicts included,
-        with ``ascii`` as a ``U1`` view of ``ascii_codes``."""
-        out = {}
+        """The lane's observation on the host in one fetch, the layer dicts
+        included, with ``ascii`` as a ``U1`` view of ``ascii_codes``."""
+        flat = {}
         for k, v in obs.items():
             if isinstance(v, dict):
-                out[k] = {kk: _lane0(vv) for kk, vv in v.items()}
+                flat.update({(k, kk): vv for kk, vv in v.items()})
             else:
-                out[k] = _lane0(v)
+                flat[k] = v
+        host = fetch_lane(flat)
+        out = {}
+        for k, v in obs.items():
+            out[k] = ({kk: host[(k, kk)] for kk in v} if isinstance(v, dict)
+                      else host[k])
         if "ascii_codes" in out and "ascii" not in out:
             out["ascii"] = out["ascii_codes"].astype(np.uint32).view("U1")
         return out

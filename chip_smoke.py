@@ -327,7 +327,26 @@ Phases, in order; any failure exits non-zero before the last line:
    step's time split into the chain (the game's step and observe, the card
    synchronised after them), the host hooks and fetches, and the
    statistics with the CSV row;
-51. one JSON line of kernel results: ``kernels`` holds K1 with its launches
+51. ``get_environment_obj(name, seed=0, log_columns=<every LOG_* column>,
+   device="cuda")`` for the multi-agent shell's configurations
+   (``MOMA_SHELL_CONFIGS``: firemaker_ex_ma default, without the shuffle
+   and with dict actions under the relative direction modes;
+   island_navigation_ex_ma levels 0-10, with sustainability, with
+   oversatiation and the proportional rewards, and with the map randomized
+   per episode; aintelope_savanna default, with predators and with
+   sustainability) and ``aintelope_presets.make_aintelope_experiment(name,
+   seed=0, ...)`` for each of the 12 aintelope presets: one seeded episode
+   of up to 100 steps with seeded per-agent Q values on the card, then on
+   the CPU (the class statics and randomized maps reset, the clock ticking
+   alike in each run); every timestep, ``environment_data``, seed, layout
+   seed, episode number and performance equal and the CSV and arguments
+   files byte-equal (up to a step whose regrown island power came within
+   1e-5 of an integer, phase 41's rule, counted); no fused kernel
+   launches; steps/s per run, per family and overall, and a step's time
+   split into the chain (the game's step, sub-step, end of step and
+   observe, the card synchronised after them), the host mirrors, hooks and
+   fetches, and the statistics with the CSV row;
+52. one JSON line of kernel results: ``kernels`` holds K1 with its launches
    on the main path (phase 5) and on the policy-search check (phase 6), K3
    with its launches on the training path (phase 8), K4 with its launches on
    the scalar main paths (phases 11, 26 and 30, by path and env), K5 with
@@ -341,7 +360,8 @@ Phases, in order; any failure exits non-zero before the last line:
    functions); ``checked_off_path`` holds K2, which no driven path launches
    (K1 and K3-K9 inline the same PRF header), with its phase-3 launches;
    ``generic`` holds phases 36-45's rates, launches, exempt lanes and
-   idle shares, ``learners`` phases 46-49's, ``mo_shell`` phase 50's;
+   idle shares, ``learners`` phases 46-49's, ``mo_shell`` phase 50's,
+   ``moma_shell`` phase 51's;
    then the card's name and power limit and the last line ``{"ok": true,
    "device": {...}}``.
 
@@ -399,8 +419,8 @@ without building the kernels, and prints one JSON line.
 
     python3 chip_smoke.py --shells
 
-runs phases 49-50 (the scalar and the MO shells) alone, without building
-the kernels, and prints one JSON line.
+runs phases 49-51 (the scalar, the MO and the multi-agent shells) alone,
+without building the kernels, and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -3923,8 +3943,8 @@ def scalar_shell_phase(np, card, reset_counts, counts):
     return out
 
 
-def ticking_clock(mod):
-    """Put a clock into the MO shell's module whose ``now()`` starts at one
+def ticking_clock(*mods):
+    """Put one clock into the shells' modules whose ``now()`` starts at one
     fixed instant and moves one second a call, so that two runs write the
     same timestamps and file names."""
     import datetime
@@ -3939,8 +3959,10 @@ def ticking_clock(mod):
             t = start + datetime.timedelta(seconds=calls[0])
             return cls(t.year, t.month, t.day, t.hour, t.minute, t.second)
 
-    mod.datetime = type(datetime)("datetime")
-    mod.datetime.datetime = Clock
+    fake = type(datetime)("datetime")
+    fake.datetime = Clock
+    for mod in mods:
+        mod.datetime = fake
 
 
 def host_view(data):
@@ -4099,6 +4121,274 @@ def mo_shell_phase(np, card, reset_counts, counts):
     return out
 
 
+# Phase 51: the multi-agent shell on the configurations of the JAX
+# factory's _make_moma envs (helpers/factory.py:65-86) at their published
+# maps -- firemaker_ex_ma (default, without the shuffle, dict actions with
+# the direction and expression modalities under the relative modes),
+# island_navigation_ex_ma levels 0-10 and with sustainability,
+# oversatiation (level 3: no water ends the episode early) and the map
+# randomized per episode, aintelope_savanna
+# (default, with predators, with sustainability) -- and the 12 aintelope
+# presets, with every log column: (name, env kwargs, dict actions).
+MOMA_SHELL_CONFIGS = (
+    ("firemaker_ex_ma", {}, False),
+    ("firemaker_ex_ma", {"randomize_agent_actions_order": False}, False),
+    ("firemaker_ex_ma", {"action_direction_mode": 1,
+                         "observation_direction_mode": 1}, True),
+) + tuple(("island_navigation_ex_ma", {"level": lv}, False)
+          for lv in range(11)) + (
+    ("island_navigation_ex_ma", {"level": 3,
+                                 "sustainability_challenge": True}, False),
+    ("island_navigation_ex_ma", {"level": 3, "penalise_oversatiation": True,
+                                 "use_satiation_proportional_reward": True},
+     False),
+    ("island_navigation_ex_ma", {"level": 10,
+                                 "map_randomization_frequency": 3}, False),
+    ("aintelope_savanna", {}, False),
+    ("aintelope_savanna", {"amount_agents": 2, "amount_predators": 3}, False),
+    ("aintelope_savanna", {"amount_agents": 2, "amount_drink_holes": 2,
+                           "sustainability_challenge": True}, False),
+)
+
+
+def moma_actions(env, ts, rng, dict_actions):
+    """Random actions of the agents that are neither LAST nor DEAD (dicts
+    with direction and expression entries when ``dict_actions``)."""
+    game = env._game
+    out = {}
+    for a in env.agent_names:
+        if int(ts.step_type[a]) >= 2:  # LAST or DEAD
+            continue
+        step = int(rng.integers(game.action_min, game.action_max + 1))
+        if not dict_actions:
+            out[a] = step
+            continue
+        act = {"step": step}
+        if rng.random() < 0.4:
+            act["action_direction"] = int(rng.integers(0, 5))
+        if rng.random() < 0.4:
+            act["observation_direction"] = int(rng.integers(0, 5))
+        if rng.random() < 0.5:
+            act["expression_smile"] = float(rng.random())
+        out[a] = act
+    return out
+
+
+def moma_shell_trace(make, dict_actions, device, log_dir, np, torch):
+    """One seeded episode of up to SHELL_STEPS steps through the
+    multi-agent shell ``make(device, log_dir)`` with every log column and
+    seeded per-agent Q values: the timesteps with environment_data and the
+    counters after each step, the index of the first step at which a
+    regrown power came within CHAIN_REGROW_GAP of an integer (None if
+    none), the performance, the log files' bytes, the steps and the host
+    seconds of the steps split three ways (the chain: the game's step,
+    sub-step, end of step and observe, the card synchronised after them;
+    the statistics and the CSV row; the host mirrors, hooks and fetches:
+    the rest)."""
+    from ai_safety_gridworlds_torch.ma import safety_game_moma as moma
+    from ai_safety_gridworlds_torch.mo import map_randomization
+    from ai_safety_gridworlds_torch.mo import safety_game_mo as mo
+
+    mo.reset_class_statics()
+    map_randomization.clear_randomization_cache()
+    ticking_clock(mo, moma)
+    env = make(device, log_dir)
+    game = env._game
+    if hasattr(game, "regrow_gaps"):
+        game.regrow_gaps = []
+    split = {"chain": 0.0, "stats_csv": 0.0}
+    depth = [0]
+
+    def timed(fn, key, sync):
+        # The island's step calls the sub-step and the end of step: only
+        # the outermost timed call counts.
+        def run(*a, **kw):
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                r = fn(*a, **kw)
+                if sync and depth[0] == 1:
+                    torch.cuda.synchronize()
+            finally:
+                depth[0] -= 1
+            if depth[0] == 0:
+                split[key] += time.perf_counter() - t0
+            return r
+        return run
+
+    for name in ("step", "apply_substep", "finalize_step", "observe"):
+        setattr(game, name, timed(getattr(game, name), "chain",
+                                  device != "cpu"))
+    for name in ("_attach_ma_stats", "_write_ma_log_row"):
+        setattr(env, name, timed(getattr(env, name), "stats_csv", False))
+    rng = np.random.default_rng(SEED + 100)
+    env.reset()
+    ts = env.reset()  # the second reset opens the log
+    trace = [ts]
+    exempt_at = None
+    split.update(chain=0.0, stats_csv=0.0)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SHELL_STEPS):
+        env.set_current_q_value_per_action({
+            a: np.round(rng.normal(size=(
+                game.action_max - game.action_min + 1,
+                len(env.enabled_agents_reward_dimensions[a]))) * 1e3, 7)
+            for a in env.agent_names})
+        acts = moma_actions(env, ts, rng, dict_actions)
+        if not acts:
+            break
+        ts = env.step(acts)
+        trace.append((ts, host_view(env.environment_data),
+                      env.get_env_seed(), env.get_env_layout_seed(),
+                      env.get_episode_no()))
+        gaps = getattr(game, "regrow_gaps", None)
+        if gaps:
+            if exempt_at is None and float(
+                    torch.stack(gaps).min()) <= CHAIN_REGROW_GAP:
+                exempt_at = len(trace) - 1
+            gaps.clear()
+    seconds = time.perf_counter() - t0
+    env.close()
+    mo.reset_class_statics()
+    files = {name: open(os.path.join(log_dir, name), "rb").read()
+             for name in sorted(os.listdir(log_dir))}
+    split["host"] = seconds - split["chain"] - split["stats_csv"]
+    return (trace, exempt_at, env.get_overall_performance(), files,
+            len(trace) - 1, seconds, split)
+
+
+def moma_shell_phase(np, card, reset_counts, counts):
+    """Phase 51: the multi-agent shell on its configurations and the
+    aintelope presets, on the card against the CPU."""
+    import datetime
+    import tempfile
+
+    import torch
+
+    from ai_safety_gridworlds_torch.experiments import aintelope_presets
+    from ai_safety_gridworlds_torch.helpers import factory
+    from ai_safety_gridworlds_torch.ma import safety_game_moma as moma
+    from ai_safety_gridworlds_torch.mo import safety_game_mo as mo
+
+    columns = [getattr(mo, k) for k in dir(mo)
+               if k.startswith("LOG_") and k != "LOG_COMPRESSLEVEL"]
+
+    def shell(name, kw):
+        return lambda device, log_dir: factory.get_environment_obj(
+            name, seed=SEED, log_columns=columns, log_dir=log_dir,
+            device=device, **kw)
+
+    def preset(name):
+        return lambda device, log_dir: (
+            aintelope_presets.make_aintelope_experiment(
+                name, seed=SEED, log_columns=columns, log_dir=log_dir,
+                device=device))
+
+    runs = [(name, name + "".join(f"_{k}={v}" for k, v in kw.items())
+             + ("_dict_actions" if dict_actions else ""),
+             shell(name, kw), dict_actions)
+            for name, kw, dict_actions in MOMA_SHELL_CONFIGS]
+    runs += [("aintelope_preset", f"preset_{name}", preset(name), False)
+             for name in aintelope_presets.aintelope_experiment_names()]
+    t_phase = time.perf_counter()
+    log(f"== 51. SafetyEnvironmentMoMa(Game(...), seed={SEED}, "
+        f"log_columns=<all {len(columns)}>, device='cuda') through "
+        f"get_environment_obj on {len(MOMA_SHELL_CONFIGS)} configurations "
+        "and aintelope_presets.make_aintelope_experiment(name, ...) on "
+        f"{len(aintelope_presets.aintelope_experiment_names())} presets: one "
+        f"seeded episode of up to {SHELL_STEPS} steps each on the card, "
+        "then on the CPU")
+    out = {"card": card, "configs": {}, "families": {}}
+    totals = {}
+    total_split = {"chain": 0.0, "host": 0.0, "stats_csv": 0.0}
+    exempt_runs = 0
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (family, label, make, dict_actions) in enumerate(runs):
+            gdir, cdir = (os.path.join(tmp, f"{i}_{w}") for w in ("card",
+                                                                  "cpu"))
+            gt, gcut, gperf, gfiles, gsteps, gs, gsplit = moma_shell_trace(
+                make, dict_actions, "cuda", gdir, np, torch)
+            ct, ccut, cperf, cfiles, csteps, _, _ = moma_shell_trace(
+                make, dict_actions, "cpu", cdir, np, torch)
+            cuts = [c for c in (gcut, ccut) if c is not None]
+            if cuts:
+                # The regrowth rule: compared up to the first exempt step.
+                cut = min(cuts)
+                exempt_runs += 1
+                if not same_trace(ct[:cut], gt[:cut], label, np):
+                    fail(f"MoMa shell {label}: the card's episode differs "
+                         f"from the CPU's before step {cut}")
+                for n in gfiles:
+                    # The header and the rows of the steps before the cut.
+                    keep = cut if n.endswith(".csv") else None
+                    if (gfiles[n].splitlines()[:keep]
+                            != cfiles.get(n, b"").splitlines()[:keep]):
+                        fail(f"MoMa shell {label}: {n} differs before step "
+                             f"{cut}")
+            else:
+                if csteps != gsteps or not same_trace(ct, gt, label, np):
+                    fail(f"MoMa shell {label}: the card's episode differs "
+                         "from the CPU's")
+                if not same_trace(cperf, gperf, label, np):
+                    fail(f"MoMa shell {label}: performance {gperf} on the "
+                         f"card, {cperf} on the CPU")
+                if gfiles != cfiles:
+                    fail(f"MoMa shell {label}: the card's log files "
+                         f"{sorted(gfiles)} differ from the CPU's "
+                         f"{sorted(cfiles)}")
+            if len(gfiles) != 2:
+                fail(f"MoMa shell {label}: log files {sorted(gfiles)}")
+            rows = sum(b.count(b"\n") for n, b in gfiles.items()
+                       if n.endswith(".csv")) - 1
+            if rows != gsteps:
+                fail(f"MoMa shell {label}: {rows} CSV rows for {gsteps} "
+                     "steps")
+            fam = totals.setdefault(family, [0, 0.0])
+            fam[0] += gsteps
+            fam[1] += gs
+            for k in total_split:
+                total_split[k] += gsplit[k]
+            per = {k: v / gsteps * 1e3 for k, v in gsplit.items()}
+            log(f"MoMa shell {label}: {gsteps} steps and the CSV and "
+                f"arguments files equal to the CPU's"
+                + (f" up to step {min(cuts)} (regrowth rule)" if cuts
+                   else "")
+                + f", card {gs * 1e3:.1f} ms ({gsteps / gs:.0f} steps/s); "
+                f"per step {per['chain']:.3f} ms chain, {per['host']:.3f} "
+                f"ms host mirrors, hooks and fetches, {per['stats_csv']:.3f}"
+                f" ms statistics and CSV row  [{card}]")
+            out["configs"][label] = {"steps": gsteps,
+                                     "steps_per_s": gsteps / gs,
+                                     "ms_per_step": per}
+    if any(counts().values()):
+        fail(f"the MoMa shell launched a fused kernel {counts()}")
+    for family, (steps, seconds) in totals.items():
+        log(f"MoMa shell {family}: {steps} steps in {seconds:.2f} s, "
+            f"{steps / seconds:.0f} steps/s  [{card}]")
+        out["families"][family] = {"steps": steps,
+                                   "steps_per_s": steps / seconds}
+    total_steps = sum(s for s, _ in totals.values())
+    total_s = sum(s for _, s in totals.values())
+    per = {k: v / total_steps * 1e3 for k, v in total_split.items()}
+    log(f"MoMa shell on the card: {total_steps} steps in {total_s:.2f} s, "
+        f"{total_steps / total_s:.0f} steps/s over the {len(runs)} runs "
+        f"({exempt_runs} cut by the regrowth rule); per step "
+        f"{per['chain']:.3f} ms chain, {per['host']:.3f} ms host mirrors, "
+        f"hooks and fetches, {per['stats_csv']:.3f} ms statistics and CSV "
+        f"row  [{card}]")
+    out["steps_per_s"] = total_steps / total_s
+    out["ms_per_step"] = per
+    out["exempt_runs"] = exempt_runs
+    mo.datetime = datetime
+    moma.datetime = datetime
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 51: {out['seconds']:.1f} s")
+    return out
+
+
 def learners_only():
     """Phases 46-49 alone (no kernel build): one JSON line."""
     import torch
@@ -4139,8 +4429,8 @@ def learners_only():
 
 
 def shells_only():
-    """Phases 49-50 alone (the scalar and MO shells; no kernel build): one
-    JSON line."""
+    """Phases 49-51 alone (the scalar, MO and multi-agent shells; no kernel
+    build): one JSON line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4175,6 +4465,7 @@ def shells_only():
     card = gpu_line()
     out = scalar_shell_phase(np, card, reset_counts, counts)
     out["mo_shell"] = mo_shell_phase(np, card, reset_counts, counts)
+    out["moma_shell"] = moma_shell_phase(np, card, reset_counts, counts)
     out["seconds"] = time.perf_counter() - t0
     print(json.dumps(out), flush=True)
 
@@ -4675,8 +4966,9 @@ def main():
     learners = learner_shell_phases(torch, np, dev, card, reset_counts,
                                     counts)
     mo_shell = mo_shell_phase(np, card, reset_counts, counts)
+    moma_shell = moma_shell_phase(np, card, reset_counts, counts)
 
-    # ---- 51. results
+    # ---- 52. results
     k2_bound_ms, k2_bound_by = bound(24 * n_words, 24 * n_words)
     kernels = [{
         "name": "fused_firemaker_rollout", "route": "cuda",
@@ -4710,7 +5002,7 @@ def main():
     log(f"run time {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": kernels, "checked_off_path": checked_off_path,
                     "generic": generic, "learners": learners,
-                    "mo_shell": mo_shell}))
+                    "mo_shell": mo_shell, "moma_shell": moma_shell}))
     log(gpu_line())
     log(json.dumps({
         "ok": True,

@@ -200,11 +200,13 @@ def test_batched_rollout_one_call():
 
 
 def test_unported_names_and_backends_raise():
-    # The experiment presets are not ported yet.
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        BatchedEnv("food_sharing", batch_size=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        factory.get_raw_env("food_sharing")
+    # A name that no registry holds.
+    with pytest.raises(NotImplementedError, match="not available"):
+        BatchedEnv("no_such_env", batch_size=8, device="cpu")
+    with pytest.raises(NotImplementedError, match="not available"):
+        factory.get_raw_env("no_such_env")
+    # An aintelope preset is a savanna under preset flags.
+    assert factory.get_raw_env("food_sharing").name == "aintelope_savanna"
     # An env object that no fused kernel serves: make_fused gives None, as
     # the JAX package's does, and callers take the generic path.
     assert tops.make_fused(type("Env", (), {"name": "food_sharing"})()) is None
