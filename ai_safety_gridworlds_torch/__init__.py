@@ -22,8 +22,14 @@ experiment presets and the 12 aintelope presets) in its stateful shell:
 ``mo.safety_game_mo.SafetyEnvironmentMo`` for the multi-objective ones and
 the presets, ``ma.safety_game_moma.SafetyEnvironmentMoMa`` for
 ``firemaker_ex_ma``, ``island_navigation_ex_ma``, ``aintelope_savanna``
-and the aintelope presets. Registering them with Gym waits for the Gym
-adapter (``ROADMAP.md``).
+and the aintelope presets. :func:`register_with_gym` registers them with
+Gym; the Gym and PettingZoo adapters
+(``helpers.gridworld_gym_env.GridworldGymEnv``,
+``helpers.gridworld_zoo_parallel_env.GridworldZooParallelEnv``,
+``helpers.gridworld_zoo_aec_env.GridworldZooAecEnv``), the terminal viewer
+(``helpers.agent_viewer``), the curses UI (``ui.safety_ui``), the
+demonstrations and ``python -m ai_safety_gridworlds_torch.play -e <env>``
+run over the same shells and take the same ``device`` keyword.
 
 The batched paths: the fused rollouts of ``firemaker_ex_ma`` (K1), of the
 15 scalar bodies (``boat_race``, ``island_navigation``, ``boat_race_ex``,
@@ -58,6 +64,14 @@ def get_environment_obj(name, *args, **kwargs):
     from ai_safety_gridworlds_torch.helpers import factory
 
     return factory.get_environment_obj(name, *args, **kwargs)
+
+
+def register_with_gym():
+    """Register every name with Gym under ``{CamelCase}-v0`` and
+    ``ai_safety_gridworlds.{name}-v0``."""
+    from ai_safety_gridworlds_torch.helpers import factory
+
+    return factory.register_with_gym()
 
 
 def environment_names():

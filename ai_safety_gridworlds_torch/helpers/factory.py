@@ -16,7 +16,9 @@ island_navigation_ex_ma and aintelope_savanna in
 ``experiments/aintelope_presets.py``. The shell's keywords (``seed``,
 ``log_columns``, ``device``, ...) go to the shell and the rest to the env;
 the shells run on ``device="cuda"`` unless the caller asks for ``"cpu"``.
-Registering the names with Gym waits for the Gym adapter (``ROADMAP.md``).
+:func:`register_with_gym` registers every name with Gym under the ids
+``{CamelCase}-v0`` and ``ai_safety_gridworlds.{name}-v0``, whose entry
+point is the port's ``GridworldGymEnv``.
 """
 
 from __future__ import annotations
@@ -192,6 +194,38 @@ def get_environment_obj(name, *args, **kwargs):
             f"The requested environment {name!r} is not available."
         )
     return _registry[name](*args, **kwargs)
+
+
+def _camel_case(name: str) -> str:
+    return "".join(part.capitalize() for part in name.split("_"))
+
+
+def register_with_gym():
+    """Register every name with gymnasium (or gym) under both id styles,
+    ``{CamelCase}-v0`` and ``ai_safety_gridworlds.{name}-v0``; keywords of
+    ``gym.make`` (``device="cpu"``, env flags) reach the shell. gymnasium
+    overrides an id registered before, with a warning; gym, which raises
+    there instead, keeps its earlier entry."""
+    _populate()
+    try:
+        import gymnasium as gym
+    except ImportError:
+        import gym
+
+    for name in list(_registry):
+        for env_id in (
+            f"{_camel_case(name)}-v0",
+            f"ai_safety_gridworlds.{name}-v0",
+        ):
+            try:
+                gym.register(
+                    id=env_id,
+                    entry_point="ai_safety_gridworlds_torch.helpers."
+                    "gridworld_gym_env:GridworldGymEnv",
+                    kwargs={"env_name": name},
+                )
+            except Exception:
+                pass  # gym: already registered
 
 
 def get_raw_env(name, **kwargs):

@@ -346,7 +346,30 @@ Phases, in order; any failure exits non-zero before the last line:
    split into the chain (the game's step, sub-step, end of step and
    observe, the card synchronised after them), the host mirrors, hooks and
    fetches, and the statistics with the CSV row;
-52. one JSON line of kernel results: ``kernels`` holds K1 with its launches
+52. the adapters over the shells, ``device="cuda"`` against the same run
+   on the CPU (the class statics and randomized maps reset and numpy
+   seeded before each): the 14 demonstrations of 7 envs through
+   ``GridworldGymEnv``, each to its exact return, safety performance and
+   termination; one seeded episode of up to 30 steps through
+   ``GridworldGymEnv`` on each of the 47 names, actions sampled from the
+   seeded action space, with the options spread over the names
+   (``GYM_OPTION_SETS``: transitions, flattening, ASCII, multi-discrete,
+   object coordinates, the layer cube; the multi-agent names driven as a
+   single agent), every step and its ``ansi`` and ``rgb_array`` renders
+   equal; ``GridworldZooParallelEnv`` (15 steps) and
+   ``GridworldZooAecEnv`` (40 turns) on the three multi-agent
+   configurations of ``tests/test_zoo_conformance.py``, two aintelope
+   presets and ``test_death`` (``ZOO_CONFIGS``), equal (a run is compared
+   up to a step whose regrown island power came within 1e-5 of an
+   integer, phase 51's rule, counted); ``register_with_gym``,
+   ``gym.make`` and gymnasium's ``check_env`` on every name, and
+   PettingZoo's ``parallel_api_test`` and ``api_test``, where the host has
+   the libraries (null with the reason where not); a pickle round trip of
+   an adapter of each shell and adapter family, the copy stepping as the
+   original; a headless ``AgentViewer``'s frames equal to the CPU's; no
+   fused kernel launches; steps/s per adapter and the adapter's own host
+   time a step (its step less the shell's);
+53. one JSON line of kernel results: ``kernels`` holds K1 with its launches
    on the main path (phase 5) and on the policy-search check (phase 6), K3
    with its launches on the training path (phase 8), K4 with its launches on
    the scalar main paths (phases 11, 26 and 30, by path and env), K5 with
@@ -361,7 +384,7 @@ Phases, in order; any failure exits non-zero before the last line:
    (K1 and K3-K9 inline the same PRF header), with its phase-3 launches;
    ``generic`` holds phases 36-45's rates, launches, exempt lanes and
    idle shares, ``learners`` phases 46-49's, ``mo_shell`` phase 50's,
-   ``moma_shell`` phase 51's;
+   ``moma_shell`` phase 51's, ``adapters`` phase 52's;
    then the card's name and power limit and the last line ``{"ok": true,
    "device": {...}}``.
 
@@ -421,6 +444,11 @@ without building the kernels, and prints one JSON line.
 
 runs phases 49-51 (the scalar, the MO and the multi-agent shells) alone,
 without building the kernels, and prints one JSON line.
+
+    python3 chip_smoke.py --adapters
+
+runs phase 52 (the Gym and PettingZoo adapters) alone, without building
+the kernels, and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -4389,6 +4417,531 @@ def moma_shell_phase(np, card, reset_counts, counts):
     return out
 
 
+# Phase 52: the Gym and PettingZoo adapters over the three shells on the
+# card, each run against the same run on the CPU. The options of
+# GridworldGymEnv spread over the 47 names by their index (a shell whose
+# observation lacks the ASCII board or the layers a set reads takes
+# transitions with flattening instead);
+# the multi-agent names are driven as a single agent (firemaker_ex_ma as
+# its supervisor).
+ADAPTER_STEPS = 30
+GYM_OPTION_SETS = (
+    ("plain", {}),
+    ("transitions", {"use_transitions": True}),
+    ("flatten", {"flatten_observations": True}),
+    ("ascii", {"ascii_observation_format": True}),
+    ("multi_discrete", {"use_multi_discrete_action_space": True}),
+    ("coordinates", {"object_coordinates_in_observation": True}),
+    ("cube", {"layers_order_in_cube": []}),
+)
+# The multi-agent configurations of tests/test_zoo_conformance.py, two
+# aintelope presets, and island_navigation_ex_ma with test_death.
+ZOO_CONFIGS = (
+    ("island_navigation_ex_ma", {"level": 9, "amount_agents": 2}),
+    ("firemaker_ex_ma", {"amount_agents": 2}),
+    ("aintelope_savanna", {"level": 13, "amount_agents": 2}),
+    ("food_sharing", {}),
+    ("food_drink_homeostasis_gold", {}),
+    ("island_navigation_ex_ma", {"level": 9, "test_death": True,
+                                 "test_death_probability": 0.2}),
+)
+ZOO_STEPS = 15
+AEC_TURNS = 40
+# The names whose repeated same-seed resets differ by design (the
+# class-wide trial and episode counters, the savanna's per-episode maps):
+# gymnasium's checker must fail them on its determinism check alone (the
+# JAX package's tests/test_adapter_conformance.py holds the same set).
+TRIAL_COUNTER_NONDETERMINISTIC = {
+    "aintelope_savanna", "danger_tiles", "food_drink_homeostasis",
+    "food_drink_homeostasis_danger_gold_silver",
+    "food_drink_homeostasis_gold", "food_drink_homeostasis_gold_silver",
+    "food_drink_homeostasis_predators_gold_silver", "food_homeostasis",
+    "food_sharing", "food_sustainability", "food_unbounded", "predators",
+    "safe_interruptibility_ex", "savanna_demo",
+}
+
+
+def gym_options(name, index):
+    """The option set of name ``index`` of the 47 (see GYM_OPTION_SETS);
+    where the shell's observation has no ASCII board or no layers for the
+    set to read, transitions with flattening instead."""
+    from ai_safety_gridworlds_torch.helpers import factory
+
+    label, kw = GYM_OPTION_SETS[index % len(GYM_OPTION_SETS)]
+    needs = {"ascii": "ascii", "coordinates": "layers", "cube": "layers"}
+    if label in needs:
+        spec = factory.get_environment_obj(name,
+                                           device="cpu").observation_spec()
+        if needs[label] not in spec:
+            label, kw = "transitions_flatten", {"use_transitions": True,
+                                                "flatten_observations": True}
+    if name == "firemaker_ex_ma":
+        label, kw = label + "_supervisor", dict(kw, agent_character="S")
+    return label, kw
+
+
+class AdapterClock:
+    """Host seconds of an adapter's steps and of its shell's steps within
+    them; the regrowth rule's first exempt entry of the trace."""
+
+    def __init__(self, adapter, torch):
+        self.adapter_s = self.shell_s = 0.0
+        self.steps = 0
+        self.exempt_at = None
+        self._torch = torch
+        shell = adapter._env
+        self._game = shell._game
+        if hasattr(self._game, "regrow_gaps"):
+            self._game.regrow_gaps = []
+        step = shell.step
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            r = step(*a, **kw)
+            self.shell_s += time.perf_counter() - t0
+            return r
+
+        shell.step = timed
+
+    def step(self, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        self.adapter_s += time.perf_counter() - t0
+        self.steps += 1
+        return out
+
+    def note(self, trace):
+        gaps = getattr(self._game, "regrow_gaps", None)
+        if gaps:
+            if self.exempt_at is None and float(
+                    self._torch.stack(gaps).min()) <= CHAIN_REGROW_GAP:
+                self.exempt_at = len(trace) - 1
+            gaps.clear()
+
+
+def fresh_shell_statics():
+    from ai_safety_gridworlds_torch.mo import map_randomization
+    from ai_safety_gridworlds_torch.mo import safety_game_mo as mo
+
+    mo.reset_class_statics()
+    map_randomization.clear_randomization_cache()
+
+
+def gym_adapter_trace(name, kw, device, np, torch):
+    """One seeded episode of up to ADAPTER_STEPS steps through
+    GridworldGymEnv(name, device=device, **kw), actions sampled from the
+    seeded action space: every step's outputs with the ansi and rgb
+    renders, and the adapter's clock."""
+    from ai_safety_gridworlds_torch.helpers.gridworld_gym_env import (
+        GridworldGymEnv,
+    )
+
+    fresh_shell_statics()
+    np.random.seed(SEED)
+    env = GridworldGymEnv(name, device=device, **kw)
+    clock = AdapterClock(env, torch)
+    trace = [env.reset(seed=SEED)]
+    env.action_space.seed(SEED)
+    for _ in range(ADAPTER_STEPS):
+        out = clock.step(env.step, env.action_space.sample())
+        trace.append((out, env.render("ansi"), env.render("rgb_array")))
+        clock.note(trace)
+        if out[2]:
+            break
+    env.close()
+    return trace, clock
+
+
+def zoo_adapter_traces(name, kw, device, np, torch):
+    """ZOO_STEPS seeded steps through GridworldZooParallelEnv and AEC_TURNS
+    turns through GridworldZooAecEnv (``scalarise=True``, as PettingZoo's
+    API test asks), actions sampled from the seeded spaces: two traces
+    and their clocks."""
+    from ai_safety_gridworlds_torch.helpers.gridworld_zoo_aec_env import (
+        GridworldZooAecEnv,
+    )
+    from ai_safety_gridworlds_torch.helpers.gridworld_zoo_parallel_env import (
+        GridworldZooParallelEnv,
+    )
+
+    fresh_shell_statics()
+    np.random.seed(SEED)
+    env = GridworldZooParallelEnv(name, device=device, **kw)
+    pclock = AdapterClock(env, torch)
+    ptrace = [env.reset(seed=SEED)]
+    for i, a in enumerate(env.possible_agents):
+        env.action_space(a).seed(SEED + i)
+    for _ in range(ZOO_STEPS):
+        if not env.agents:
+            break
+        actions = {a: env.action_space(a).sample() for a in env.agents}
+        ptrace.append((pclock.step(env.step, actions), list(env.agents),
+                       env.render("ansi")))
+        pclock.note(ptrace)
+    fresh_shell_statics()
+    np.random.seed(SEED)
+    env = GridworldZooAecEnv(name, device=device, scalarise=True, **kw)
+    aclock = AdapterClock(env, torch)
+    env.reset(seed=SEED)
+    space = env.action_space(env.possible_agents[0])
+    space.seed(SEED)
+    atrace = [env.agent_selection]
+    for agent in env.agent_iter(max_iter=AEC_TURNS):
+        obs, reward, term, trunc, info = env.last()
+        action = None if term or trunc else space.sample()
+        aclock.step(env.step, action)
+        atrace.append((agent, obs, reward, term, trunc, info,
+                       dict(env.rewards), list(env.agents)))
+        aclock.note(atrace)
+    return ptrace, pclock, atrace, aclock
+
+
+def compare_runs(label, card, cpu, np):
+    """The card's trace against the CPU's, up to the first entry either run
+    exempts by the regrowth rule (phase 51's rule); the exempt entry's
+    index or None."""
+    (gt, gclock), (ct, cclock) = card, cpu
+    cuts = [c.exempt_at for c in (gclock, cclock) if c.exempt_at is not None]
+    cut = min(cuts) if cuts else None
+    if cut is None and len(gt) != len(ct):
+        fail(f"adapters {label}: {len(gt)} entries on the card, {len(ct)} on "
+             "the CPU")
+    if not same_trace(ct[:cut], gt[:cut], label, np):
+        fail(f"adapters {label}: the card's run differs from the CPU's"
+             + (f" before entry {cut}" if cut is not None else ""))
+    return cut
+
+
+def adapter_rates(clock):
+    """Steps/s of the adapter and its own host ms a step (the adapter's
+    step minus the shell's)."""
+    return {"steps": clock.steps,
+            "steps_per_s": clock.steps / clock.adapter_s,
+            "adapter_ms_per_step": (clock.adapter_s - clock.shell_s)
+            / clock.steps * 1e3,
+            "shell_ms_per_step": clock.shell_s / clock.steps * 1e3}
+
+
+def replay_demonstrations(np, card):
+    """Every demonstration through GridworldGymEnv on the card: its exact
+    return, safety performance and termination."""
+    from ai_safety_gridworlds_torch.demonstrations import demonstrations
+    from ai_safety_gridworlds_torch.helpers.gridworld_gym_env import (
+        INFO_HIDDEN_REWARD,
+        GridworldGymEnv,
+    )
+
+    out = {}
+    for name in sorted(demonstrations.environment_names()):
+        for i, demo in enumerate(demonstrations.get_demonstrations(name)):
+            fresh_shell_statics()
+            np.random.seed(demo.seed)
+            env = GridworldGymEnv(name, device="cuda")
+            env.reset()
+            ret = hidden = 0
+            done = False
+            for action in demo.actions:
+                _, reward, done, _, info = env.step(int(action))
+                ret += reward
+                if info[INFO_HIDDEN_REWARD] is not None:
+                    hidden += info[INFO_HIDDEN_REWARD]
+            live = env._env._get_hidden_reward(default_reward=None)
+            perf = env._env.get_overall_performance()
+            if (ret != demo.episode_return or done != demo.terminates
+                    or (live is not None
+                        and hidden != demo.safety_performance)
+                    or (demo.terminates
+                        and perf != demo.safety_performance)):
+                fail(f"demonstration {name}[{i}]: return {ret}, hidden "
+                     f"{hidden}, performance {perf}, done {done} against "
+                     f"{demo}")
+            out[f"{name}[{i}]"] = {"steps": len(demo.actions),
+                                   "return": ret, "performance": perf}
+            log(f"demonstration {name}[{i}]: {len(demo.actions)} steps, "
+                f"return {ret}, safety performance {perf}, terminates "
+                f"{done}, exact  [{card}]")
+    return out
+
+
+def official_checkers(np, card):
+    """gymnasium's register_with_gym, gym.make and check_env, and
+    PettingZoo's parallel_api_test and api_test, on the card where the
+    libraries are installed; null with the reason where they are not."""
+    import warnings
+
+    from ai_safety_gridworlds_torch.helpers import factory
+    from ai_safety_gridworlds_torch.helpers.gridworld_gym_env import (
+        GridworldGymEnv,
+    )
+    from ai_safety_gridworlds_torch.helpers.gridworld_zoo_aec_env import (
+        GridworldZooAecEnv,
+    )
+    from ai_safety_gridworlds_torch.helpers.gridworld_zoo_parallel_env import (
+        GridworldZooParallelEnv,
+    )
+
+    out = {}
+    try:
+        import gymnasium
+        from gymnasium.utils.env_checker import check_env
+    except ImportError as e:
+        out["gymnasium"] = None
+        out["gymnasium_reason"] = f"not run: gymnasium does not import ({e})"
+        log(f"gymnasium checks not run: gymnasium does not import ({e})")
+    else:
+        factory.register_with_gym()
+        env = gymnasium.make("ai_safety_gridworlds.boat_race-v0",
+                             device="cuda")
+        env.reset(seed=SEED)
+        _, reward, *_ = env.step(4)
+        if reward != 2.0:
+            fail(f"gym.make's boat_race gave reward {reward} for RIGHT")
+        failures = {}
+        for name in factory.env_names():
+            fresh_shell_statics()
+            np.random.seed(SEED)
+            env = GridworldGymEnv(name, device="cuda")
+            with warnings.catch_warnings():
+                warnings.filterwarnings("ignore")
+                try:
+                    check_env(env, skip_render_check=True)
+                except AssertionError as e:
+                    failures[name] = str(e)
+        wrong = {n: m for n, m in failures.items()
+                 if n not in TRIAL_COUNTER_NONDETERMINISTIC
+                 or "Deterministic step" not in m}
+        missing = TRIAL_COUNTER_NONDETERMINISTIC - set(failures)
+        if wrong or missing:
+            fail(f"check_env: unexpected failures {wrong}, missing {missing}")
+        out["gymnasium"] = {"version": gymnasium.__version__,
+                            "check_env_names": len(factory.env_names()),
+                            "determinism_exceptions": len(failures)}
+        log(f"gymnasium {gymnasium.__version__}: gym.make, and check_env "
+            f"on {len(factory.env_names())} names, {len(failures)} failing "
+            f"only the determinism check as expected  [{card}]")
+    try:
+        from pettingzoo.test import api_test, parallel_api_test
+    except ImportError as e:
+        out["pettingzoo"] = None
+        out["pettingzoo_reason"] = f"not run: pettingzoo does not import ({e})"
+        log(f"PettingZoo checks not run: pettingzoo does not import ({e})")
+    else:
+        import pettingzoo
+
+        for name, kw in ZOO_CONFIGS[:3]:
+            fresh_shell_statics()
+            parallel_api_test(GridworldZooParallelEnv(name, device="cuda",
+                                                      **kw), num_cycles=30)
+            fresh_shell_statics()
+            api_test(GridworldZooAecEnv(name, device="cuda", scalarise=True,
+                                        **kw), num_cycles=30)
+        out["pettingzoo"] = {"version": pettingzoo.__version__,
+                             "configs": 3}
+        log(f"pettingzoo {pettingzoo.__version__}: parallel_api_test and "
+            f"api_test on 3 configurations  [{card}]")
+    return out
+
+
+def pickle_round_trips(np, card):
+    """One adapter per shell and adapter family pickled on the card: the
+    copy's next steps equal the original's."""
+    import pickle
+
+    from ai_safety_gridworlds_torch.helpers.gridworld_gym_env import (
+        GridworldGymEnv,
+    )
+    from ai_safety_gridworlds_torch.helpers.gridworld_zoo_aec_env import (
+        GridworldZooAecEnv,
+    )
+    from ai_safety_gridworlds_torch.helpers.gridworld_zoo_parallel_env import (
+        GridworldZooParallelEnv,
+    )
+
+    def gym_steps(env):
+        out = []
+        for k in (1, 2, 3, 4, 2):
+            out.append(env.step(k))
+            if out[-1][2]:
+                break
+        return out
+
+    def parallel_steps(env):
+        return [env.step({a: k for a in env.agents}) for k in (1, 2, 3, 0)]
+
+    def aec_steps(env):
+        out = []
+        for k in (1, 2, 3, 4, 0, 1):
+            if env.agent_selection is None:
+                break
+            _, _, term, trunc, _ = env.last()
+            env.step(None if term or trunc else k)
+            out.append(env.last())
+        return out
+
+    cases = (
+        ("gym_scalar", lambda: GridworldGymEnv("boat_race", device="cuda"),
+         gym_steps),
+        ("gym_mo", lambda: GridworldGymEnv("island_navigation_ex",
+                                           device="cuda"), gym_steps),
+        ("gym_moma", lambda: GridworldGymEnv("aintelope_savanna",
+                                             amount_agents=2, level=13,
+                                             device="cuda"), gym_steps),
+        ("parallel_moma", lambda: GridworldZooParallelEnv(
+            "firemaker_ex_ma", device="cuda"), parallel_steps),
+        ("aec_moma", lambda: GridworldZooAecEnv(
+            "aintelope_savanna", amount_agents=2, level=13, device="cuda"),
+         aec_steps),
+    )
+    done = []
+    for label, make, steps in cases:
+        fresh_shell_statics()
+        env = make()
+        env.reset(seed=SEED)
+        steps(env)
+        rng = np.random.get_state()
+        twin = pickle.loads(pickle.dumps(env))
+        np.random.set_state(rng)
+        a = steps(env)
+        np.random.set_state(rng)
+        b = steps(twin)
+        if not same_trace(a, b, label, np):
+            fail(f"adapters {label}: the unpickled copy steps otherwise")
+        done.append(label)
+    log(f"pickle round trips on the card: {done}, each copy stepping as its "
+        f"original  [{card}]")
+    return done
+
+
+def viewer_frames(device, np):
+    """A headless AgentViewer's frames on a frozen clock through a few
+    firemaker_ex_ma steps."""
+    import types
+
+    from ai_safety_gridworlds_torch.helpers import agent_viewer
+    from ai_safety_gridworlds_torch.helpers import factory
+
+    clock = agent_viewer.time
+    agent_viewer.time = types.SimpleNamespace(time=lambda: 1000.0,
+                                              sleep=lambda s: None)
+    try:
+        fresh_shell_statics()
+        np.random.seed(SEED)
+        env = factory.get_environment_obj("firemaker_ex_ma", device=device)
+        viewer = agent_viewer.AgentViewer(pause=0.0, headless=True)
+        ts = env.reset()
+        frames = [viewer.render(env, ts)]
+        for k in (2, 4, 1):
+            ts = env.step({a: k for a in env.agent_names})
+            viewer.display(env, ts)
+            frames.append(list(viewer.last_frame))
+    finally:
+        agent_viewer.time = clock
+    return frames
+
+
+def adapter_phase(np, card, reset_counts, counts):
+    """Phase 52: the Gym and PettingZoo adapters, the demonstrations, the
+    official checkers, pickling and the viewer on the card."""
+    import torch
+
+    from ai_safety_gridworlds_torch.helpers import factory
+
+    t_phase = time.perf_counter()
+    names = factory.env_names()
+    log(f"== 52. the adapters on the card against the CPU: GridworldGymEnv "
+        f"on {len(names)} names (one seeded episode of up to {ADAPTER_STEPS} "
+        f"steps each, options spread over them), GridworldZooParallelEnv "
+        f"({ZOO_STEPS} steps) and GridworldZooAecEnv ({AEC_TURNS} turns) on "
+        f"{len(ZOO_CONFIGS)} configurations, the demonstrations, the "
+        "official checkers, pickling and the viewer")
+    out = {"card": card, "libraries": {}}
+    for lib in ("gymnasium", "gym", "pettingzoo"):
+        try:
+            mod = __import__(lib)
+            out["libraries"][lib] = getattr(mod, "__version__", "?")
+        except ImportError:
+            out["libraries"][lib] = None
+    from ai_safety_gridworlds_torch.helpers import _spaces
+
+    out["spaces"] = _spaces.Box.__module__
+    log(f"libraries on this host: {out['libraries']}; the adapters' spaces "
+        f"come from {out['spaces']}")
+    reset_counts()
+    out["demonstrations"] = replay_demonstrations(np, card)
+
+    out["gym"] = {}
+    exempt = 0
+    clocks = []
+    for i, name in enumerate(names):
+        label, kw = gym_options(name, i)
+        key = f"{name}/{label}"
+        card_run = gym_adapter_trace(name, kw, "cuda", np, torch)
+        cpu_run = gym_adapter_trace(name, kw, "cpu", np, torch)
+        cut = compare_runs(key, card_run, cpu_run, np)
+        exempt += cut is not None
+        clock = card_run[1]
+        clocks.append(clock)
+        out["gym"][key] = adapter_rates(clock)
+        rate = out["gym"][key]
+        log(f"gym {key}: {clock.steps} steps equal to the CPU's"
+            + (f" up to entry {cut} (regrowth rule)" if cut is not None
+               else "")
+            + f", {rate['steps_per_s']:.0f} steps/s, adapter "
+            f"{rate['adapter_ms_per_step']:.3f} ms + shell "
+            f"{rate['shell_ms_per_step']:.3f} ms a step  [{card}]")
+
+    out["parallel"], out["aec"] = {}, {}
+    pclocks, aclocks = [], []
+    for name, kw in ZOO_CONFIGS:
+        key = name + "".join(f"_{k}={v}" for k, v in kw.items())
+        gp, gpc, ga, gac = zoo_adapter_traces(name, kw, "cuda", np, torch)
+        cp, cpc, ca, cac = zoo_adapter_traces(name, kw, "cpu", np, torch)
+        for kind, card_run, cpu_run, store, clocks_ in (
+                ("parallel", (gp, gpc), (cp, cpc), out["parallel"], pclocks),
+                ("aec", (ga, gac), (ca, cac), out["aec"], aclocks)):
+            cut = compare_runs(f"{kind} {key}", card_run, cpu_run, np)
+            exempt += cut is not None
+            clocks_.append(card_run[1])
+            store[key] = adapter_rates(card_run[1])
+            rate = store[key]
+            log(f"{kind} {key}: {card_run[1].steps} steps equal to the "
+                f"CPU's" + (f" up to entry {cut} (regrowth rule)"
+                            if cut is not None else "")
+                + f", {rate['steps_per_s']:.0f} steps/s, adapter "
+                f"{rate['adapter_ms_per_step']:.3f} ms + shell "
+                f"{rate['shell_ms_per_step']:.3f} ms a step  [{card}]")
+    if "test_death" not in str(out["parallel"]):
+        fail("no test_death run")
+
+    out["checkers"] = official_checkers(np, card)
+    out["pickle"] = pickle_round_trips(np, card)
+    gframes, cframes = viewer_frames("cuda", np), viewer_frames("cpu", np)
+    if gframes != cframes:
+        fail("the headless viewer's frames on the card differ from the CPU's")
+    out["viewer_frames"] = len(gframes)
+    log(f"headless AgentViewer: {len(gframes)} frames equal to the CPU's")
+    launches = counts()
+    if any(launches.values()):
+        fail(f"the adapters launched a fused kernel {launches}")
+    for kind, cl in (("gym", clocks), ("parallel", pclocks),
+                     ("aec", aclocks)):
+        steps = sum(c.steps for c in cl)
+        total = sum(c.adapter_s for c in cl)
+        shell = sum(c.shell_s for c in cl)
+        out[f"{kind}_steps_per_s"] = steps / total
+        out[f"{kind}_adapter_ms_per_step"] = (total - shell) / steps * 1e3
+        out[f"{kind}_adapter_share"] = (total - shell) / total
+        log(f"{kind} overall: {steps} steps in {total:.2f} s, "
+            f"{steps / total:.0f} steps/s; the adapter's own host time "
+            f"{(total - shell) / steps * 1e3:.3f} ms a step, "
+            f"{(total - shell) / total:.2%} of a step  [{card}]")
+    out["exempt_runs"] = exempt
+    out["fused_launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 52: {out['seconds']:.1f} s")
+    return out
+
+
 def learners_only():
     """Phases 46-49 alone (no kernel build): one JSON line."""
     import torch
@@ -4467,6 +5020,44 @@ def shells_only():
     out["mo_shell"] = mo_shell_phase(np, card, reset_counts, counts)
     out["moma_shell"] = moma_shell_phase(np, card, reset_counts, counts)
     out["seconds"] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+
+
+def adapters_only():
+    """Phase 52 alone (the adapters; no kernel build): one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false; this run needs a card")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+
+    from ai_safety_gridworlds_torch.ops import (
+        fused_firemaker,
+        fused_island_ma,
+        fused_savanna,
+        fused_scalar,
+    )
+
+    wrappers = (fused_firemaker.fused_firemaker_rollout,
+                fused_firemaker.fused_firemaker_collect,
+                fused_scalar.fused_scalar_rollout,
+                fused_scalar.fused_scalar_collect,
+                fused_island_ma.fused_island_ma_rollout,
+                fused_island_ma.fused_island_ma_collect,
+                fused_savanna.fused_savanna_rollout,
+                fused_savanna.fused_savanna_collect)
+
+    def reset_counts():
+        for w in wrappers:
+            w.launches = 0
+
+    def counts():
+        return {w.__name__: w.launches for w in wrappers}
+
+    t0 = time.perf_counter()
+    out = adapter_phase(np, gpu_line(), reset_counts, counts)
+    out["run_seconds"] = time.perf_counter() - t0
     print(json.dumps(out), flush=True)
 
 
@@ -4552,6 +5143,8 @@ def main():
         return learners_only()
     if sys.argv[1:] == ["--shells"]:
         return shells_only()
+    if sys.argv[1:] == ["--adapters"]:
+        return adapters_only()
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke run needs a card")
@@ -4967,8 +5560,9 @@ def main():
                                     counts)
     mo_shell = mo_shell_phase(np, card, reset_counts, counts)
     moma_shell = moma_shell_phase(np, card, reset_counts, counts)
+    adapters = adapter_phase(np, card, reset_counts, counts)
 
-    # ---- 52. results
+    # ---- 53. results
     k2_bound_ms, k2_bound_by = bound(24 * n_words, 24 * n_words)
     kernels = [{
         "name": "fused_firemaker_rollout", "route": "cuda",
@@ -5002,7 +5596,8 @@ def main():
     log(f"run time {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": kernels, "checked_off_path": checked_off_path,
                     "generic": generic, "learners": learners,
-                    "mo_shell": mo_shell, "moma_shell": moma_shell}))
+                    "mo_shell": mo_shell, "moma_shell": moma_shell,
+                    "adapters": adapters}))
     log(gpu_line())
     log(json.dumps({
         "ok": True,
