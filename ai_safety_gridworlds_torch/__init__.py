@@ -52,7 +52,13 @@ scalar envs above (``whisky_gold`` with ``human_player=True`` only there),
 and equals the JAX package's generic path from the same key. On it run the
 generic learners, PPO (:mod:`~ai_safety_gridworlds_torch.learners.ppo`) and
 A2C (:mod:`~ai_safety_gridworlds_torch.learners.actor_critic`), and the
-stateful shells. ``ROADMAP.md`` lists what is still to come.
+stateful shells. Scale-out runs one process a device on
+``torch.distributed`` (:mod:`~ai_safety_gridworlds_torch.parallel.mesh`,
+:mod:`~ai_safety_gridworlds_torch.parallel.multihost`; the data-parallel
+``ppo_fused.make_sharded_train_step``), and
+:mod:`~ai_safety_gridworlds_torch.utils.checkpoint` and
+:mod:`~ai_safety_gridworlds_torch.utils.profiling` save, resume and time
+the runs. ``ROADMAP.md`` lists what is still to come.
 """
 
 __version__ = "0.1.0"

@@ -5,8 +5,18 @@ Port of ``ai_safety_gridworlds_tpu/learners/actor_critic.py``: the MLP
 (``unroll_and_loss``) and one SGD step (``train_step``), drawn from JAX's
 threefry key chain (``core/threefry.py``) so that the same key gives the
 same params and the same actions. ``params_from_jax`` carries a JAX
-``ACParams`` (as numpy) across. The tensor-parallel ``param_shardings``
-comes with the scale-out (``ROADMAP.md``).
+``ACParams`` (as numpy) across.
+
+Under a ``("data", "model")`` mesh (``parallel.mesh.make_mesh``) the
+episode batch splits over ``"data"`` and the hidden dimension over
+``"model"`` (:func:`param_shardings`, :func:`shard_params`): each rank holds
+its columns of ``w1``, its part of ``b1`` and its rows of ``w2``; the
+second layer's partial products are summed over the ``"model"`` group (a
+forward all-reduce whose backward passes the cotangent on, since every
+rank of the group computes the same loss from the sum), and the gradients
+are averaged over ``"data"``. Each rank draws its lanes' actions from the
+global batch's draws, so the step is the one-process step up to the order
+of float32 sums.
 
 Precision follows the JAX forward: the observation and ``w1``, then the
 hidden layer and ``w2``, are rounded to bfloat16 and multiplied with
@@ -82,6 +92,52 @@ def init_params(key, obs_dim: int, n_actions: int, hidden: int = 256,
     ))
 
 
+def param_shardings(mesh) -> ACParams:
+    """Tensor-parallel layout: the hidden dimension split over the
+    ``"model"`` axis. Each field is a tuple naming, per dimension, the mesh
+    axis that splits it (the JAX package's ``PartitionSpec``)."""
+    del mesh
+    return ACParams(
+        w1=(None, "model"), b1=("model",), w2=("model", None), b2=(),
+        w_pi=(None,), b_pi=(), w_v=(None,), b_v=(),
+    )
+
+
+def shard_params(params: ACParams, mesh) -> ACParams:
+    """This rank's leaf tensors of ``params`` (the whole params, the same on
+    every rank) under :func:`param_shardings`, on the mesh's device."""
+    out = []
+    for p, spec in zip(params, param_shardings(mesh)):
+        p = p.detach()
+        for dim, axis in enumerate(spec):
+            if axis is not None:
+                n = mesh.shape[axis]
+                if p.shape[dim] % n:
+                    raise ValueError(
+                        f"dim {dim} of size {p.shape[dim]} does not split "
+                        f"over the {n} ranks of '{axis}'"
+                    )
+                size = p.shape[dim] // n
+                p = p.narrow(dim, mesh.index(axis) * size, size)
+        out.append(p.to(mesh.device))
+    return _leaves(out)
+
+
+class _ModelSum(torch.autograd.Function):
+    """Sum over the ``"model"`` group in the forward; the backward passes
+    the cotangent on (each rank's loss is the same function of the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        from ai_safety_gridworlds_torch.parallel.mesh import all_reduce
+
+        return all_reduce(x.clone(), mesh, "model")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 def params_from_jax(params, device="cuda") -> ACParams:
     """A JAX ``ACParams`` whose leaves are numpy arrays (``jax.tree.map(
     np.asarray, params)``) as the port's leaf tensors on ``device``."""
@@ -96,11 +152,16 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(_F32)
 
 
-def forward(params: ACParams, obs: torch.Tensor):
+def forward(params: ACParams, obs: torch.Tensor, mesh=None):
     """obs: f32 [batch, obs_dim] -> (logits [batch, n_actions], value
-    [batch])."""
+    [batch]). Under ``mesh`` the params are a rank's shards
+    (:func:`shard_params`) and the second layer's partial sums meet over
+    the ``"model"`` group."""
     h = torch.relu(_bf16(obs) @ _bf16(params.w1) + params.b1)
-    h2 = torch.relu(_bf16(h) @ _bf16(params.w2) + params.b2)
+    part = _bf16(h) @ _bf16(params.w2)
+    if mesh is not None and mesh.shape["model"] > 1:
+        part = _ModelSum.apply(part, mesh)
+    h2 = torch.relu(part + params.b2)
     # Both heads at once, as a broadcast product summed over the hidden
     # dim: elementwise float32 ops that no matmul precision switch (TF32)
     # reaches, in the forward or the backward.
@@ -110,12 +171,34 @@ def forward(params: ACParams, obs: torch.Tensor):
     return out[..., :-1], out[..., -1]
 
 
-def perturbed_gap(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+def perturbed_gap(key: torch.Tensor, logits: torch.Tensor,
+                  lanes=None) -> torch.Tensor:
     """Each row's gap between its two largest perturbed logits, ``gumbel +
-    logits`` from the ``categorical`` draw's key: ``[B]``."""
-    top = torch.topk(threefry.gumbel(key, logits.shape) + logits, 2,
+    logits`` from the ``categorical`` draw's key: ``[B]``. ``lanes`` as for
+    :func:`_categorical`."""
+    top = torch.topk(_gumbel(key, logits, lanes) + logits, 2,
                      dim=-1).values
     return top[:, 0] - top[:, 1]
+
+
+def _gumbel(key, logits, lanes):
+    """The categorical draw's gumbel noise for ``logits``' rows: the rows
+    ``lo:hi`` of a ``[batch, A]`` draw when ``lanes`` is ``(lo, hi,
+    batch)``."""
+    if lanes is None:
+        return threefry.gumbel(key, logits.shape)
+    lo, hi, batch = lanes
+    return threefry.gumbel(key, (batch, logits.shape[-1]))[lo:hi]
+
+
+def _categorical(key, logits, lanes=None):
+    """``threefry.categorical(key, logits)``; with ``lanes`` ``(lo, hi,
+    batch)``, ``logits`` are rows ``lo:hi`` of the batch's and the draw is
+    theirs of the batch's draw."""
+    if lanes is None:
+        return threefry.categorical(key, logits)
+    return torch.argmax(_gumbel(key, logits, lanes) + logits,
+                        dim=-1).to(torch.int32)
 
 
 def _flat_obs(env, state) -> torch.Tensor:
@@ -140,23 +223,33 @@ def unroll_and_loss(
     value_coef: float = 0.5,
     entropy_coef: float = 0.01,
     draw_gaps=None,
+    mesh=None,
 ):
     """Collect ``n_steps`` with the current policy and compute the A2C
     loss; returns ``(loss, ep_batch)``. ``key`` is one threefry key (its
     ``split`` gives each step's ``categorical`` key, as JAX's scan). With a
     list ``draw_gaps``, each step appends each lane's :func:`perturbed_gap`:
     a gap below the last bits in which two implementations' logits differ
-    may pick another action."""
+    may pick another action. Under ``mesh`` the params are the rank's
+    shards, ``ep_batch`` its lanes of the batch split over ``"data"``, and
+    the loss is the rank's part (the mean over its lanes)."""
     _check_device(params, ep_batch)
     step_keys = threefry.split(as_key(key, ep_batch.last_step_type.device),
                                n_steps)
+    lanes = None
+    if mesh is not None:
+        local = ep_batch.last_step_type.shape[0]
+        lo = mesh.index("data") * local
+        lanes = (lo, lo + local, local * mesh.shape["data"])
     rows = []
     for t in range(n_steps):
-        logits, value = forward(params, _flat_obs(env, ep_batch.env_state))
+        logits, value = forward(params, _flat_obs(env, ep_batch.env_state),
+                                mesh)
         # Logit index i is action action_min + i.
-        idx = threefry.categorical(step_keys[t], logits.detach())
+        idx = _categorical(step_keys[t], logits.detach(), lanes)
         if draw_gaps is not None:
-            draw_gaps.append(perturbed_gap(step_keys[t], logits.detach()))
+            draw_gaps.append(perturbed_gap(step_keys[t], logits.detach(),
+                                           lanes))
         ep_batch, outs = base.episode_step(env, ep_batch,
                                            idx + env.action_min)
         logp_all = torch.log_softmax(logits, dim=-1)
@@ -167,7 +260,7 @@ def unroll_and_loss(
             "reward": outs.step.reward,
             "cont": (~outs.step.game_over).to(_F32),
         })
-    _, bootstrap = forward(params, _flat_obs(env, ep_batch.env_state))
+    _, bootstrap = forward(params, _flat_obs(env, ep_batch.env_state), mesh)
 
     ret = bootstrap.detach()
     returns = [None] * n_steps
@@ -186,12 +279,29 @@ def unroll_and_loss(
 
 
 def train_step(params: ACParams, env, ep_batch, key, lr: float = 1e-3,
-               n_steps: int = 8, draw_gaps=None):
+               n_steps: int = 8, draw_gaps=None, mesh=None):
     """One SGD step on the A2C loss: ``(params, ep_batch, loss)`` with new
     leaf params (those given are left as they were) and the loss as a
-    0-dim tensor. ``draw_gaps`` is :func:`unroll_and_loss`'s."""
+    0-dim tensor. ``draw_gaps`` is :func:`unroll_and_loss`'s.
+
+    Under ``mesh`` (a ``("data", "model")`` mesh): ``params`` are the
+    rank's shards (:func:`shard_params`), ``ep_batch`` its lanes of the
+    global batch; the gradients and the loss are averaged over ``"data"``
+    (one all-reduce of every gradient as one flat buffer), so every rank
+    returns its shards of the one-process step's params."""
     loss, ep_batch = unroll_and_loss(params, env, ep_batch, key,
-                                     n_steps=n_steps, draw_gaps=draw_gaps)
+                                     n_steps=n_steps, draw_gaps=draw_gaps,
+                                     mesh=mesh)
     grads = torch.autograd.grad(loss, list(params))
+    if mesh is not None:
+        from ai_safety_gridworlds_torch.parallel.mesh import all_reduce
+
+        flat = all_reduce(
+            torch.cat([g.reshape(-1) for g in grads]
+                      + [loss.detach().reshape(1)]),
+            mesh, "data", mean=True)
+        parts = flat.split([g.numel() for g in grads] + [1])
+        grads = [part.view_as(g) for part, g in zip(parts, grads)]
+        loss = parts[-1].reshape(())
     new = _leaves(p.detach() - lr * g for p, g in zip(params, grads))
     return new, ep_batch, loss.detach()

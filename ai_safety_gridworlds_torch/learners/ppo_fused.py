@@ -27,8 +27,10 @@ max_norm``); both update the params in place.
 
 Every entry point takes ``device``, ``"cuda"`` unless the caller passes
 ``"cpu"``; asking for CUDA without a card raises. CPU tensors run the plain
-PyTorch collection. The data-parallel ``make_sharded_train_step`` is not
-ported yet (``ROADMAP.md``).
+PyTorch collection. ``make_sharded_train_step`` is the data-parallel update
+over a ``parallel.mesh.Mesh``: each rank collects on its lanes with one
+launch of the collection kernel, and the minibatch gradients are averaged
+over the ranks before the clip and Adam.
 """
 
 from __future__ import annotations
@@ -270,12 +272,14 @@ def _minibatches(traj: dict, boot: torch.Tensor, config: FusedPPOConfig):
 
 def _update_from_traj(traj: dict, boot: torch.Tensor, params: dict,
                       opt: torch.optim.Optimizer, dims,
-                      config: FusedPPOConfig) -> dict:
+                      config: FusedPPOConfig, grad_reduce=None) -> dict:
     """GAE and ``n_epochs`` x ``n_minibatches`` clipped, Adam-stepped
-    gradient updates of ``params`` (in place) on a packed trajectory.
-    Returns the metrics as 0-dim tensors (no host sync): the losses and
-    entropy averaged over the updates, completed episodes and the mean
-    reward of valid agent-steps."""
+    gradient updates of ``params`` (in place) on a packed trajectory;
+    shared by the single-device and sharded train steps. ``grad_reduce``
+    (the sharded step's mean over the ranks) maps each minibatch's list of
+    gradients before the clip. Returns the metrics as 0-dim tensors (no
+    host sync): the losses and entropy averaged over the updates, completed
+    episodes and the mean reward of valid agent-steps."""
     plist = [params[k] for k in MLP_KEYS]
     mbs = _minibatches(traj, boot, config)
     sums = {}
@@ -283,6 +287,8 @@ def _update_from_traj(traj: dict, boot: torch.Tensor, params: dict,
         for mb in mbs:
             loss, metrics = _loss_packed(params, mb, dims, config)
             grads = torch.autograd.grad(loss, plist)
+            if grad_reduce is not None:
+                grads = grad_reduce(grads)
             grads = clip_by_global_norm(grads, config.max_grad_norm)
             for p, g in zip(plist, grads):
                 p.grad = g
@@ -331,6 +337,114 @@ def make_train_step(fused, config: FusedPPOConfig = FusedPPOConfig(),
         ), metrics
 
     return train_step
+
+
+def make_sharded_train_step(fused, mesh, config: FusedPPOConfig = FusedPPOConfig(),
+                            axis: str = "data", tile: int | None = None):
+    """The data-parallel fused-PPO update over ``mesh``'s ``axis``
+    (``parallel.mesh.make_mesh``): returns ``(train_step, shard_state)``.
+
+    The packed lane axis splits over ``axis``; params and the optimizer are
+    replicated. Each rank's ``train_step`` makes one ``rollout_collect`` on
+    its lanes (one launch of the collection kernel on the card), with the
+    statics ``init_packed`` drew for the global batch sliced to its lanes,
+    then :func:`_update_from_traj` with each minibatch's gradients averaged
+    over the ranks (one all-reduce of the four as one flat buffer) before
+    the global-norm clip and Adam, as the JAX package's ``pmean`` precedes
+    optax's chain. The metrics are averaged over the ranks, ``episodes``
+    then scaled by their count: a sum.
+
+    As in the JAX package, advantage normalization and the loss's
+    denominator are per rank. Every rank calls it with the same arguments
+    and starts from the same state (``init_train_state`` from one seed).
+    ``shard_state`` maps that global state to the rank's: its lanes of
+    ``S`` (params and optimizer kept, on the mesh's device). A later
+    ``init_packed`` of ``fused`` makes ``train_step`` raise
+    ``RuntimeError``: rebuild it (and re-shard the state)."""
+    from ai_safety_gridworlds_torch.ops.fused_base import shard_statics
+    from ai_safety_gridworlds_torch.parallel.mesh import all_reduce
+
+    dev = mesh.device
+    dims = _dims(fused)
+    n_dev = mesh.shape[axis]
+    B = fused.packed_batch
+    if B is None:
+        raise ValueError("call init_packed before make_sharded_train_step")
+    if B % n_dev:
+        raise ValueError(
+            f"packed batch {B} is not divisible by the mesh '{axis}' axis "
+            f"({n_dev} devices); init_packed with a batch that is a "
+            "multiple of the device count"
+        )
+    local = B // n_dev
+    if local % config.n_minibatches:
+        raise ValueError(
+            f"per-device lane shard {local} (batch {B} / {n_dev} devices) "
+            f"is not divisible by n_minibatches {config.n_minibatches}"
+        )
+    if tile is not None and not (tile % 32 == 0 and 32 <= tile <= 256):
+        raise ValueError(
+            f"per-device lane shard {local} (batch {B} / {n_dev} devices) "
+            f"cannot launch at the lane tile {tile}: the kernels take a "
+            "multiple of 32 in [32, 256]"
+        )
+    lo, hi = mesh.lanes(B, axis)
+    statics = shard_statics(fused.statics_on(dev), lo, hi)
+    # The statics are sliced at build time; a later init_packed (new
+    # layouts) would leave the step on stale boards.
+    statics_ref = fused._kstatics_np
+
+    def grad_reduce(grads):
+        flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), mesh,
+                          axis, mean=True)
+        return [part.view_as(g) for part, g in
+                zip(flat.split([g.numel() for g in grads]), grads)]
+
+    def train_step(state: FusedPPOState):
+        if fused._kstatics_np is not statics_ref:
+            raise RuntimeError(
+                "the engine was re-packed (init_packed) after "
+                "make_sharded_train_step sliced its statics: rebuild the "
+                "sharded train step (and re-shard the state) to pick up "
+                "the new layouts"
+            )
+        if state.S["t"].shape[1] != hi - lo or state.S["t"].device != dev:
+            raise ValueError(
+                f"train state holds {state.S['t'].shape[1]} lanes on "
+                f"{state.S['t'].device}; this rank runs {hi - lo} on {dev} "
+                "(shard_state)"
+            )
+        S, traj, boot = fused.rollout_collect(
+            state.S, state.params, config.n_steps, tile=tile, statics=statics
+        )
+        metrics = _update_from_traj(traj, boot, state.params, state.opt,
+                                    dims, config, grad_reduce=grad_reduce)
+        names = sorted(metrics)
+        means = all_reduce(torch.stack([metrics[k] for k in names]), mesh,
+                           axis, mean=True)
+        metrics = dict(zip(names, means.unbind()))
+        metrics["episodes"] = metrics["episodes"] * n_dev
+        return dataclasses.replace(
+            state, S=S, update_idx=state.update_idx + 1
+        ), metrics
+
+    def shard_state(state: FusedPPOState) -> FusedPPOState:
+        for k in MLP_KEYS:
+            if state.params[k].device != dev:
+                raise ValueError(
+                    f"params lie on {state.params[k].device}, the mesh "
+                    f"computes on {dev}"
+                )
+        if state.S["t"].shape[1] != B:
+            raise ValueError(
+                f"shard_state takes the global state of {B} lanes, got "
+                f"{state.S['t'].shape[1]}"
+            )
+        return dataclasses.replace(state, S={
+            k: v[:, lo:hi].contiguous().to(dev) for k, v in state.S.items()
+        })
+
+    return train_step, shard_state
 
 
 def evaluate(fused, params: dict, n_steps: int = 256, batch: int = 1024,

@@ -10,7 +10,10 @@ The build happens at first use, from the sources in this package only,
 into ``ai_safety_gridworlds_torch/_build/<digest>/`` (listed in
 ``.gitignore``), where the digest covers every file of ``csrc/`` and the
 compiler flags. All sources compile at once, one ``nvcc`` each. A failed
-build raises; nothing falls back to the plain versions.
+build raises; nothing falls back to the plain versions. A build holds the
+module's lock, so a build started on another thread (``chip_smoke.py``
+builds while it runs phases that launch no kernel) makes a ``load`` wait
+for it instead of compiling the same source twice.
 
 ``--fmad=false`` is part of the contract: without it ``nvcc`` contracts the
 stencil's last product and ``1 - prod`` into one FMA, and the kernel's fire
@@ -37,7 +40,7 @@ NVCC_FLAGS = (
 )
 
 _libs: dict = {}
-_lock = threading.Lock()
+_lock = threading.RLock()
 
 
 def nvcc_path() -> str:
@@ -67,6 +70,11 @@ def build(names=KERNELS) -> dict:
     Returns ``{name: compiler log}`` (``-Xptxas -v`` register and shared
     memory report) for every name; raises ``RuntimeError`` with the
     compiler's output when a build fails."""
+    with _lock:
+        return _build(names)
+
+
+def _build(names) -> dict:
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = None

@@ -15,12 +15,25 @@ fall back to the plain body. ``rollout_plain`` and ``rollout_collect_plain``
 run the plain body on any device; they are what the tests and the on-card
 comparison hold the kernels against.
 
+The statics are what ``init_packed`` drew besides the state (the layouts,
+``_kstatics_np``) and the installed policy (``set_policies``); each is
+``[rows, B]`` (one column a lane) or ``[rows, 1]`` (shared).
+``statics_on(device)`` gives them as tensors. Every driver takes
+``statics=``, as the JAX package's ``rollout`` and ``rollout_collect`` do:
+a data-parallel rank runs lanes ``[lo, hi)`` of a batch drawn for the
+global B with ``shard_statics(statics_on(device), lo, hi)``, its state's
+lanes and its own launch, and the plain step and every kernel read the
+statics passed (the scalar statics are all shared, so K4 and K5 keep their
+cached tables). Lanes are independent: a shard's result is bit-equal to
+the same lanes of the unsharded run.
+
 Subclasses implement ``_step(S, statics, collect_draws)``,
-``_rollout_kernel(S, n_steps, tile)``, ``init_packed(seed, batch, device,
-tile=None)`` (on a CUDA device it raises ``NotImplementedError`` for a
-configuration its kernels cannot take at ``tile``) and, where ``POLICY_FEATURES > 0``, ``feats_of(S)`` and
-``_collect_kernel(S, params, n_steps, tile)``; they declare
-``STATE_FIELDS`` and ``DEFAULT_TILE``.
+``_rollout_kernel(S, n_steps, tile, statics)``, ``init_packed(seed, batch,
+device, tile=None)`` (on a CUDA device it raises ``NotImplementedError``
+for a configuration its kernels cannot take at ``tile``) and, where
+``POLICY_FEATURES > 0``, ``feats_of(S)`` and ``_collect_kernel(S, params,
+n_steps, tile, statics)``; they declare ``STATE_FIELDS`` and
+``DEFAULT_TILE``.
 
 The MLP forward accumulates in one fixed order -- bias first, features
 ascending, hidden units ascending -- and sums the softmax terms left to
@@ -77,6 +90,10 @@ class FusedMaBase:
     # Per-agent policy features; kernels with in-kernel policies override
     # it and implement ``feats_of`` and the extraction in ``_step``.
     POLICY_FEATURES: int = 0
+    # The layout statics ``init_packed`` drew (numpy, by name) and the batch
+    # it drew them for; kernels without layouts keep none.
+    _kstatics_np: dict = {}
+    packed_batch = None
 
     # ------------------------------------------------------------ prologue
 
@@ -358,13 +375,51 @@ class FusedMaBase:
 
         return pooled, ep_idx
 
-    def _check_policy_batch(self, statics, B):
+    def _check_statics_batch(self, statics, B):
+        """Refuse statics whose lanes are not ``B``'s: a per-lane policy or
+        layout of another batch (``ValueError``)."""
         if "pol_w" in statics and statics["pol_w"].shape[1] not in (1, B):
             raise ValueError(
                 f"policy batch {statics['pol_w'].shape[1]} != packed batch "
                 f"{B} (set_policies with per-lane params must match "
                 "init_packed's batch)"
             )
+        for k in self._kstatics_np:
+            if k in statics and statics[k].shape[1] not in (1, B):
+                raise ValueError(
+                    f"per-lane layouts of {statics[k].shape[1]} lanes do not "
+                    f"match the batch {B}; init_packed drew them for another "
+                    "batch"
+                )
+
+    # ------------------------------------------------------------- statics
+
+    def statics_on(self, device) -> dict:
+        """The layout statics and the installed policy as tensors on
+        ``device`` (the JAX package's ``_statics_jnp``): what ``statics=``
+        of the drivers takes, whole or through :func:`shard_statics`."""
+        tables = self._on(device) if self._kstatics_np else {}
+        return {**{k: tables[k] for k in self._kstatics_np},
+                **self._all_statics(device)}
+
+    def _tables(self, device, statics):
+        """The consts and layout statics a step reads on ``device``: the
+        engine's own (the device cache), with the layout statics that
+        ``statics`` carries (a lane shard's) in their place."""
+        tables = self._on(device)
+        if statics:
+            own = {k: statics[k] for k in self._kstatics_np if k in statics}
+            if own:
+                return {**tables, **own}
+        return tables
+
+    def _launch_tables(self, device, statics):
+        """The dict a kernel launch takes its layout pointers from, which
+        also caches the launch's derived tables: ``statics`` when it carries
+        layout statics (a lane shard's), else the device cache."""
+        if statics and any(k in statics for k in self._kstatics_np):
+            return statics
+        return self._on(device)
 
     # ------------------------------------------------------------ drivers
 
@@ -377,23 +432,29 @@ class FusedMaBase:
             statics = {**statics, **params}
         return self._step(S, statics, collect_draws=collect_draws)
 
-    def rollout_plain(self, S, n_steps):
-        """``n_steps`` plain steps on any device."""
-        statics = self._all_statics(S["t"].device)
-        self._check_policy_batch(statics, S["t"].shape[1])
+    def rollout_plain(self, S, n_steps, statics=None):
+        """``n_steps`` plain steps on any device; ``statics`` as for
+        :meth:`rollout`."""
+        if statics is None:
+            statics = self._all_statics(S["t"].device)
+        self._check_statics_batch(statics, S["t"].shape[1])
         for _ in range(n_steps):
             S = self._step(S, statics)
         return S
 
-    def rollout(self, S, n_steps, tile=None):
+    def rollout(self, S, n_steps, tile=None, statics=None):
         """Advance the packed batch ``n_steps`` full MA steps through the
         kernel's wrapper: CPU tensors take the plain PyTorch step body;
         CUDA tensors launch the hand-written kernel, one launch per call.
         An installed policy (``set_policies``) picks the actions.
         Cumulative reward sums and episode counts accumulate in
-        ``stats_rewards`` / ``stats_episodes``."""
+        ``stats_rewards`` / ``stats_episodes``.
+
+        ``statics`` (default ``statics_on`` of the state's device) are the
+        layouts and policy the steps read; a rank of a data-parallel run
+        passes its lanes' (:func:`shard_statics`) with its lanes' state."""
         return self._rollout_kernel(
-            S, n_steps, self.DEFAULT_TILE if tile is None else tile
+            S, n_steps, self.DEFAULT_TILE if tile is None else tile, statics
         )
 
     # ------------------------------------------------- trajectory collection
@@ -451,7 +512,7 @@ class FusedMaBase:
         }
         return out, rec, ex
 
-    def _collect_statics(self, S, params):
+    def _collect_statics(self, S, params, statics=None):
         if self.POLICY_FEATURES == 0:
             raise NotImplementedError(
                 "this kernel has no policy feature extractor"
@@ -459,12 +520,13 @@ class FusedMaBase:
         for k in MLP_KEYS:
             if k not in params:
                 raise ValueError(f"missing MLP param {k!r}")
-        statics = self._all_statics(S["t"].device)
+        if statics is None:
+            statics = self._all_statics(S["t"].device)
         return {**statics, **{k: params[k].detach() for k in MLP_KEYS}}
 
-    def rollout_collect_plain(self, S, params, n_steps):
+    def rollout_collect_plain(self, S, params, n_steps, statics=None):
         """:meth:`rollout_collect` by the plain step body, on any device."""
-        statics = self._collect_statics(S, params)
+        statics = self._collect_statics(S, params, statics)
         B = S["t"].shape[1]
         recs = {name: [] for name, _, _ in self._traj_layout()}
         for _ in range(n_steps):
@@ -479,7 +541,7 @@ class FusedMaBase:
         }
         return S, traj, self._bootstrap_value(S, statics)
 
-    def rollout_collect(self, S, params, n_steps, tile=None):
+    def rollout_collect(self, S, params, n_steps, tile=None, statics=None):
         """Advance ``n_steps`` under the MLP policy ``params`` and emit the
         per-step trajectory (the PPO collection path).
 
@@ -489,11 +551,20 @@ class FusedMaBase:
         :meth:`_traj_layout` field to a ``[n_steps, rows, B]`` tensor and
         ``boot`` is the post-rollout value [n_agents, B]. CPU tensors take
         the plain step body; CUDA tensors make one launch of the
-        collection kernel."""
+        collection kernel. ``statics`` as for :meth:`rollout`."""
         self._collect_statics(S, params)
         return self._collect_kernel(
-            S, params, n_steps, self.DEFAULT_TILE if tile is None else tile
+            S, params, n_steps, self.DEFAULT_TILE if tile is None else tile,
+            statics,
         )
+
+
+def shard_statics(statics: dict, lo: int, hi: int) -> dict:
+    """``statics`` for lanes ``[lo, hi)``: each per-lane ``[rows, B]``
+    tensor sliced (contiguous), each shared ``[rows, 1]`` one as it is (the
+    JAX package's rule, ``learners/ppo_fused.py:407-411``)."""
+    return {k: v if v.shape[1] == 1 else v[:, lo:hi].contiguous()
+            for k, v in statics.items()}
 
 
 def _f32(x: float) -> float:

@@ -230,6 +230,7 @@ class FusedFiremaker(FusedMaBase):
         del tile
         n = self.n
         keys = torch.from_numpy(prng.derive_keys(seed, batch))
+        self.packed_batch = int(batch)
         state = {
             "fire": torch.zeros((self.HW, batch), dtype=_F32),
             "pos": torch.from_numpy(self.start_pos_flat).repeat(1, batch),
@@ -623,11 +624,12 @@ class FusedFiremaker(FusedMaBase):
 
     # ----------------------------------------------------------- CUDA path
 
-    def _rollout_kernel(self, S, n_steps, tile):
-        return fused_firemaker_rollout(self, S, n_steps, tile)
+    def _rollout_kernel(self, S, n_steps, tile, statics=None):
+        return fused_firemaker_rollout(self, S, n_steps, tile, statics)
 
-    def _collect_kernel(self, S, params, n_steps, tile):
-        return fused_firemaker_collect(self, S, params, n_steps, tile)
+    def _collect_kernel(self, S, params, n_steps, tile, statics=None):
+        return fused_firemaker_collect(self, S, params, n_steps, tile,
+                                       statics)
 
     def _kernel_static(self, device) -> "_FmParams":
         """The kernels' parameter block with everything static filled in:
@@ -882,22 +884,25 @@ def _set_state(p, fused, S, out):
 
 
 def fused_firemaker_rollout(fused: FusedFiremaker, S: dict, n_steps: int,
-                            tile: int = FusedFiremaker.DEFAULT_TILE) -> dict:
+                            tile: int = FusedFiremaker.DEFAULT_TILE,
+                            statics=None) -> dict:
     """Advance a packed CUDA state ``n_steps`` steps with one launch of K1
     (``csrc/fused_firemaker.cu``); returns a new state dict. The policy
     installed by ``set_policies`` at the time of the call picks the
     actions (K1's linear branch); without one the draws are uniform.
     ``tile`` is threads per block, a multiple of 32 in [32, 256]: one warp
-    per lane, so ``tile // 32`` lanes per block.
+    per lane, so ``tile // 32`` lanes per block. ``statics`` (firemaker has
+    no layouts: the policy) as for :meth:`FusedMaBase.rollout`.
 
     Checks every field's device, dtype, shape and contiguity, and the
     board and shared memory against the kernel's limits, and raises on what
     the kernel does not take; CPU tensors take the plain version."""
     if S["t"].device.type == "cpu":
-        return fused.rollout_plain(S, n_steps)
+        return fused.rollout_plain(S, n_steps, statics)
     device, B, n_steps = _check_launch(fused, S, n_steps, tile)
-    statics = fused._all_statics(device)
-    fused._check_policy_batch(statics, B)
+    if statics is None:
+        statics = fused._all_statics(device)
+    fused._check_statics_batch(statics, B)
     out = {k: torch.empty_like(S[k]) for k in fused.STATE_FIELDS}
     if n_steps == 0:
         for k in out:
@@ -908,7 +913,7 @@ def fused_firemaker_rollout(fused: FusedFiremaker, S: dict, n_steps: int,
     lib = _firemaker_lib()
     p = _FmParams.from_buffer_copy(fused._kernel_static(device))
     _set_state(p, fused, S, out)
-    if statics:
+    if "pol_w" in statics:
         for k in POLICY_KEYS:
             setattr(p, k, statics[k].data_ptr())
         p.pol_lanes = statics["pol_w"].shape[1]
@@ -928,7 +933,8 @@ fused_firemaker_rollout.launches = 0
 
 def fused_firemaker_collect(fused: FusedFiremaker, S: dict, params: dict,
                             n_steps: int,
-                            tile: int = FusedFiremaker.DEFAULT_TILE):
+                            tile: int = FusedFiremaker.DEFAULT_TILE,
+                            statics=None):
     """The PPO collection: ``n_steps`` steps under the MLP policy
     ``params`` with one launch of K3 (``csrc/fused_firemaker.cu``).
 
@@ -938,9 +944,11 @@ def fused_firemaker_collect(fused: FusedFiremaker, S: dict, params: dict,
     and each MLP tensor's device, dtype, shape and contiguity (``mlp_w1``
     [H, F], ``mlp_b1`` [H, 1], ``mlp_w2`` [A+1, H], ``mlp_b2`` [A+1, 1],
     float32 on the state's device), and the weights and hidden units
-    against the shared memory; CPU tensors take the plain version."""
+    against the shared memory; CPU tensors take the plain version. K3 reads
+    no statics (the MLP picks every action): ``statics`` reaches the plain
+    version only."""
     if S["t"].device.type == "cpu":
-        return fused.rollout_collect_plain(S, params, n_steps)
+        return fused.rollout_collect_plain(S, params, n_steps, statics)
     A = fused.amax - fused.amin + 1
     if A > _MAX_A:
         raise ValueError(f"K3 takes at most {_MAX_A} actions, got {A}")

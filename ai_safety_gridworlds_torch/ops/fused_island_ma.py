@@ -368,6 +368,7 @@ class FusedIslandMa(FusedMaBase):
             state["ep_idx"] = torch.zeros((1, batch), dtype=_I32)
             fields = fields + ("ep_idx",)
         self.STATE_FIELDS = fields
+        self.packed_batch = int(batch)
         if torch.device(device).type == "cuda":
             check_static_limits(self, tile)
         return {k: v.to(device) for k, v in state.items()}
@@ -412,12 +413,13 @@ class FusedIslandMa(FusedMaBase):
 
     def _step(self, S: dict, statics=None, collect_draws: bool = False):
         """One full MA step on packed tensors: the plain version of K6 and
-        K7. ``statics`` holds the policy (``pol_*`` or ``mlp_*`` tensors);
-        ``None`` reads the one installed by ``set_policies``."""
+        K7. ``statics`` holds the policy (``pol_*`` or ``mlp_*`` tensors)
+        and may hold the layouts (a lane shard's); ``None`` reads the policy
+        installed by ``set_policies``."""
         cfg = self.cfg
         n, D, W, H = self.n, self.D, self.w, self.h
         dev = S["t"].device
-        c = self._on(dev)
+        c = self._tables(dev, statics)
         if statics is None:
             statics = self._all_statics(dev)
         iota_n = torch.arange(n, dtype=_I32, device=dev).view(n, 1)
@@ -839,11 +841,12 @@ class FusedIslandMa(FusedMaBase):
 
     # ----------------------------------------------------------- CUDA path
 
-    def _rollout_kernel(self, S, n_steps, tile):
-        return fused_island_ma_rollout(self, S, n_steps, tile)
+    def _rollout_kernel(self, S, n_steps, tile, statics=None):
+        return fused_island_ma_rollout(self, S, n_steps, tile, statics)
 
-    def _collect_kernel(self, S, params, n_steps, tile):
-        return fused_island_ma_collect(self, S, params, n_steps, tile)
+    def _collect_kernel(self, S, params, n_steps, tile, statics=None):
+        return fused_island_ma_collect(self, S, params, n_steps, tile,
+                                       statics)
 
 
 # ------------------------------------------------------------ CUDA kernels
@@ -962,8 +965,9 @@ def _move_geometry(h: int, w: int):
     return cand, inb
 
 
-def _step_words(fused: FusedIslandMa) -> list:
-    """Each layout's step table, ``[stat_lanes, HW * _MOVES]`` uint32 (one
+def _step_words(fused: FusedIslandMa, st: dict = None) -> list:
+    """Each layout's step table from the layout statics ``st`` (numpy; by
+    default the engine's own), ``[stat_lanes, HW * _MOVES]`` uint32 (one
     row a lane with per-lane layouts): the word of (cell, move column)
     holds the clamped candidate cell (bits 0-11), whether the candidate is
     in bounds and no wall (bit 12) and the static board value ``sboard``
@@ -971,7 +975,7 @@ def _step_words(fused: FusedIslandMa) -> list:
     cell's own board value. Raises ``ValueError`` where a board value is
     no integer in [0, 65535]."""
     cand, inb = _move_geometry(fused.h, fused.w)
-    st = fused._kstatics_np
+    st = fused._kstatics_np if st is None else st
     out = []
     for k in range(fused.layout_pool):
         sfx = f"_p{k}" if k else ""
@@ -1019,11 +1023,11 @@ def _dir_words(fused: FusedIslandMa) -> np.ndarray:
 
 def _static_params(fused: FusedIslandMa, tables: dict) -> _ImParams:
     """The static parameter block: the layouts' device pointers (from
-    ``tables``, the device cache, which keeps them alive: the step tables
-    under ``_k6_steps``), the flags, the float32 constants, the reward
-    vectors, the direction words and the features' reciprocals. The state,
-    policy, MLP and trajectory pointers, B, n_steps, group and hidden are
-    left at 0."""
+    ``tables``, the device cache or a lane shard's statics, which keeps
+    them alive: the step tables under ``_k6_steps``), the flags, the
+    float32 constants, the reward vectors, the direction words and the
+    features' reciprocals. The state, policy, MLP and trajectory pointers,
+    B, n_steps, group and hidden are left at 0."""
     cfg, has = fused.cfg, fused.has
     K = fused.layout_pool
     p = _ImParams()
@@ -1038,7 +1042,7 @@ def _static_params(fused: FusedIslandMa, tables: dict) -> _ImParams:
         randomize=int(bool(fused.env.randomize_agent_actions_order)),
         amin=fused.amin, amax=fused.amax,
         max_iterations=fused.max_iterations, pool=K,
-        stat_lanes=_stat_lanes(fused),
+        stat_lanes=tables["wall"].shape[1],
         has_goal=has["goal"], has_drink=has["drink"], has_food=has["food"],
         has_gold=has["gold"], has_silver=has["silver"],
         has_water=has["water"], thirst_death=fused.thirst_death,
@@ -1221,11 +1225,12 @@ def check_static_limits(fused, tile=None) -> None:
         )
 
 
-def _check_launch(fused, S, n_steps, tile, hidden=0):
+def _check_launch(fused, S, n_steps, tile, hidden=0, tables=None):
     """The checks both kernels share; returns ``(device, B, n_steps,
     block)`` with ``block`` from ``_block``. Configurations the kernels
     lack raise ``NotImplementedError``, bad inputs ``ValueError``, both
-    before any launch."""
+    before any launch; the layouts' lanes are read from ``tables``
+    (``FusedMaBase._launch_tables``; by default the device cache)."""
     device = S["t"].device
     if device.type != "cuda":
         raise NotImplementedError(f"no island_ma kernel for {device}")
@@ -1236,12 +1241,8 @@ def _check_launch(fused, S, n_steps, tile, hidden=0):
         fused, S, n_steps, 32 if tile is None else tile,
         max(fused.HW, fused.n * fused.D, fused.n * 5),
     )
-    lanes = _stat_lanes(fused)
-    if lanes not in (1, B):
-        raise ValueError(
-            f"per-lane layouts of {lanes} lanes do not match the batch {B}; "
-            "init_packed drew them for another batch"
-        )
+    fused._check_statics_batch(
+        fused._on(device) if tables is None else tables, B)
     if B * fused.HW * _MOVES >= 2**31:
         raise ValueError(f"batch {B} too large for 32-bit indexing")
     from ai_safety_gridworlds_torch.ops.fused_scalar import _schedulers
@@ -1250,13 +1251,17 @@ def _check_launch(fused, S, n_steps, tile, hidden=0):
                                       _schedulers(str(device)))
 
 
-def _params(fused, S, out, device) -> _ImParams:
-    """A copy of the cached static block with this call's state pointers."""
-    tables = fused._on(device)
+def _params(fused, S, out, device, tables) -> _ImParams:
+    """A copy of the static block cached in ``tables`` (the device cache or
+    a lane shard's statics) with this call's state pointers."""
     if "_k6_params" not in tables:
+        if tables is fused._on(device):
+            st = fused._kstatics_np
+        else:
+            st = {k: tables[k].cpu().numpy() for k in fused._kstatics_np}
         tables["_k6_steps"] = [
             torch.from_numpy(w.view(np.int32)).to(device)
-            for w in _step_words(fused)
+            for w in _step_words(fused, st)
         ]
         tables["_k6_params"] = _static_params(fused, tables)
     p = _ImParams.from_buffer_copy(tables["_k6_params"])
@@ -1268,7 +1273,8 @@ def _params(fused, S, out, device) -> _ImParams:
 
 
 def fused_island_ma_rollout(fused: FusedIslandMa, S: dict, n_steps: int,
-                            tile=FusedIslandMa.DEFAULT_TILE) -> dict:
+                            tile=FusedIslandMa.DEFAULT_TILE,
+                            statics=None) -> dict:
     """Advance a packed CUDA state ``n_steps`` steps with one launch of K6
     (``csrc/fused_island_ma.cu``); returns a new state dict. The policy
     installed by ``set_policies`` at the time of the call picks the actions
@@ -1276,15 +1282,19 @@ def fused_island_ma_rollout(fused: FusedIslandMa, S: dict, n_steps: int,
 
     ``tile`` is the threads per block (a multiple of 32 in [32, 256]);
     each lane runs on a group of ``_lanes_per_group`` threads, so a block
-    holds ``tile // g`` lanes. None sizes a block of 32 lanes.
+    holds ``tile // g`` lanes. None sizes a block of 32 lanes. ``statics``
+    (the layouts and the policy) as for :meth:`FusedMaBase.rollout`.
 
     Checks every field's device, dtype, shape and contiguity and raises on
     what the kernel does not take; CPU tensors take the plain version."""
     if S["t"].device.type == "cpu":
-        return fused.rollout_plain(S, n_steps)
-    device, B, n_steps, block = _check_launch(fused, S, n_steps, tile)
-    statics = fused._all_statics(device)
-    fused._check_policy_batch(statics, B)
+        return fused.rollout_plain(S, n_steps, statics)
+    tables = fused._launch_tables(S["t"].device, statics)
+    device, B, n_steps, block = _check_launch(fused, S, n_steps, tile,
+                                              tables=tables)
+    if statics is None:
+        statics = fused._all_statics(device)
+    fused._check_statics_batch(statics, B)
     out = {k: torch.empty_like(S[k]) for k in fused.STATE_FIELDS}
     if n_steps == 0:
         for k in out:
@@ -1293,8 +1303,8 @@ def fused_island_ma_rollout(fused: FusedIslandMa, S: dict, n_steps: int,
     from ai_safety_gridworlds_torch.ops import _cuda
 
     lib = _island_lib()
-    p = _params(fused, S, out, device)
-    if statics:
+    p = _params(fused, S, out, device, tables)
+    if "pol_w" in statics:
         for k in POLICY_KEYS:
             setattr(p, k, statics[k].data_ptr())
         p.pol_lanes = statics["pol_w"].shape[1]
@@ -1314,7 +1324,8 @@ fused_island_ma_rollout.launches = 0
 
 
 def fused_island_ma_collect(fused: FusedIslandMa, S: dict, params: dict,
-                            n_steps: int, tile=FusedIslandMa.DEFAULT_TILE):
+                            n_steps: int, tile=FusedIslandMa.DEFAULT_TILE,
+                            statics=None):
     """The PPO collection: ``n_steps`` steps under the MLP policy
     ``params`` with one launch of K7 (``csrc/fused_island_ma.cu``);
     ``tile`` as for :func:`fused_island_ma_rollout`.
@@ -1324,13 +1335,16 @@ def fused_island_ma_collect(fused: FusedIslandMa, S: dict, params: dict,
     Checks the state as K6 does and each MLP tensor's device, dtype, shape
     and contiguity (``mlp_w1`` [H, F], ``mlp_b1`` [H, 1], ``mlp_w2`` [A+1,
     H], ``mlp_b2`` [A+1, 1], float32 on the state's device); CPU tensors
-    take the plain version."""
+    take the plain version. ``statics`` (K7 reads their layouts) as for
+    :meth:`FusedMaBase.rollout`."""
     if S["t"].device.type == "cpu":
-        return fused.rollout_collect_plain(S, params, n_steps)
+        return fused.rollout_collect_plain(S, params, n_steps, statics)
     if S["t"].device.type != "cuda":
         raise NotImplementedError(f"no island_ma kernel for {S['t'].device}")
     H = check_mlp_params(fused, params, S["t"].device)
-    device, B, n_steps, block = _check_launch(fused, S, n_steps, tile, H)
+    tables = fused._launch_tables(S["t"].device, statics)
+    device, B, n_steps, block = _check_launch(fused, S, n_steps, tile, H,
+                                              tables)
     out = {k: torch.empty_like(S[k]) for k in fused.STATE_FIELDS}
     traj = {
         name: torch.empty((n_steps, rows, B), dtype=dtype, device=device)
@@ -1340,7 +1354,7 @@ def fused_island_ma_collect(fused: FusedIslandMa, S: dict, params: dict,
     from ai_safety_gridworlds_torch.ops import _cuda
 
     lib = _island_lib()
-    p = _params(fused, S, out, device)
+    p = _params(fused, S, out, device, tables)
     for k in MLP_KEYS:
         setattr(p, k, params[k].data_ptr())
     for name in traj:

@@ -659,12 +659,13 @@ class FusedSavanna(FusedMaBase):
 
     def _step(self, S: dict, statics=None, collect_draws: bool = False):
         """One full MA step on packed tensors: the plain version of K8 and
-        K9. ``statics`` holds the policy (``pol_*`` or ``mlp_*`` tensors);
-        ``None`` reads the one installed by ``set_policies``."""
+        K9. ``statics`` holds the policy (``pol_*`` or ``mlp_*`` tensors)
+        and may hold the layouts (a lane shard's); ``None`` reads the policy
+        installed by ``set_policies``."""
         env, cfg = self.env, self.cfg
         n, D, HW, W = self.n, self.D, self.HW, self.w
         dev = S["t"].device
-        c = self._on(dev)
+        c = self._tables(dev, statics)
         if statics is None:
             statics = self._all_statics(dev)
         key_hi, key_lo = S["key"][0:1], S["key"][1:2]
@@ -1265,11 +1266,11 @@ class FusedSavanna(FusedMaBase):
 
     # ----------------------------------------------------------- CUDA path
 
-    def _rollout_kernel(self, S, n_steps, tile):
-        return fused_savanna_rollout(self, S, n_steps, tile)
+    def _rollout_kernel(self, S, n_steps, tile, statics=None):
+        return fused_savanna_rollout(self, S, n_steps, tile, statics)
 
-    def _collect_kernel(self, S, params, n_steps, tile):
-        return fused_savanna_collect(self, S, params, n_steps, tile)
+    def _collect_kernel(self, S, params, n_steps, tile, statics=None):
+        return fused_savanna_collect(self, S, params, n_steps, tile, statics)
 
 
 # ------------------------------------------------------------ CUDA kernels
@@ -1395,10 +1396,10 @@ def _savanna_lib():
 
 def _static_params(fused: FusedSavanna, tables: dict) -> _SvParams:
     """The static parameter block: the layout statics' device pointers (from
-    ``tables``, the device cache, which keeps them alive), the flags, the
-    float32 constants, the per-resource constants, the reward vectors, the
-    direction and move tables, the redraw's placement kinds and the
-    features' reciprocals. The state, policy, MLP and trajectory pointers,
+    ``tables``, the device cache or a lane shard's statics, which keeps them
+    alive), the flags, the float32 constants, the per-resource constants,
+    the reward vectors, the direction and move tables, the redraw's
+    placement kinds and the features' reciprocals. The state, policy, MLP and trajectory pointers,
     B, n_steps and hidden are left at 0."""
     env, cfg = fused.env, fused.cfg
     K = fused.layout_pool
@@ -1544,14 +1545,19 @@ def check_static_limits(fused, tile=None) -> None:
         )
 
 
-def _check_supported(fused, B: int) -> None:
+def _check_supported(fused, B: int, tables=None) -> None:
     """The configurations K8 and K9 lack raise ``NotImplementedError``
     (``check_static_limits``), and layouts drawn for another batch than
-    ``B`` ``ValueError``; the plain version runs all of them."""
+    ``B`` ``ValueError``: by default the engine's batch, else the lanes of
+    the layouts in ``tables`` (``FusedMaBase._launch_tables`` of the
+    statics a caller passed, a lane shard's); the plain version runs all of
+    them."""
     check_static_limits(fused)
     if fused.packed_batch is None:
         raise ValueError("call init_packed before launching the kernels")
-    if fused.packed_batch != B:
+    if tables is not None:
+        fused._check_statics_batch(tables, B)
+    elif fused.packed_batch != B:
         raise ValueError(
             f"the layouts were drawn for {fused.packed_batch} lanes, not the "
             f"batch {B}; init_packed drew them for another batch"
@@ -1652,15 +1658,15 @@ def _block(fused, B, tile, hidden=0, schedulers=_H100_SCHEDULERS):
     return g, lanes, threads, smem
 
 
-def _check_launch(fused, S, n_steps, tile, hidden=0):
+def _check_launch(fused, S, n_steps, tile, hidden=0, tables=None):
     """The checks both kernels share; returns ``(device, B, n_steps,
     block)`` with ``block`` from ``_block``. Configurations the kernels lack
     raise ``NotImplementedError``, bad inputs ``ValueError``, both before any
-    launch."""
+    launch; ``tables`` as for ``_check_supported``."""
     device = S["t"].device
     if device.type != "cuda":
         raise NotImplementedError(f"no savanna kernel for {device}")
-    _check_supported(fused, S["t"].shape[1])
+    _check_supported(fused, S["t"].shape[1], tables)
     B, n_steps = check_kernel_state(
         fused, S, n_steps, 32 if tile is None else tile,
         max(fused.HW, fused.n * fused.D, fused.n * 7),
@@ -1671,9 +1677,12 @@ def _check_launch(fused, S, n_steps, tile, hidden=0):
                                       _schedulers(str(device)))
 
 
-def _params(fused, S, out, device) -> _SvParams:
-    """A copy of the cached static block with this call's state pointers."""
-    tables = fused._on(device)
+def _params(fused, S, out, device, tables=None) -> _SvParams:
+    """A copy of the static block cached in ``tables``
+    (``FusedMaBase._launch_tables``; by default the device cache) with this
+    call's state pointers."""
+    if tables is None:
+        tables = fused._on(device)
     if "_k8_params" not in tables:
         tables["_k8_params"] = _static_params(fused, tables)
     p = _SvParams.from_buffer_copy(tables["_k8_params"])
@@ -1691,7 +1700,7 @@ def _params(fused, S, out, device) -> _SvParams:
 
 
 def fused_savanna_rollout(fused: FusedSavanna, S: dict, n_steps: int,
-                          tile=FusedSavanna.DEFAULT_TILE) -> dict:
+                          tile=FusedSavanna.DEFAULT_TILE, statics=None) -> dict:
     """Advance a packed CUDA state ``n_steps`` steps with one launch of K8
     (``csrc/fused_savanna.cu``); returns a new state dict. The policy
     installed by ``set_policies`` at the time of the call picks the actions
@@ -1699,15 +1708,19 @@ def fused_savanna_rollout(fused: FusedSavanna, S: dict, n_steps: int,
 
     ``tile`` is the threads per block (a multiple of 32 in [32, 256]);
     each lane runs on a group of ``_lanes_per_group`` threads, so a block
-    holds ``tile // g`` lanes. None sizes a block of 32 lanes.
+    holds ``tile // g`` lanes. None sizes a block of 32 lanes. ``statics``
+    (the layouts and the policy) as for :meth:`FusedMaBase.rollout`.
 
     Checks every field's device, dtype, shape and contiguity and raises on
     what the kernel does not take; CPU tensors take the plain version."""
     if S["t"].device.type == "cpu":
-        return fused.rollout_plain(S, n_steps)
-    device, B, n_steps, block = _check_launch(fused, S, n_steps, tile)
-    statics = fused._all_statics(device)
-    fused._check_policy_batch(statics, B)
+        return fused.rollout_plain(S, n_steps, statics)
+    tables = fused._launch_tables(S["t"].device, statics)
+    device, B, n_steps, block = _check_launch(
+        fused, S, n_steps, tile, tables=None if statics is None else tables)
+    if statics is None:
+        statics = fused._all_statics(device)
+    fused._check_statics_batch(statics, B)
     out = {k: torch.empty_like(S[k]) for k in fused.STATE_FIELDS}
     if n_steps == 0:
         for k in out:
@@ -1716,8 +1729,8 @@ def fused_savanna_rollout(fused: FusedSavanna, S: dict, n_steps: int,
     from ai_safety_gridworlds_torch.ops import _cuda
 
     lib = _savanna_lib()
-    p = _params(fused, S, out, device)
-    if statics:
+    p = _params(fused, S, out, device, tables)
+    if "pol_w" in statics:
         for k in POLICY_KEYS:
             setattr(p, k, statics[k].data_ptr())
         p.pol_lanes = statics["pol_w"].shape[1]
@@ -1742,7 +1755,8 @@ def _collect_smem_bytes(fused: FusedSavanna, hidden: int) -> int:
 
 
 def fused_savanna_collect(fused: FusedSavanna, S: dict, params: dict,
-                          n_steps: int, tile=FusedSavanna.DEFAULT_TILE):
+                          n_steps: int, tile=FusedSavanna.DEFAULT_TILE,
+                          statics=None):
     """The PPO collection: ``n_steps`` steps under the MLP policy ``params``
     with one launch of K9 (``csrc/fused_savanna.cu``); ``tile`` as for
     :func:`fused_savanna_rollout`.
@@ -1750,15 +1764,18 @@ def fused_savanna_collect(fused: FusedSavanna, S: dict, params: dict,
     Returns ``(S, traj, boot)`` as :meth:`FusedMaBase.rollout_collect`:
     ``traj[name]`` is ``[n_steps, rows, B]``, ``boot`` is ``[n, B]``. Checks
     the state as K8 does and each MLP tensor's device, dtype, shape and
-    contiguity; CPU tensors take the plain version."""
+    contiguity; CPU tensors take the plain version. ``statics`` (K9 reads
+    their layouts) as for :meth:`FusedMaBase.rollout`."""
     if S["t"].device.type == "cpu":
-        return fused.rollout_collect_plain(S, params, n_steps)
+        return fused.rollout_collect_plain(S, params, n_steps, statics)
     if S["t"].device.type != "cuda":
         raise NotImplementedError(f"no savanna kernel for {S['t'].device}")
     H = check_mlp_params(fused, params, S["t"].device)
     if _collect_smem_bytes(fused, H) > _MAX_SMEM:
         raise ValueError(f"hidden {H} does not fit K9's shared memory")
-    device, B, n_steps, block = _check_launch(fused, S, n_steps, tile, H)
+    tables = fused._launch_tables(S["t"].device, statics)
+    device, B, n_steps, block = _check_launch(
+        fused, S, n_steps, tile, H, None if statics is None else tables)
     out = {k: torch.empty_like(S[k]) for k in fused.STATE_FIELDS}
     traj = {
         name: torch.empty((n_steps, rows, B), dtype=dtype, device=device)
@@ -1768,7 +1785,7 @@ def fused_savanna_collect(fused: FusedSavanna, S: dict, params: dict,
     from ai_safety_gridworlds_torch.ops import _cuda
 
     lib = _savanna_lib()
-    p = _params(fused, S, out, device)
+    p = _params(fused, S, out, device, tables)
     for k in MLP_KEYS:
         setattr(p, k, params[k].data_ptr())
     for name in traj:

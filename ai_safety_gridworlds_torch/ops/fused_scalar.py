@@ -202,6 +202,7 @@ class FusedScalarBase(FusedMaBase):
         unused."""
         del tile
         D = self.D
+        self.packed_batch = int(batch)
         state = {
             "pos": torch.full((1, batch), self.pos0, dtype=_I32),
             "t": torch.zeros((1, batch), dtype=_I32),
@@ -297,7 +298,7 @@ class FusedScalarBase(FusedMaBase):
         K5. ``statics`` holds the policy (``pol_*`` or ``mlp_*`` tensors);
         ``None`` reads the one installed by ``set_policies``."""
         dev = S["t"].device
-        c = self._on(dev)
+        c = self._tables(dev, statics)
         if statics is None:
             statics = self._all_statics(dev)
         iota_n = torch.zeros((1, 1), dtype=_I32, device=dev)
@@ -418,11 +419,11 @@ class FusedScalarBase(FusedMaBase):
 
     # ----------------------------------------------------------- CUDA path
 
-    def _rollout_kernel(self, S, n_steps, tile):
-        return fused_scalar_rollout(self, S, n_steps, tile)
+    def _rollout_kernel(self, S, n_steps, tile, statics=None):
+        return fused_scalar_rollout(self, S, n_steps, tile, statics)
 
-    def _collect_kernel(self, S, params, n_steps, tile):
-        return fused_scalar_collect(self, S, params, n_steps, tile)
+    def _collect_kernel(self, S, params, n_steps, tile, statics=None):
+        return fused_scalar_collect(self, S, params, n_steps, tile, statics)
 
     def _reward_rows(self) -> list:
         """The reward vectors the kernel's body reads, in its order; None
@@ -2325,19 +2326,24 @@ def _smem_bytes(fused, tile, hidden=0) -> int:
 
 
 def fused_scalar_rollout(fused: FusedScalarBase, S: dict, n_steps: int,
-                         tile: int = FusedScalarBase.DEFAULT_TILE) -> dict:
+                         tile: int = FusedScalarBase.DEFAULT_TILE,
+                         statics=None) -> dict:
     """Advance a packed CUDA state ``n_steps`` steps with one launch of K4
     (``csrc/fused_scalar.cu``); returns a new state dict. The policy
     installed by ``set_policies`` at the time of the call picks the actions
-    (K4's linear branch); without one the draws are uniform.
+    (K4's linear branch); without one the draws are uniform. ``statics`` as
+    for :meth:`FusedMaBase.rollout`: the scalar statics are shared by every
+    lane (``[rows, 1]``), so K4 reads them from its cached tables and takes
+    the policy from ``statics``.
 
     Checks every field's device, dtype, shape and contiguity and raises on
     what the kernel does not take; CPU tensors take the plain version."""
     if S["t"].device.type == "cpu":
-        return fused.rollout_plain(S, n_steps)
+        return fused.rollout_plain(S, n_steps, statics)
     device, B, n_steps = _check_launch(fused, S, n_steps, tile)
-    statics = fused._all_statics(device)
-    fused._check_policy_batch(statics, B)
+    if statics is None:
+        statics = fused._all_statics(device)
+    fused._check_statics_batch(statics, B)
     out = {k: torch.empty_like(S[k]) for k in fused.STATE_FIELDS}
     if n_steps == 0:
         for k in out:
@@ -2348,7 +2354,7 @@ def fused_scalar_rollout(fused: FusedScalarBase, S: dict, n_steps: int,
     lib = _scalar_lib()
     p = _params(fused, S, out)
     p.lanes_per_warp = _lanes_per_warp(B, tile, device)
-    if statics:
+    if "pol_w" in statics:
         for k in POLICY_KEYS:
             setattr(p, k, statics[k].data_ptr())
         p.pol_lanes = statics["pol_w"].shape[1]
@@ -2368,16 +2374,19 @@ fused_scalar_rollout.launches = 0
 
 def fused_scalar_collect(fused: FusedScalarBase, S: dict, params: dict,
                          n_steps: int,
-                         tile: int = FusedScalarBase.DEFAULT_TILE):
+                         tile: int = FusedScalarBase.DEFAULT_TILE,
+                         statics=None):
     """The PPO collection: ``n_steps`` steps under the MLP policy
     ``params`` with one launch of K5 (``csrc/fused_scalar.cu``).
 
     Returns ``(S, traj, boot)`` as :meth:`FusedMaBase.rollout_collect`:
     ``traj[name]`` is ``[n_steps, rows, B]``, ``boot`` is ``[1, B]``. Checks
     the state as K4 does and each MLP tensor's device, dtype, shape and
-    contiguity; CPU tensors take the plain version."""
+    contiguity; CPU tensors take the plain version. K5 reads its shared
+    statics from its cached tables: ``statics`` reaches the plain version
+    only."""
     if S["t"].device.type == "cpu":
-        return fused.rollout_collect_plain(S, params, n_steps)
+        return fused.rollout_collect_plain(S, params, n_steps, statics)
     device, B, n_steps = _check_launch(fused, S, n_steps, tile)
     H = check_mlp_params(fused, params, device)
     if _smem_bytes(fused, tile, H) > _MAX_SMEM:

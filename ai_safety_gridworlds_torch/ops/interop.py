@@ -8,8 +8,10 @@ reached) comes in with :func:`state_from_numpy` and goes back with
 :func:`busy_island_ma_state` and :func:`busy_savanna_state` make seeded
 mid-episode states to compare implementations from.
 :func:`params_from_numpy` and :func:`params_to_numpy` carry the MLP policy's
-params, so that both packages run the same policy.
-:func:`assert_consts_equal` checks that a port kernel's ``consts`` equal the
+params, so that both packages run the same policy, and
+:func:`fused_ppo_state_from_numpy` a whole fused-PPO train state (params,
+Adam's moments and count, packed state), so that a JAX run resumes in the
+port. :func:`assert_consts_equal` checks that a port kernel's ``consts`` equal the
 JAX kernel's key by key.
 """
 
@@ -425,6 +427,44 @@ def params_from_numpy(p_np: dict, device) -> dict:
 def params_to_numpy(params: dict) -> dict:
     """MLP param tensors -> float32 numpy arrays on the host."""
     return {k: params[k].detach().cpu().numpy() for k in MLP_KEYS}
+
+
+def fused_ppo_state_from_numpy(fused, params: dict, mu: dict, nu: dict,
+                               count, S: dict, config, device,
+                               update_idx: int = 0):
+    """The JAX package's ``FusedPPOState`` as the port's: ``params`` and
+    optax's Adam moments ``mu`` and ``nu`` (dicts of numpy arrays by MLP
+    key), its ``count`` and the packed state ``S`` (numpy), on ``device``.
+    ``fused`` must hold the statics ``S`` was packed with (``init_packed``
+    of the same seed and batch). Adam's state is what ``torch.optim.Adam``
+    would hold after ``count`` steps; the JAX state's key is unused by its
+    train step and has no counterpart."""
+    from ai_safety_gridworlds_torch.learners import ppo_fused
+
+    if set(S) != set(fused.STATE_FIELDS):
+        raise ValueError(
+            f"state fields {sorted(S)} are not the engine's "
+            f"{sorted(fused.STATE_FIELDS)}"
+        )
+    p = {k: v.requires_grad_() for k, v in
+         params_from_numpy(params, device).items()}
+    opt = ppo_fused._optimizer(p, config)
+    for k in MLP_KEYS:
+        # torch.optim.Adam's state as its count-th step leaves it (the
+        # count on the host, in float32).
+        opt.state[p[k]] = {
+            "step": torch.tensor(float(np.asarray(count)),
+                                 dtype=torch.float32),
+            "exp_avg": torch.from_numpy(np.array(mu[k], np.float32)).to(
+                device),
+            "exp_avg_sq": torch.from_numpy(np.array(nu[k], np.float32)).to(
+                device),
+        }
+    return ppo_fused.FusedPPOState(
+        params=p, opt=opt,
+        S=state_from_numpy({k: S[k] for k in fused.STATE_FIELDS}, device),
+        update_idx=int(update_idx),
+    )
 
 
 def assert_consts_equal(port_consts: dict, jax_consts: dict) -> None:

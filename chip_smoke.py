@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits non-zero before the last line:
+Phases, in order but for 49-52, which run while phase 2 builds (they launch
+no kernel of the port); any failure exits non-zero before the last line:
 
 1. environment: torch, CUDA, nvcc, triton, the card's name and power limit;
-2. build the port's CUDA kernels from this checkout (``nvcc``, ``sm_90a``);
+2. build the port's CUDA kernels from this checkout (``nvcc``, ``sm_90a``)
+   on a thread, while phases 49-52 run; the kernel phases start once it
+   has ended;
 3. K2 ``prf_words`` against the plain PyTorch PRF, bit for bit, over a
    random grid of 2**20 + 8 words (uint32 edge values included);
 4. K1 ``fused_firemaker_rollout`` against the plain PyTorch rollout on the
@@ -130,8 +133,9 @@ Phases, in order; any failure exits non-zero before the last line:
    with ``sustainability_challenge=True``, with the launch counters set to 0
    just before and read just after (K8 once per call); env-steps/s and the
    host's share of a call beside K8's time, the plain version's time, the
-   bound (``savanna_step_ops``) and K8's time by lane count (4096, 65536,
-   262144);
+   bound (``savanna_step_ops``) and K8's time by lane count (4096 and
+   65536; ``init_packed`` draws the savanna's boards on the host, about 7 s
+   at 262144 lanes);
 22. K9 ``fused_savanna_collect`` against the plain collection at B = 4096,
    T = 64, H = 64 on the default config and on FULL, teacher-forced and
    free-running, within phase 7's limits;
@@ -214,27 +218,29 @@ Phases, in order; any failure exits non-zero before the last line:
    threads a lane ``fused_savanna._lanes_per_group`` picks there, then at
    1, 2, 4, 8, 16 and 32, then at 1 with 8 lanes a warp (the other threads
    idle), then at the pick again (the two readings give the run's spread),
-   every state bit-equal to the plain version's;
+   every state bit-equal to the plain version's at B = 4096 and to the
+   pick's at the larger B;
 35. K6's and K7's lane groups: K6 per rollout(256) on the island main
    path at B = 4096, 16384, 65536 and 262144 and K7 per collect(64),
    H = 64, at B = 4096, 16384 and 65536, at the threads a lane
    ``fused_island_ma._lanes_per_group`` picks there (first and last: the
    run's spread), and at 1, 2, 4, 8, 16 and 32 between; every K6 state
-   bit-equal to the plain version's, every K7 output bit-equal to the
-   pick's; with the cycles a lane-step at the largest SM clock;
+   bit-equal to the plain version's at B = 4096 and to the pick's at the
+   larger B, every K7 output bit-equal to the pick's; with the cycles a
+   lane-step at the largest SM clock;
 36. the generic batched path (no fused kernel; plain PyTorch on the card):
    threefry's ``split``, ``fold_in``, ``randint``, ``uniform``,
    ``permutation`` and ``bernoulli`` on the card bit-equal to the same
    calls on the CPU over 2**16 numpy-seeded keys;
-37. ``BatchedEnv(name, 4096, backend="generic", device="cuda").rollout(256)``
+37. ``BatchedEnv(name, 4096, backend="generic", device="cuda").rollout(128)``
    for boat_race and island_navigation (``kernel == "generic_torch"``, no
-   fused kernel launched), then the same call three times through
+   fused kernel launched), then the same call twice through
    ``core.base.rollout`` with BatchedEnv's keys and policy and the board
    observation rendered and summed each step, with env-steps/s; the first
    call's final episode states (keys included) and stats equal to a CPU
    run from its key, and BatchedEnv's stats to both;
 38. ``BatchedEnv("firemaker_ex_ma", 1024, backend="generic",
-   device="cuda").rollout(128)`` three times with env-steps/s; then a
+   device="cuda").rollout(64)`` twice with env-steps/s; then a
    64-step ``ma_rollout`` at B = 1024 on the card against the CPU, exact
    except on lanes with a spread draw within 1e-6 of its cum (at most 0.1%
    of lanes);
@@ -242,16 +248,16 @@ Phases, in order; any failure exits non-zero before the last line:
    device events and busy time a step (``torch.profiler``) and the
    device's idle share, each as 8 steps less 4 so that the set-up
    cancels (boat_race at B = 4096, firemaker at B = 1024), and the fused
-   firemaker rollout(128) at B = 1024 against the generic one;
+   firemaker rollout(64) at B = 1024 against the generic one;
 40. the generic chains of the other 13 scalar envs (18 configurations,
    ``GENERIC_CHAINS``): ``BatchedEnv(name, 4096, backend="generic",
    device="cuda", **kw).rollout(n)`` once each (``"auto"`` for
-   human-player whisky_gold, which no fused kernel takes), n = 256 for
+   human-player whisky_gold, which no fused kernel takes), n = 128 for
    bench.py's rows (boat_race_ex, island_navigation_ex default and full)
-   and 128 for the others, ``kernel == "generic_torch"`` and no fused
+   and 64 for the others, ``kernel == "generic_torch"`` and no fused
    kernel launched, with env-steps/s;
-41. each of them through ``core.base.rollout`` at B = 1024 for 64 steps on
-   the card and on the CPU from one key, with ``max_iterations=30`` set on
+41. each of them through ``core.base.rollout`` at B = 1024 for 32 steps on
+   the card and on the CPU from one key, with ``max_iterations=15`` set on
    each env, so that every lane selects the reset branch at least twice
    (the phase fails where a configuration selects none, and prints the
    resets selected): final states, keys, step types,
@@ -260,7 +266,7 @@ Phases, in order; any failure exits non-zero before the last line:
    of an integer, friend_foe's policies (within 4 ulps) and its
    auto-resets from a near-tie within 1e-6, and tomato's float returns
    (within 1e-5 relative): such lanes are exempt and counted (at most 1%);
-42. bench.py's three rows in phase 37's form (rollout(256) three times
+42. bench.py's three rows in phase 37's form (rollout(128) twice
    with the board rendered and summed each step) and phase 39's count a
    step (launches, fill kernels, device busy and idle share, 8 steps less
    4);
@@ -269,14 +275,14 @@ Phases, in order; any failure exits non-zero before the last line:
    sustainability, the savanna's at ``max_iterations=40`` so that each call
    ends episodes and selects resets; a call that ends none fails):
    ``BatchedEnv(name, 4096, backend="generic",
-   device="cuda", **kw).rollout(128)`` three times each, ``kernel ==
+   device="cuda", **kw).rollout(64)`` twice each, ``kernel ==
    "generic_torch"`` and no fused kernel launched (K6's and K8's counters
    read 0), with env-steps/s; then ``BatchedEnv("aintelope_savanna", 4096,
    amount_food_patches=200)`` on ``"auto"``: the top-up K8's packer refuses
    takes the generic chain, one rollout(64);
-44. ``ma_rollout`` at B = 1024 for 64 steps on the card and on the CPU from
+44. ``ma_rollout`` at B = 1024 for 32 steps on the card and on the CPU from
    one key (``GENERIC_MA_CHECKS``: both chains, ``SAVANNA_FULL`` with and
-   without sustainability; the savanna's at ``max_iterations=40``, so that
+   without sustainability; the savanna's at ``max_iterations=20``, so that
    every lane resets at least once): final states, keys, curtains, step types,
    returns and stats equal, but for the regrown floats (within 1e-5), the
    gold and silver returns (1e-5 relative, 1e-4 absolute; their sums 1e-3)
@@ -285,7 +291,7 @@ Phases, in order; any failure exits non-zero before the last line:
 45. phase 39's count for both chains at B = 4096 (ATen ops, launches, fill
    kernels, device busy ms and idle share a step, 8 steps less 4), and the
    fused main path of phases 16 and 21 (``BatchedEnv(name, 4096,
-   device="cuda").rollout(128)``, timed again here) over the generic one;
+   device="cuda").rollout(64)``, timed again here) over the generic one;
 46. the generic PPO learner: ``ppo.make_train_step(IslandNavigation(),
    PPOConfig(n_steps=32, lr=7e-4), device="cuda")`` (the JAX example's
    configuration, hidden 128) at B = 4096: one warm-up step, then 3 timed
@@ -369,7 +375,32 @@ Phases, in order; any failure exits non-zero before the last line:
    original; a headless ``AgentViewer``'s frames equal to the CPU's; no
    fused kernel launches; steps/s per adapter and the adapter's own host
    time a step (its step less the shell's);
-53. one JSON line of kernel results: ``kernels`` holds K1 with its launches
+53. scale-out (``parallel/mesh.py``, ``parallel/multihost.py``, the
+   lane-sharded fused drivers, ``make_sharded_train_step``,
+   ``param_shardings``, ``utils/checkpoint.py``, ``utils/profiling.py``),
+   in rank processes this phase starts (each within SCALEOUT_TIMEOUT_S; a
+   rank that fails fails the run), which load the kernels the build left:
+   one rank on NCCL: the sharded firemaker rollout(256) at B = 4096 equal in
+   every field to ``BatchedEnv``'s unsharded K1 run, and
+   ``make_sharded_train_step`` on island_navigation_ex_ma (B = 4096,
+   ``FusedPPOConfig(n_steps=64, n_epochs=2, n_minibatches=4)``, H = 64)
+   equal to ``make_train_step`` in params, Adam state and ``S`` after two
+   steps, both timed, with the collectives' share; two gloo ranks sharing
+   the card (NCCL refuses two ranks on one device): K1, K6 and K8 (default
+   and a layout pool of 3) on each rank's lanes equal to the unsharded
+   launch, the two-rank PPO step on K7 (B = 4096) and on K3, K5 and K9 (B =
+   256) against the same two-rank step on the CPU (phase 7's exemption and
+   free-running divergence share; params within 2 * lr per update; metrics
+   within LEARNER_RTOL relative plus FLOAT_TOL, the kernels' logp and value
+   bound, where no lane is exempt), A2C's ``train_step`` under
+   a ``(1, 2)`` mesh within one bfloat16 ulp of the largest gradient (times
+   lr) of one process's step, a sharded checkpoint round trip of the
+   island state with the resume bit-exact (bytes and ms of save and
+   restore); then ``measure_steps_per_second`` on generic boat_race at
+   B = 4096 and ``per_step_latency`` (host clock and CUDA events), and a
+   ``utils.profiling.trace`` of one fused ``train_step`` each on K3, K5, K7
+   and K9 with the device rows it holds;
+54. one JSON line of kernel results: ``kernels`` holds K1 with its launches
    on the main path (phase 5) and on the policy-search check (phase 6), K3
    with its launches on the training path (phase 8), K4 with its launches on
    the scalar main paths (phases 11, 26 and 30, by path and env), K5 with
@@ -384,7 +415,9 @@ Phases, in order; any failure exits non-zero before the last line:
    (K1 and K3-K9 inline the same PRF header), with its phase-3 launches;
    ``generic`` holds phases 36-45's rates, launches, exempt lanes and
    idle shares, ``learners`` phases 46-49's, ``mo_shell`` phase 50's,
-   ``moma_shell`` phase 51's, ``adapters`` phase 52's;
+   ``moma_shell`` phase 51's, ``adapters`` phase 52's, ``scaleout`` phase
+   53's; each kernel also carries ``sharded_launches``, its launches on
+   phase 53's sharded paths summed over the ranks;
    then the card's name and power limit and the last line ``{"ok": true,
    "device": {...}}``.
 
@@ -449,6 +482,12 @@ without building the kernels, and prints one JSON line.
 
 runs phase 52 (the Gym and PettingZoo adapters) alone, without building
 the kernels, and prints one JSON line.
+
+    python3 chip_smoke.py --scaleout
+
+builds the kernels and runs phase 53 (scale-out) alone, and prints one
+JSON line; its rank processes run ``chip_smoke.py --scaleout-rank MODE
+WORLD RANK STORE DIR``.
 """
 
 from __future__ import annotations
@@ -457,6 +496,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 BATCH = 4096
@@ -700,7 +740,7 @@ K8_CHECKS = (
      "init"),
     ("busy", dict(SAVANNA_FULL, **SAVANNA_SUSTAIN), 1, 100, "busy"),
 )
-SAVANNA_SWEEP = (BATCH, 16 * BATCH, 64 * BATCH)
+SAVANNA_SWEEP = (BATCH, 16 * BATCH)
 # K8/K9's lane groups (threads per lane): phase 20 checks K8 at each of them,
 # a superset of what fused_savanna._lanes_per_group can return.
 SAVANNA_GROUPS = (1, 2, 4, 8, 16, 32)
@@ -743,7 +783,13 @@ OPS_PER_CELL = 21 + 3 + 4
 OPS_PER_STENCIL_ROW = 6
 
 
+# The process's start: each phase's header line carries the seconds since.
+T_START = time.perf_counter()
+
+
 def log(msg=""):
+    if msg.startswith("== "):
+        msg += f"  [{time.perf_counter() - T_START:.1f} s]"
     print(msg, flush=True)
 
 
@@ -1680,8 +1726,10 @@ def island_group_sweep(card, torch, collect=False, check=True):
     lane group ``fused_island_ma._lanes_per_group`` picks there first and
     last (the two readings give the run's spread) and each of ISLAND_GROUPS
     between. With ``check`` every K6 state is bit-equal to the plain
-    version's, and every K7 output (state, records, boot) bit-equal to the
-    pick's (phase 17 holds K7 at each g against the plain collection).
+    version's at B = BATCH and to the pick's at the larger B (phase 15
+    holds K6 at each g against the plain rollout), and every K7 output
+    (state, records, boot) bit-equal to the pick's (phase 17 holds K7 at
+    each g against the plain collection).
     Returns {B: {g: [ms, ...]}} and logs the cycles a lane-step."""
     import numpy as np
 
@@ -1705,15 +1753,16 @@ def island_group_sweep(card, torch, collect=False, check=True):
         else:
             def run():
                 return fused.rollout(S0, steps)
-        ref = fused.rollout_plain(S0, steps) if check and not collect else None
+        plain = check and not collect and b == BATCH
+        ref = fused.rollout_plain(S0, steps) if plain else None
         pick = island_pick(fused, b, HIDDEN if collect else 0)
         times = {}
         for g in (pick,) + ISLAND_GROUPS + (pick,):
             if check:
                 got = with_island_group(g, run)
+                if ref is None:
+                    ref = got
                 if collect:
-                    if ref is None:
-                        ref = got
                     S_, traj, boot = got
                     for name, x in {**S_, **traj, "boot": boot}.items():
                         y = {**ref[0], **ref[1], "boot": ref[2]}[name]
@@ -1737,7 +1786,7 @@ def island_group_sweep(card, torch, collect=False, check=True):
             f"{abs(first[-1] - first[0]) / min(first):.2%}, "
             f"{min(first) * 1e-3 * mhz * 1e6 / steps:.0f} cycles a lane-step at "
             f"{mhz:.0f} MHz"
-            + ("; each equal to the plain version's" if check and not collect
+            + ("; each equal to the plain version's" if plain
                else "; each equal to the pick's" if check else "")
             + f"  [{card}]")
         del S0, ref
@@ -2370,7 +2419,9 @@ def savanna_group_sweep(card, torch, paths, collect=False, check=True):
     group ``fused_savanna._lanes_per_group`` picks there first and last
     (the two readings give the run's spread) and each GROUP_SWEEP setting
     between; with ``check`` every K8 state bit-equal to the plain
-    version's. Returns {path@B: {"g/lanes a warp": [ms, ...]}}."""
+    version's at B = BATCH and to the pick's at the larger B (phase 20
+    holds K8 at each g against the plain rollout). Returns {path@B:
+    {"g/lanes a warp": [ms, ...]}}."""
     import numpy as np
 
     from ai_safety_gridworlds_torch.envs.aintelope_savanna import (
@@ -2395,7 +2446,8 @@ def savanna_group_sweep(card, torch, paths, collect=False, check=True):
                 else:
                     def run():
                         return fused.rollout(S0, MAIN_STEPS)
-                ref = fused.rollout_plain(S0, MAIN_STEPS) if check else None
+                plain = check and b == BATCH
+                ref = fused.rollout_plain(S0, MAIN_STEPS) if plain else None
                 pick = fused_savanna._lanes_per_group(
                     fused, b, hidden=HIDDEN if collect else 0,
                     schedulers=_schedulers(str(dev)))
@@ -2405,8 +2457,12 @@ def savanna_group_sweep(card, torch, paths, collect=False, check=True):
                     fused_savanna._LANES_PER_WARP = lanes
                     key = f"{g}/{lanes or 32 // g}"
                     if check:
+                        got = run()
+                        if ref is None:
+                            ref = got
                         rollout_equal(f"{kernel} {label} B={b} at {key}", fused,
-                                      run(), ref, torch)
+                                      got, ref, torch)
+                        del got
                     times.setdefault(key, []).append(cuda_ms(run, 3, torch))
                 fused_savanna._LANES_PER_GROUP = None
                 fused_savanna._LANES_PER_WARP = None
@@ -2418,7 +2474,8 @@ def savanna_group_sweep(card, torch, paths, collect=False, check=True):
                         for k, v in times.items())
                     + f" ms; the pick {pick}, its spread "
                     f"{abs(first[-1] - first[0]) / min(first):.2%}"
-                    + ("; each state equal to the plain version's" if check
+                    + ("; each state equal to the plain version's" if plain
+                       else "; each state equal to the pick's" if check
                        else "") + f"  [{card}]")
                 del S0, ref
     finally:
@@ -2662,9 +2719,11 @@ def scalar_lane_sweep(card, torch):
 
 
 GENERIC_SCALAR = ("boat_race", "island_navigation")
-GENERIC_SCALAR_STEPS = 256
+GENERIC_SCALAR_STEPS = 128
+# Calls of each timed generic rollout (phases 37-39, 42, 43 and 45).
+GENERIC_CALLS = 2
 GENERIC_FM_BATCH = 1024
-GENERIC_FM_STEPS = 128
+GENERIC_FM_STEPS = 64
 GENERIC_FM_CHECK_STEPS = 64
 GENERIC_PRF_KEYS = 1 << 16
 GENERIC_PROFILE_STEPS = 4
@@ -2698,15 +2757,15 @@ GENERIC_CHAINS = (
 # phase 42 runs them in phase 37's and 39's forms.
 GENERIC_BENCH_ROWS = ("boat_race_ex", "island_navigation_ex",
                       "island_navigation_ex_full")
-GENERIC_CHAIN_STEPS = 128
+GENERIC_CHAIN_STEPS = 64
 GENERIC_CHECK_BATCH = 1024
-GENERIC_CHECK_STEPS = 64
+GENERIC_CHECK_STEPS = 32
 # Phase 41's episodes end at step GENERIC_CHECK_MAX_ITERATIONS at the
 # latest (each chain's max_iterations is set on the env object: not every
 # constructor takes it), so that within GENERIC_CHECK_STEPS every lane
 # selects the reset branch at least twice and the card's reset draws are
 # held against the CPU's.
-GENERIC_CHECK_MAX_ITERATIONS = 30
+GENERIC_CHECK_MAX_ITERATIONS = 15
 # Phase 41's tolerances, the CPU tests': a lane is exempt from the step on
 # which island_navigation_ex's regrown power came within CHAIN_REGROW_GAP
 # of an integer (CUDA's powf and the CPU's differ in the last bits), or a
@@ -2720,30 +2779,30 @@ CHAIN_RTOL, CHAIN_ATOL = 1e-5, 1e-6
 CHAIN_MAX_EXEMPT_SHARE = 0.01
 # Phases 43-45: the multi-agent chains of the fourteenth slice, (label,
 # name, env kwargs): phase 43 runs them through BatchedEnv at B = BATCH,
-# rollout(GENERIC_MA_STEPS) x MAIN_CALLS, phase 45 profiles them.
+# rollout(GENERIC_MA_STEPS) x GENERIC_CALLS, phase 45 profiles them.
 # The savanna's episodes end at max_iterations=40 (its default is 1000), so
-# that every call ends episodes and selects the reset branch (step 41, 82
-# and 123 of each rollout(128)).
+# that every call ends episodes and selects the reset branch (steps 41, 82
+# and 123 of the two rollout(64) calls).
 GENERIC_MA_CHAINS = (
     ("island_navigation_ex_ma", "island_navigation_ex_ma", {}),
     ("aintelope_savanna", "aintelope_savanna", {"max_iterations": 40}),
     ("aintelope_savanna_sustain", "aintelope_savanna",
      dict(SAVANNA_SUSTAIN, max_iterations=40)),
 )
-GENERIC_MA_STEPS = 128
+GENERIC_MA_STEPS = 64
 GENERIC_MA_TOPUP = {"amount_food_patches": 200}
 GENERIC_MA_TOPUP_STEPS = 64
 # Phase 44's runs on the card against the CPU, at GENERIC_CHECK_BATCH lanes
 # for GENERIC_CHECK_STEPS steps.
-# The savanna's episodes end at max_iterations=40 (step 40 with one agent,
-# 20 with two), so that the runs select the reset branch's board draws.
+# The savanna's episodes end at max_iterations=20 (step 20 with one agent,
+# 10 with two), so that the runs select the reset branch's board draws.
 GENERIC_MA_CHECKS = (
     ("island_navigation_ex_ma", "island_navigation_ex_ma", {}),
-    ("aintelope_savanna", "aintelope_savanna", {"max_iterations": 40}),
+    ("aintelope_savanna", "aintelope_savanna", {"max_iterations": 20}),
     ("savanna_full", "aintelope_savanna",
-     dict(SAVANNA_FULL, max_iterations=40)),
+     dict(SAVANNA_FULL, max_iterations=20)),
     ("savanna_full_sustain", "aintelope_savanna",
-     dict(SAVANNA_FULL, max_iterations=40, **SAVANNA_SUSTAIN)),
+     dict(SAVANNA_FULL, max_iterations=20, **SAVANNA_SUSTAIN)),
 )
 # Phase 44's tolerances, the CPU tests': the regrown fractions and
 # availabilities within CHAIN_FRAC_TOL, the gold and silver dims of the
@@ -2812,7 +2871,7 @@ def host_s(fn, torch):
 
 
 def board_rollouts(raw, dev, torch):
-    """Phase 37's form: MAIN_CALLS calls of ``core.base.rollout`` at
+    """Phase 37's form: GENERIC_CALLS calls of ``core.base.rollout`` at
     B = BATCH for GENERIC_SCALAR_STEPS steps with BatchedEnv's key for each
     call and its uniform policy, the board observation rendered and summed
     each step (as the JAX package's ``profiling.py`` measures the generic
@@ -2821,7 +2880,7 @@ def board_rollouts(raw, dev, torch):
     from ai_safety_gridworlds_torch.core import base, threefry
 
     call_keys, key = [], threefry.PRNGKey(SEED, dev)
-    for _ in range(MAIN_CALLS):  # BatchedEnv's key for each call
+    for _ in range(GENERIC_CALLS):  # BatchedEnv's key for each call
         key, sub = threefry.split(key)
         call_keys.append(sub)
     lane_policy = base.random_policy(raw)
@@ -2834,7 +2893,7 @@ def board_rollouts(raw, dev, torch):
         return lane_policy(threefry.split(k, BATCH), None)
 
     calls, obs = [], []
-    for call in range(MAIN_CALLS):
+    for call in range(GENERIC_CALLS):
         acc[:] = [torch.zeros((), device=dev)]
         t0 = time.perf_counter()
         eps_g, st_g = base.rollout(raw, call_keys[call], GENERIC_SCALAR_STEPS,
@@ -3014,7 +3073,7 @@ def generic_phases(torch, np, dev, card, reset_counts, counts):
         fail(f"firemaker: BatchedEnv reports kernel {env.kernel!r}")
     reset_counts()
     calls = []
-    for call in range(MAIN_CALLS):
+    for call in range(GENERIC_CALLS):
         t0 = time.perf_counter()
         stats = env.rollout(GENERIC_FM_STEPS)
         calls.append(time.perf_counter() - t0)
@@ -3082,7 +3141,7 @@ def generic_phases(torch, np, dev, card, reset_counts, counts):
     if fenv.kernel != "fused_cuda":
         fail(f"fused firemaker at B={Bf} reports {fenv.kernel!r}")
     fcalls = [host_s(lambda: fenv.rollout(GENERIC_FM_STEPS), torch)
-              for _ in range(MAIN_CALLS)]
+              for _ in range(GENERIC_CALLS)]
     fused_rate = Bf * GENERIC_FM_STEPS / sorted(fcalls)[len(fcalls) // 2]
     gen_rate = sorted(fm_rates)[len(fm_rates) // 2]
     out["firemaker"]["fused_env_steps_per_s"] = fused_rate
@@ -3163,14 +3222,14 @@ def generic_ma_phases(torch, np, dev, card, reset_counts, counts):
     for label, name, kw in GENERIC_MA_CHAINS:
         log(f"== 43. generic chain: BatchedEnv({name!r}, {BATCH}, "
             f"backend='generic', device='cuda', **{kw}).rollout("
-            f"{GENERIC_MA_STEPS}) x {MAIN_CALLS}")
+            f"{GENERIC_MA_STEPS}) x {GENERIC_CALLS}")
         env = BatchedEnv(name, BATCH, seed=SEED, backend="generic",
                          device="cuda", **kw)
         if env.kernel != "generic_torch":
             fail(f"{label}: BatchedEnv reports kernel {env.kernel!r}")
         reset_counts()
         calls, episodes = [], []
-        for call in range(MAIN_CALLS):
+        for call in range(GENERIC_CALLS):
             t0 = time.perf_counter()
             stats = env.rollout(GENERIC_MA_STEPS)  # fetches: syncs
             calls.append(time.perf_counter() - t0)
@@ -3290,7 +3349,7 @@ def generic_ma_phases(torch, np, dev, card, reset_counts, counts):
         if fenv.kernel != "fused_cuda":
             fail(f"fused {label} at B={BATCH} reports {fenv.kernel!r}")
         fcalls = [host_s(lambda: fenv.rollout(GENERIC_MA_STEPS), torch)
-                  for _ in range(MAIN_CALLS)]
+                  for _ in range(GENERIC_CALLS)]
         fused_rate = (BATCH * GENERIC_MA_STEPS
                       / sorted(fcalls)[len(fcalls) // 2])
         rates = out[label]["env_steps_per_s"]
@@ -3478,7 +3537,7 @@ def generic_chain_phases(torch, np, dev, card, reset_counts, counts):
         if label not in GENERIC_BENCH_ROWS:
             continue
         log(f"== 42. {label}: rollout({GENERIC_SCALAR_STEPS}) x "
-            f"{MAIN_CALLS} at B={BATCH} with the board each step, and the "
+            f"{GENERIC_CALLS} at B={BATCH} with the board each step, and the "
             "step's launches and idle share")
         raw = factory.get_raw_env(name, **kw)
         reset_counts()
@@ -3687,10 +3746,10 @@ def same_trace(a, b, label, np, path="trace"):
 
 
 def learner_shell_phases(torch, np, dev, card, reset_counts, counts):
-    """Phases 46-49: the generic learners (PPO and A2C on the generic
-    chains) and the scalar stateful shell on the card, each held against
-    the CPU port. No fused kernel launches; the numbers go into the
-    results line's ``learners``."""
+    """Phases 46-48: the generic learners (PPO and A2C on the generic
+    chains) on the card, each held against the CPU port. No fused kernel
+    launches; the numbers go into the results line's ``learners`` (with
+    phase 49's)."""
     from ai_safety_gridworlds_torch.core import base, threefry
     from ai_safety_gridworlds_torch.envs.island_navigation import (
         IslandNavigation,
@@ -3930,8 +3989,6 @@ def learner_shell_phases(torch, np, dev, card, reset_counts, counts):
                   "near_tie_lanes": int(near.sum()),
                   "max_param_gap": max(gap.values())}
     log(f"phase 48: {time.perf_counter() - t_phase:.1f} s")
-
-    out.update(scalar_shell_phase(np, card, reset_counts, counts))
     return out
 
 
@@ -4942,6 +4999,743 @@ def adapter_phase(np, card, reset_counts, counts):
     return out
 
 
+# ------------------------------------------------------------- 53. scale-out
+
+# Each rank process of phase 53 must end within this many seconds (a world
+# takes 20-50 s on an H100), so that a hung rendezvous fails the run well
+# within its time limit.
+SCALEOUT_TIMEOUT_S = 150
+# The K3, K5 and K9 two-rank steps run at this batch.
+SCALEOUT_SMALL_BATCH = 256
+# Timed steps of each kind on the one-rank NCCL mesh.
+SCALEOUT_TIMED = 3
+# The A2C step under the (1, 2) mesh: lanes, hidden units and unrolled
+# steps (__graft_entry__.dryrun_multichip's hidden and unroll, more lanes).
+A2C_MESH_BATCH, A2C_MESH_HIDDEN, A2C_MESH_STEPS, A2C_MESH_LR = 1024, 128, 4, 1e-3
+# measure_steps_per_second on generic boat_race: steps a chunk and reps.
+PROFILE_STEPS, PROFILE_REPS, LATENCY_STEPS = 128, 3, 100
+# The collection kernels a profiled fused train_step should show.
+TRACE_PATHS = (
+    ("K3", "firemaker_ex_ma", "fm_collect_kernel"),
+    ("K5", "boat_race", "sc_collect_kernel"),
+    ("K7", "island_navigation_ex_ma", "im_collect_kernel"),
+    ("K9", "aintelope_savanna", "sv_collect_kernel"),
+)
+
+
+def kernel_wrappers():
+    """The launch-counting wrappers of K1 and K3-K9."""
+    from ai_safety_gridworlds_torch.ops import (
+        fused_firemaker,
+        fused_island_ma,
+        fused_savanna,
+        fused_scalar,
+    )
+
+    return (fused_firemaker.fused_firemaker_rollout,
+            fused_firemaker.fused_firemaker_collect,
+            fused_scalar.fused_scalar_rollout,
+            fused_scalar.fused_scalar_collect,
+            fused_island_ma.fused_island_ma_rollout,
+            fused_island_ma.fused_island_ma_collect,
+            fused_savanna.fused_savanna_rollout,
+            fused_savanna.fused_savanna_collect)
+
+
+class LaunchTally:
+    """Launches of each kernel wrapper made inside ``with tally:`` blocks,
+    summed over the blocks (the sharded paths' launches; launches made to
+    compare with unsharded or plain runs fall outside them)."""
+
+    def __init__(self):
+        self.wrappers = kernel_wrappers()
+        self.counts = {w.__name__: 0 for w in self.wrappers}
+
+    def __enter__(self):
+        self.before = {w.__name__: w.launches for w in self.wrappers}
+        return self
+
+    def __exit__(self, *exc):
+        for w in self.wrappers:
+            self.counts[w.__name__] += w.launches - self.before[w.__name__]
+        return False
+
+
+def states_equal(a, b, fields, lanes=None):
+    """Names of ``fields`` whose tensors differ (on the ``lanes`` mask of the
+    last axis, if given)."""
+    import torch
+
+    bad = []
+    for k in fields:
+        x, y = a[k], b[k].to(a[k].device)
+        if not x.is_floating_point():
+            x, y = x.to(torch.int64), y.to(torch.int64)
+        if lanes is not None:
+            x, y = x[..., lanes], y[..., lanes]
+        if not torch.equal(x, y):
+            bad.append(k)
+    return bad
+
+
+def train_states_equal(a, b):
+    """Names of the params, Adam state entries and packed-state fields in
+    which two fused-PPO states differ."""
+    import torch
+
+    bad = states_equal(a.S, b.S, a.S)
+    for k, p in a.params.items():
+        q = b.params[k]
+        if not torch.equal(p.detach(), q.detach().to(p.device)):
+            bad.append(k)
+        sa, sb = a.opt.state[p], b.opt.state[q]
+        bad += [f"{k}.{n}" for n in sa
+                if not torch.equal(sa[n], sb[n].to(sa[n].device))]
+    return bad
+
+
+def near_cdf_lanes(fused, S, params, n_steps, torch):
+    """Bool [lanes]: lanes of a plain collection from ``S`` under ``params``
+    with a draw within CDF_GAP of a cumulative softmax sum (phase 7's
+    exemption)."""
+    statics = fused._collect_statics(S, params)
+    near = torch.zeros(S["t"].shape[1], dtype=torch.bool, device=S["t"].device)
+    for _ in range(n_steps):
+        S, _, ex = fused._collect_step(S, statics)
+        near |= (ex["pol"]["cdf_gap"] < CDF_GAP).any(dim=0)
+    return near
+
+
+def scaleout_train_engines(batch):
+    """(label, kernel, fused engine) of the two-rank PPO steps held against
+    the CPU: island_navigation_ex_ma at ``BATCH`` (bench.py:533-560's
+    configuration), firemaker_ex_ma, boat_race and aintelope_savanna at
+    ``batch``."""
+    from ai_safety_gridworlds_torch.envs.aintelope_savanna import (
+        AIntelopeSavanna,
+    )
+    from ai_safety_gridworlds_torch.envs.boat_race import BoatRace
+    from ai_safety_gridworlds_torch.envs.firemaker_ex_ma import FiremakerExMa
+    from ai_safety_gridworlds_torch.envs.island_navigation_ex_ma import (
+        IslandNavigationExMa,
+    )
+    from ai_safety_gridworlds_torch.ops.fused_firemaker import FusedFiremaker
+    from ai_safety_gridworlds_torch.ops.fused_island_ma import FusedIslandMa
+    from ai_safety_gridworlds_torch.ops.fused_savanna import FusedSavanna
+    from ai_safety_gridworlds_torch.ops.fused_scalar import FusedBoatRace
+
+    return (
+        ("island", "K7", FusedIslandMa(IslandNavigationExMa()), BATCH),
+        ("firemaker", "K3", FusedFiremaker(FiremakerExMa()), batch),
+        ("boat_race", "K5", FusedBoatRace(BoatRace()), batch),
+        ("savanna", "K9", FusedSavanna(AIntelopeSavanna()), batch),
+    )
+
+
+def collectives_ms(mesh, state, n_metrics, cfg, torch):
+    """CUDA-event ms of one sharded train_step's collectives on ``mesh``:
+    an all-reduce (mean) of the flat gradient buffer per minibatch update
+    and one of the metrics, on card tensors; and the buffer's floats."""
+    from ai_safety_gridworlds_torch.parallel.mesh import all_reduce
+
+    grads = torch.zeros(sum(p.numel() for p in state.params.values()),
+                        device=mesh.device)
+    means = torch.zeros(n_metrics, device=mesh.device)
+
+    def collectives():
+        for _ in range(cfg.n_epochs * cfg.n_minibatches):
+            all_reduce(grads, mesh, mean=True)
+        all_reduce(means, mesh, mean=True)
+
+    return cuda_ms(collectives, 5, torch), grads.numel()
+
+
+def scaleout_world1(torch, np, mesh, tally):
+    """Phase 53 on the one-rank NCCL mesh: the sharded K1 rollout against
+    BatchedEnv's unsharded run, and the sharded island PPO step against
+    make_train_step, bit for bit, timed against it with the collectives'
+    share."""
+    from ai_safety_gridworlds_torch.envs.island_navigation_ex_ma import (
+        IslandNavigationExMa,
+    )
+    from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv
+    from ai_safety_gridworlds_torch.learners import ppo_fused
+    from ai_safety_gridworlds_torch.ops.fused_base import shard_statics
+    from ai_safety_gridworlds_torch.ops.fused_island_ma import FusedIslandMa
+
+    dev = mesh.device
+    out = {}
+    env = BatchedEnv("firemaker_ex_ma", batch_size=BATCH, seed=SEED,
+                     device="cuda")
+    fused = env.fused
+    S0 = {k: v.clone() for k, v in env.state.items()}
+    env.rollout(MAIN_STEPS)
+    lo, hi = mesh.lanes(BATCH)
+    with tally:
+        Sk = fused.rollout({k: v[:, lo:hi].contiguous() for k, v in S0.items()},
+                           MAIN_STEPS,
+                           statics=shard_statics(fused.statics_on(dev), lo, hi))
+        torch.cuda.synchronize()
+    bad = states_equal(Sk, {k: v[:, lo:hi] for k, v in env.state.items()},
+                       fused.STATE_FIELDS)
+    if bad:
+        fail(f"world 1: the sharded K1 rollout differs in {bad}")
+    out["k1_rollout_equal"] = True
+
+    cfg = ppo_fused.FusedPPOConfig(n_steps=COLLECT_STEPS, n_epochs=2,
+                                   n_minibatches=4, hidden=HIDDEN)
+    fused = FusedIslandMa(IslandNavigationExMa())
+    a = ppo_fused.init_train_state(fused, BATCH, seed=SEED, config=cfg,
+                                   device="cuda")
+    b = ppo_fused.init_train_state(fused, BATCH, seed=SEED, config=cfg,
+                                   device="cuda")
+    step = ppo_fused.make_train_step(fused, cfg, device="cuda")
+    sharded, shard_state = ppo_fused.make_sharded_train_step(fused, mesh, cfg)
+    b = shard_state(b)
+    for _ in range(2):
+        a, _ = step(a)
+        with tally:
+            b, metrics = sharded(b)
+    torch.cuda.synchronize()
+    bad = train_states_equal(a, b)
+    if bad:
+        fail(f"world 1: the sharded island step differs from make_train_step "
+             f"in {bad}")
+    out["k7_train_equal"] = True
+
+    def timed(fn, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = fn(state)
+        torch.cuda.synchronize()
+        return state, (time.perf_counter() - t0) * 1e3
+
+    plain_ms, sharded_ms = [], []
+    for _ in range(SCALEOUT_TIMED):
+        a, ms = timed(step, a)
+        plain_ms.append(ms)
+        with tally:
+            b, ms = timed(sharded, b)
+        sharded_ms.append(ms)
+    coll_ms, floats = collectives_ms(mesh, b, len(metrics), cfg, torch)
+    med = sorted(sharded_ms)[len(sharded_ms) // 2]
+    out.update({
+        "train_step_ms": plain_ms, "sharded_train_step_ms": sharded_ms,
+        "collectives_ms": coll_ms, "collectives_share": coll_ms / med,
+        "grad_buffer_floats": floats,
+        "all_reduces_a_step": cfg.n_epochs * cfg.n_minibatches + 1,
+    })
+    return out
+
+
+def scaleout_world2(torch, np, mesh, rank, out_dir, tally):
+    """Phase 53 on two gloo ranks sharing the card: the sharded K1, K6 and K8
+    rollouts against the unsharded kernels, bit for bit; the two-rank PPO
+    steps on K7, K3, K5 and K9 against the same two-rank steps on the CPU;
+    A2C under a (1, 2) mesh against one process's step; a sharded
+    checkpoint round trip of the island PPO state."""
+    import copy
+
+    from ai_safety_gridworlds_torch.core import base, threefry
+    from ai_safety_gridworlds_torch.envs.aintelope_savanna import (
+        AIntelopeSavanna,
+    )
+    from ai_safety_gridworlds_torch.envs.firemaker_ex_ma import FiremakerExMa
+    from ai_safety_gridworlds_torch.envs.island_navigation import (
+        IslandNavigation,
+    )
+    from ai_safety_gridworlds_torch.envs.island_navigation_ex_ma import (
+        IslandNavigationExMa,
+    )
+    from ai_safety_gridworlds_torch.learners import actor_critic as ac
+    from ai_safety_gridworlds_torch.learners import ppo_fused
+    from ai_safety_gridworlds_torch.ops.fused_base import shard_statics
+    from ai_safety_gridworlds_torch.ops.fused_firemaker import FusedFiremaker
+    from ai_safety_gridworlds_torch.ops.fused_island_ma import FusedIslandMa
+    from ai_safety_gridworlds_torch.ops.fused_savanna import FusedSavanna
+    from ai_safety_gridworlds_torch.parallel.mesh import make_mesh
+    from ai_safety_gridworlds_torch.utils import checkpoint
+
+    dev = mesh.device
+    out = {"rollouts": {}, "train": {}}
+    pool = {"map_randomization_frequency": 1, "max_iterations": 20}
+    for label, fused, K in (
+            ("K1 firemaker", FusedFiremaker(FiremakerExMa()), 1),
+            ("K6 island", FusedIslandMa(IslandNavigationExMa()), 1),
+            ("K6 island pool3", FusedIslandMa(IslandNavigationExMa(**pool)), 3),
+            ("K8 savanna", FusedSavanna(AIntelopeSavanna()), 1),
+            ("K8 savanna pool3",
+             FusedSavanna(AIntelopeSavanna(map_randomization_frequency=1)), 3)):
+        kw = {"layout_pool": K} if K > 1 else {}
+        S0 = fused.init_packed(SEED, BATCH, dev, **kw)
+        ref = fused.rollout(S0, MAIN_STEPS)
+        lo, hi = mesh.lanes(BATCH)
+        with tally:
+            Sk = fused.rollout(
+                {k: v[:, lo:hi].contiguous() for k, v in S0.items()},
+                MAIN_STEPS,
+                statics=shard_statics(fused.statics_on(dev), lo, hi))
+            torch.cuda.synchronize()
+        bad = states_equal(Sk, {k: v[:, lo:hi] for k, v in ref.items()},
+                           fused.STATE_FIELDS)
+        if bad:
+            fail(f"world 2 rank {rank}: the sharded {label} rollout differs "
+                 f"in {bad}")
+        out["rollouts"][label] = {
+            "lanes": [lo, hi], "episodes": int(Sk["stats_episodes"].sum()),
+            "per_lane_statics": sorted(
+                k for k, v in fused.statics_on(dev).items() if v.shape[1] > 1),
+        }
+
+    cpu_mesh = make_mesh(device="cpu")
+    for label, kernel, fused, batch in scaleout_train_engines(
+            SCALEOUT_SMALL_BATCH):
+        cfg = ppo_fused.FusedPPOConfig(n_steps=COLLECT_STEPS, n_epochs=2,
+                                       n_minibatches=4, hidden=HIDDEN)
+        card = ppo_fused.init_train_state(fused, batch, seed=SEED, config=cfg,
+                                          device="cuda")
+        host = ppo_fused.init_train_state(fused, batch, seed=SEED, config=cfg,
+                                          device="cpu")
+        c_step, c_shard = ppo_fused.make_sharded_train_step(fused, mesh, cfg)
+        h_step, h_shard = ppo_fused.make_sharded_train_step(fused, cpu_mesh,
+                                                            cfg)
+        card, host = c_shard(card), h_shard(host)
+        near = near_cdf_lanes(fused, host.S, host.params, cfg.n_steps, torch)
+        if label == "island":
+            template = copy.deepcopy(card)
+        t0 = time.perf_counter()
+        with tally:
+            card, m_card = c_step(card)
+            torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host, m_host = h_step(host)
+        host_s = time.perf_counter() - t0
+        lanes = host.S["t"].shape[1]
+        keep = ~near
+        differ = torch.zeros(lanes, dtype=torch.bool)
+        for k in fused.STATE_FIELDS:
+            x, y = card.S[k].cpu(), host.S[k]
+            if not x.is_floating_point():
+                x, y = x.to(torch.int64), y.to(torch.int64)
+            differ |= (x != y).any(dim=0)
+        diverged = int((differ & keep).sum())
+        if diverged > MAX_DIVERGED_SHARE * lanes:
+            fail(f"world 2 rank {rank} {label}: {diverged} non-exempt lanes "
+                 "differ from the CPU's two-rank step")
+        lr_bound = 2 * cfg.lr * cfg.n_epochs * cfg.n_minibatches
+        p_err = max(float((card.params[k].detach().cpu()
+                           - host.params[k].detach()).abs().max())
+                    for k in card.params)
+        if p_err > lr_bound:
+            fail(f"world 2 rank {rank} {label}: params {p_err} from the "
+                 f"CPU's, beyond 2 * lr per update ({lr_bound})")
+        # The collection kernels' logp and value meet the plain version's
+        # within FLOAT_TOL (phase 7), which the losses carry.
+        m_err = {k: abs(float(m_card[k]) - float(m_host[k])) for k in m_host}
+        over = {k: (float(m_card[k]), float(m_host[k])) for k in m_host
+                if m_err[k] > LEARNER_RTOL * abs(float(m_host[k])) + FLOAT_TOL}
+        if not near.any() and over:
+            fail(f"world 2 rank {rank} {label}: metrics (card, CPU) {over} "
+                 f"beyond rtol {LEARNER_RTOL} + {FLOAT_TOL}")
+        out["train"][label] = {
+            "kernel": kernel, "batch": batch, "exempt_lanes": int(near.sum()),
+            "exempt_differing": int((differ & near).sum()),
+            "diverged_lanes": diverged, "params_max_abs_err": p_err,
+            "metrics_max_abs_err": max(m_err.values()),
+            "card_step_ms": card_s * 1e3, "cpu_step_ms": host_s * 1e3,
+        }
+        if label == "island":
+            ckpt_dir = os.path.join(out_dir, "ckpt")
+            with checkpoint.CheckpointManager(ckpt_dir) as mgr:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mgr.save(1, card)
+                save_ms = (time.perf_counter() - t0) * 1e3
+                step_dir = os.path.join(ckpt_dir, "1")
+                nbytes = os.path.getsize(
+                    os.path.join(step_dir, f"shard{rank}.pt"))
+                straight, _ = c_step(card)
+                t0 = time.perf_counter()
+                restored = mgr.restore(1, template)
+                torch.cuda.synchronize()
+                restore_ms = (time.perf_counter() - t0) * 1e3
+            resumed, _ = c_step(restored)
+            bad = train_states_equal(straight, resumed)
+            if bad:
+                fail(f"world 2 rank {rank}: the resumed island step differs "
+                     f"in {bad}")
+            out["checkpoint"] = {"bytes": nbytes, "save_ms": save_ms,
+                                 "restore_ms": restore_ms, "bit_exact": True}
+            # The compared step above is the process's first: time a warm
+            # one, and the step's collectives alone (through the host).
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resumed, _ = c_step(resumed)
+            torch.cuda.synchronize()
+            out["train"][label]["warm_card_step_ms"] = (
+                time.perf_counter() - t0) * 1e3
+            coll, _ = collectives_ms(mesh, resumed, len(m_card), cfg, torch)
+            out["train"][label]["collectives_ms"] = coll
+
+    a2c = make_mesh(n_data=1, n_model=2, device="cuda")
+    env = IslandNavigation()
+    params = ac.init_params(1, 48, env.action_max - env.action_min + 1,
+                            hidden=A2C_MESH_HIDDEN, device="cuda")
+    keys = threefry.split(threefry.PRNGKey(2, dev), A2C_MESH_BATCH)
+    gaps = []
+    whole, _, loss = ac.train_step(params, env, base.episode_reset(env, keys),
+                                   3, lr=A2C_MESH_LR, n_steps=A2C_MESH_STEPS,
+                                   draw_gaps=gaps)
+    local, _, loss_m = ac.train_step(
+        ac.shard_params(params, a2c), env, base.episode_reset(env, keys), 3,
+        lr=A2C_MESH_LR, n_steps=A2C_MESH_STEPS, mesh=a2c)
+    if float(torch.stack(gaps).min()) < LEARNER_GAP:
+        fail("world 2: an A2C draw came within the near-tie gap; pick "
+             "another key")
+    want = ac.shard_params(whole, a2c)
+    errs = {}
+    for f in ac.ACParams._fields:
+        g = (getattr(params, f) - getattr(whole, f)).detach() / A2C_MESH_LR
+        bound = A2C_MESH_LR * 2.0 ** -8 * float(g.abs().max())
+        errs[f] = float((getattr(local, f) - getattr(want, f)).detach()
+                        .abs().max())
+        if errs[f] > bound:
+            fail(f"world 2 A2C (1, 2): {f} {errs[f]} from one process's "
+                 f"step, beyond one bfloat16 ulp of its largest gradient "
+                 f"times lr ({bound})")
+    out["a2c_1x2"] = {"params_max_abs_err": errs,
+                      "loss": float(loss_m), "loss_one_process": float(loss),
+                      "hidden_local": int(local.b1.shape[0])}
+    return out
+
+
+def scaleout_rank(mode, world, rank, store, out_dir):
+    """One rank of phase 53, run by :func:`scaleout_phase` as its own
+    process (``--scaleout-rank``): joins the ``world``-rank group (NCCL for
+    ``mode`` ``nccl``, gloo for ``gloo``) through the file ``store``, runs
+    its part and writes ``<mode>_rank<rank>.json`` into ``out_dir``. The
+    kernels come from the build directory the main process filled."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ai_safety_gridworlds_torch.parallel import multihost
+
+    torch.set_num_threads(4)
+    multihost.initialize(f"file://{store}", int(world), int(rank),
+                         local_device_ids=[0], backend=mode, timeout_s=60)
+    tally = LaunchTally()
+    try:
+        mesh = multihost.make_global_mesh(device="cuda")
+        if mode == "nccl":
+            out = scaleout_world1(torch, np, mesh, tally)
+        else:
+            out = scaleout_world2(torch, np, mesh, int(rank), out_dir, tally)
+    finally:
+        multihost.shutdown()
+    out["sharded_launches"] = tally.counts
+    out["mesh"] = mesh.shape
+    with open(os.path.join(out_dir, f"{mode}_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    print(f"rank {rank} ok", flush=True)
+
+
+def run_ranks(mode, world, work):
+    """Start ``world`` rank processes of ``mode`` and wait for each within
+    SCALEOUT_TIMEOUT_S; on expiry or a failed rank, kill the group and fail.
+    Returns each rank's JSON."""
+    out_dir = os.path.join(work, mode)
+    os.makedirs(out_dir)
+    store = os.path.join(out_dir, "store")
+    # Every rank lives on this host: gloo and NCCL connect over the
+    # loopback device, with no lookup of the host's name.
+    env = dict(os.environ)
+    for var in ("GLOO_SOCKET_IFNAME", "NCCL_SOCKET_IFNAME"):
+        env.setdefault(var, "lo")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--scaleout-rank", mode,
+         str(world), str(rank), store, out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for rank in range(world)]
+    logs = []
+    deadline = time.perf_counter() + SCALEOUT_TIMEOUT_S
+    for rank, p in enumerate(procs):
+        try:
+            text, _ = p.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            for q in procs:
+                q.communicate()
+            fail(f"phase 53 {mode}: rank {rank} did not end within "
+                 f"{SCALEOUT_TIMEOUT_S} s")
+        logs.append(text)
+    for rank, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode or f"rank {rank} ok" not in text:
+            for q in procs:
+                if q.poll() is None:
+                    q.kill()
+            fail(f"phase 53 {mode}: rank {rank} failed (exit {p.returncode})"
+                 f":\n{text[-4000:]}")
+    results = []
+    for rank in range(world):
+        with open(os.path.join(out_dir, f"{mode}_rank{rank}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def trace_rows(torch, np, card):
+    """A torch.profiler trace (``utils.profiling.trace``) of one fused
+    ``train_step`` each on K3, K5, K7 and K9 at B = BATCH, H = HIDDEN: the
+    device rows each holds, and whether its collection kernel is among them."""
+    from torch.autograd import DeviceType
+
+    from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv
+    from ai_safety_gridworlds_torch.learners import ppo_fused
+    from ai_safety_gridworlds_torch.utils import profiling
+
+    out = {}
+    cfg = ppo_fused.FusedPPOConfig(n_steps=COLLECT_STEPS, n_epochs=2,
+                                   n_minibatches=4, hidden=HIDDEN)
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "ai_safety_gridworlds_torch", "_build",
+                        f"traces-{os.getpid()}")
+    for label, name, key in TRACE_PATHS:
+        fused = BatchedEnv(name, batch_size=8, seed=SEED, device="cuda").fused
+        state = ppo_fused.init_train_state(fused, BATCH, seed=SEED,
+                                           config=cfg, device="cuda")
+        step = ppo_fused.make_train_step(fused, cfg, device="cuda")
+        state, _ = step(state)
+        torch.cuda.synchronize()
+        with profiling.trace(os.path.join(work, label)) as prof:
+            state, _ = step(state)
+            torch.cuda.synchronize()
+        rows = {}
+        for ev in prof.key_averages():
+            if getattr(ev, "device_type", None) != DeviceType.CUDA:
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = getattr(ev, "self_cuda_time_total", 0.0)
+            rows[ev.key[:80]] = (ev.count, round(us / 1e3, 4))
+        found = [k for k in rows if key in k]
+        top = sorted(rows.items(), key=lambda kv: -kv[1][1])[:4]
+        log(f"trace of one {label} train_step ({name}): {len(rows)} device "
+            f"rows; {key}: {found or 'absent'} "
+            f"{[rows[k] for k in found]}; busiest {top}  [{card}]")
+        out[label] = {"kernel_rows": {k: rows[k] for k in rows
+                                      if "kernel" in k and "elementwise" not
+                                      in k.lower()},
+                      "collect_kernel_found": bool(found),
+                      "device_rows": len(rows)}
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def scaleout_phase(torch, np, card):
+    """Phase 53 (module docstring): returns its JSON with
+    ``sharded_launches`` by kernel wrapper."""
+    import shutil
+
+    from ai_safety_gridworlds_torch.envs.boat_race import BoatRace
+    from ai_safety_gridworlds_torch.utils import profiling
+
+    log("== 53. scale-out: one NCCL rank, two gloo ranks on the card, the "
+        "sharded checkpoint, profiling")
+    t_phase = time.perf_counter()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "ai_safety_gridworlds_torch", "_build",
+                        f"scaleout-{os.getpid()}")
+    os.makedirs(work)
+    try:
+        t0 = time.perf_counter()
+        (w1,) = run_ranks("nccl", 1, work)
+        w1_s = time.perf_counter() - t0
+        log(f"world 1 (NCCL, {w1['mesh']}): the sharded K1 rollout("
+            f"{MAIN_STEPS}) at B={BATCH} equal to BatchedEnv's in every field; "
+            f"two sharded island train_steps equal to make_train_step's in "
+            f"params, Adam state and S; train_step {w1['train_step_ms']} ms, "
+            f"sharded {w1['sharded_train_step_ms']} ms; collectives "
+            f"({w1['all_reduces_a_step']} all-reduces, "
+            f"{w1['grad_buffer_floats']} floats a gradient buffer) "
+            f"{w1['collectives_ms']:.4f} ms, {w1['collectives_share']:.3%} of "
+            f"the median sharded step  [{card}]")
+        log("world 2: gloo ranks, both on the one card (NCCL refuses two "
+            "ranks on one device); each all-reduce of a card tensor goes "
+            "through the host")
+        t0 = time.perf_counter()
+        w2 = run_ranks("gloo", 2, work)
+        w2_s = time.perf_counter() - t0
+        for rank, r in enumerate(w2):
+            log(f"world 2 rank {rank}: rollouts equal {r['rollouts']}")
+            for label, row in r["train"].items():
+                log(f"world 2 rank {rank} {label} ({row['kernel']}, B="
+                    f"{row['batch']}): {row['exempt_lanes']} exempt lanes "
+                    f"({row['exempt_differing']} differing), "
+                    f"{row['diverged_lanes']} others diverged; params "
+                    f"{row['params_max_abs_err']:.3g} from the CPU's two-rank "
+                    f"step, metrics {row['metrics_max_abs_err']:.3g}; "
+                    f"card step {row['card_step_ms']:.1f} ms (the rank's "
+                    f"first step of this kind), CPU {row['cpu_step_ms']:.1f} "
+                    f"ms" + (f"; a warm card step "
+                             f"{row['warm_card_step_ms']:.1f} ms, its gloo "
+                             f"collectives through the host "
+                             f"{row['collectives_ms']:.3f} ms"
+                             if "collectives_ms" in row else "")
+                    + f"  [{card}]")
+            log(f"world 2 rank {rank}: checkpoint {r['checkpoint']}; A2C (1, "
+                f"2) {r['a2c_1x2']}  [{card}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = {}
+    for r in [w1] + w2:
+        for k, v in r["sharded_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"sharded launches over phase 53's ranks: {launches}")
+    for w in ("fused_firemaker_rollout", "fused_firemaker_collect",
+              "fused_scalar_collect", "fused_island_ma_rollout",
+              "fused_island_ma_collect", "fused_savanna_rollout",
+              "fused_savanna_collect"):
+        if not launches.get(w):
+            fail(f"phase 53: {w} launched on no sharded path")
+
+    rate = profiling.measure_steps_per_second(
+        BoatRace(), batch_size=BATCH, n_steps=PROFILE_STEPS,
+        n_reps=PROFILE_REPS, device="cuda")
+    latency = profiling.per_step_latency(BoatRace(), n_steps=LATENCY_STEPS,
+                                         device="cuda")
+    log(f"measure_steps_per_second(boat_race, B={BATCH}, {PROFILE_STEPS} "
+        f"steps x {PROFILE_REPS}): {rate['steps_per_sec']:.0f} env-steps/s by "
+        f"the host clock (reps {[round(x) for x in rate['rep_steps_per_sec']]}"
+        f"), by CUDA events "
+        f"{[round(x) for x in rate['rep_device_steps_per_sec']]}; "
+        f"per_step_latency {latency['seconds_per_step'] * 1e3:.3f} ms a step "
+        f"(device {latency['device_seconds_per_step'] * 1e3:.3f} ms) on "
+        f"{rate['device']}  [{card}]")
+    traces = trace_rows(torch, np, card)
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 53: {seconds:.1f} s (world 1 {w1_s:.1f} s, world 2 "
+        f"{w2_s:.1f} s with the ranks' start)")
+    return {"world1": w1, "world2": w2, "sharded_launches": launches,
+            "measure_steps_per_second": rate, "per_step_latency": latency,
+            "traces": traces, "seconds": seconds}
+
+
+def trace_history():
+    """Which torch.profiler sessions of one process record a hand-written
+    kernel's row (``--trace-history``): one K3 ``train_step`` at B = BATCH,
+    H = HIDDEN profiled as phase 8 profiles it (``device_busy_ms``) or by
+    ``utils.profiling.trace``, fresh and after each piece of the whole
+    run's history before phase 13 (a second session, 200 more K3 launches
+    of the same engine, one and then 200 train steps of a second engine at
+    B = 64 as phase 9's gate makes them, a CUDA-only session as phases 39
+    and 45 make), and K5's step; one JSON line of (session, row found,
+    kernel ms or device rows)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false; this run needs a card")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv
+    from ai_safety_gridworlds_torch.learners import ppo_fused
+    from ai_safety_gridworlds_torch.ops import _cuda
+
+    _cuda.build(("fused_firemaker", "fused_scalar"))
+    cfg = ppo_fused.FusedPPOConfig(n_steps=COLLECT_STEPS, n_epochs=2,
+                                   n_minibatches=4, hidden=HIDDEN)
+
+    def path(name):
+        fused = BatchedEnv(name, batch_size=8, seed=SEED, device="cuda").fused
+        state = ppo_fused.init_train_state(fused, BATCH, seed=SEED,
+                                           config=cfg, device="cuda")
+        step = ppo_fused.make_train_step(fused, cfg, device="cuda")
+        step(state)
+        torch.cuda.synchronize()
+        return fused, state, step
+
+    fm, fm_state, fm_step = path("firemaker_ex_ma")
+    sessions = []
+
+    def busy(label, step, state, key):
+        _, kernel_ms, top = device_busy_ms(lambda: step(state), key, torch)
+        sessions.append((label, kernel_ms > 0, kernel_ms))
+        log(f"{label}: {key} {'recorded' if kernel_ms > 0 else 'absent'} "
+            f"({kernel_ms:.4f} ms); busiest {top}")
+
+    def traced(label):
+        from torch.autograd import DeviceType
+
+        from ai_safety_gridworlds_torch.utils import profiling
+
+        work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "ai_safety_gridworlds_torch", "_build",
+                            f"history-{os.getpid()}")
+        with profiling.trace(work) as prof:
+            fm_step(fm_state)
+            torch.cuda.synchronize()
+        rows = [ev.key for ev in prof.key_averages()
+                if getattr(ev, "device_type", None) == DeviceType.CUDA]
+        found = any("fm_collect_kernel" in k for k in rows)
+        sessions.append((label, found, len(rows)))
+        log(f"{label}: fm_collect_kernel {'recorded' if found else 'absent'}"
+            f" among {len(rows)} device rows")
+
+    busy("1 fresh (device_busy_ms)", fm_step, fm_state, "fm_collect_kernel")
+    busy("2 second session", fm_step, fm_state, "fm_collect_kernel")
+    traced("3 profiling.trace")
+    params = {k: v.detach() for k, v in fm_state.params.items()}
+    for _ in range(200):
+        fm.rollout_collect(fm_state.S, params, COLLECT_STEPS)
+    torch.cuda.synchronize()
+    busy("4 after 200 K3 launches of the same engine", fm_step, fm_state,
+         "fm_collect_kernel")
+    gate = BatchedEnv("firemaker_ex_ma", batch_size=8, seed=3,
+                      device="cuda").fused
+    gcfg = ppo_fused.FusedPPOConfig(n_steps=32, n_epochs=2, n_minibatches=2,
+                                    hidden=32, lr=1e-3)
+    gstate = ppo_fused.init_train_state(gate, 64, seed=3, config=gcfg,
+                                        device="cuda")
+    gstep = ppo_fused.make_train_step(gate, gcfg, device="cuda")
+    gstate, _ = gstep(gstate)
+    torch.cuda.synchronize()
+    busy("5 after one train step of a second engine at B = 64", fm_step,
+         fm_state, "fm_collect_kernel")
+    for _ in range(200):
+        gstate, _ = gstep(gstate)
+    torch.cuda.synchronize()
+    busy("6 after 200 more train steps at B = 64", fm_step, fm_state,
+         "fm_collect_kernel")
+    _, br_state, br_step = path("boat_race")
+    busy("7 K5 step", br_step, br_state, "sc_collect_kernel")
+    device_profile(lambda: fm_step(fm_state), torch)
+    busy("8 after a CUDA-only session", fm_step, fm_state,
+         "fm_collect_kernel")
+    traced("9 profiling.trace")
+    print(json.dumps({"sessions": sessions, "card": gpu_line(),
+                      "torch": torch.__version__}), flush=True)
+
+
+def scaleout_only():
+    """Phase 53 alone (builds the kernels first): one JSON line."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false; this run needs a card")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ai_safety_gridworlds_torch.ops import _cuda
+
+    t0 = time.perf_counter()
+    _cuda.build()
+    log(f"built in {time.perf_counter() - t0:.1f} s")
+    out = scaleout_phase(torch, np, gpu_line())
+    print(json.dumps(out), flush=True)
+
+
 def learners_only():
     """Phases 46-49 alone (no kernel build): one JSON line."""
     import torch
@@ -4951,21 +5745,7 @@ def learners_only():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
-    from ai_safety_gridworlds_torch.ops import (
-        fused_firemaker,
-        fused_island_ma,
-        fused_savanna,
-        fused_scalar,
-    )
-
-    wrappers = (fused_firemaker.fused_firemaker_rollout,
-                fused_firemaker.fused_firemaker_collect,
-                fused_scalar.fused_scalar_rollout,
-                fused_scalar.fused_scalar_collect,
-                fused_island_ma.fused_island_ma_rollout,
-                fused_island_ma.fused_island_ma_collect,
-                fused_savanna.fused_savanna_rollout,
-                fused_savanna.fused_savanna_collect)
+    wrappers = kernel_wrappers()
 
     def reset_counts():
         for w in wrappers:
@@ -4975,8 +5755,10 @@ def learners_only():
         return {w.__name__: w.launches for w in wrappers}
 
     t0 = time.perf_counter()
-    out = learner_shell_phases(torch, np, torch.device("cuda", 0), gpu_line(),
+    card = gpu_line()
+    out = learner_shell_phases(torch, np, torch.device("cuda", 0), card,
                                reset_counts, counts)
+    out.update(scalar_shell_phase(np, card, reset_counts, counts))
     out["seconds"] = time.perf_counter() - t0
     print(json.dumps(out), flush=True)
 
@@ -4991,21 +5773,7 @@ def shells_only():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
-    from ai_safety_gridworlds_torch.ops import (
-        fused_firemaker,
-        fused_island_ma,
-        fused_savanna,
-        fused_scalar,
-    )
-
-    wrappers = (fused_firemaker.fused_firemaker_rollout,
-                fused_firemaker.fused_firemaker_collect,
-                fused_scalar.fused_scalar_rollout,
-                fused_scalar.fused_scalar_collect,
-                fused_island_ma.fused_island_ma_rollout,
-                fused_island_ma.fused_island_ma_collect,
-                fused_savanna.fused_savanna_rollout,
-                fused_savanna.fused_savanna_collect)
+    wrappers = kernel_wrappers()
 
     def reset_counts():
         for w in wrappers:
@@ -5032,21 +5800,7 @@ def adapters_only():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
-    from ai_safety_gridworlds_torch.ops import (
-        fused_firemaker,
-        fused_island_ma,
-        fused_savanna,
-        fused_scalar,
-    )
-
-    wrappers = (fused_firemaker.fused_firemaker_rollout,
-                fused_firemaker.fused_firemaker_collect,
-                fused_scalar.fused_scalar_rollout,
-                fused_scalar.fused_scalar_collect,
-                fused_island_ma.fused_island_ma_rollout,
-                fused_island_ma.fused_island_ma_collect,
-                fused_savanna.fused_savanna_rollout,
-                fused_savanna.fused_savanna_collect)
+    wrappers = kernel_wrappers()
 
     def reset_counts():
         for w in wrappers:
@@ -5145,6 +5899,12 @@ def main():
         return shells_only()
     if sys.argv[1:] == ["--adapters"]:
         return adapters_only()
+    if sys.argv[1:] == ["--scaleout"]:
+        return scaleout_only()
+    if sys.argv[1:] == ["--trace-history"]:
+        return trace_history()
+    if len(sys.argv) == 7 and sys.argv[1] == "--scaleout-rank":
+        return scaleout_rank(*sys.argv[2:])
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke run needs a card")
@@ -5208,12 +5968,36 @@ def main():
     log(f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
 
-    # ---- 2. build
-    log("== 2. build")
+    # ---- 2. build, on a thread: phases 49-52 launch no kernel of the port
+    # (each fails if one launched) and run on the host and the card
+    # meanwhile; the kernel phases start once the build has ended.
+    log("== 2. build, while phases 49-52 run")
     t0 = time.perf_counter()
-    logs = _cuda.build()
+    built = {}
+
+    def build():
+        try:
+            built["logs"] = _cuda.build()
+        except BaseException as e:  # re-raised on the main thread
+            built["error"] = e
+        built["seconds"] = time.perf_counter() - t0
+
+    builder = threading.Thread(target=build, name="nvcc")
+    builder.start()
+    shell = scalar_shell_phase(np, card, reset_counts, counts)
+    mo_shell = mo_shell_phase(np, card, reset_counts, counts)
+    moma_shell = moma_shell_phase(np, card, reset_counts, counts)
+    adapters = adapter_phase(np, card, reset_counts, counts)
+    # The shells' class-wide counters and randomized maps start afresh for
+    # the phases after them.
+    fresh_shell_statics()
+    builder.join()
+    if "error" in built:
+        raise built["error"]
+    logs = built["logs"]
     log(f"built {sorted(logs)} into {_cuda.build_dir()} in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{built['seconds']:.1f} s (phases 49-52 ran meanwhile; "
+        f"{time.perf_counter() - t0:.1f} s in all)")
     for name, text in logs.items():
         for line in text.splitlines():
             if any(k in line for k in ("registers", "spill", "smem",
@@ -5558,11 +6342,10 @@ def main():
     generic = generic_phases(torch, np, dev, card, reset_counts, counts)
     learners = learner_shell_phases(torch, np, dev, card, reset_counts,
                                     counts)
-    mo_shell = mo_shell_phase(np, card, reset_counts, counts)
-    moma_shell = moma_shell_phase(np, card, reset_counts, counts)
-    adapters = adapter_phase(np, card, reset_counts, counts)
+    learners.update(shell)
+    scaleout = scaleout_phase(torch, np, card)
 
-    # ---- 53. results
+    # ---- 54. results
     k2_bound_ms, k2_bound_by = bound(24 * n_words, 24 * n_words)
     kernels = [{
         "name": "fused_firemaker_rollout", "route": "cuda",
@@ -5582,6 +6365,8 @@ def main():
         "exempt_lane_steps": exempt, "flipped_lane_steps": flipped,
         "diverged_lanes": diverged,
     }] + scalar_kernels + island_kernels + savanna_kernels
+    for k in kernels:
+        k["sharded_launches"] = scaleout["sharded_launches"].get(k["name"], 0)
     checked_off_path = [{
         "name": "prf_words", "route": "cuda",
         "source": "ai_safety_gridworlds_torch/ops/csrc/prf_words.cu",
@@ -5597,7 +6382,7 @@ def main():
     log(json.dumps({"kernels": kernels, "checked_off_path": checked_off_path,
                     "generic": generic, "learners": learners,
                     "mo_shell": mo_shell, "moma_shell": moma_shell,
-                    "adapters": adapters}))
+                    "adapters": adapters, "scaleout": scaleout}))
     log(gpu_line())
     log(json.dumps({
         "ok": True,
