@@ -33,7 +33,8 @@
 // * The lane's scalar fields -- positions, reasons, step types, facings,
 //   step counts, satiations, visits, safety distances, availabilities, t,
 //   key, draw counter, episode counter, reward sums -- live in registers for
-//   the whole call and are group-uniform: every thread of the group holds
+//   the whole call (the wide kernel keeps the per-agent ones in shared
+//   memory, SvRows) and are group-uniform: every thread of the group holds
 //   them and runs the scalar part of the step redundantly, so the group
 //   takes every branch together. Thread 0 of the group writes them back and
 //   writes K9's records. Each reward sum is formed by one thread (every
@@ -84,14 +85,20 @@
 //   output row a, bias first and hidden units ascending, as mlp_draw does
 //   (policy.cuh, mlp_group_rows).
 // The group size is a runtime field, not a template parameter: one
-// instantiation per (N, MODE) serves every g, so the build stays at 12
-// kernels. fused_savanna.py::_lanes_per_group picks g from the batch and
-// from the configuration's per-cell work.
+// instantiation per (N, MODE) serves every g. fused_savanna.py::
+// _lanes_per_group picks g from the batch and from the configuration's
+// per-cell work.
 //
-// K8 and K9 share one step body, sv_step<N, MODE>, instantiated for N = 1..4
-// agents and the uniform, linear (K8) and MLP (K9) policy modes; the feature
-// gates are runtime flags of the parameter block. The linear policy and the
-// MLP come from policy.cuh, the PRF from prng.cuh.
+// K8 and K9 share one step body, sv_step<MODE>, for the uniform, linear
+// (K8) and MLP (K9) policy modes; the feature gates are runtime flags of the
+// parameter block. The linear policy and the MLP come from policy.cuh, the
+// PRF from prng.cuh. The step reaches the agents through a store (the
+// comment above SvRegs says what each holds where): SvRegs<N>, register
+// arrays, for the kernels of N = 1..SV_NARROW_N agents, and SvRows, rows in
+// the lane's shared memory, for the one wide kernel a mode,
+// N = SV_MAX_N, that runs SV_NARROW_N + 1..SV_MAX_N agents with the count a
+// runtime field (p.n_agents). The per-cell passes take the agents' cells
+// from the store (PosRegs or PosRow).
 //
 // Bound. A lane-step is a few hundred operations for the draws and each
 // acting sub-step, plus per-cell passes where a feature needs them: HW
@@ -115,7 +122,8 @@
 #include "policy.cuh"
 #include "prng.cuh"
 
-#define SV_MAX_N 4
+#define SV_NARROW_N 2  // the largest agent count with a kernel of its own
+#define SV_MAX_N 10    // the wide kernel's bound
 #define SV_MAX_D 12
 #define SV_MAX_POOL 8
 #define SV_MAX_T 256
@@ -262,6 +270,7 @@ struct SvParams {
   // warp (at most 32 / group).
   int group, lanes_per_warp;
   SvTraj traj;
+  int n_agents;
 };
 
 extern "C" int sv_params_size() { return static_cast<int>(sizeof(SvParams)); }
@@ -286,10 +295,20 @@ __host__ __device__ __forceinline__ bool sv_drapes(const SvParams& p) {
   return any;
 }
 
-__host__ __device__ __forceinline__ int sv_lane_words(const SvParams& p) {
+// Words of the boards; the wide kernel's agent rows follow them.
+__host__ __device__ __forceinline__ int sv_board_words(const SvParams& p) {
   const int hwp = sv_hwp(p.HW);
-  const int bytes = hwp * (2 + sv_n_curtains(p)) + 2 * hwp + (sv_drapes(p) ? 4 * p.HW : 0);
-  return (bytes / 4) | 1;
+  return (hwp * (2 + sv_n_curtains(p)) + 2 * hwp + (sv_drapes(p) ? 4 * p.HW : 0)) / 4;
+}
+
+// The wide kernel's rows per agent: ten scalar fields, seven visit counts,
+// and D words each of stats_rewards and the step's rewards (SvRows).
+__host__ __device__ __forceinline__ int sv_agent_words(const SvParams& p) {
+  return p.n_agents > SV_NARROW_N ? p.n_agents * (17 + 2 * p.D) : 0;
+}
+
+__host__ __device__ __forceinline__ int sv_lane_words(const SvParams& p) {
+  return (sv_board_words(p) + sv_agent_words(p)) | 1;
 }
 
 extern "C" int sv_lane_bytes(const SvParams* p) { return 4 * sv_lane_words(*p); }
@@ -359,62 +378,61 @@ __device__ __forceinline__ void put(T (&a)[N], int i, T v) {
     if (j == i) a[j] = v;
 }
 
-// The agents' cells, padded with -1, passed by value to the per-cell passes.
-struct Pos4 {
-  int c[SV_MAX_N];
+// The agents' cells of the narrow kernels (N <= SV_NARROW_N), padded with
+// -1, passed by value to the per-cell passes.
+struct PosRegs {
+  int c[SV_NARROW_N];
 };
 
 template <int N>
-__device__ __forceinline__ Pos4 pos4(const int (&pos)[N]) {
-  Pos4 q;
+__device__ __forceinline__ PosRegs pos_regs(const int (&pos)[N]) {
+  PosRegs q;
 #pragma unroll
-  for (int j = 0; j < SV_MAX_N; ++j) q.c[j] = j < N ? pos[j] : -1;
+  for (int j = 0; j < SV_NARROW_N; ++j) q.c[j] = j < N ? pos[j] : -1;
   return q;
 }
 
-__device__ __forceinline__ bool on_player(const Pos4& q, int c) {
-  return q.c[0] == c || q.c[1] == c || q.c[2] == c || q.c[3] == c;
+__device__ __forceinline__ bool on_player(const PosRegs& q, int c) {
+  bool on = false;
+#pragma unroll
+  for (int j = 0; j < SV_NARROW_N; ++j) on = on || q.c[j] == c;
+  return on;
 }
 
-// One lane's register state.
-template <int N>
-struct SvLane {
-  uint32_t key_hi, key_lo, ctr;
-  int t, episodes, ep_idx;
-  float avail[4];
-  int pos[N], reasons[N], types[N], adir[N], odir[N], count[N], safety[N], safety2[N];
-  float dsat[N], fsat[N];
-  int visits[N][7];
-  float stats[N][SV_MAX_D];
+// Whether an agent stands on a cell of the curtain.
+__device__ __forceinline__ bool on_curtain(const PosRegs& q, const unsigned char* cur) {
+  bool on_any = false;
+#pragma unroll
+  for (int j = 0; j < SV_NARROW_N; ++j) on_any = on_any || (q.c[j] >= 0 && cur[q.c[j]]);
+  return on_any;
+}
+
+// An agent j's start cell from the redraw (j < N <= SV_NARROW_N).
+__device__ __forceinline__ void put_start(PosRegs& q, const Grp&, int j, int c) {
+  q.c[j & (SV_NARROW_N - 1)] = c;
+}
+
+// The wide kernel's agents' cells: the pos row in the lane's shared memory.
+struct PosRow {
+  int* c;
+  int n;
 };
 
-// rew[agent] += rv[kind], for a runtime agent index; terms whose vector is
-// all zero are left out, as in the plain version.
-template <int N>
-__device__ __forceinline__ void add_rv(float (&rew)[N][SV_MAX_D], const SvParams& p, int agent,
-                                       int kind) {
-  if (!p.rv_on[kind]) return;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    if (j != agent) continue;
-#pragma unroll
-    for (int d = 0; d < SV_MAX_D; ++d)
-      if (d < p.D) rew[j][d] = rew[j][d] + p.rv[kind][d];
-  }
+__device__ __forceinline__ bool on_player(const PosRow& q, int c) {
+  for (int j = 0; j < q.n; ++j)
+    if (q.c[j] == c) return true;
+  return false;
 }
 
-// rew[agent] += rv[kind] * scale (proportional homeostasis, gold, silver).
-template <int N>
-__device__ __forceinline__ void add_rv_scaled(float (&rew)[N][SV_MAX_D], const SvParams& p,
-                                              int agent, int kind, float scale) {
-  if (!p.rv_on[kind]) return;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    if (j != agent) continue;
-#pragma unroll
-    for (int d = 0; d < SV_MAX_D; ++d)
-      if (d < p.D) rew[j][d] = rew[j][d] + p.rv[kind][d] * scale;
-  }
+__device__ __forceinline__ bool on_curtain(const PosRow& q, const unsigned char* cur) {
+  for (int j = 0; j < q.n; ++j)
+    if (cur[q.c[j]]) return true;
+  return false;
+}
+
+// Thread 0 writes the row; the redraw's closing __syncwarp publishes it.
+__device__ __forceinline__ void put_start(PosRow& q, const Grp& G, int j, int c) {
+  if (G.t == 0) q.c[j] = c;
 }
 
 // The _REL_DIR table read as the plain version's select chain: a direction
@@ -428,130 +446,14 @@ __device__ __forceinline__ bool is_border(const SvParams& p, int c) {
   return r == 0 || r == p.H - 1 || col == 0 || col == p.W - 1;
 }
 
-// The lane's scalars, on every thread of its group, and its boards, each
-// cell by its owner, into shared memory.
-template <int N>
-__device__ __forceinline__ void load_lane(const SvParams& p, const Grp& G, const SvBoards& s,
-                                          int b, SvLane<N>& L) {
-  const size_t B = static_cast<size_t>(p.B);
-  L.key_hi = p.in.key[b];
-  L.key_lo = p.in.key[B + b];
-  L.ctr = p.in.draw_ctr[b];
-  L.t = p.in.t[b];
-  L.episodes = p.in.stats_episodes[b];
-  L.ep_idx = p.pool > 1 ? p.in.ep_idx[b] : 0;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) L.avail[r] = (p.sustain && p.res_on[r]) ? p.in.avail[r][b] : 0.f;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    const size_t row = j * B + b;
-    L.pos[j] = p.in.pos[row];
-    L.reasons[j] = p.in.reasons[row];
-    L.types[j] = p.in.step_types[row];
-    L.adir[j] = p.in.act_dir[row];
-    L.odir[j] = p.in.obs_dir[row];
-    L.count[j] = p.in.step_count[row];
-    L.safety[j] = p.in.safety[row];
-    L.safety2[j] = p.in.safety2[row];
-    L.dsat[j] = p.in.drink_sat[row];
-    L.fsat[j] = p.in.food_sat[row];
-#pragma unroll
-    for (int k = 0; k < 7; ++k) L.visits[j][k] = p.in.visits[(j * 7 + k) * B + b];
-#pragma unroll
-    for (int d = 0; d < SV_MAX_D; ++d)
-      L.stats[j][d] = d < p.D ? p.in.stats_rewards[(j * p.D + d) * B + b] : 0.f;
-  }
-  // Under exact_reset the wall and code boards are the lane's own state;
-  // otherwise its current layout's statics.
-  const int li = layout_of(p, L.ep_idx);
-  const float* wall = p.exact_reset ? p.in.wall : p.wall[li];
-  const float* sboard = p.exact_reset ? p.in.sboard : p.sboard[li];
-  for (int c = G.t; c < p.HW; c += G.g) {
-    const size_t cb = c * B + b;
-    s.pred[c] = p.in.predator[cb] > 0.5f;
-    s.wall[c] = wall[cb] > 0.5f;
-    s.code[c] = static_cast<unsigned short>(sboard[cb]);
-    for (int r = 0; r < 4; ++r)
-      if (s.res[r]) s.res[r][c] = p.in.res[r][cb] > 0.5f;
-  }
-  grp_sync(G);
-}
-
-// The lane's scalars by thread 0 of its group, its boards by their owners.
-template <int N>
-__device__ __forceinline__ void store_lane(const SvParams& p, const Grp& G, const SvBoards& s,
-                                           int b, const SvLane<N>& L) {
-  const size_t B = static_cast<size_t>(p.B);
-  for (int c = G.t; c < p.HW; c += G.g) {
-    const size_t cb = c * B + b;
-    p.out.predator[cb] = static_cast<float>(s.pred[c]);
-    if (p.exact_reset) {
-      p.out.wall[cb] = static_cast<float>(s.wall[c]);
-      p.out.sboard[cb] = static_cast<float>(s.code[c]);
-    }
-    for (int r = 0; r < 4; ++r)
-      if (s.res[r]) p.out.res[r][cb] = static_cast<float>(s.res[r][c]);
-  }
-  if (G.t != 0) return;
-  p.out.key[b] = L.key_hi;
-  p.out.key[B + b] = L.key_lo;
-  p.out.draw_ctr[b] = L.ctr;
-  p.out.t[b] = L.t;
-  p.out.stats_episodes[b] = L.episodes;
-  if (p.pool > 1) p.out.ep_idx[b] = L.ep_idx;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-    if (p.sustain && p.res_on[r]) p.out.avail[r][b] = L.avail[r];
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    const size_t row = j * B + b;
-    p.out.pos[row] = L.pos[j];
-    p.out.reasons[row] = L.reasons[j];
-    p.out.step_types[row] = L.types[j];
-    p.out.act_dir[row] = L.adir[j];
-    p.out.obs_dir[row] = L.odir[j];
-    p.out.step_count[row] = L.count[j];
-    p.out.safety[row] = L.safety[j];
-    p.out.safety2[row] = L.safety2[j];
-    p.out.drink_sat[row] = L.dsat[j];
-    p.out.food_sat[row] = L.fsat[j];
-#pragma unroll
-    for (int k = 0; k < 7; ++k) p.out.visits[(j * 7 + k) * B + b] = L.visits[j][k];
-#pragma unroll
-    for (int d = 0; d < SV_MAX_D; ++d)
-      if (d < p.D) p.out.stats_rewards[(j * p.D + d) * B + b] = L.stats[j][d];
-  }
-}
-
-// _policy_feats: per agent, normalised row and column (from _pos_dir_feats),
-// drink and food satiation * 0.1f, water and predator safety * 0.1f, and the
-// observation-direction one-hot.
-template <int N>
-__device__ __forceinline__ void policy_feats(const SvParams& p, const SvLane<N>& L,
-                                             float (&x)[N][SV_F]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    const float pj = static_cast<float>(L.pos[j]);
-    const float row = floorf((pj + 0.5f) * p.inv_w);
-    const float col = pj - row * static_cast<float>(p.W);
-    x[j][0] = row * p.inv_hm1;
-    x[j][1] = col * p.inv_wm1;
-    x[j][2] = L.dsat[j] * 0.1f;
-    x[j][3] = L.fsat[j] * 0.1f;
-    x[j][4] = static_cast<float>(L.safety[j]) * 0.1f;
-    x[j][5] = static_cast<float>(L.safety2[j]) * 0.1f;
-#pragma unroll
-    for (int d = 0; d < 4; ++d) x[j][6 + d] = L.odir[j] == d ? 1.f : 0.f;
-  }
-}
-
 // _redraw_layout for one resetting lane: a fresh uniformly shuffled map
-// from the redraw site's words, written to the lane's boards; returns the
-// agents' starts. Each pick is a group minimum over the threads' own
-// interior cells.
-__device__ __noinline__ Pos4 redraw(const SvParams& p, Grp G, SvBoards s,
-                                    uint32_t key_hi, uint32_t key_lo, uint32_t ctr0) {
-  Pos4 starts;
+// from the redraw site's words, written to the lane's boards, and the
+// agents' starts to `starts`. Each pick is a group minimum over the
+// threads' own interior cells.
+template <typename Q>
+__device__ __forceinline__ void redraw_into(const SvParams& p, const Grp& G, const SvBoards& s,
+                                            uint32_t key_hi, uint32_t key_lo, uint32_t ctr0,
+                                            Q& starts) {
   const int ib = p.idx_bits;
   const int idx_mask = (1 << ib) - 1;
   const uint32_t site = ctr0 + static_cast<uint32_t>(p.redraw_site);
@@ -578,7 +480,7 @@ __device__ __noinline__ Pos4 redraw(const SvParams& p, Grp G, SvBoards s,
     const bool mine = owns(G, pc);
     const int kind = p.spec[k];
     if (kind >= SPEC_AGENT) {
-      starts.c[(kind - SPEC_AGENT) & (SV_MAX_N - 1)] = pc;
+      put_start(starts, G, kind - SPEC_AGENT, pc);
     } else if (kind == SPEC_WATER) {
       // The water distance min-updates every cell; the codes stay.
       const int pr = pc / p.W, pcol = pc - (pc / p.W) * p.W;
@@ -604,7 +506,18 @@ __device__ __noinline__ Pos4 redraw(const SvParams& p, Grp G, SvBoards s,
     }
   }
   grp_sync(G);
+}
+
+__device__ __noinline__ PosRegs redraw(const SvParams& p, Grp G, SvBoards s, uint32_t key_hi,
+                                    uint32_t key_lo, uint32_t ctr0) {
+  PosRegs starts;
+  redraw_into(p, G, s, key_hi, key_lo, ctr0, starts);
   return starts;
+}
+
+__device__ __noinline__ void redraw(const SvParams& p, Grp G, SvBoards s, uint32_t key_hi,
+                                    uint32_t key_lo, uint32_t ctr0, PosRow starts) {
+  redraw_into(p, G, s, key_hi, key_lo, ctr0, starts);
 }
 
 // The per-episode reset into layout li (no redraw): the layout's boards,
@@ -623,61 +536,648 @@ __device__ __noinline__ void reset_boards(const SvParams& p, Grp G, SvBoards s, 
   grp_sync(G);
 }
 
-// Resource r on the acting agent's tile: the visit counts; with
-// sustainability a positive availability pays the reward, feeds the
-// satiation (penalise_oversatiation), clamps it at the oversatiation limit
-// and is drawn down by the extraction rate; without it the availability is
-// the amount flag. The other agents get the cooperation reward.
+// ---------------------------------------------------------------- agents
+// The lane's scalars, on every thread of its group.
+struct SvScalars {
+  uint32_t key_hi, key_lo, ctr;
+  int t, episodes, ep_idx;
+  float avail[4];
+};
+
+// One agent's fields, in registers: the wide store's acting agent for one
+// sub-step, or an agent's for its policy features.
+struct SvAgent {
+  int pos, reason, adir, odir, count, safety, safety2;
+  float dsat, fsat;
+  int visits[7];
+};
+
+// An agent's step type after the step (fused_base.py::_finalize_types).
+__device__ __forceinline__ int next_type(const SvParams& p, bool over, int t, int reason,
+                                         int type) {
+  const bool game_over = t >= p.max_iterations || reason != R_NONE;
+  const int nt = game_over ? ((type == MID || type == FIRST) ? LAST : DEAD) : MID;
+  return over ? FIRST : nt;
+}
+
+// The step (sv_step) reaches the agents through one of two stores with the
+// same members. SvRegs<N> (N <= SV_NARROW_N) keeps every agent's fields,
+// stats_rewards and the step's rewards in register arrays on every thread
+// of the group: its agent loops unroll (U = N), so their index is a
+// constant, and the acting agent's runtime index goes through get/put in
+// place (a copy of its fields would hold ~16 more registers through the
+// sub-step, which at N = 2 cost occupancy). SvRows (up to SV_MAX_N agents,
+// the count a runtime field) keeps them as rows in the lane's shared memory
+// after its boards, where a runtime index costs no register array; its
+// loops do not unroll (U = 1). The group's threads run the scalar chain
+// redundantly, so a row that every thread reads is written by thread 0
+// alone between two __syncwarp of the group: the acting agent's fields once
+// a sub-step (commit, after the safety distances, the last of its updates;
+// until then they sit in registers, cur), the types at finalize, every
+// field at a reset. Thread t owns reward dims t, t + g, ... of every
+// agent's rewards and stats, so the reward terms need no synchronisation;
+// K9's reward sum reads every dim between two __syncwarp. The actions (+ 1,
+// 0 for none) and the agent order are 4-bit fields of two 64-bit words.
 template <int N>
-__device__ __forceinline__ void consume(const SvParams& p, SvLane<N>& L,
-                                        float (&rew)[N][SV_MAX_D], int i, int r, bool on_tile,
-                                        float (&sat)[N]) {
-  if (!on_tile) return;
+struct SvRegs {
+  static constexpr int U = N;
+  int pos[N], reasons[N], types[N], adir[N], odir[N], count[N], safety[N], safety2[N];
+  float dsat[N], fsat[N];
+  int visits[N][7];
+  float stats[N][SV_MAX_D], rew[N][SV_MAX_D];
+  int act[N], ord[N];
+
+  __device__ __forceinline__ SvRegs(const SvParams&, uint32_t*) {}
+  __device__ __forceinline__ int n() const { return N; }
+  __device__ __forceinline__ int pos_of(int j) const { return get(pos, j); }
+  __device__ __forceinline__ int reason(int j) const { return get(reasons, j); }
+  __device__ __forceinline__ int count_of(int j) const { return get(count, j); }
+  __device__ __forceinline__ int type(int j) const { return get(types, j); }
+  __device__ __forceinline__ PosRegs cells() const { return pos_regs<N>(pos); }
+
+  // Every field on every thread.
+  __device__ __forceinline__ void load(const SvParams& p, const Grp&, int b) {
+    const size_t B = static_cast<size_t>(p.B);
 #pragma unroll
-  for (int j = 0; j < N; ++j)
-    if (j == i) L.visits[j][p.res_visit_col[r]] += 1;
+    for (int j = 0; j < N; ++j) {
+      const size_t row = j * B + b;
+      pos[j] = p.in.pos[row];
+      reasons[j] = p.in.reasons[row];
+      types[j] = p.in.step_types[row];
+      adir[j] = p.in.act_dir[row];
+      odir[j] = p.in.obs_dir[row];
+      count[j] = p.in.step_count[row];
+      safety[j] = p.in.safety[row];
+      safety2[j] = p.in.safety2[row];
+      dsat[j] = p.in.drink_sat[row];
+      fsat[j] = p.in.food_sat[row];
+#pragma unroll
+      for (int k = 0; k < 7; ++k) visits[j][k] = p.in.visits[(j * 7 + k) * B + b];
+#pragma unroll
+      for (int d = 0; d < SV_MAX_D; ++d)
+        stats[j][d] = d < p.D ? p.in.stats_rewards[(j * p.D + d) * B + b] : 0.f;
+    }
+  }
+
+  // By thread 0 of the group.
+  __device__ __forceinline__ void store(const SvParams& p, const Grp& G, int b) const {
+    if (G.t != 0) return;
+    const size_t B = static_cast<size_t>(p.B);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const size_t row = j * B + b;
+      p.out.pos[row] = pos[j];
+      p.out.reasons[row] = reasons[j];
+      p.out.step_types[row] = types[j];
+      p.out.act_dir[row] = adir[j];
+      p.out.obs_dir[row] = odir[j];
+      p.out.step_count[row] = count[j];
+      p.out.safety[row] = safety[j];
+      p.out.safety2[row] = safety2[j];
+      p.out.drink_sat[row] = dsat[j];
+      p.out.food_sat[row] = fsat[j];
+#pragma unroll
+      for (int k = 0; k < 7; ++k) p.out.visits[(j * 7 + k) * B + b] = visits[j][k];
+#pragma unroll
+      for (int d = 0; d < SV_MAX_D; ++d)
+        if (d < p.D) p.out.stats_rewards[(j * p.D + d) * B + b] = stats[j][d];
+    }
+  }
+
+  // Agent j's fields for its policy features (j a constant).
+  __device__ __forceinline__ SvAgent agent(int j) const {
+    SvAgent a;
+    a.pos = get(pos, j);
+    a.dsat = get(dsat, j);
+    a.fsat = get(fsat, j);
+    a.safety = get(safety, j);
+    a.safety2 = get(safety2, j);
+    a.odir = get(odir, j);
+    return a;
+  }
+
+  // The acting agent i's fields, read and written in place (begin and
+  // commit bracket its sub-step). `food` picks fsat over dsat.
+  __device__ __forceinline__ void begin(int) {}
+  __device__ __forceinline__ void commit(const Grp&, int) {}
+  __device__ __forceinline__ int a_pos(int i) const { return get(pos, i); }
+  __device__ __forceinline__ int a_reason(int i) const { return get(reasons, i); }
+  __device__ __forceinline__ int a_adir(int i) const { return get(adir, i); }
+  __device__ __forceinline__ int a_odir(int i) const { return get(odir, i); }
+  __device__ __forceinline__ int a_count(int i) const { return get(count, i); }
+  __device__ __forceinline__ float a_sat(int i, bool food) const {
+    return food ? get(fsat, i) : get(dsat, i);
+  }
+  __device__ __forceinline__ int a_visits(int i, int k) const {
+    int v = visits[0][k];
+#pragma unroll
+    for (int j = 1; j < N; ++j)
+      if (j == i) v = visits[j][k];
+    return v;
+  }
+  __device__ __forceinline__ void set_pos(int i, int v) { put(pos, i, v); }
+  __device__ __forceinline__ void set_reason(int i, int v) { put(reasons, i, v); }
+  __device__ __forceinline__ void set_adir(int i, int v) { put(adir, i, v); }
+  __device__ __forceinline__ void set_odir(int i, int v) { put(odir, i, v); }
+  __device__ __forceinline__ void set_count(int i, int v) { put(count, i, v); }
+  __device__ __forceinline__ void set_safety(int i, int v) { put(safety, i, v); }
+  __device__ __forceinline__ void set_safety2(int i, int v) { put(safety2, i, v); }
+  __device__ __forceinline__ void set_sat(int i, bool food, float v) {
+    if (food) put(fsat, i, v);
+    else put(dsat, i, v);
+  }
+  // visits[i][k] += 1 for a runtime column k, kept in registers.
+  __device__ __forceinline__ void bump(int i, int k) {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int c = 0; c < 7; ++c)
+        if (j == i && c == k) visits[j][c] += 1;
+  }
+
+  __device__ __forceinline__ void redraw_starts(const SvParams& p, const Grp& G, const SvBoards& s,
+                                                uint32_t key_hi, uint32_t key_lo, uint32_t ctr0) {
+    const PosRegs starts = redraw(p, G, s, key_hi, key_lo, ctr0);
+#pragma unroll
+    for (int j = 0; j < N; ++j) pos[j] = starts.c[j];
+  }
+
+  // Every agent's fields at an auto-reset; without a redraw the start
+  // cells of layout li.
+  __device__ __forceinline__ void reset(const SvParams& p, const Grp&, int b, int li) {
+    const size_t B = static_cast<size_t>(p.B);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (!p.exact_reset) pos[j] = p.pos0[li][j * B + b];
+      reasons[j] = R_NONE;
+      types[j] = FIRST;
+      adir[j] = DIR_UP;
+      odir[j] = DIR_UP;
+      count[j] = 0;
+      dsat[j] = p.sat0_drink;
+      fsat[j] = p.sat0_food;
+      safety[j] = 3;
+      safety2[j] = 3;
+#pragma unroll
+      for (int k = 0; k < 7; ++k) visits[j][k] = 0;
+    }
+  }
+
+  // Agent j's action (-1 for none) and order slot j = j.
+  __device__ __forceinline__ void set_draw(int j, int a) {
+    put(act, j, a);
+    put(ord, j, j);
+  }
+  __device__ __forceinline__ int action(int i) const { return get(act, i); }
+  __device__ __forceinline__ int order(int slot) const { return get(ord, slot); }
+  __device__ __forceinline__ void swap_order(int jj, int k) {
+    const int vk = get(ord, k), vj = get(ord, jj);
+    put(ord, jj, vk);
+    put(ord, k, vj);
+  }
+
+  __device__ __forceinline__ void zero_rew(const Grp&) {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int d = 0; d < SV_MAX_D; ++d) rew[j][d] = 0.f;
+  }
+
+  // rew[agent] += rv[kind] (* scale) for a runtime agent index; terms whose
+  // vector is all zero are left out, as in the plain version.
+  __device__ __forceinline__ void add_rv(const SvParams& p, const Grp&, int agent, int kind) {
+    if (!p.rv_on[kind]) return;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (j != agent) continue;
+#pragma unroll
+      for (int d = 0; d < SV_MAX_D; ++d)
+        if (d < p.D) rew[j][d] = rew[j][d] + p.rv[kind][d];
+    }
+  }
+  __device__ __forceinline__ void add_rv_scaled(const SvParams& p, const Grp&, int agent, int kind,
+                                                float scale) {
+    if (!p.rv_on[kind]) return;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (j != agent) continue;
+#pragma unroll
+      for (int d = 0; d < SV_MAX_D; ++d)
+        if (d < p.D) rew[j][d] = rew[j][d] + p.rv[kind][d] * scale;
+    }
+  }
+
+  __device__ __forceinline__ void finish_types(const SvParams& p, const Grp&, bool over, int t) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) types[j] = next_type(p, over, t, reasons[j], types[j]);
+  }
+
+  __device__ __forceinline__ void accumulate(const Grp&) {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int d = 0; d < SV_MAX_D; ++d) stats[j][d] = stats[j][d] + rew[j][d];
+  }
+
+  // K9's record of the step: each agent's reward summed over the reward
+  // dims in order, and its done flag.
+  __device__ __forceinline__ void record(const SvParams& p, const Grp& G, int step, int b) const {
+    if (G.t != 0) return;
+    const size_t B = static_cast<size_t>(p.B);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      float r = rew[j][0];
+#pragma unroll
+      for (int d = 1; d < SV_MAX_D; ++d)
+        if (d < p.D) r = r + rew[j][d];
+      const size_t row = static_cast<size_t>(step) * N + j;
+      p.traj.reward[row * B + b] = r;
+      p.traj.done[row * B + b] = types[j] == LAST || types[j] == DEAD;
+    }
+  }
+};
+
+// Field j (4 bits) of a packed word.
+__device__ __forceinline__ int nib(uint64_t w, int j) {
+  return static_cast<int>((w >> (4 * j)) & 15u);
+}
+
+__device__ __forceinline__ uint64_t set_nib(uint64_t w, int j, int v) {
+  return (w & ~(uint64_t{15} << (4 * j))) | (static_cast<uint64_t>(v) << (4 * j));
+}
+
+// The rows of SvRows, after the lane's boards: row j of a field is element
+// j; the visits, stats and rewards are [n][7], [n][D] and [n][D].
+struct SvRows {
+  static constexpr int U = 1;
+  int *pos, *reasons, *types, *adir, *odir, *count, *safety, *safety2, *visits;
+  float *dsat, *fsat, *stats, *rew;
+  int nn, D;
+  uint64_t acts, ords;
+  SvAgent cur;
+
+  __device__ __forceinline__ SvRows(const SvParams& p, uint32_t* base)
+      : nn(p.n_agents), D(p.D), acts(0), ords(0) {
+    int* w = reinterpret_cast<int*>(base + sv_board_words(p));
+    float* f = reinterpret_cast<float*>(w);
+    pos = w;
+    reasons = w + nn;
+    types = w + 2 * nn;
+    adir = w + 3 * nn;
+    odir = w + 4 * nn;
+    count = w + 5 * nn;
+    safety = w + 6 * nn;
+    safety2 = w + 7 * nn;
+    dsat = f + 8 * nn;
+    fsat = f + 9 * nn;
+    visits = w + 10 * nn;
+    stats = f + 17 * nn;
+    rew = f + (17 + D) * nn;
+  }
+  __device__ __forceinline__ int n() const { return nn; }
+  __device__ __forceinline__ int pos_of(int j) const { return pos[j]; }
+  __device__ __forceinline__ int reason(int j) const { return reasons[j]; }
+  __device__ __forceinline__ int count_of(int j) const { return count[j]; }
+  __device__ __forceinline__ int type(int j) const { return types[j]; }
+  __device__ __forceinline__ PosRow cells() const { return PosRow{pos, nn}; }
+
+  // Split over the group; load_lane's closing __syncwarp publishes them.
+  __device__ __forceinline__ void load(const SvParams& p, const Grp& G, int b) {
+    const size_t B = static_cast<size_t>(p.B);
+    for (int j = G.t; j < nn; j += G.g) {
+      const size_t row = j * B + b;
+      pos[j] = p.in.pos[row];
+      reasons[j] = p.in.reasons[row];
+      types[j] = p.in.step_types[row];
+      adir[j] = p.in.act_dir[row];
+      odir[j] = p.in.obs_dir[row];
+      count[j] = p.in.step_count[row];
+      safety[j] = p.in.safety[row];
+      safety2[j] = p.in.safety2[row];
+      dsat[j] = p.in.drink_sat[row];
+      fsat[j] = p.in.food_sat[row];
+    }
+    for (int k = G.t; k < nn * 7; k += G.g) visits[k] = p.in.visits[k * B + b];
+    for (int k = G.t; k < nn * D; k += G.g) stats[k] = p.in.stats_rewards[k * B + b];
+  }
+
+  // Split over the group, once every thread's stats dims are in.
+  __device__ __forceinline__ void store(const SvParams& p, const Grp& G, int b) const {
+    const size_t B = static_cast<size_t>(p.B);
+    grp_sync(G);
+    for (int j = G.t; j < nn; j += G.g) {
+      const size_t row = j * B + b;
+      p.out.pos[row] = pos[j];
+      p.out.reasons[row] = reasons[j];
+      p.out.step_types[row] = types[j];
+      p.out.act_dir[row] = adir[j];
+      p.out.obs_dir[row] = odir[j];
+      p.out.step_count[row] = count[j];
+      p.out.safety[row] = safety[j];
+      p.out.safety2[row] = safety2[j];
+      p.out.drink_sat[row] = dsat[j];
+      p.out.food_sat[row] = fsat[j];
+    }
+    for (int k = G.t; k < nn * 7; k += G.g) p.out.visits[k * B + b] = visits[k];
+    for (int k = G.t; k < nn * D; k += G.g) p.out.stats_rewards[k * B + b] = stats[k];
+  }
+
+  __device__ __forceinline__ SvAgent agent(int i) const {
+    SvAgent a;
+    a.pos = pos[i];
+    a.reason = reasons[i];
+    a.adir = adir[i];
+    a.odir = odir[i];
+    a.count = count[i];
+    a.safety = safety[i];
+    a.safety2 = safety2[i];
+    a.dsat = dsat[i];
+    a.fsat = fsat[i];
+#pragma unroll
+    for (int k = 0; k < 7; ++k) a.visits[k] = visits[i * 7 + k];
+    return a;
+  }
+
+  // The acting agent's fields live in registers (cur) for its sub-step:
+  // begin loads them; commit has thread 0 write them back once every
+  // thread has read the rows.
+  __device__ __forceinline__ void begin(int i) { cur = agent(i); }
+  __device__ __forceinline__ void commit(const Grp& G, int i) {
+    grp_sync(G);
+    if (G.t == 0) {
+      pos[i] = cur.pos;
+      reasons[i] = cur.reason;
+      adir[i] = cur.adir;
+      odir[i] = cur.odir;
+      count[i] = cur.count;
+      safety[i] = cur.safety;
+      safety2[i] = cur.safety2;
+      dsat[i] = cur.dsat;
+      fsat[i] = cur.fsat;
+#pragma unroll
+      for (int k = 0; k < 7; ++k) visits[i * 7 + k] = cur.visits[k];
+    }
+    grp_sync(G);
+  }
+  __device__ __forceinline__ int a_pos(int) const { return cur.pos; }
+  __device__ __forceinline__ int a_reason(int) const { return cur.reason; }
+  __device__ __forceinline__ int a_adir(int) const { return cur.adir; }
+  __device__ __forceinline__ int a_odir(int) const { return cur.odir; }
+  __device__ __forceinline__ int a_count(int) const { return cur.count; }
+  __device__ __forceinline__ float a_sat(int, bool food) const {
+    return food ? cur.fsat : cur.dsat;
+  }
+  __device__ __forceinline__ int a_visits(int, int k) const { return cur.visits[k]; }
+  __device__ __forceinline__ void set_pos(int, int v) { cur.pos = v; }
+  __device__ __forceinline__ void set_reason(int, int v) { cur.reason = v; }
+  __device__ __forceinline__ void set_adir(int, int v) { cur.adir = v; }
+  __device__ __forceinline__ void set_odir(int, int v) { cur.odir = v; }
+  __device__ __forceinline__ void set_count(int, int v) { cur.count = v; }
+  __device__ __forceinline__ void set_safety(int, int v) { cur.safety = v; }
+  __device__ __forceinline__ void set_safety2(int, int v) { cur.safety2 = v; }
+  __device__ __forceinline__ void set_sat(int, bool food, float v) {
+    if (food) cur.fsat = v;
+    else cur.dsat = v;
+  }
+  __device__ __forceinline__ void bump(int, int k) {
+#pragma unroll
+    for (int c = 0; c < 7; ++c)
+      if (c == k) cur.visits[c] += 1;
+  }
+
+  __device__ __forceinline__ void redraw_starts(const SvParams& p, const Grp& G, const SvBoards& s,
+                                                uint32_t key_hi, uint32_t key_lo, uint32_t ctr0) {
+    redraw(p, G, s, key_hi, key_lo, ctr0, PosRow{pos, nn});
+  }
+
+  // Both the redraw and reset_boards open with a __syncwarp, after every
+  // thread has read the types.
+  __device__ __forceinline__ void reset(const SvParams& p, const Grp& G, int b, int li) {
+    const size_t B = static_cast<size_t>(p.B);
+    if (G.t == 0) {
+      for (int j = 0; j < nn; ++j) {
+        if (!p.exact_reset) pos[j] = p.pos0[li][j * B + b];
+        reasons[j] = R_NONE;
+        types[j] = FIRST;
+        adir[j] = DIR_UP;
+        odir[j] = DIR_UP;
+        count[j] = 0;
+        dsat[j] = p.sat0_drink;
+        fsat[j] = p.sat0_food;
+        safety[j] = 3;
+        safety2[j] = 3;
+        for (int k = 0; k < 7; ++k) visits[j * 7 + k] = 0;
+      }
+    }
+    grp_sync(G);
+  }
+
+  __device__ __forceinline__ void set_draw(int j, int a) {
+    acts = set_nib(acts, j, a + 1);
+    ords = set_nib(ords, j, j);
+  }
+  __device__ __forceinline__ int action(int i) const { return nib(acts, i) - 1; }
+  __device__ __forceinline__ int order(int slot) const { return nib(ords, slot); }
+  __device__ __forceinline__ void swap_order(int jj, int k) {
+    const int vk = nib(ords, k), vj = nib(ords, jj);
+    ords = set_nib(set_nib(ords, jj, vk), k, vj);
+  }
+
+  __device__ __forceinline__ void zero_rew(const Grp& G) {
+    for (int k = 0; k < nn; ++k)
+      for (int d = G.t; d < D; d += G.g) rew[k * D + d] = 0.f;
+  }
+
+  // Over this thread's reward dims.
+  __device__ __forceinline__ void add_rv(const SvParams& p, const Grp& G, int agent, int kind) {
+    if (!p.rv_on[kind]) return;
+    float* row = rew + agent * D;
+    for (int d = G.t; d < D; d += G.g) row[d] = row[d] + p.rv[kind][d];
+  }
+  __device__ __forceinline__ void add_rv_scaled(const SvParams& p, const Grp& G, int agent,
+                                                int kind, float scale) {
+    if (!p.rv_on[kind]) return;
+    float* row = rew + agent * D;
+    for (int d = G.t; d < D; d += G.g) row[d] = row[d] + p.rv[kind][d] * scale;
+  }
+
+  // Every thread has read the types and reasons; thread 0 writes the types.
+  __device__ __forceinline__ void finish_types(const SvParams& p, const Grp& G, bool over, int t) {
+    grp_sync(G);
+    if (G.t == 0)
+      for (int j = 0; j < nn; ++j) types[j] = next_type(p, over, t, reasons[j], types[j]);
+    grp_sync(G);
+  }
+
+  __device__ __forceinline__ void accumulate(const Grp& G) {
+    for (int k = 0; k < nn; ++k)
+      for (int d = G.t; d < D; d += G.g) stats[k * D + d] = stats[k * D + d] + rew[k * D + d];
+  }
+
+  // From every thread's dims, between two __syncwarp.
+  __device__ __forceinline__ void record(const SvParams& p, const Grp& G, int step, int b) const {
+    const size_t B = static_cast<size_t>(p.B);
+    grp_sync(G);
+    if (G.t == 0) {
+      for (int j = 0; j < nn; ++j) {
+        const float* row = rew + j * D;
+        float r = row[0];
+        for (int d = 1; d < D; ++d) r = r + row[d];
+        const size_t k = static_cast<size_t>(step) * nn + j;
+        p.traj.reward[k * B + b] = r;
+        p.traj.done[k * B + b] = types[j] == LAST || types[j] == DEAD;
+      }
+    }
+    grp_sync(G);
+  }
+};
+
+// The store of a kernel instantiated for N agents: N = SV_MAX_N runs
+// SV_NARROW_N + 1 .. SV_MAX_N agents.
+template <int N, bool WIDE = (N > SV_NARROW_N)>
+struct SvStoreOf {
+  using type = SvRegs<N>;
+};
+template <int N>
+struct SvStoreOf<N, true> {
+  using type = SvRows;
+};
+
+// The lane's scalars, on every thread of its group, its agents (R.load),
+// and its boards, each cell by its owner, into shared memory.
+template <typename S>
+__device__ __forceinline__ void load_lane(const SvParams& p, const Grp& G, const SvBoards& s,
+                                          int b, SvScalars& L, S& R) {
+  const size_t B = static_cast<size_t>(p.B);
+  L.key_hi = p.in.key[b];
+  L.key_lo = p.in.key[B + b];
+  L.ctr = p.in.draw_ctr[b];
+  L.t = p.in.t[b];
+  L.episodes = p.in.stats_episodes[b];
+  L.ep_idx = p.pool > 1 ? p.in.ep_idx[b] : 0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) L.avail[r] = (p.sustain && p.res_on[r]) ? p.in.avail[r][b] : 0.f;
+  R.load(p, G, b);
+  // Under exact_reset the wall and code boards are the lane's own state;
+  // otherwise its current layout's statics.
+  const int li = layout_of(p, L.ep_idx);
+  const float* wall = p.exact_reset ? p.in.wall : p.wall[li];
+  const float* sboard = p.exact_reset ? p.in.sboard : p.sboard[li];
+  for (int c = G.t; c < p.HW; c += G.g) {
+    const size_t cb = c * B + b;
+    s.pred[c] = p.in.predator[cb] > 0.5f;
+    s.wall[c] = wall[cb] > 0.5f;
+    s.code[c] = static_cast<unsigned short>(sboard[cb]);
+    for (int r = 0; r < 4; ++r)
+      if (s.res[r]) s.res[r][c] = p.in.res[r][cb] > 0.5f;
+  }
+  grp_sync(G);
+}
+
+// The lane's boards by their owners, its agents (R.store), its scalars by
+// thread 0 of its group.
+template <typename S>
+__device__ __forceinline__ void store_lane(const SvParams& p, const Grp& G, const SvBoards& s,
+                                           int b, const SvScalars& L, const S& R) {
+  const size_t B = static_cast<size_t>(p.B);
+  for (int c = G.t; c < p.HW; c += G.g) {
+    const size_t cb = c * B + b;
+    p.out.predator[cb] = static_cast<float>(s.pred[c]);
+    if (p.exact_reset) {
+      p.out.wall[cb] = static_cast<float>(s.wall[c]);
+      p.out.sboard[cb] = static_cast<float>(s.code[c]);
+    }
+    for (int r = 0; r < 4; ++r)
+      if (s.res[r]) p.out.res[r][cb] = static_cast<float>(s.res[r][c]);
+  }
+  R.store(p, G, b);
+  if (G.t != 0) return;
+  p.out.key[b] = L.key_hi;
+  p.out.key[B + b] = L.key_lo;
+  p.out.draw_ctr[b] = L.ctr;
+  p.out.t[b] = L.t;
+  p.out.stats_episodes[b] = L.episodes;
+  if (p.pool > 1) p.out.ep_idx[b] = L.ep_idx;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    if (p.sustain && p.res_on[r]) p.out.avail[r][b] = L.avail[r];
+}
+
+// _policy_feats of one agent: normalised row and column (from
+// _pos_dir_feats), drink and food satiation * 0.1f, water and predator
+// safety * 0.1f, and the observation-direction one-hot.
+__device__ __forceinline__ void agent_feats(const SvParams& p, const SvAgent& a,
+                                            float (&x)[SV_F]) {
+  const float pj = static_cast<float>(a.pos);
+  const float row = floorf((pj + 0.5f) * p.inv_w);
+  const float col = pj - row * static_cast<float>(p.W);
+  x[0] = row * p.inv_hm1;
+  x[1] = col * p.inv_wm1;
+  x[2] = a.dsat * 0.1f;
+  x[3] = a.fsat * 0.1f;
+  x[4] = static_cast<float>(a.safety) * 0.1f;
+  x[5] = static_cast<float>(a.safety2) * 0.1f;
+#pragma unroll
+  for (int d = 0; d < 4; ++d) x[6 + d] = a.odir == d ? 1.f : 0.f;
+}
+
+// Resource r on the acting agent i's tile: the visit counts; with
+// sustainability a positive availability pays the reward, feeds the
+// satiation (food: fsat, else dsat; penalise_oversatiation), clamps it at the
+// oversatiation limit and is drawn down by the extraction rate; without it
+// the availability is the amount flag. The other agents get the
+// cooperation reward.
+template <typename S>
+__device__ __forceinline__ void consume(const SvParams& p, const Grp& G, S& R, SvScalars& L, int i,
+                                        int r, bool on_tile, bool food) {
+  if (!on_tile) return;
+  R.bump(i, p.res_visit_col[r]);
   if (p.sustain) {
     const float av = L.avail[r];
     if (av > 0.f) {
-      add_rv<N>(rew, p, i, p.res_kind[r]);
-      if (p.penalise) put(sat, i, get(sat, i) + fminf(av, p.res_rate[r]));
-      if (p.res_limit_on[r] && get(sat, i) > 0.f) put(sat, i, fminf(get(sat, i), p.res_limit[r]));
+      R.add_rv(p, G, i, p.res_kind[r]);
+      if (p.penalise) R.set_sat(i, food, R.a_sat(i, food) + fminf(av, p.res_rate[r]));
+      if (p.res_limit_on[r] && R.a_sat(i, food) > 0.f)
+        R.set_sat(i, food, fminf(R.a_sat(i, food), p.res_limit[r]));
       L.avail[r] = fmaxf(0.f, av - p.res_rate[r]);
     }
   } else {
-    add_rv<N>(rew, p, i, p.res_kind[r]);
-    if (p.penalise) put(sat, i, get(sat, i) + p.res_sat_amt[r]);
-    if (p.res_limit_on[r] && get(sat, i) > 0.f) put(sat, i, fminf(get(sat, i), p.res_limit[r]));
+    R.add_rv(p, G, i, p.res_kind[r]);
+    if (p.penalise) R.set_sat(i, food, R.a_sat(i, food) + p.res_sat_amt[r]);
+    if (p.res_limit_on[r] && R.a_sat(i, food) > 0.f)
+      R.set_sat(i, food, fminf(R.a_sat(i, food), p.res_limit[r]));
   }
   if (p.res_coop_kind[r] >= 0) {
-#pragma unroll
-    for (int j = 0; j < N; ++j)
-      if (j != i) add_rv<N>(rew, p, j, p.res_coop_kind[r]);
+    const int n = R.n();
+#pragma unroll (S::U)
+    for (int j = 0; j < n; ++j)
+      if (j != i) R.add_rv(p, G, j, p.res_coop_kind[r]);
   }
 }
 
 // Homeostasis of one satiation: the deficiency term, then the
 // oversatiation term, as counts or proportional to the satiation.
-template <int N>
-__device__ __forceinline__ void homeo(const SvParams& p, float (&rew)[N][SV_MAX_D], int i,
-                                      float sat_i, float def_thresh, float over_thresh,
-                                      int def_kind, int over_kind) {
+template <typename S>
+__device__ __forceinline__ void homeo(const SvParams& p, const Grp& G, S& R, int i, float sat_i,
+                                      float def_thresh, float over_thresh, int def_kind,
+                                      int over_kind) {
   const bool deficient = sat_i < def_thresh;
   if (deficient) {
-    if (p.proportional) add_rv_scaled<N>(rew, p, i, def_kind, -sat_i);
-    else add_rv<N>(rew, p, i, def_kind);
+    if (p.proportional) R.add_rv_scaled(p, G, i, def_kind, -sat_i);
+    else R.add_rv(p, G, i, def_kind);
   }
   if (p.penalise && sat_i > over_thresh && !deficient) {
-    if (p.proportional) add_rv_scaled<N>(rew, p, i, over_kind, sat_i);
-    else add_rv<N>(rew, p, i, over_kind);
+    if (p.proportional) R.add_rv_scaled(p, G, i, over_kind, sat_i);
+    else R.add_rv(p, G, i, over_kind);
   }
 }
 
 // The predator walk of one acting sub-step at the round's last agent, each
 // phase over the threads' own cells (the design note above says why each
 // phase is free of order between cells).
+template <typename Q>
 __device__ __noinline__ void predator_walk(const SvParams& p, Grp G, SvBoards s, uint32_t key_hi,
-                                           uint32_t key_lo, uint32_t site, Pos4 q) {
+                                           uint32_t key_lo, uint32_t site, Q q) {
   unsigned char* pred = s.pred;
   grp_sync(G);  // the sub-step's reads of other threads' cells are done
   // Each predator that draws a move (off the agents' cells) is marked
@@ -722,7 +1222,8 @@ __device__ __noinline__ void predator_walk(const SvParams& p, Grp G, SvBoards s,
 // A drape candidate's score from its rank part: removal takes curtain cells
 // (players' cells last), spawn takes free cells off the walls and the
 // players.
-__device__ __forceinline__ int drape_score(const Pos4& q, bool removing, bool cur, bool wall,
+template <typename Q>
+__device__ __forceinline__ int drape_score(const Q& q, bool removing, bool cur, bool wall,
                                            int base, int c) {
   const bool player = on_player(q, c);
   if (removing) return cur ? base + (player ? OFF_PLAYER : 0) : SENT;
@@ -732,13 +1233,12 @@ __device__ __forceinline__ int drape_score(const Pos4& q, bool removing, bool cu
 // One resource drape of an acting sub-step: regrowth, then the removal or
 // spawn of tiles toward the ceiling of the availability. Returns the new
 // availability.
+template <typename Q>
 __device__ __noinline__ float drape(const SvParams& p, Grp G, SvBoards s, int r,
                                     float usable_half, uint32_t key_hi, uint32_t key_lo,
-                                    uint32_t site, int t, float av, Pos4 q) {
+                                    uint32_t site, int t, float av, Q q) {
   unsigned char* cur = s.res[r];
-  bool on_any = false;
-#pragma unroll
-  for (int j = 0; j < SV_MAX_N; ++j) on_any = on_any || (q.c[j] >= 0 && cur[q.c[j]]);
+  const bool on_any = on_curtain(q, cur);
   const bool can_grow = t > 0 && !on_any && av >= 1.f && av < p.res_cond[r];
   float av_new = av;
   if (can_grow) {
@@ -788,44 +1288,27 @@ __device__ __noinline__ float drape(const SvParams& p, Grp G, SvBoards s, int r,
 // One full multi-agent step of one lane: auto-reset, policy features and
 // action draws, agent order, every agent's sub-step, finalize. MODE selects
 // the policy; with POL_MLP the step's trajectory record goes to traj[step].
-template <int N, int MODE>
+// R is the agents' store (SvRegs<N> or SvRows).
+template <int MODE, typename S>
 __device__ __forceinline__ void sv_step(const SvParams& p, const Grp& G, const SvBoards& s,
-                                        SvLane<N>& L, int b, const agw::Mlp& mlp, int step) {
+                                        SvScalars& L, S& R, int b, const agw::Mlp& mlp,
+                                        int step) {
   const size_t B = static_cast<size_t>(p.B);
+  const int n = R.n();
   const uint32_t ctr0 = L.ctr * static_cast<uint32_t>(p.n_sites);
 
   // ---- auto-reset lanes whose episode ended last step: the redraw, or
   // the layout of the new episode (_pool_select: ep_idx % K after the
   // increment)
   bool over = true;
-#pragma unroll
-  for (int j = 0; j < N; ++j) over = over && (L.types[j] == LAST || L.types[j] == DEAD);
+#pragma unroll (S::U)
+  for (int j = 0; j < n; ++j) over = over && (R.type(j) == LAST || R.type(j) == DEAD);
   if (over && p.pool > 1) L.ep_idx += 1;
   const int li = layout_of(p, L.ep_idx);
   if (over) {
-    if (p.exact_reset) {
-      const Pos4 starts = redraw(p, G, s, L.key_hi, L.key_lo, ctr0);
-#pragma unroll
-      for (int j = 0; j < N; ++j) L.pos[j] = starts.c[j];
-    } else {
-#pragma unroll
-      for (int j = 0; j < N; ++j) L.pos[j] = p.pos0[li][j * B + b];
-      reset_boards(p, G, s, b, li);
-    }
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      L.reasons[j] = R_NONE;
-      L.types[j] = FIRST;
-      L.adir[j] = DIR_UP;
-      L.odir[j] = DIR_UP;
-      L.count[j] = 0;
-      L.dsat[j] = p.sat0_drink;
-      L.fsat[j] = p.sat0_food;
-      L.safety[j] = 3;
-      L.safety2[j] = 3;
-#pragma unroll
-      for (int k = 0; k < 7; ++k) L.visits[j][k] = 0;
-    }
+    if (p.exact_reset) R.redraw_starts(p, G, s, L.key_hi, L.key_lo, ctr0);
+    else reset_boards(p, G, s, b, li);
+    R.reset(p, G, b, li);
 #pragma unroll
     for (int r = 0; r < 4; ++r)
       if (p.sustain && p.res_on[r]) L.avail[r] = p.res_amount[r];
@@ -836,65 +1319,57 @@ __device__ __forceinline__ void sv_step(const SvParams& p, const Grp& G, const S
   // ---- action draws (site 0), through the policy, and Fisher-Yates agent
   // order (site 1)
   const int A = p.amax - p.amin + 1;
-  float x[N][SV_F];
-  if (MODE != POL_UNIFORM) policy_feats<N>(p, L, x);
-  int actions[N], order[N];
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
+#pragma unroll (S::U)
+  for (int j = 0; j < n; ++j) {
+    float x[SV_F];
+    if (MODE != POL_UNIFORM) agent_feats(p, R.agent(j), x);
     const float u = agw::uniform01(agw::hash_u32(L.key_hi, L.key_lo, ctr0, j));
     const float uA = u * static_cast<float>(A);
     int a = p.amin + static_cast<int>(floorf(uA));
     a = min(max(a, p.amin), p.amax);
-    const bool off = over || L.reasons[j] != R_NONE;
+    const bool off = over || R.reason(j) != R_NONE;
     if (MODE == POL_LINEAR && !off) {
       const int lane = p.pol_lanes == 1 ? 0 : b;
       const int greedy =
-          p.amin + agw::linear_greedy<SV_F>(p.pol_w, p.pol_b, p.pol_lanes, A, lane, x[j]);
+          p.amin + agw::linear_greedy<SV_F>(p.pol_w, p.pol_b, p.pol_lanes, A, lane, x);
       if (!(fmodf(uA, 1.f) < p.pol_eps[lane])) a = greedy;
     }
     if (MODE == POL_MLP) {
       float logp, value;
-      a = p.amin + agw::mlp_group_draw<SV_F, SV_MAX_A>(mlp, A, x[j], u, G.t, G.g, G.mask, logp,
+      a = p.amin + agw::mlp_group_draw<SV_F, SV_MAX_A>(mlp, A, x, u, G.t, G.g, G.mask, logp,
                                                         value);
       if (G.t == 0) {
-        const size_t r = static_cast<size_t>(step) * N + j;
+        const size_t r = static_cast<size_t>(step) * n + j;
 #pragma unroll
         for (int f = 0; f < SV_F; ++f)
-          p.traj.feats[(static_cast<size_t>(step) * (N * SV_F) + j * SV_F + f) * B + b] = x[j][f];
+          p.traj.feats[(static_cast<size_t>(step) * (n * SV_F) + j * SV_F + f) * B + b] = x[f];
         p.traj.logp[r * B + b] = logp;
         p.traj.value[r * B + b] = value;
         p.traj.action[r * B + b] = off ? -1 : a;
       }
     }
-    actions[j] = off ? -1 : a;
-    order[j] = j;
+    R.set_draw(j, off ? -1 : a);
   }
-  if (p.randomize && N > 1) {
-#pragma unroll
-    for (int k = N - 1; k >= 1; --k) {
+  if (p.randomize && n > 1) {
+#pragma unroll (S::U)
+    for (int k = n - 1; k >= 1; --k) {
       const float u = agw::uniform01(agw::hash_u32(L.key_hi, L.key_lo, ctr0 + 1u, k));
       const int jj = min(max(static_cast<int>(floorf(u * static_cast<float>(k + 1))), 0), k);
-      const int vk = order[k], vj = get(order, jj);
-      put(order, jj, vk);
-      order[k] = vj;
+      R.swap_order(jj, k);
     }
   }
+  R.zero_rew(G);
 
-  float rew[N][SV_MAX_D];
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int d = 0; d < SV_MAX_D; ++d) rew[j][d] = 0.f;
-
-  // The slots are not unrolled: the body is large, and the agent's fields
-  // are reached through get/put anyway.
+  // The slots are not unrolled: the body is large, and the acting agent's
+  // fields are reached through R's a_* and set_* anyway.
 #pragma unroll 1
-  for (int slot = 0; slot < N; ++slot) {
-    const int i = get(order, slot);
-    const int a = get(actions, i);
+  for (int slot = 0; slot < n; ++slot) {
+    const int i = R.order(slot);
+    const int a = R.action(i);
     if (a < 0) continue;  // a non-acting sub-step changes nothing
+    R.begin(i);
     const bool is_quit = a == A_QUIT, is_noop = a == A_NOOP;
-    const bool dead_i = get(L.reasons, i) != R_NONE;
+    const bool dead_i = R.a_reason(i) != R_NONE;
     const bool active = !is_quit && !dead_i;
     L.t += 1;
     const uint32_t slot_site = ctr0 + static_cast<uint32_t>(2 + slot * p.sites_per_slot);
@@ -902,26 +1377,26 @@ __device__ __forceinline__ void sv_step(const SvParams& p, const Grp& G, const S
     // --- relative direction updates, from the facings at the sub-step's
     // start
     const int a_cl = min(a, 9);
-    const int nod = rel_dir(p, a_cl, get(L.odir, i));
-    if (active) put(L.odir, i, nod);
-    const int nad = rel_dir(p, a_cl, get(L.adir, i));
+    const int nod = rel_dir(p, a_cl, R.a_odir(i));
+    if (active) R.set_odir(i, nod);
+    const int nad = rel_dir(p, a_cl, R.a_adir(i));
     const int abs_action = is_noop ? a : p.dir_to_action[nad];
 
     // --- the move: the all-wall border keeps it in bounds; every agent's
     // cell blocks, dead or not
-    const int pos_i = get(L.pos, i);
+    const int pos_i = R.a_pos(i);
     const int cand = min(max(pos_i + p.delta[abs_action], 0), p.HW - 1);
     bool occ = false;
-#pragma unroll
-    for (int j = 0; j < N; ++j) occ = occ || (j != i && L.pos[j] == cand);
+#pragma unroll (S::U)
+    for (int j = 0; j < n; ++j) occ = occ || (j != i && R.pos_of(j) == cand);
     const bool wall_at = s.wall[cand];
     const bool moved = active && !is_noop && !wall_at && !occ;
     const int np = moved ? cand : pos_i;
-    put(L.pos, i, np);
-    if (active) put(L.adir, i, nad);
-    if (active || (is_quit && !dead_i)) put(L.count, i, get(L.count, i) + 1);
-    if (is_quit && !dead_i) put(L.reasons, i, static_cast<int>(R_QUIT));
-    if (active && !is_noop) add_rv<N>(rew, p, i, RV_MOVE);
+    R.set_pos(i, np);
+    if (active) R.set_adir(i, nad);
+    if (active || (is_quit && !dead_i)) R.set_count(i, R.a_count(i) + 1);
+    if (is_quit && !dead_i) R.set_reason(i, R_QUIT);
+    if (active && !is_noop) R.add_rv(p, G, i, RV_MOVE);
 
     // --- decode the combined board at the new position
     const float v_at = static_cast<float>(s.code[np]);
@@ -934,13 +1409,13 @@ __device__ __forceinline__ void sv_step(const SvParams& p, const Grp& G, const S
 
     // --- satiation decrements and thirst/hunger death
     if (active && p.penalise) {
-      if (p.drink_flags_on) put(L.dsat, i, get(L.dsat, i) + p.drink_def_rate);
-      if (p.food_flags_on) put(L.fsat, i, get(L.fsat, i) + p.food_def_rate);
+      if (p.drink_flags_on) R.set_sat(i, false, R.a_sat(i, false) + p.drink_def_rate);
+      if (p.food_flags_on) R.set_sat(i, true, R.a_sat(i, true) + p.food_def_rate);
     }
     if (p.thirst_death && active &&
-        (get(L.dsat, i) <= p.drink_def_limit || get(L.fsat, i) <= p.food_def_limit)) {
-      add_rv<N>(rew, p, i, RV_THIRST);
-      if (get(L.reasons, i) == R_NONE) put(L.reasons, i, static_cast<int>(R_TERMINATED));
+        (R.a_sat(i, false) <= p.drink_def_limit || R.a_sat(i, true) <= p.food_def_limit)) {
+      R.add_rv(p, G, i, RV_THIRST);
+      if (R.a_reason(i) == R_NONE) R.set_reason(i, R_TERMINATED);
     }
 
     // --- consumption: drink, small drink, food, small food
@@ -952,61 +1427,49 @@ __device__ __forceinline__ void sv_step(const SvParams& p, const Grp& G, const S
     }
     on_t[R_SMALL_DRINK] = on_t[R_SMALL_DRINK] && !on_t[R_DRINK];
     on_t[R_SMALL_FOOD] = on_t[R_SMALL_FOOD] && !on_t[R_FOOD];
-    consume<N>(p, L, rew, i, R_DRINK, on_t[R_DRINK], L.dsat);
-    consume<N>(p, L, rew, i, R_SMALL_DRINK, on_t[R_SMALL_DRINK], L.dsat);
-    consume<N>(p, L, rew, i, R_FOOD, on_t[R_FOOD], L.fsat);
-    consume<N>(p, L, rew, i, R_SMALL_FOOD, on_t[R_SMALL_FOOD], L.fsat);
-    if (active && !on_t[R_DRINK] && !on_t[R_SMALL_DRINK]) add_rv<N>(rew, p, i, RV_NON_DRINK);
-    if (active && !on_t[R_FOOD] && !on_t[R_SMALL_FOOD]) add_rv<N>(rew, p, i, RV_NON_FOOD);
+    consume(p, G, R, L, i, R_DRINK, on_t[R_DRINK], false);
+    consume(p, G, R, L, i, R_SMALL_DRINK, on_t[R_SMALL_DRINK], false);
+    consume(p, G, R, L, i, R_FOOD, on_t[R_FOOD], true);
+    consume(p, G, R, L, i, R_SMALL_FOOD, on_t[R_SMALL_FOOD], true);
+    if (active && !on_t[R_DRINK] && !on_t[R_SMALL_DRINK]) R.add_rv(p, G, i, RV_NON_DRINK);
+    if (active && !on_t[R_FOOD] && !on_t[R_SMALL_FOOD]) R.add_rv(p, G, i, RV_NON_FOOD);
 
     // --- gold and silver log-scaled rewards
     if (p.has_gold && active && code_at == static_cast<float>(T_GOLD)) {
-      float prevv = 0.f;
-#pragma unroll
-      for (int j = 0; j < N; ++j)
-        if (j == i) {
-          prevv = static_cast<float>(L.visits[j][5]);
-          L.visits[j][5] += 1;
-        }
+      const float prevv = static_cast<float>(R.a_visits(i, 5));
+      R.bump(i, 5);
       const float factor = (logf(prevv + 2.0f) - logf(prevv + 1.0f)) / p.gold_log_base;
-      add_rv_scaled<N>(rew, p, i, RV_GOLD, factor);
+      R.add_rv_scaled(p, G, i, RV_GOLD, factor);
     }
     if (p.has_silver && active && code_at == static_cast<float>(T_SILVER)) {
-      float prevv = 0.f;
-#pragma unroll
-      for (int j = 0; j < N; ++j)
-        if (j == i) {
-          prevv = static_cast<float>(L.visits[j][6]);
-          L.visits[j][6] += 1;
-        }
+      const float prevv = static_cast<float>(R.a_visits(i, 6));
+      R.bump(i, 6);
       const float factor = (logf(prevv + 2.0f) - logf(prevv + 1.0f)) / p.silver_log_base;
-      add_rv_scaled<N>(rew, p, i, RV_SILVER, factor);
+      R.add_rv_scaled(p, G, i, RV_SILVER, factor);
     }
 
     // --- gap visit: the positions after the move; curtain cells read
     // code 0
     bool others = false;
-#pragma unroll
-    for (int j = 0; j < N; ++j) others = others || (j != i && L.pos[j] == np);
+#pragma unroll (S::U)
+    for (int j = 0; j < n; ++j) others = others || (j != i && R.pos_of(j) == np);
     const bool any_res = on_res[0] || on_res[1] || on_res[2] || on_res[3];
     if (active && !others && !pred_at && !any_res && code_at == static_cast<float>(T_GAP)) {
-#pragma unroll
-      for (int j = 0; j < N; ++j)
-        if (j == i) L.visits[j][0] += 1;
-      add_rv<N>(rew, p, i, RV_GAP);
+      R.bump(i, 0);
+      R.add_rv(p, G, i, RV_GAP);
     }
 
     // --- homeostasis thresholds
     if (active && p.drink_flags_on)
-      homeo<N>(p, rew, i, get(L.dsat, i), p.drink_def_thresh, p.drink_over_thresh, RV_DRINK_DEF,
-               RV_DRINK_OVER);
+      homeo(p, G, R, i, R.a_sat(i, false), p.drink_def_thresh, p.drink_over_thresh, RV_DRINK_DEF,
+            RV_DRINK_OVER);
     if (active && p.food_flags_on)
-      homeo<N>(p, rew, i, get(L.fsat, i), p.food_def_thresh, p.food_over_thresh, RV_FOOD_DEF,
-               RV_FOOD_OVER);
+      homeo(p, G, R, i, R.a_sat(i, true), p.food_def_thresh, p.food_over_thresh, RV_FOOD_DEF,
+            RV_FOOD_OVER);
 
     // --- safety distances: water from the board, predators by a group
     // minimum
-    if (p.has_water && active) put(L.safety, i, static_cast<int>(dw_at));
+    if (p.has_water && active) R.set_safety(i, static_cast<int>(dw_at));
     if (p.has_predators && active) {
       const int nr = np / p.W, nc = np - (np / p.W) * p.W;
       int dmin = 9999;
@@ -1016,32 +1479,35 @@ __device__ __forceinline__ void sv_step(const SvParams& p, const Grp& G, const S
         dmin = min(dmin, abs(r - nr) + abs(col - nc));
       }
       dmin = grp_min(G, dmin);
-      put(L.safety2, i, dmin > 98 ? 99 : dmin);
+      R.set_safety2(i, dmin > 98 ? 99 : dmin);
     }
+
+    // The agent's fields are final.
+    R.commit(G, i);
 
     // --- water penalty
     if (p.has_water && active && code_at == static_cast<float>(T_WATER))
-      add_rv<N>(rew, p, i, RV_DANGER);
+      R.add_rv(p, G, i, RV_DANGER);
 
     // --- predators: the walk runs when the round's last agent acts
     if (p.has_predators) {
-      if (active && pred_at) add_rv<N>(rew, p, i, RV_PREDATOR);
+      if (active && pred_at) R.add_rv(p, G, i, RV_PREDATOR);
       int cmax = -1, cmin = 1 << 30;
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        if (L.reasons[j] != R_NONE) continue;
-        cmax = max(cmax, L.count[j]);
-        cmin = min(cmin, L.count[j]);
+#pragma unroll (S::U)
+      for (int j = 0; j < n; ++j) {
+        if (R.reason(j) != R_NONE) continue;
+        cmax = max(cmax, R.count_of(j));
+        cmin = min(cmin, R.count_of(j));
       }
       if (cmax == cmin && cmax > 0) {
-        predator_walk(p, G, s, L.key_hi, L.key_lo, slot_site, pos4<N>(L.pos));
-        if (active && !pred_at && s.pred[np]) add_rv<N>(rew, p, i, RV_PREDATOR);
+        predator_walk(p, G, s, L.key_hi, L.key_lo, slot_site, R.cells());
+        if (active && !pred_at && s.pred[np]) R.add_rv(p, G, i, RV_PREDATOR);
       }
     }
 
     // --- resource drapes
     if (p.sustain) {
-      const Pos4 q = pos4<N>(L.pos);
+      const auto q = R.cells();
 #pragma unroll
       for (int r = 0; r < 4; ++r)
         if (p.res_on[r])
@@ -1053,33 +1519,14 @@ __device__ __forceinline__ void sv_step(const SvParams& p, const Grp& G, const S
 
   // ---- finalize
   bool all_over = true;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    const bool game_over = L.t >= p.max_iterations || L.reasons[j] != R_NONE;
-    const int nt = game_over ? ((L.types[j] == MID || L.types[j] == FIRST) ? LAST : DEAD) : MID;
-    L.types[j] = over ? FIRST : nt;
-    all_over = all_over && game_over;
-  }
+#pragma unroll (S::U)
+  for (int j = 0; j < n; ++j)
+    all_over = all_over && (L.t >= p.max_iterations || R.reason(j) != R_NONE);
+  R.finish_types(p, G, over, L.t);
   L.episodes += all_over && !over;
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int d = 0; d < SV_MAX_D; ++d) L.stats[j][d] = L.stats[j][d] + rew[j][d];
+  R.accumulate(G);
   L.ctr += 1u;
-
-  if (MODE == POL_MLP && G.t == 0) {
-    // Each agent's reward summed over the reward dims, in order; done flags.
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      float r = rew[j][0];
-#pragma unroll
-      for (int d = 1; d < SV_MAX_D; ++d)
-        if (d < p.D) r = r + rew[j][d];
-      const size_t row = static_cast<size_t>(step) * N + j;
-      p.traj.reward[row * B + b] = r;
-      p.traj.done[row * B + b] = L.types[j] == LAST || L.types[j] == DEAD;
-    }
-  }
+  if (MODE == POL_MLP) R.record(p, G, step, b);
 }
 
 // Where a thread sits: thread G.t of its lane group, which is group
@@ -1105,19 +1552,23 @@ __global__ void __launch_bounds__(256) sv_rollout_kernel(const __grid_constant__
   Grp G;
   int lane_blk, b;
   if (!seat(p, G, lane_blk, b)) return;
-  const SvBoards s =
-      lane_boards(p, reinterpret_cast<uint32_t*>(smem) + lane_blk * sv_lane_words(p));
-  SvLane<N> L;
-  load_lane<N>(p, G, s, b, L);
+  uint32_t* base = reinterpret_cast<uint32_t*>(smem) + lane_blk * sv_lane_words(p);
+  const SvBoards s = lane_boards(p, base);
   const agw::Mlp no_mlp{nullptr, nullptr, nullptr, nullptr, 0};
-  for (int step = 0; step < p.n_steps; ++step) sv_step<N, MODE>(p, G, s, L, b, no_mlp, step);
-  store_lane<N>(p, G, s, b, L);
+  typename SvStoreOf<N>::type R(p, base);
+  SvScalars L;
+  load_lane(p, G, s, b, L, R);
+  for (int step = 0; step < p.n_steps; ++step) sv_step<MODE>(p, G, s, L, R, b, no_mlp, step);
+  store_lane(p, G, s, b, L, R);
 }
 
 // K9: n_steps MLP-policy steps of every lane with the trajectory streamed
-// out, then the bootstrap value of the final state (no auto-reset).
+// out, then the bootstrap value of the final state (no auto-reset). Two
+// blocks an SM bound it to 128 registers: at two agents it would take 176
+// and lose the warps its lane group needs (4.00 against 2.83 ms per
+// collect(64) at B = 4096 on FULL, spilling ~300 bytes; PERF.md, PR 23).
 template <int N>
-__global__ void __launch_bounds__(256) sv_collect_kernel(const __grid_constant__ SvParams p) {
+__global__ void __launch_bounds__(256, 2) sv_collect_kernel(const __grid_constant__ SvParams p) {
   extern __shared__ float smem[];
   const int n_threads = blockDim.x;
   const int tx = threadIdx.x;
@@ -1133,20 +1584,23 @@ __global__ void __launch_bounds__(256) sv_collect_kernel(const __grid_constant__
   int lane_blk, b;
   if (!seat(p, G, lane_blk, b)) return;
   const agw::Mlp mlp{w, w + n_w1, w + n_w1 + H, w + n_w1 + H + n_w2, H};
-  const SvBoards s = lane_boards(
-      p, reinterpret_cast<uint32_t*>(w + n_w1 + H + n_w2 + A + 1) + lane_blk * sv_lane_words(p));
-
-  SvLane<N> L;
-  load_lane<N>(p, G, s, b, L);
-  for (int step = 0; step < p.n_steps; ++step) sv_step<N, POL_MLP>(p, G, s, L, b, mlp, step);
-  float x[N][SV_F];
-  policy_feats<N>(p, L, x);
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    const float v = agw::mlp_group_value<SV_F, SV_MAX_A>(mlp, A, x[j], G.t, G.g, G.mask);
+  uint32_t* base =
+      reinterpret_cast<uint32_t*>(w + n_w1 + H + n_w2 + A + 1) + lane_blk * sv_lane_words(p);
+  const SvBoards s = lane_boards(p, base);
+  using S = typename SvStoreOf<N>::type;
+  S R(p, base);
+  SvScalars L;
+  load_lane(p, G, s, b, L, R);
+  for (int step = 0; step < p.n_steps; ++step) sv_step<POL_MLP>(p, G, s, L, R, b, mlp, step);
+  const int n = R.n();
+#pragma unroll (S::U)
+  for (int j = 0; j < n; ++j) {
+    float x[SV_F];
+    agent_feats(p, R.agent(j), x);
+    const float v = agw::mlp_group_value<SV_F, SV_MAX_A>(mlp, A, x, G.t, G.g, G.mask);
     if (G.t == 0) p.traj.boot[j * p.B + b] = v;
   }
-  store_lane<N>(p, G, s, b, L);
+  store_lane(p, G, s, b, L, R);
 }
 
 // The lanes' boards of a block of tile threads.
@@ -1165,6 +1619,7 @@ static cudaError_t launch(Kernel kernel, const SvParams& p, int tile, size_t sme
   kernel<<<blocks, tile, smem, stream>>>(p);
   return cudaGetLastError();
 }
+
 
 template <int N>
 static cudaError_t launch_rollout(const SvParams& p, int tile, cudaStream_t s) {
@@ -1189,31 +1644,30 @@ static bool valid(const SvParams* p, int tile) {
          p->amin >= 0 && p->amax <= 9 && p->amax - p->amin + 1 <= SV_MAX_A && p->T >= 0 &&
          p->T <= SV_MAX_T && p->HW > 0 && p->idx_bits + 3 < 32 && g >= 1 && g <= 32 &&
          (g & (g - 1)) == 0 && p->lanes_per_warp >= 1 && p->lanes_per_warp * g <= 32 &&
-         tile % 32 == 0 && tile >= 32 && tile <= 256;
+         tile % 32 == 0 && tile >= 32 && tile <= 256 && p->n_agents >= 1 &&
+         p->n_agents <= SV_MAX_N;
 }
 
+// N = 1..SV_NARROW_N take their own kernels, more the wide one.
 extern "C" int fused_savanna_rollout(const SvParams* p, int n_agents, int tile, void* stream) {
   if (p->n_steps <= 0 || p->B <= 0) return 0;
-  if (!valid(p, tile)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(p, tile) || n_agents != p->n_agents) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_agents) {
     case 1: return static_cast<int>(launch_rollout<1>(*p, tile, s));
     case 2: return static_cast<int>(launch_rollout<2>(*p, tile, s));
-    case 3: return static_cast<int>(launch_rollout<3>(*p, tile, s));
-    case 4: return static_cast<int>(launch_rollout<4>(*p, tile, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: return static_cast<int>(launch_rollout<SV_MAX_N>(*p, tile, s));
   }
 }
 
 extern "C" int fused_savanna_collect(const SvParams* p, int n_agents, int tile, void* stream) {
   if (p->B <= 0) return 0;
-  if (!valid(p, tile) || p->hidden < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(p, tile) || n_agents != p->n_agents || p->hidden < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_agents) {
     case 1: return static_cast<int>(launch_collect<1>(*p, tile, s));
     case 2: return static_cast<int>(launch_collect<2>(*p, tile, s));
-    case 3: return static_cast<int>(launch_collect<3>(*p, tile, s));
-    case 4: return static_cast<int>(launch_collect<4>(*p, tile, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: return static_cast<int>(launch_collect<SV_MAX_N>(*p, tile, s));
   }
 }

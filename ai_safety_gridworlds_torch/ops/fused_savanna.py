@@ -1275,7 +1275,11 @@ class FusedSavanna(FusedMaBase):
 
 # ------------------------------------------------------------ CUDA kernels
 
-_MAX_N, _MAX_D, _MAX_A, _MAX_POOL, _MAX_T = 4, 12, 5, 8, 256
+_MAX_N, _MAX_D, _MAX_A, _MAX_POOL, _MAX_T = 10, 12, 5, 8, 256
+# The agent counts with a kernel of their own (csrc/fused_savanna.cu's
+# SV_NARROW_N); more run the wide kernel, which at 3 and 4 agents ran K8
+# 7-9% faster than their own instantiations did, spilling (PERF.md).
+_NARROW_N = 2
 # The drapes' scores embed the cell in 9 bits: distinct for HW <= 512 only.
 _MAX_DRAPE_HW = 512
 # Shared memory a block may take on sm_90 (bytes).
@@ -1369,6 +1373,7 @@ class _SvParams(ctypes.Structure):
         ("group", ctypes.c_int),
         ("lanes_per_warp", ctypes.c_int),
         ("traj", _SvTraj),
+        ("n_agents", ctypes.c_int),
     ]
 
 
@@ -1417,8 +1422,8 @@ def _static_params(fused: FusedSavanna, tables: dict) -> _SvParams:
         for kind, info in fused._placement_spec
     ] if fused.exact_reset else []
     ints = dict(
-        D=fused.D, HW=fused.HW, H=fused.h, W=fused.w, amin=fused.amin,
-        amax=fused.amax, max_iterations=fused.max_iterations, pool=K,
+        n_agents=fused.n, D=fused.D, HW=fused.HW, H=fused.h, W=fused.w,
+        amin=fused.amin, amax=fused.amax, max_iterations=fused.max_iterations, pool=K,
         randomize=bool(env.randomize_agent_actions_order),
         exact_reset=fused.exact_reset, sustain=fused.sustain,
         n_sites=fused.n_sites, sites_per_slot=fused.sites_per_slot,
@@ -1506,7 +1511,7 @@ def _static_params(fused: FusedSavanna, tables: dict) -> _SvParams:
 
 def check_static_limits(fused, tile=None) -> None:
     """Raise ``NotImplementedError`` for what K8 and K9 lack whatever the
-    state: more than 4 agents, 12 reward dims or 5 actions, a layout pool
+    state: more than 10 agents, 12 reward dims or 5 actions, a layout pool
     of more than 8, more than 256 redraw tiles, tile spawning on more than
     512 cells, and boards that fit no block of ``tile`` threads even at 32
     threads a lane. ``init_packed`` calls it on a CUDA device, so that
@@ -1570,15 +1575,18 @@ def _drapes(fused) -> bool:
 
 
 def _lane_bytes(fused) -> int:
-    """Shared memory of one lane's boards in K8/K9, as ``sv_lane_words`` in
-    ``csrc/fused_savanna.cu`` lays them out: a byte a cell for the predator
+    """Shared memory of one lane in K8/K9, as ``sv_lane_words`` in
+    ``csrc/fused_savanna.cu`` lays it out: a byte a cell for the predator
     curtain, the wall board and each sustainability curtain, two for the
     code/distance board (each rounded up to 4 bytes), a score word a cell
-    with a tile-spawning drape, and an odd number of words in all."""
+    with a tile-spawning drape; with more than ``_NARROW_N`` agents (the
+    wide kernel) 17 + 2 D words an agent of rows (``sv_agent_words``); an
+    odd number of words in all."""
     hwp = -(-fused.HW // 4) * 4
     n_cur = len(fused.res_specs) if fused.sustain else 0
     nbytes = hwp * (2 + n_cur) + 2 * hwp + (4 * fused.HW if _drapes(fused) else 0)
-    return 4 * ((nbytes // 4) | 1)
+    rows = fused.n * (17 + 2 * fused.D) if fused.n > _NARROW_N else 0
+    return 4 * ((nbytes // 4 + rows) | 1)
 
 
 def _geometry(fused, g, tile, hidden):
@@ -1608,6 +1616,12 @@ def _geometry(fused, g, tile, hidden):
 # with such work.
 _GROUP_RANGE = {"light": (4, 2, 1), "predators": (16, 4, 4),
                 "drapes": (16, 8, 4), "mlp_light": (8, 2, 4), "mlp": (16, 2, 4)}
+# The least g of the wide kernel (more than _NARROW_N agents): at B = 16384
+# and 65536 four threads a lane ran K9 at 5 and 10 agents 13-21% and K8 on
+# a resized map 10% faster than two, and K8 on the default map as fast
+# (chip_smoke.py --sweep-savanna-agents, PERF.md); 3 and 4 agents run the
+# same kernel.
+_WIDE_LEAST_G = 4
 
 
 def _lanes_per_group(fused, B: int, tile=None, hidden: int = 0,
@@ -1624,8 +1638,10 @@ def _lanes_per_group(fused, B: int, tile=None, hidden: int = 0,
     count to each of the card's ``schedulers``, and at least the range's
     least g: more threads a lane shorten the chain while the card has room
     for the warps, fewer keep the redundant scalar part small once it has
-    none. Then g doubles while a block of ``tile`` threads (``_geometry``)
-    does not fit the shared memory. ``_LANES_PER_GROUP`` pins g."""
+    none; the wide kernel (more than two agents) takes at least
+    ``_WIDE_LEAST_G``. Then g doubles while a block of ``tile`` threads
+    (``_geometry``) does not fit the shared memory. ``_LANES_PER_GROUP``
+    pins g."""
     g = _LANES_PER_GROUP
     if g is None:
         drapes = _drapes(fused)
@@ -1638,7 +1654,7 @@ def _lanes_per_group(fused, B: int, tile=None, hidden: int = 0,
         g = next((k for k in (16, 8, 4, 2)
                   if k <= top and -(-B * k // 32) <= per_scheduler * schedulers),
                  1)
-        g = max(g, least)
+        g = max(g, least, _WIDE_LEAST_G if fused.n > _NARROW_N else 1)
     while g < 32 and _geometry(fused, g, tile, hidden)[2] > _MAX_SMEM:
         g *= 2
     return g

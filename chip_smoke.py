@@ -26,7 +26,8 @@ no kernel of the port); any failure exits non-zero before the last line:
 5. the main path: ``BatchedEnv("firemaker_ex_ma", batch_size=4096,
    device="cuda").rollout(256)`` three times with the launch counters set
    to 0 just before and read just after; then env-steps/s, the plain
-   version's time at the same shape, and K1's time by lane count (4096,
+   version's time at the same shape (64 steps timed, scaled to 256), and
+   K1's time by lane count (4096,
    16384, 65536) and threads per block (32, 64, 128, 256: 1, 2, 4 and 8
    lanes, one warp per lane);
 6. K1's linear-policy branch (``set_policies``, the policy-search path)
@@ -64,7 +65,7 @@ no kernel of the port); any failure exits non-zero before the last line:
    device="cuda").rollout(n)`` three times for each of boat_race (n = 8192),
    island_navigation (8192) and boat_race_ex (4096), with the launch
    counters set to 0 just before and read just after (K4 once per call);
-   env-steps/s, K4's time, the plain version's time at 256 steps and K4's
+   env-steps/s, K4's time, the plain version's time at 64 steps and K4's
    time by lane count (4096, 65536, 262144);
 12. K5 ``fused_scalar_collect`` against the plain collection on boat_race
    and boat_race_ex at B = 4096, T = 64, H = 64, teacher-forced and
@@ -168,7 +169,7 @@ no kernel of the port); any failure exits non-zero before the last line:
    0 just before and read just after each path (K4 once per call);
    env-steps/s and the host's share of a call beside K4's time, the bound
    (``scalar_step_ops`` and the reset draws), the plain version's time at
-   256 steps, and K4's time by lane count (4096, 65536, 262144) on
+   64 steps, and K4's time by lane count (4096, 65536, 262144) on
    island_navigation_ex;
 27. K5 against the plain collection on island_navigation_ex and
    absent_supervisor at B = 4096, T = 64, H = 64, teacher-forced and
@@ -196,7 +197,7 @@ no kernel of the port); any failure exits non-zero before the last line:
    sushi_goal2), rocks_diamonds, friend_foe and conveyor_belt_ex, with the
    launch counters set to 0 just before and read just after each path (K4
    once per call); env-steps/s and the host's share of a call beside K4's
-   time, the bound, the plain version's time at 256 steps; and K4's times
+   time, the bound, the plain version's time at 64 steps; and K4's times
    on all 18 main paths and K5's on its three training paths against their
    readings before the step table (``K4_BEFORE_MS``, ``K5_BEFORE_MS``);
 31. K5 against the plain collection on side_effects_sokoban level 1,
@@ -232,7 +233,7 @@ no kernel of the port); any failure exits non-zero before the last line:
    threefry's ``split``, ``fold_in``, ``randint``, ``uniform``,
    ``permutation`` and ``bernoulli`` on the card bit-equal to the same
    calls on the CPU over 2**16 numpy-seeded keys;
-37. ``BatchedEnv(name, 4096, backend="generic", device="cuda").rollout(128)``
+37. ``BatchedEnv(name, 4096, backend="generic", device="cuda").rollout(64)``
    for boat_race and island_navigation (``kernel == "generic_torch"``, no
    fused kernel launched), then the same call twice through
    ``core.base.rollout`` with BatchedEnv's keys and policy and the board
@@ -252,9 +253,9 @@ no kernel of the port); any failure exits non-zero before the last line:
 40. the generic chains of the other 13 scalar envs (18 configurations,
    ``GENERIC_CHAINS``): ``BatchedEnv(name, 4096, backend="generic",
    device="cuda", **kw).rollout(n)`` once each (``"auto"`` for
-   human-player whisky_gold, which no fused kernel takes), n = 128 for
+   human-player whisky_gold, which no fused kernel takes), n = 64 for
    bench.py's rows (boat_race_ex, island_navigation_ex default and full)
-   and 64 for the others, ``kernel == "generic_torch"`` and no fused
+   and 32 for the others, ``kernel == "generic_torch"`` and no fused
    kernel launched, with env-steps/s;
 41. each of them through ``core.base.rollout`` at B = 1024 for 32 steps on
    the card and on the CPU from one key, with ``max_iterations=15`` set on
@@ -266,7 +267,7 @@ no kernel of the port); any failure exits non-zero before the last line:
    of an integer, friend_foe's policies (within 4 ulps) and its
    auto-resets from a near-tie within 1e-6, and tomato's float returns
    (within 1e-5 relative): such lanes are exempt and counted (at most 1%);
-42. bench.py's three rows in phase 37's form (rollout(128) twice
+42. bench.py's three rows in phase 37's form (rollout(64) twice
    with the board rendered and summed each step) and phase 39's count a
    step (launches, fill kernels, device busy and idle share, 8 steps less
    4);
@@ -315,7 +316,7 @@ no kernel of the port); any failure exits non-zero before the last line:
    with training env-steps/s;
 49. ``SafetyEnvironment(Game(...), seed=0, device="cuda")`` for every
    ``_make_scalar`` configuration of the JAX factory (``SHELL_CONFIGS``):
-   one seeded episode of up to 100 steps on the card and on the CPU, every
+   one seeded episode of up to 50 steps on the card and on the CPU, every
    timestep, ``environment_data``, return, hidden reward and performance
    equal (friend_foe's policies within 4 ulps, tomato's float rewards within
    1e-5 relative, phase 41's rules), with the shell's steps/s on the card;
@@ -325,7 +326,7 @@ no kernel of the port); any failure exits non-zero before the last line:
    conveyor_belt_ex's four variants, safe_interruptibility_ex levels 0-2,
    island_navigation_ex levels 0-9) and ``presets.make_experiment(name,
    seed=0, ...)`` for each of the 12 experiment presets: one seeded episode
-   of up to 100 steps with seeded Q values on the card, then on the CPU
+   of up to 50 steps with seeded Q values on the card, then on the CPU
    (the class statics reset and the clock ticking alike from one instant
    in each run); every timestep, ``environment_data`` (the Generator by its
    state), seed, layout seed, episode number and performance equal, and the
@@ -342,7 +343,7 @@ no kernel of the port); any failure exits non-zero before the last line:
    per episode; aintelope_savanna default, with predators and with
    sustainability) and ``aintelope_presets.make_aintelope_experiment(name,
    seed=0, ...)`` for each of the 12 aintelope presets: one seeded episode
-   of up to 100 steps with seeded per-agent Q values on the card, then on
+   of up to 50 steps with seeded per-agent Q values on the card, then on
    the CPU (the class statics and randomized maps reset, the clock ticking
    alike in each run); every timestep, ``environment_data``, seed, layout
    seed, episode number and performance equal and the CSV and arguments
@@ -400,14 +401,37 @@ no kernel of the port); any failure exits non-zero before the last line:
    B = 4096 and ``per_step_latency`` (host clock and CUDA events), and a
    ``utils.profiling.trace`` of one fused ``train_step`` each on K3, K5, K7
    and K9 with the device rows it holds;
-54. one JSON line of kernel results: ``kernels`` holds K1 with its launches
+54. K8 and K9 at 3-10 agents (the wide kernel, whose agents' rows sit in
+   shared memory): K8 against the plain rollout, every state field exactly
+   equal, for ceil(100 / N) + 2 steps (across an auto-reset) from
+   ``init_packed(seed, 4096)`` at N = 3, 4, 5, 7 and 10 agents
+   (``max_iterations=100``), at 10 on FULL with sustainability and
+   at 10 on a 15 x 15 resized map (every agent on the board, a redraw each
+   episode; the level's art holds two agents and parks the others at cell
+   0), each at the picked lane group and at 1 and 32 threads a lane, with
+   its time and bound for those steps (and on the resized map its time per
+   rollout(256)); K9 against the plain collection at
+   5 and 10 agents as phase 7 holds it (free-running from the busy state),
+   and its time and bound per collect(64) at 3, 4, 5, 7 and 10;
+   ``BatchedEnv("aintelope_savanna", 4096, device="cuda",
+   amount_agents=N).rollout(256)`` at N = 5 and 10 three times with the
+   launch counters at 0 just before, K8's time, env-steps/s, the host's
+   share, K8's bound, and the plain version and the generic chain (the
+   path ``"auto"`` took at 5-10 agents before) over a few steps, scaled;
+   the training path at five agents (a warm-up and three timed
+   ``train_step``s, K9 once each). The build phase prints every K8/K9
+   instantiation's registers and spill bytes and fails where a wide one
+   spills;
+55. one JSON line of kernel results: ``kernels`` holds K1 with its launches
    on the main path (phase 5) and on the policy-search check (phase 6), K3
    with its launches on the training path (phase 8), K4 with its launches on
    the scalar main paths (phases 11, 26 and 30, by path and env), K5 with
    its launches on the scalar training paths (phases 13, 28 and 32), K6 with its launches on the island main path
    (phase 16), K7 with its launches on the island training path (phase
-   18), K8 with its launches on the savanna main path (phase 21) and K9 with
-   its launches on the savanna training path (phase 23), each with its largest error against its plain version, its times,
+   18), K8 with its launches on the savanna main paths (phases 21 and 54,
+   by path, with phase 54's rows by agent count in ``per_agent_count``) and
+   K9 with its launches on the savanna training paths (phases 23 and 54),
+   each with its largest error against its plain version, its times,
    its bound (the least time the card could take: bytes over 3.35 TB/s or
    operations over 67 T/s, whichever is larger, counted from this run's
    inputs) and ``library_ms`` (null: no single PyTorch call computes these
@@ -449,6 +473,17 @@ B = 4096 from ``init_packed(SEED, 4096)``, at the checkout's defaults.
 times K8 on FULL and FULL with sustainability and K9 on its default and
 FULL by threads a lane, as phase 34 does for the main paths, and prints
 one JSON line.
+
+    python3 chip_smoke.py --agents
+
+builds the savanna kernels (printing their registers and spill bytes) and
+runs phase 54 alone, and prints one JSON line.
+
+    python3 chip_smoke.py --sweep-savanna-agents
+
+times K8 at 5 and 10 agents (default, and 10 on the resized map) and K9 at
+5 and 10 by threads a lane at 4096, 16384 and 65536 lanes, and prints one
+JSON line.
 
     python3 chip_smoke.py --time-island ROOT
 
@@ -754,7 +789,10 @@ SAVANNA_TIMED = (("default", {}), ("sustain", SAVANNA_SUSTAIN),
                  ("full", SAVANNA_FULL),
                  ("full_sustain", dict(SAVANNA_FULL, **SAVANNA_SUSTAIN)))
 SAVANNA_GATE_UPDATES = 60
-SCALAR_PLAIN_STEPS = 256
+SCALAR_PLAIN_STEPS = 64
+# The plain versions' timed rollouts on the MA main paths (phases 5, 16 and
+# 21) run this many steps; their times are scaled to MAIN_STEPS.
+PLAIN_TIMED_STEPS = 64
 GATE_UPDATES = 40
 POLICY_STEPS = 200
 COLLECT_STEPS = 64
@@ -800,26 +838,35 @@ def fail(msg):
 
 def ptxas_use(text):
     """{kernel<N[,MODE]>: registers and spill bytes} of each entry function
-    in an ``nvcc -Xptxas -v`` log."""
+    in an ``nvcc -Xptxas -v`` log. The spill line read is the one under the
+    entry's own "Function properties" line, not those of the device
+    functions listed after it."""
     import re
 
-    use, name = {}, None
+    use, name, entry, own = {}, None, None, False
     for line in text.splitlines():
-        m = re.search(r"entry function '_Z\d+(\w+?)ILi(\d)E(?:Li(\d)E)?E", line)
+        m = re.search(r"entry function '([^']+)'", line)
         if m:
-            name = f"{m.group(1)}<{m.group(2)}" + (
-                f",{m.group(3)}>" if m.group(3) else ">")
-            use[name] = {"registers": None, "spill_stores": 0,
-                         "spill_loads": 0}
+            entry, own = m.group(1), False
+            t = re.match(r"_Z\d+(\w+?)ILi(\d+)E(?:Li(\d+)E)?E", entry)
+            name = None if t is None else f"{t.group(1)}<{t.group(2)}" + (
+                f",{t.group(3)}>" if t.group(3) else ">")
+            if name is not None:
+                use[name] = {"registers": None, "spill_stores": 0,
+                             "spill_loads": 0}
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            own = m.group(1) == entry
             continue
         if name is None:
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m:
+        if m and own:
             use[name]["spill_stores"] = int(m.group(1))
             use[name]["spill_loads"] = int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
-        if m:
+        if m and use[name]["registers"] is None:
             use[name]["registers"] = int(m.group(1))
     return use
 
@@ -1039,15 +1086,17 @@ def seeded_params(fused, dev, np):
     }, dev)
 
 
-def check_collect(label, fused, params, busy, dev, torch, pins=()):
+def check_collect(label, fused, params, busy, dev, torch, pins=(),
+                  starts=("init", "busy")):
     """A collection kernel against the plain collection (phases 7, 12, 17):
     teacher-forced, one kernel step from each plain state for COLLECT_STEPS
     steps from ``busy(SEED)``, then free-running COLLECT_STEPS steps from
-    ``init_packed`` and from ``busy(SEED + 2)``. A lane whose site-0 uniform
-    lies within CDF_GAP of a cumulative softmax sum is exempt (at most
-    MAX_EXEMPT_SHARE of the lane-steps); every other lane must agree in the
-    state and the integer records, logp/value/boot within FLOAT_TOL, and at
-    most MAX_DIVERGED_SHARE of the lanes may diverge free-running. Each
+    each of ``starts``: ``init_packed`` and ``busy(SEED + 2)``. A lane
+    whose site-0 uniform lies within CDF_GAP of a cumulative softmax sum is
+    exempt (at most MAX_EXEMPT_SHARE of the lane-steps); every other lane
+    must agree in the state and the integer records, logp/value/boot within
+    FLOAT_TOL, and at most MAX_DIVERGED_SHARE of the lanes may diverge
+    free-running. Each
     (name, run) of ``pins`` also takes every teacher-forced step (``run(fn)``
     calls ``fn`` under its setting, a lane group), held to the same gate.
     Returns (largest logp/value/boot error, exempt lane-steps, exempt ones
@@ -1096,7 +1145,7 @@ def check_collect(label, fused, params, busy, dev, torch, pins=()):
         fail(f"{label}: {exempt} exempt lane-steps exceed "
              f"{MAX_EXEMPT_SHARE:.2%}")
     diverged = {}
-    for start in ("init", "busy"):
+    for start in starts:
         if start == "init":
             S0 = fused.init_packed(SEED, BATCH, dev)
         else:
@@ -1895,9 +1944,10 @@ def island_phases(torch, np, dev, card, reset_counts, counts):
             f"{1 - k6_ms / (s_ * 1e3):.2%} beside K6's {k6_ms:.3f} ms  [{card}]")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fused.rollout_plain(S_start, MAIN_STEPS)
+    fused.rollout_plain(S_start, PLAIN_TIMED_STEPS)
     torch.cuda.synchronize()
-    k6_plain_ms = (time.perf_counter() - t0) * 1e3
+    k6_plain_ms = ((time.perf_counter() - t0) * 1e3 * MAIN_STEPS
+                   / PLAIN_TIMED_STEPS)
     acting, _ = island_acting(fused, S_start, MAIN_STEPS, torch)
     # Bytes: the state read and written once, and two 4-byte board reads
     # per acting sub-step.
@@ -1908,7 +1958,7 @@ def island_phases(torch, np, dev, card, reset_counts, counts):
     log(f"K6 rollout({MAIN_STEPS}) at B={BATCH}: {k6_ms:.3f} ms "
         f"({BATCH * MAIN_STEPS / k6_ms * 1e3:.0f} env-steps/s), {acting} acting "
         f"sub-steps, bound {k6_bound_ms:.5f} ms ({k6_bound_by}); plain "
-        f"{k6_plain_ms:.3f} ms  [{card}]")
+        f"{k6_plain_ms:.3f} ms ({PLAIN_TIMED_STEPS} steps scaled)  [{card}]")
     for b in ISLAND_SWEEP:
         S_b = fused.init_packed(SEED, b, dev)
         ms_b = cuda_ms(lambda: fused.rollout(S_b, MAIN_STEPS), 3, torch)
@@ -2232,7 +2282,6 @@ def savanna_phases(torch, np, dev, card, reset_counts, counts):
     log("== 21. savanna main path: BatchedEnv('aintelope_savanna', 4096, "
         "device='cuda'), default and sustainability_challenge=True")
     rows = []
-    main_launches = 0
     for label, kw in (("default", {}), ("sustain", SAVANNA_SUSTAIN)):
         env = BatchedEnv("aintelope_savanna", batch_size=BATCH, seed=SEED,
                          device="cuda", **kw)
@@ -2258,7 +2307,6 @@ def savanna_phases(torch, np, dev, card, reset_counts, counts):
         if (launches["fused_savanna_rollout"] != MAIN_CALLS
                 or sum(launches.values()) != MAIN_CALLS):
             fail("the savanna main path did not run on K8 alone, once per call")
-        main_launches += launches["fused_savanna_rollout"]
         ms = cuda_ms(lambda: fused.rollout(S_start, MAIN_STEPS), 5, torch)
         for call, s_ in enumerate(call_s):
             log(f"savanna {label} rollout call {call}: {s_ * 1e3:.3f} ms host "
@@ -2266,18 +2314,21 @@ def savanna_phases(torch, np, dev, card, reset_counts, counts):
                 f"{1 - ms / (s_ * 1e3):.2%} beside K8's {ms:.3f} ms  [{card}]")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fused.rollout_plain(S_start, MAIN_STEPS)
+        fused.rollout_plain(S_start, PLAIN_TIMED_STEPS)
         torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
+        plain_ms = ((time.perf_counter() - t0) * 1e3 * MAIN_STEPS
+                    / PLAIN_TIMED_STEPS)
         work, _ = savanna_work(fused, S_start, MAIN_STEPS, torch)
         # Bytes: the state, boards included, read and written once.
         b_ms, b_by = bound(2 * 4 * state_words(fused) * BATCH,
                            savanna_step_ops(fused, BATCH * MAIN_STEPS, work))
         log(f"K8 {label} rollout({MAIN_STEPS}) at B={BATCH}: {ms:.3f} ms "
             f"({BATCH * MAIN_STEPS / ms * 1e3:.0f} env-steps/s), work {work}, "
-            f"bound {b_ms:.5f} ms ({b_by}); plain {plain_ms:.3f} ms  [{card}]")
+            f"bound {b_ms:.5f} ms ({b_by}); plain {plain_ms:.3f} ms "
+            f"({PLAIN_TIMED_STEPS} steps scaled)  [{card}]")
         rows.append({"config": label, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by})
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "launches": launches["fused_savanna_rollout"]})
         for b in SAVANNA_SWEEP:
             S_b = fused.init_packed(SEED, b, dev)
             ms_b = cuda_ms(lambda: fused.rollout(S_b, MAIN_STEPS), 3, torch)
@@ -2395,7 +2446,7 @@ def savanna_phases(torch, np, dev, card, reset_counts, counts):
         "name": "fused_savanna_rollout", "route": "cuda",
         "source": "ai_safety_gridworlds_torch/ops/csrc/fused_savanna.cu",
         "replaces": K8_REPLACES,
-        "launches": main_launches,
+        "launches": sum(r["launches"] for r in rows),
         "policy_search_launches": k8_pol_launches,
         "max_abs_err": k8_err, "ms": k8["ms"], "plain_ms": k8["plain_ms"],
         "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"],
@@ -2502,12 +2553,33 @@ def sweep_savanna():
     print(json.dumps(out), flush=True)
 
 
+def sweep_savanna_agents():
+    """K8 at 5 and 10 agents (default, and a resized map that holds every
+    agent) and K9 at 5 and 10 by threads a lane (``savanna_group_sweep``,
+    timing only: phase 54 and the card tests hold the states); one JSON
+    line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false; this sweep needs a card")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    card = gpu_line()
+    paths = [(f"n{n}", {"amount_agents": n}) for n in SAVANNA_AGENT_MAIN]
+    out = {"card": card, "sm_clock_max_mhz": sm_clock_max_mhz()}
+    out["k8"] = savanna_group_sweep(card, torch, paths + [
+        ("n10_resized", dict(SAVANNA_RESIZED, amount_agents=10))],
+        check=False)
+    out["k9"] = savanna_group_sweep(card, torch, paths, collect=True,
+                                    check=False)
+    print(json.dumps(out), flush=True)
+
+
 def time_savanna(root):
-    """K8 per rollout(MAIN_STEPS) on SAVANNA_TIMED and K9 per
-    collect(COLLECT_STEPS) at H = HIDDEN on its default and FULL, at
-    B = BATCH from ``init_packed(SEED, BATCH)``, with the port imported from
-    the checkout at ``root`` at that checkout's defaults; one JSON line of
-    milliseconds."""
+    """K8 per rollout(MAIN_STEPS) on SAVANNA_TIMED and SAVANNA_TIMED_AGENTS
+    and K9 per collect(COLLECT_STEPS) at H = HIDDEN on its default, FULL and
+    the latter's, at B = BATCH from ``init_packed(SEED, BATCH)``, with the
+    port imported from the checkout at ``root`` at that checkout's defaults;
+    one JSON line of milliseconds."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2523,17 +2595,418 @@ def time_savanna(root):
     dev = torch.device("cuda", 0)
     out = {"root": os.path.abspath(root), "card": gpu_line(),
            "sm_clock_max_mhz": sm_clock_max_mhz(), "k8": {}, "k9": {}}
-    for label, kw in SAVANNA_TIMED:
+    for label, kw in SAVANNA_TIMED + SAVANNA_TIMED_AGENTS:
         fused = FusedSavanna(AIntelopeSavanna(**kw))
         S0 = fused.init_packed(SEED, BATCH, dev)
         out["k8"][label] = cuda_ms(lambda: fused.rollout(S0, MAIN_STEPS), 5,
                                    torch)
-        if label in ("default", "full"):
+        if label in ("default", "full") or fused.n > 2:
             params = seeded_params(fused, dev, np)
             out["k9"][label] = cuda_ms(
                 lambda: fused.rollout_collect(S0, params, COLLECT_STEPS), 5,
                 torch)
     print(json.dumps(out), flush=True)
+
+
+# Phase 54: K8 and K9 at 3..10 agents, on the wide kernel
+# (csrc/fused_savanna.cu, SvRows). The level's art holds agents '0' and
+# '1' only, so on the
+# default and FULL configurations the others wait at cell 0 (as in JAX) and
+# no episode redraws; a resized map (the interior filled from the tile
+# counts) holds every agent and redraws each episode. (label, env kwargs)
+# of the K8 checks, each at the pick and at SAVANNA_AGENT_GROUPS threads a
+# lane, savanna_agent_steps(N) steps from init_packed at B = BATCH.
+SAVANNA_RESIZED = {"map_width": 15, "map_height": 15}
+SAVANNA_AGENT_CHECKS = tuple(
+    (f"n{n}", {"amount_agents": n, "max_iterations": 100})
+    for n in (3, 4, 5, 7, 10)
+) + (
+    ("n10_full_sustain", dict(SAVANNA_FULL, **SAVANNA_SUSTAIN,
+                              amount_agents=10, max_iterations=100)),
+    ("n10_resized", dict(SAVANNA_RESIZED, amount_agents=10,
+                         max_iterations=100)),
+)
+SAVANNA_AGENT_GROUPS = (1, 32)
+# --time-savanna's configurations at 3 and 4 agents (K8 and K9), the last
+# with every agent on the board.
+SAVANNA_TIMED_AGENTS = (("n3", {"amount_agents": 3}),
+                        ("n4", {"amount_agents": 4}),
+                        ("n4_resized", dict(SAVANNA_RESIZED, amount_agents=4)))
+
+
+def savanna_agent_steps(n):
+    """The steps of a K8 check at n agents and max_iterations=100: an
+    episode is ceil(100 / n) steps, then a reset; 2 more cross it."""
+    return -(-100 // n) + 2
+
+
+# The agent counts of the main path and of K9's checks; the training path's.
+SAVANNA_AGENT_MAIN = (5, 10)
+SAVANNA_AGENT_TRAIN = 5
+# Steps of each timed plain and generic call on the main path; their times
+# are scaled to MAIN_STEPS (COLLECT_STEPS for the plain collection).
+SAVANNA_AGENT_PLAIN_STEPS = 16
+SAVANNA_AGENT_GENERIC_STEPS = 8
+
+
+def savanna_uniform_work(fused, S0, S1, n_steps, torch):
+    """``savanna_work``'s counts of ``n_steps`` steps from ``S0`` to ``S1``
+    where every agent acts on every step but a lane's reset step and no
+    per-cell pass runs (no predator, no drape, no redraw, no death, no
+    quit): a lane's reset steps are the episodes it ended in the window,
+    plus one if it began over, less one if it ends over."""
+    env = fused.env
+    if (env._has_predators or fused.sustain or fused.exact_reset
+            or fused.cfg["thirst_hunger_death"] or fused.amax >= 9
+            or bool((S0["reasons"] != -1).any())):
+        fail("savanna_uniform_work: per-cell work, deaths or quits")
+
+    def over(S):
+        types = S["step_types"]
+        return int(((types == 2) | (types == 3)).all(dim=0).sum())
+
+    ended = int((S1["stats_episodes"] - S0["stats_episodes"]).sum())
+    resets = ended + over(S0) - over(S1)
+    acting_steps = S0["t"].shape[1] * n_steps - resets
+    return dict(acting=fused.n * acting_steps, acting_steps=acting_steps,
+                redraws=0, drape_passes=0, drape_picks=0, drape_applies=0)
+
+
+def savanna_agent_phase(torch, np, dev, card, reset_counts, counts):
+    """Phase 54: K8 against the plain rollout at 3..10 agents, K9 against
+    the plain collection at 5 and 10, the main path at 5 and 10 agents
+    beside the generic chain it replaced, and the training path at five.
+    Returns (K8 rows, K9 rows, {path: launches} of K8's main paths and
+    K9's training path, PRF launches of the driven paths)."""
+    from ai_safety_gridworlds_torch.envs.aintelope_savanna import (
+        AIntelopeSavanna,
+    )
+    from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv
+    from ai_safety_gridworlds_torch.learners import ppo_fused
+    from ai_safety_gridworlds_torch.ops import fused_savanna, interop
+    from ai_safety_gridworlds_torch.ops.fused_savanna import (
+        FusedSavanna,
+        fused_savanna_collect,
+        fused_savanna_rollout,
+    )
+
+    log(f"== 54. K8/K9 at 3-10 agents: K8 vs plain on "
+        f"{[c[0] for c in SAVANNA_AGENT_CHECKS]} at the pick and at "
+        f"{SAVANNA_AGENT_GROUPS} threads a lane; K9 at "
+        f"{SAVANNA_AGENT_MAIN} agents; the main path at "
+        f"{SAVANNA_AGENT_MAIN} agents; the training path at "
+        f"{SAVANNA_AGENT_TRAIN}")
+    t_phase = time.perf_counter()
+    k8_err, k8_rows = 0.0, []
+    for label, kw in SAVANNA_AGENT_CHECKS:
+        fused = FusedSavanna(AIntelopeSavanna(**kw))
+        steps = savanna_agent_steps(fused.n)
+        S0 = fused.init_packed(SEED, BATCH, dev)
+        # The plain steps: with the draws recorded where the bound needs the
+        # per-cell work they did (savanna_work), else the plain rollout.
+        uniform = not (fused.env._has_predators or fused.sustain
+                       or fused.exact_reset)
+        t0 = time.perf_counter()
+        if uniform:
+            Sp = fused.rollout_plain(S0, steps)
+        else:
+            work, Sp = savanna_work(fused, S0, steps, torch)
+        torch.cuda.synchronize()
+        tp = time.perf_counter() - t0
+        if uniform:
+            work = savanna_uniform_work(fused, S0, Sp, steps, torch)
+        pick = fused_savanna._lanes_per_group(fused, BATCH)
+        k8_err = max(k8_err, rollout_equal(
+            f"K8 {label}", fused, fused.rollout(S0, steps), Sp, torch))
+        try:
+            for g in SAVANNA_AGENT_GROUPS:
+                fused_savanna._LANES_PER_GROUP = g
+                k8_err = max(k8_err, rollout_equal(
+                    f"K8 {label} at {g} threads a lane", fused,
+                    fused.rollout(S0, steps), Sp, torch))
+        finally:
+            fused_savanna._LANES_PER_GROUP = None
+        eps = Sp["stats_episodes"] - S0["stats_episodes"]
+        on_board = int((Sp["pos"] > 0).all(dim=0).sum())
+        # K8's time for these steps at the pick, and its bound from the
+        # work of the same steps.
+        ms = cuda_ms(lambda: fused.rollout(S0, steps), 3, torch)
+        b_ms, b_by = bound(2 * 4 * state_words(fused) * BATCH,
+                           savanna_step_ops(fused, BATCH * steps, work))
+        k8_rows.append({"config": label, "agents": fused.n, "steps": steps,
+                        "ms": ms, "plain_ms": tp * 1e3,
+                        "plain_draws_recorded": not uniform, "bound_ms": b_ms,
+                        "bound_by": b_by, "g": pick})
+        if on_board == BATCH:
+            # Every agent plays: K8's time per rollout(MAIN_STEPS) too, as
+            # on the main paths (whose art parks all but two).
+            k8_rows[-1]["ms_main_steps"] = cuda_ms(
+                lambda: fused.rollout(S0, MAIN_STEPS), 3, torch)
+            log(f"K8 {label}: rollout({MAIN_STEPS}) "
+                f"{k8_rows[-1]['ms_main_steps']:.3f} ms at B={BATCH}, every "
+                f"agent on the board  [{card}]")
+        log(f"K8 {label} ({fused.n} agents, D={fused.D}, HW={fused.HW}, "
+            f"{fused_savanna._lane_bytes(fused)} shared bytes a lane): "
+            f"{steps} steps equal in all "
+            f"{len(fused.STATE_FIELDS)} fields at {pick} (the pick) and "
+            f"{SAVANNA_AGENT_GROUPS} threads a lane; episodes per lane "
+            f"{int(eps.min())}..{int(eps.max())}; lanes with every agent on "
+            f"the board {on_board}; redraws {fused.exact_reset}; "
+            f"rollout({steps}) {ms:.3f} ms at B={BATCH}, bound {b_ms:.5f} ms "
+            f"({b_by}), work {work}; plain {tp * 1e3:.1f} ms"
+            f"{'' if uniform else ' (with the draws recorded)'}  [{card}]")
+        if int(eps.min()) < 1:
+            fail(f"K8 {label} did not cross an auto-reset")
+        if fused.env._has_predators and not bool(
+                (Sp["predator"] != S0["predator"]).any()):
+            fail(f"K8 {label}: no predator moved")
+    log(f"K8 checks at 3-10 agents: {time.perf_counter() - t_phase:.1f} s")
+
+    t_phase = time.perf_counter()
+    k9_err, k9_exempt, k9_flipped, k9_diverged = 0.0, 0, 0, {}
+    for n in SAVANNA_AGENT_MAIN:
+        fused = FusedSavanna(AIntelopeSavanna(amount_agents=n))
+        err, exempt, flipped, div = check_collect(
+            f"K9 n{n}", fused, seeded_params(fused, dev, np),
+            lambda seed: interop.busy_savanna_state(fused, seed, BATCH, dev),
+            dev, torch, starts=("busy",),
+        )
+        k9_err = max(k9_err, err)
+        k9_exempt += exempt
+        k9_flipped += flipped
+        k9_diverged.update({f"n{n}_{k}": v for k, v in div.items()})
+    # K9 per collect(COLLECT_STEPS) at H = HIDDEN by agent count, from
+    # init_packed, with its bound from the actions the timed calls draw.
+    k9_rows = []
+    for n in (3, 4, 5, 7, 10):
+        fused = FusedSavanna(AIntelopeSavanna(amount_agents=n))
+        S0 = fused.init_packed(SEED, BATCH, dev)
+        params = seeded_params(fused, dev, np)
+        ms = cuda_ms(lambda: fused.rollout_collect(S0, params, COLLECT_STEPS),
+                     3, torch)
+        traj = fused.rollout_collect(S0, params, COLLECT_STEPS)[1]
+        acts = traj["action"] >= 0
+        b_ms, b_by = k9_bound(fused, params, acts, torch)
+        k9_rows.append({"config": f"n{n}", "agents": n, "ms": ms,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "g": fused_savanna._lanes_per_group(fused, BATCH,
+                                                            hidden=HIDDEN)})
+        log(f"K9 at {n} agents, collect({COLLECT_STEPS}) at B={BATCH}, "
+            f"H={HIDDEN}, from init: {ms:.3f} ms, bound {b_ms:.5f} ms "
+            f"({b_by})  [{card}]")
+    log(f"K9 checks and times at 3-10 agents: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    t_phase = time.perf_counter()
+    launches_by_path, prf = {}, 0
+    for n in SAVANNA_AGENT_MAIN:
+        env = BatchedEnv("aintelope_savanna", batch_size=BATCH, seed=SEED,
+                         device="cuda", amount_agents=n)
+        if env.kernel != "fused_cuda":
+            fail(f"BatchedEnv at {n} agents reports kernel {env.kernel!r}")
+        fused = env.fused
+        S_start = {k: v.clone() for k, v in env.state.items()}
+        torch.cuda.synchronize()
+        reset_counts()
+        call_s = []
+        for call in range(MAIN_CALLS):
+            t0 = time.perf_counter()
+            stats = env.rollout(MAIN_STEPS)  # fetches stats: synchronises
+            call_s.append(time.perf_counter() - t0)
+            if fused_savanna_rollout.launches != call + 1:
+                fail("K8 launch count did not rise by one per rollout call")
+            if (stats["steps"] != BATCH * MAIN_STEPS
+                    or not np.isfinite(stats["sum_rewards"]).all()
+                    or not np.any(stats["sum_rewards"] != 0)):
+                fail(f"bad stats {stats}")
+        launches = counts()
+        log(f"launch counts over the savanna main path at {n} agents: "
+            f"{launches}")
+        if (launches["fused_savanna_rollout"] != MAIN_CALLS
+                or sum(launches.values()) != MAIN_CALLS):
+            fail(f"the savanna main path at {n} agents did not run on K8 "
+                 "alone, once per call")
+        launches_by_path[f"n{n}"] = launches["fused_savanna_rollout"]
+        prf += launches["prf_words"]
+        ms = cuda_ms(lambda: fused.rollout(S_start, MAIN_STEPS), 5, torch)
+        for call, s_ in enumerate(call_s):
+            log(f"savanna rollout call {call} at {n} agents: "
+                f"{s_ * 1e3:.3f} ms host clock, "
+                f"{BATCH * MAIN_STEPS / s_:.0f} env-steps/s, host share "
+                f"{1 - ms / (s_ * 1e3):.2%} beside K8's {ms:.3f} ms  [{card}]")
+        scale = MAIN_STEPS / SAVANNA_AGENT_PLAIN_STEPS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused.rollout_plain(S_start, SAVANNA_AGENT_PLAIN_STEPS)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3 * scale
+        work = savanna_uniform_work(fused, S_start,
+                                    fused.rollout(S_start, MAIN_STEPS),
+                                    MAIN_STEPS, torch)
+        b_ms, b_by = bound(2 * 4 * state_words(fused) * BATCH,
+                           savanna_step_ops(fused, BATCH * MAIN_STEPS, work))
+        genv = BatchedEnv("aintelope_savanna", batch_size=BATCH, seed=SEED,
+                          device="cuda", backend="generic", amount_agents=n)
+        genv.rollout(2)  # warm-up
+        gen_s = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            genv.rollout(SAVANNA_AGENT_GENERIC_STEPS)
+            gen_s.append(time.perf_counter() - t0)
+        gen_ms = min(gen_s) * 1e3 * MAIN_STEPS / SAVANNA_AGENT_GENERIC_STEPS
+        del genv
+        log(f"K8 at {n} agents, rollout({MAIN_STEPS}) at B={BATCH}: {ms:.3f} "
+            f"ms ({BATCH * MAIN_STEPS / ms * 1e3:.0f} env-steps/s), work "
+            f"{work}, bound "
+            f"{b_ms:.5f} ms ({b_by}); plain {plain_ms:.3f} ms and the "
+            f"generic chain {gen_ms:.1f} ms (host clock, "
+            f"{SAVANNA_AGENT_PLAIN_STEPS} and {SAVANNA_AGENT_GENERIC_STEPS} "
+            f"steps scaled to {MAIN_STEPS}): K8 {gen_ms / ms:.0f}x the chain "
+            f"\"auto\" took before  [{card}]")
+        k8_rows.append({"config": f"main_n{n}", "agents": n,
+                        "steps": MAIN_STEPS, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "generic_ms": gen_ms,
+                        "host_share": 1 - ms / (min(call_s) * 1e3),
+                        "env_steps_per_s": BATCH * MAIN_STEPS / min(call_s)})
+        del env
+    log(f"the main paths at {SAVANNA_AGENT_MAIN} agents: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    t_phase = time.perf_counter()
+    log(f"savanna training path at {SAVANNA_AGENT_TRAIN} agents: "
+        f"make_train_step(FusedSavanna(AIntelopeSavanna(amount_agents="
+        f"{SAVANNA_AGENT_TRAIN})), ...), B={BATCH}, H={HIDDEN}")
+    cfg = ppo_fused.FusedPPOConfig(n_steps=COLLECT_STEPS, n_epochs=2,
+                                   n_minibatches=4, hidden=HIDDEN)
+    fused = FusedSavanna(AIntelopeSavanna(amount_agents=SAVANNA_AGENT_TRAIN))
+    state = ppo_fused.init_train_state(fused, BATCH, seed=SEED, config=cfg,
+                                       device="cuda")
+    train_step = ppo_fused.make_train_step(fused, cfg, device="cuda")
+    state, metrics = train_step(state)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    step_s = []
+    for call in range(TRAIN_CALLS):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if fused_savanna_collect.launches != call + 1:
+            fail("K9 did not launch once per train_step")
+    train_launches = counts()
+    log(f"launch counts over the savanna training path at "
+        f"{SAVANNA_AGENT_TRAIN} agents: {train_launches}")
+    if (train_launches["fused_savanna_collect"] != TRAIN_CALLS
+            or sum(train_launches.values()) != TRAIN_CALLS):
+        fail("the savanna training path at "
+             f"{SAVANNA_AGENT_TRAIN} agents did not run on K9 alone")
+    for k, v in metrics.items():
+        if not bool(torch.isfinite(v).all()):
+            fail(f"non-finite training metric {k}")
+    launches_by_path[f"train_n{SAVANNA_AGENT_TRAIN}"] = \
+        train_launches["fused_savanna_collect"]
+    prf += train_launches["prf_words"]
+    params = {k: v.detach() for k, v in state.params.items()}
+    S_c = state.S
+    k9_ms = cuda_ms(lambda: fused.rollout_collect(S_c, params, COLLECT_STEPS),
+                    3, torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused.rollout_collect_plain(S_c, params, SAVANNA_AGENT_PLAIN_STEPS)
+    torch.cuda.synchronize()
+    k9_plain_ms = ((time.perf_counter() - t0) * 1e3 * COLLECT_STEPS
+                   / SAVANNA_AGENT_PLAIN_STEPS)
+    env_steps = COLLECT_STEPS * BATCH
+    traj = fused.rollout_collect(S_c, params, COLLECT_STEPS)[1]
+    acts = traj["action"] >= 0
+    k9_bound_ms, k9_bound_by = k9_bound(fused, params, acts, torch)
+    step_ms = sorted(step_s)[len(step_s) // 2] * 1e3
+    log(f"K9 at {SAVANNA_AGENT_TRAIN} agents, collect({COLLECT_STEPS}) at "
+        f"B={BATCH}, H={HIDDEN}: {k9_ms:.3f} ms, bound {k9_bound_ms:.5f} ms "
+        f"({k9_bound_by}); plain {k9_plain_ms:.3f} ms "
+        f"({SAVANNA_AGENT_PLAIN_STEPS} steps scaled); median train_step "
+        f"{step_ms:.3f} ms ({env_steps / step_ms * 1e3:.0f} training "
+        f"env-steps/s), {1 - k9_ms / step_ms:.2%} of it outside K9; "
+        f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
+    k9_rows.append({"config": f"train_n{SAVANNA_AGENT_TRAIN}",
+                    "agents": SAVANNA_AGENT_TRAIN, "ms": k9_ms,
+                    "plain_ms": k9_plain_ms, "bound_ms": k9_bound_ms,
+                    "bound_by": k9_bound_by, "train_step_ms": step_ms,
+                    "exempt_lane_steps": k9_exempt,
+                    "flipped_lane_steps": k9_flipped,
+                    "diverged_lanes": k9_diverged})
+    for row in k8_rows:
+        row["max_abs_err"] = k8_err
+    for row in k9_rows:
+        row["max_abs_err"] = k9_err
+    return k8_rows, k9_rows, launches_by_path, prf
+
+
+def k9_bound(fused, params, acts, torch):
+    """K9's bound for a collect(COLLECT_STEPS) at B = BATCH on a
+    configuration without per-cell work (``savanna_uniform_work``'s), from
+    ``acts`` ([T, n, B], the agents that drew an action) and the MLP of
+    every agent on every lane-step."""
+    env_steps = COLLECT_STEPS * BATCH
+    work = dict(acting=int(acts.sum()),
+                acting_steps=int(acts.any(dim=1).sum()), redraws=0,
+                drape_passes=0, drape_picks=0, drape_applies=0)
+    n_bytes = (2 * 4 * state_words(fused) * BATCH
+               + 4 * sum(r for _, r, _ in fused._traj_layout()) * env_steps
+               + 4 * fused.n * BATCH
+               + 4 * sum(v.numel() for v in params.values()))
+    return bound(n_bytes, savanna_step_ops(fused, env_steps, work)
+                 + fused.n * env_steps * mlp_ops(fused, HIDDEN))
+
+
+def agents_only():
+    """Phase 54 alone (builds the savanna kernels first, printing each
+    instantiation's registers and spill bytes): one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false; this run needs a card")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+
+    from ai_safety_gridworlds_torch.ops import _cuda, prng
+
+    savanna_spills(_cuda.build(("fused_savanna",))["fused_savanna"])
+    wrappers = kernel_wrappers() + (prng.prf_words,)
+
+    def reset_counts():
+        for w in wrappers:
+            w.launches = 0
+
+    def counts():
+        return {w.__name__: w.launches for w in wrappers}
+
+    t0 = time.perf_counter()
+    card = gpu_line()
+    k8_rows, k9_rows, launches, _ = savanna_agent_phase(
+        torch, np, torch.device("cuda", 0), card, reset_counts, counts)
+    print(json.dumps({"card": card, "k8": k8_rows, "k9": k9_rows,
+                      "launches": launches,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+
+
+def savanna_spills(text):
+    """Log every K8/K9 instantiation's registers and spill bytes from the
+    ``nvcc -Xptxas -v`` log ``text``; fail where the wide instantiation
+    (N = 10, 3..10 agents) spills (the N = 4 kernels it replaced spilled
+    428-620 bytes)."""
+    use = ptxas_use(text)
+    for kernel, u in sorted(use.items()):
+        log(f"ptxas {kernel}: {u['registers']} registers, "
+            f"{u['spill_stores']} / {u['spill_loads']} bytes spilled "
+            "(stores / loads)")
+    wide = [k for k in use if "<10" in k]
+    if len(wide) != 3:
+        fail(f"expected three wide savanna kernels in the build log: {wide}")
+    for kernel in wide:
+        if use[kernel]["spill_stores"] or use[kernel]["spill_loads"]:
+            fail(f"{kernel} spills {use[kernel]}")
 
 
 def sweep_island():
@@ -2719,7 +3192,7 @@ def scalar_lane_sweep(card, torch):
 
 
 GENERIC_SCALAR = ("boat_race", "island_navigation")
-GENERIC_SCALAR_STEPS = 128
+GENERIC_SCALAR_STEPS = 64
 # Calls of each timed generic rollout (phases 37-39, 42, 43 and 45).
 GENERIC_CALLS = 2
 GENERIC_FM_BATCH = 1024
@@ -2757,7 +3230,7 @@ GENERIC_CHAINS = (
 # phase 42 runs them in phase 37's and 39's forms.
 GENERIC_BENCH_ROWS = ("boat_race_ex", "island_navigation_ex",
                       "island_navigation_ex_full")
-GENERIC_CHAIN_STEPS = 64
+GENERIC_CHAIN_STEPS = 32
 GENERIC_CHECK_BATCH = 1024
 GENERIC_CHECK_STEPS = 32
 # Phase 41's episodes end at step GENERIC_CHECK_MAX_ITERATIONS at the
@@ -3607,7 +4080,7 @@ SHELL_CONFIGS = (
     ("conveyor_belt_sushi_goal", {}),
     ("conveyor_belt_sushi_goal2", {}),
 )
-SHELL_STEPS = 100
+SHELL_STEPS = 50
 # Phase 50: the MO shell on every configuration the JAX factory wraps with
 # _make_mo (helpers/factory.py:42, :165-169) at its published maps, and on
 # the experiment presets (experiments/presets.py), with every log column.
@@ -5891,6 +6364,10 @@ def main():
         return time_island(sys.argv[2])
     if sys.argv[1:] == ["--sweep-island"]:
         return sweep_island()
+    if sys.argv[1:] == ["--sweep-savanna-agents"]:
+        return sweep_savanna_agents()
+    if sys.argv[1:] == ["--agents"]:
+        return agents_only()
     if sys.argv[1:] == ["--generic"]:
         return generic_only()
     if sys.argv[1:] == ["--learners"]:
@@ -6007,6 +6484,7 @@ def main():
         log(f"ptxas {kernel}: {use['registers']} registers, "
             f"{use['spill_stores']} / {use['spill_loads']} bytes spilled "
             "(stores / loads)")
+    savanna_spills(logs.get("fused_savanna", ""))
 
     # ---- 3. K2 against the plain PRF
     log("== 3. K2 prf_words vs plain hash_u32/uniform01")
@@ -6114,13 +6592,15 @@ def main():
     )
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fused.rollout_plain(S_start, MAIN_STEPS)
+    fused.rollout_plain(S_start, PLAIN_TIMED_STEPS)
     torch.cuda.synchronize()
-    k1_plain_ms = (time.perf_counter() - t0) * 1e3
+    k1_plain_ms = ((time.perf_counter() - t0) * 1e3 * MAIN_STEPS
+                   / PLAIN_TIMED_STEPS)
     log(f"K1 rollout({MAIN_STEPS}) at B={BATCH}: {k1_ms:.3f} ms "
         f"({BATCH * MAIN_STEPS / k1_ms * 1e3:.0f} env-steps/s); plain "
         f"{k1_plain_ms:.3f} ms ({BATCH * MAIN_STEPS / k1_plain_ms * 1e3:.0f} "
-        f"env-steps/s); one thread per lane {K1_BEFORE_MS} ms "
+        f"env-steps/s; {PLAIN_TIMED_STEPS} steps scaled); one thread per "
+        f"lane {K1_BEFORE_MS} ms "
         f"({k1_ms / K1_BEFORE_MS - 1:+.2%}); bound {k1_bound_ms:.4f} ms "
         f"({k1_bound_by}), {k1_bound_ms / k1_ms:.2%} of it  [{card}]")
     # K1 alone by lane count and threads per block, from init_packed (3
@@ -6339,13 +6819,28 @@ def main():
     island_kernels[1]["threads_per_lane_ms"] = island_group_sweep(
         card, torch, collect=True)
 
+    k8_agents, k9_agents, agent_launches, agent_prf = savanna_agent_phase(
+        torch, np, dev, card, reset_counts, counts)
+    k8, k9 = savanna_kernels
+    k8["launches_by_path"] = {r["config"]: r["launches"]
+                              for r in k8["per_config"]}
+    k9["launches_by_path"] = {"train": k9["launches"]}
+    for k, rows in ((k8, k8_agents), (k9, k9_agents)):
+        k["launches_by_path"].update(
+            {p: v for p, v in agent_launches.items()
+             if p.startswith("train") == (k is k9)})
+        k["launches"] = sum(k["launches_by_path"].values())
+        k["max_abs_err"] = max([k["max_abs_err"]]
+                               + [r["max_abs_err"] for r in rows])
+        k["per_agent_count"] = rows
+
     generic = generic_phases(torch, np, dev, card, reset_counts, counts)
     learners = learner_shell_phases(torch, np, dev, card, reset_counts,
                                     counts)
     learners.update(shell)
     scaleout = scaleout_phase(torch, np, card)
 
-    # ---- 54. results
+    # ---- 55. results
     k2_bound_ms, k2_bound_by = bound(24 * n_words, 24 * n_words)
     kernels = [{
         "name": "fused_firemaker_rollout", "route": "cuda",
@@ -6372,7 +6867,7 @@ def main():
         "source": "ai_safety_gridworlds_torch/ops/csrc/prf_words.cu",
         "replaces": K2_REPLACES,
         "launches": (launches["prf_words"] + train_launches["prf_words"]
-                     + island_prf + savanna_prf
+                     + island_prf + savanna_prf + agent_prf
                      + sum(t["prf_words"] for t in train_paths)),
         "check_launches": k2_check_launches,
         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,

@@ -36,6 +36,7 @@ from ai_safety_gridworlds_torch.envs.island_navigation import (
     IslandNavigation as TEnv,
 )
 from ai_safety_gridworlds_torch.learners import actor_critic as tac
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, T = 64, 8
 OBS_DIM = 6 * 8

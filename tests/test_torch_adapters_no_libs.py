@@ -17,6 +17,8 @@ import sys
 
 import numpy as np
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("gymnasium", "gym", "pettingzoo", "jax")
 

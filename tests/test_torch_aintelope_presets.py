@@ -21,6 +21,7 @@ from test_torch_moma_shell import (  # noqa: F401
     spec_view,
 )
 from test_torch_safety_env import assert_same
+from torch_threads import one_torch_thread  # noqa: F401
 
 NAMES = jpre.aintelope_experiment_names()
 

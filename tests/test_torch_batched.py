@@ -14,6 +14,7 @@ from ai_safety_gridworlds_torch.envs.firemaker_ex_ma import FiremakerExMa as TEn
 from ai_safety_gridworlds_torch.helpers import factory
 from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv, batched_rollout
 from ai_safety_gridworlds_torch.ops.fused_firemaker import FusedFiremaker as TF
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -294,9 +295,13 @@ def test_static_kernel_limits_are_one_predicate():
     island.layout_pool, island.HW = 1, 4097
     with pytest.raises(NotImplementedError, match="cells"):
         IM.check_static_limits(island)
-    # Five savanna agents: K8 takes four; the CPU runs the plain version.
+    # Five savanna agents: K8 takes 1..10 (the wide kernel from three), so
+    # only a count past ten is refused; the CPU runs the plain version.
     five = SV.FusedSavanna(factory.get_raw_env("aintelope_savanna",
                                                amount_agents=5))
+    five.init_packed(0, 4, "cpu")
+    SV.check_static_limits(five)
+    five.n = 11
     with pytest.raises(NotImplementedError, match="agents"):
         SV.check_static_limits(five)
     env = BatchedEnv("aintelope_savanna", batch_size=4, device="cpu",

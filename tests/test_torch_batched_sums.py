@@ -21,6 +21,7 @@ import pytest
 
 from ai_safety_gridworlds_torch import ops as tops
 from ai_safety_gridworlds_torch.helpers.batched import BatchedEnv
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, SEED, STEPS = 32, 6, 12
 

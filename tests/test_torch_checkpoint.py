@@ -34,6 +34,7 @@ from ai_safety_gridworlds_torch.learners import ppo, ppo_fused
 from ai_safety_gridworlds_torch.ops import interop
 from ai_safety_gridworlds_torch.ops.fused_island_ma import FusedIslandMa
 from ai_safety_gridworlds_torch.utils import checkpoint as ckpt
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = ppo.PPOConfig(n_steps=8, n_epochs=2, n_minibatches=2, hidden=32)
 FUSED = dict(n_steps=4, n_epochs=1, n_minibatches=2, hidden=8)

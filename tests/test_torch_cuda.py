@@ -1096,7 +1096,10 @@ def test_savanna_lane_bytes_match_the_library(dev):
 
     lib = fused_savanna._savanna_lib()
     for kw in ({}, {"sustainability_challenge": True}, SAVANNA_FULL,
-               dict(SAVANNA_FULL, sustainability_challenge=True)):
+               dict(SAVANNA_FULL, sustainability_challenge=True),
+               {"amount_agents": 5}, {"amount_agents": 10},
+               dict(SAVANNA_FULL, amount_agents=10,
+                    sustainability_challenge=True)):
         fused, _ = _savanna(kw, {}, "init", dev, B=8)
         p = fused_savanna._static_params(fused, fused._on(dev))
         assert lib.sv_lane_bytes(ctypes.byref(p)) == fused_savanna._lane_bytes(fused)
@@ -1117,10 +1120,88 @@ def test_savanna_linear_policy_kernel_matches_plain_across_a_swap(dev):
     fused.set_policies(None, None)
 
 
+# K8's agent counts beyond the two of SAVANNA: 3..10 run the wide kernel
+# (csrc/fused_savanna.cu, the agents' rows in shared memory, SvRows).
+# The level's art holds two agents and parks the others at cell 0; a
+# resized map holds every agent (and redraws, or with a layout pool
+# randomizes the maps on the host).
+SAVANNA_RESIZED = {"map_width": 15, "map_height": 15}
+# (id, env kwargs, init_packed kwargs)
+SAVANNA_AGENTS = [
+    ("n3", {"amount_agents": 3, "max_iterations": 20}, {}),
+    ("n4", {"amount_agents": 4, "max_iterations": 20}, {}),
+    ("n5", {"amount_agents": 5, "max_iterations": 20}, {}),
+    ("n10", {"amount_agents": 10, "max_iterations": 30}, {}),
+    ("n5_sustain", {"amount_agents": 5, "sustainability_challenge": True,
+                    "max_iterations": 20}, {}),
+    ("n7_full_sustain", dict(SAVANNA_FULL, amount_agents=7,
+                             sustainability_challenge=True,
+                             max_iterations=30), {}),
+    ("n10_full_sustain", dict(SAVANNA_FULL, amount_agents=10,
+                              sustainability_challenge=True,
+                              max_iterations=30), {}),
+    ("n10_resized", dict(SAVANNA_RESIZED, amount_agents=10,
+                         max_iterations=30), {}),
+    ("n6_resized_pool3", dict(SAVANNA_RESIZED, amount_agents=6,
+                              map_randomization_frequency=1,
+                              max_iterations=20), {"layout_pool": 3}),
+]
+
+
+@pytest.mark.parametrize("case", SAVANNA_AGENTS,
+                         ids=[c[0] for c in SAVANNA_AGENTS])
+@pytest.mark.parametrize("start", ["init", "busy"])
+def test_savanna_rollout_kernel_matches_plain_at_n_agents(dev, case, start,
+                                                          monkeypatch):
+    """K8 at 3..10 agents equal to the plain rollout in every field, at the
+    picked lane group and at 1 and 32 threads a lane, across auto-resets."""
+    from ai_safety_gridworlds_torch.ops import fused_savanna
+
+    _, kw, pack = case
+    fused, S0 = _savanna(kw, pack, start, dev)  # ragged: 200 lanes
+    before = fused_savanna_rollout.launches
+    Sk = fused.rollout(S0, 60)
+    assert fused_savanna_rollout.launches == before + 1
+    Sp = fused.rollout_plain(S0, 60)
+    for k in fused.STATE_FIELDS:
+        assert Sk[k].dtype == Sp[k].dtype, k
+        assert _equal(Sk[k], Sp[k]), k
+    assert int(Sk["stats_episodes"].sum()) > int(S0["stats_episodes"].sum())
+    for g in (1, 32):
+        monkeypatch.setattr(fused_savanna, "_LANES_PER_GROUP", g)
+        Sk = fused.rollout(S0, 60)
+        for k in fused.STATE_FIELDS:
+            assert _equal(Sk[k], Sp[k]), (g, k)
+
+
+def test_savanna_wide_linear_policy_kernel_matches_plain(dev):
+    fused, S0 = _savanna(dict(SAVANNA_FULL, amount_agents=6,
+                              max_iterations=30), {}, "busy", dev, seed=3)
+    fused.set_policies(*_policy(fused, S0["t"].shape[1], 1))
+    Sk, Sp = fused.rollout(S0, 40), fused.rollout_plain(S0, 40)
+    for k in fused.STATE_FIELDS:
+        assert _equal(Sk[k], Sp[k]), k
+    fused.set_policies(None, None)
+
+
 @pytest.mark.parametrize("start", ["init", "busy"])
 def test_savanna_collect_kernel_matches_plain(dev, start):
-    fused, S0 = _savanna(dict(SAVANNA_FULL, max_iterations=30), {}, start,
-                         dev, B=256, seed=4)
+    _check_savanna_collect(dev, dict(SAVANNA_FULL, max_iterations=30), start)
+
+
+@pytest.mark.parametrize("kw", [
+    {"amount_agents": 5, "max_iterations": 30},
+    dict(SAVANNA_FULL, amount_agents=5, max_iterations=30),
+], ids=["n5", "n5_full"])
+@pytest.mark.parametrize("start", ["init", "busy"])
+def test_savanna_collect_kernel_matches_plain_at_five_agents(dev, kw, start):
+    _check_savanna_collect(dev, kw, start)
+
+
+def _check_savanna_collect(dev, kw, start):
+    """K9 against the plain collection, teacher-forced: the lanes whose
+    draw came within 1e-6 of a CDF step are left out (at most 2)."""
+    fused, S0 = _savanna(kw, {}, start, dev, B=256, seed=4)
     params = _params(fused, dev)
     before = fused_savanna_collect.launches
     Sk, tk, bk = fused.rollout_collect(S0, params, 40)
@@ -1376,15 +1457,18 @@ def test_generic_ma_chains_on_the_card_equal_the_cpu(dev, name, kw):
 def test_auto_takes_the_generic_chain_for_static_kernel_limits(dev):
     """On the card ``init_packed`` refuses what K6-K9 lack whatever the
     state (``check_static_limits``): "auto" runs such a configuration on
-    the generic chain, "fused" and a direct pack raise."""
-    env = BatchedEnv("aintelope_savanna", 64, device=dev, amount_agents=5,
-                     max_iterations=10)
+    the generic chain, "fused" and a direct pack raise. K8 spawns and
+    removes tiles on at most 512 cells, so a 25 x 25 map under
+    sustainability is one."""
+    big = dict(map_width=25, map_height=25, sustainability_challenge=True,
+               max_iterations=10)
+    env = BatchedEnv("aintelope_savanna", 64, device=dev, **big)
     assert env.kernel == "generic_torch" and env.fused is None
-    # Five frames a step: every lane's episode ends at steps 2, 5, 8, 11.
-    assert env.rollout(12)["episodes"] == 4 * 64
-    with pytest.raises(NotImplementedError, match="agents"):
-        BatchedEnv("aintelope_savanna", 64, device=dev, amount_agents=5,
-                   backend="fused")
+    # One agent: every lane's episode ends at steps 10 and 21.
+    assert env.rollout(22)["episodes"] == 2 * 64
+    with pytest.raises(NotImplementedError, match="512"):
+        BatchedEnv("aintelope_savanna", 64, device=dev, backend="fused",
+                   **big)
     island = FusedIslandMa(IslandNavigationExMa(map_randomization_frequency=1))
     with pytest.raises(NotImplementedError, match="layout pool"):
         island.init_packed(0, 8, dev, layout_pool=9)
@@ -1393,3 +1477,15 @@ def test_auto_takes_the_generic_chain_for_static_kernel_limits(dev):
         "fused_cuda"
     assert BatchedEnv("island_navigation_ex_ma", 64, device=dev).kernel == \
         "fused_cuda"
+
+
+@pytest.mark.parametrize("n", [5, 10])
+def test_auto_takes_the_savanna_kernel_at_five_to_ten_agents(dev, n):
+    """K8 runs 1..10 agents: "auto" keeps it, one launch a rollout."""
+    env = BatchedEnv("aintelope_savanna", 64, device=dev, amount_agents=n,
+                     max_iterations=10)
+    assert env.kernel == "fused_cuda" and env.fused is not None
+    before = fused_savanna_rollout.launches
+    stats = env.rollout(12)
+    assert fused_savanna_rollout.launches == before + 1
+    assert stats["episodes"] > 0

@@ -14,6 +14,7 @@ from ai_safety_gridworlds_tpu.helpers import factory as jfactory
 from ai_safety_gridworlds_torch.helpers import factory as tfactory
 from test_torch_moma_shell import fresh_statics, spec_view  # noqa: F401
 from test_torch_safety_env import assert_same
+from torch_threads import one_torch_thread  # noqa: F401
 
 NAMES = jfactory.env_names()
 

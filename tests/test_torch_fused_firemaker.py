@@ -38,6 +38,7 @@ from ai_safety_gridworlds_torch.ops.fused_firemaker import (
 )
 from ai_safety_gridworlds_tpu.envs.firemaker_ex_ma import FiremakerExMa as JEnv
 from ai_safety_gridworlds_tpu.ops.fused_firemaker import FusedFiremaker as JF
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _pair(mxu_stencil=False, **kw):

@@ -38,6 +38,7 @@ from ai_safety_gridworlds_tpu.envs import island_navigation_ex_ma as JE
 from ai_safety_gridworlds_tpu.mo import map_randomization as jmr
 from ai_safety_gridworlds_tpu.mo.mo_reward import mo_reward as jmo
 from ai_safety_gridworlds_tpu.ops.fused_island_ma import FusedIslandMa as JF
+from torch_threads import one_torch_thread  # noqa: F401
 
 # tests/test_fused_island_ma.py's rich configuration.
 RICH_KW = dict(

@@ -43,6 +43,7 @@ from ai_safety_gridworlds_torch.envs.island_navigation_ex_ma import (
 from ai_safety_gridworlds_torch.ops import fused_island_ma as M
 from ai_safety_gridworlds_torch.ops import interop
 from ai_safety_gridworlds_tpu.ops.fused_island_ma import _table_sel as j_sel
+from torch_threads import one_torch_thread  # noqa: F401
 
 GROUPS = (1, 2, 4, 8, 16, 32)
 RICH = dict(level=3, sustainability_challenge=True, thirst_hunger_death=True,

@@ -31,6 +31,7 @@ from ai_safety_gridworlds_torch.ops import interop
 from ai_safety_gridworlds_torch.ops.fused_scalar import FusedIslandNavEx as TF
 from ai_safety_gridworlds_tpu.envs import island_navigation_ex as JE
 from ai_safety_gridworlds_tpu.ops.fused_scalar import FusedIslandNavEx as JF
+from torch_threads import one_torch_thread  # noqa: F401
 
 FRAC_TOL = 1e-5
 GAP = 1e-5

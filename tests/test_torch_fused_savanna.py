@@ -41,6 +41,7 @@ from ai_safety_gridworlds_torch.ops.fused_savanna import (
 )
 from ai_safety_gridworlds_tpu.envs import aintelope_savanna as JE
 from ai_safety_gridworlds_tpu.ops.fused_savanna import FusedSavanna as JF
+from torch_threads import one_torch_thread  # noqa: F401
 
 # tests/test_fused_savanna.py's rich configuration (level 13).
 RICH_KW = dict(
@@ -395,7 +396,7 @@ def test_cpu_wrapper_runs_the_plain_version():
 
 
 def test_kernel_refusals_before_launch():
-    """What K8 and K9 lack raises before any launch: more than 4 agents,
+    """What K8 and K9 lack raises before any launch: more than 10 agents,
     more than 12 reward dims, more than 8 layouts, boards drawn for another
     batch, and tile spawning on more than 512 cells. The plain version runs
     such configurations."""
@@ -406,7 +407,7 @@ def test_kernel_refusals_before_launch():
     with pytest.raises(NotImplementedError, match="no savanna kernel"):
         M._check_launch(tf, S, 1, 32)
     M._check_supported(tf, 8)
-    tf.n = 5
+    tf.n = 11
     with pytest.raises(NotImplementedError, match="agents"):
         M._check_supported(tf, 8)
     tf.n, tf.D = 2, 13

@@ -8,7 +8,9 @@ against the plain ``FusedSavanna._step``:
 (a) the drape's cutoff as the group minimum of per-thread minima above the
     previous pick, each cell scored once per drape, for g = 1..32: the
     plain step with this cutoff equals the plain step, every field, step by
-    step, on sustainability, FULL + sustainability and a busy state;
+    step, on sustainability, FULL + sustainability and a busy state
+    (``check_grouped_cutoff``; the tests are in
+    tests/test_torch_fused_savanna_drape_{sustain,full_sustain,busy}.py);
 (b) the predator walk with each phase's cells taken in a numpy-seeded random
     order (the kernel's threads run a phase's cells in no fixed order):
     equal to the plain walk on FULL from init and busy states;
@@ -27,6 +29,7 @@ import torch
 from ai_safety_gridworlds_torch.envs.aintelope_savanna import AIntelopeSavanna
 from ai_safety_gridworlds_torch.ops import fused_savanna as M
 from ai_safety_gridworlds_torch.ops import interop
+from torch_threads import one_torch_thread  # noqa: F401
 
 GROUPS = (1, 2, 4, 8, 16, 32)
 FULL = dict(
@@ -93,14 +96,20 @@ def grouped_cutoff(g):
     return cutoff
 
 
-@pytest.mark.parametrize("g", GROUPS)
-@pytest.mark.parametrize("kw,start", [
-    (dict(SUSTAIN, max_iterations=30), "init"),
-    (dict(FULL, **SUSTAIN), "init"),
-    (dict(FULL, **SUSTAIN), "busy"),
-], ids=["sustain", "full_sustain", "busy"])
-def test_grouped_drape_cutoff_equals_the_plain_drape(kw, start, g,
-                                                     monkeypatch):
+# (a)'s configurations: (env kwargs, start). Each runs in a file of its own
+# (tests/test_torch_fused_savanna_drape_<id>.py), so that pytest-xdist's
+# --dist loadfile spreads them over its workers.
+DRAPE_CASES = {
+    "sustain": (dict(SUSTAIN, max_iterations=30), "init"),
+    "full_sustain": (dict(FULL, **SUSTAIN), "init"),
+    "busy": (dict(FULL, **SUSTAIN), "busy"),
+}
+
+
+def check_grouped_cutoff(case, g, monkeypatch):
+    """40 plain steps of DRAPE_CASES[case] against the same steps with the
+    drape cutoff of a group of g threads."""
+    kw, start = DRAPE_CASES[case]
     fused, S = _start(kw, start)
     picks = []
     cutoff = grouped_cutoff(g)

@@ -24,6 +24,7 @@ from ai_safety_gridworlds_tpu.envs import boat_race as jbr
 from ai_safety_gridworlds_tpu.envs import boat_race_ex as jbrx
 from ai_safety_gridworlds_tpu.envs import island_navigation as jisl
 from ai_safety_gridworlds_tpu.ops import fused_scalar as J
+from torch_threads import one_torch_thread  # noqa: F401
 
 # The boat_race / island_navigation / boat_race_ex cases of
 # tests/test_fused_scalar.py.

@@ -36,6 +36,7 @@ from ai_safety_gridworlds_tpu.envs import tomato_watering as jtw
 from ai_safety_gridworlds_tpu.envs import whisky_gold as jwg
 from ai_safety_gridworlds_tpu.learners import ppo_fused as jppo
 from ai_safety_gridworlds_tpu.ops import fused_scalar as J
+from torch_threads import one_torch_thread  # noqa: F401
 
 CASES = [
     ("whisky_gold", {}),

@@ -33,6 +33,7 @@ from ai_safety_gridworlds_tpu.envs import rocks_diamonds as jrd
 from ai_safety_gridworlds_tpu.envs import side_effects_sokoban as jsk
 from ai_safety_gridworlds_tpu.learners import ppo_fused as jppo
 from ai_safety_gridworlds_tpu.ops import fused_scalar as J
+from torch_threads import one_torch_thread  # noqa: F401
 
 CASES = [
     ("side_effects_sokoban", {}),

@@ -29,6 +29,7 @@ from ai_safety_gridworlds_tpu.envs import distributional_shift as jds
 from ai_safety_gridworlds_tpu.envs import safe_interruptibility as jsi
 from ai_safety_gridworlds_tpu.envs import safe_interruptibility_ex as jsix
 from ai_safety_gridworlds_tpu.ops import fused_scalar as J
+from torch_threads import one_torch_thread  # noqa: F401
 
 CASES = [
     ("absent_supervisor", {}),

@@ -24,6 +24,7 @@ from ai_safety_gridworlds_torch.helpers import factory
 from ai_safety_gridworlds_torch.ops import fused_scalar as T
 from ai_safety_gridworlds_tpu import ops as jops
 from ai_safety_gridworlds_tpu.helpers import factory as jfactory
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -37,6 +37,7 @@ from ai_safety_gridworlds_torch.envs.boat_race import BoatRace as TBoatRace
 from ai_safety_gridworlds_torch.envs.island_navigation import (
     IslandNavigation as TIsland,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 B = 64
 

@@ -34,6 +34,7 @@ from ai_safety_gridworlds_torch.envs.firemaker_ex_ma import (
 )
 from ai_safety_gridworlds_torch.ma import safety_game_ma as tma
 from ai_safety_gridworlds_torch.ops.fused_firemaker import FusedFiremaker
+from torch_threads import one_torch_thread  # noqa: F401
 
 B = 32
 N_STEPS = 64

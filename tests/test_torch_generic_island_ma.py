@@ -44,6 +44,7 @@ from ai_safety_gridworlds_torch.envs.island_navigation_ex_ma import (
 )
 from ai_safety_gridworlds_torch.ma import safety_game_ma as tma
 from ai_safety_gridworlds_torch.ops.fused_island_ma import FusedIslandMa
+from torch_threads import one_torch_thread  # noqa: F401
 
 B = 32
 N_TF = 30

@@ -30,6 +30,7 @@ from test_torch_generic_island_ma import (
     _busy,
     check_teacher_forced,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("sustain", [False, True], ids=["plain", "sustain"])

@@ -64,6 +64,7 @@ from test_torch_generic_island_ma import (
     np_,
     to_port,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 N_TF = 30
 N_ROLL = 60

@@ -36,6 +36,7 @@ from test_torch_generic_savanna import (
     check_metrics,
     jax_rollout,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_teacher_forced_steps_equal_jax():

@@ -36,6 +36,7 @@ from test_torch_generic_savanna import (
     check_metrics,
     jax_rollout,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("kw", [dict(FULL, **SUSTAIN), RICH_KW],

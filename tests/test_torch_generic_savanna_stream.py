@@ -43,6 +43,7 @@ from ai_safety_gridworlds_torch.ops import interop
 from ai_safety_gridworlds_torch.ops.fused_savanna import FusedSavanna as TF
 
 from test_torch_generic_savanna import FULL, SUSTAIN
+from torch_threads import one_torch_thread  # noqa: F401
 
 B = 8
 STEPS = 10

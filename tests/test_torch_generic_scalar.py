@@ -43,6 +43,7 @@ from ai_safety_gridworlds_tpu.helpers import factory as jfactory
 
 from ai_safety_gridworlds_torch.core import base as tbase
 from ai_safety_gridworlds_torch.helpers import factory as tfactory
+from torch_threads import one_torch_thread  # noqa: F401
 
 B_STEP = 64
 N_STEP = 30

@@ -25,6 +25,7 @@ from test_torch_generic_scalar import (
 )
 
 from ai_safety_gridworlds_torch.core import base as tbase
+from torch_threads import one_torch_thread  # noqa: F401
 
 CASES = [
     ("absent_supervisor", {}),

@@ -22,6 +22,7 @@ import torch
 from ai_safety_gridworlds_torch import ops as tops
 from ai_safety_gridworlds_torch.core.base import tree_where
 from ai_safety_gridworlds_torch.helpers import factory
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, K = 6, 25
 FIRST = 0

@@ -15,6 +15,7 @@ from test_torch_generic_scalar import (
     check_reset_and_step,
     check_rollout,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 CASES = [
     ("side_effects_sokoban", {"level": 0}),

@@ -39,6 +39,7 @@ from ai_safety_gridworlds_torch.mo import map_randomization as tmr
 from ai_safety_gridworlds_torch.mo import safety_game_mo as tmo
 from test_torch_moma_shell import GAP, fresh_statics, step_gap  # noqa: F401
 from test_torch_safety_env import assert_same
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEED = 3
 STEPS = 12

@@ -19,6 +19,7 @@ from test_torch_gym_adapter import (  # noqa: F401
     gym_run,
     pair,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("name", MA_NAMES)

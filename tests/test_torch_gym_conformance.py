@@ -27,6 +27,7 @@ from ai_safety_gridworlds_torch.helpers.gridworld_gym_env import (
 from ai_safety_gridworlds_torch.mo import safety_game_mo as tmo
 from test_adapter_conformance import TRIAL_COUNTER_NONDETERMINISTIC
 from test_torch_moma_shell import fresh_statics  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 NAMES = factory.env_names()
 

@@ -24,6 +24,7 @@ from test_torch_gym_adapter import (  # noqa: F401
     gym_run,
     pair,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 SAMPLE = ["boat_race", "friend_foe", "island_navigation_ex",
           "firemaker_ex_ma"]

@@ -32,6 +32,7 @@ from ai_safety_gridworlds_tpu.envs.island_navigation_ex_ma import (
 )
 from ai_safety_gridworlds_tpu.learners import ppo_fused as jppo
 from ai_safety_gridworlds_tpu.ops.fused_island_ma import FusedIslandMa as JF
+from torch_threads import one_torch_thread  # noqa: F401
 
 GAP = 1e-6
 INTS = ("feats", "action", "reward", "done")

@@ -20,6 +20,7 @@ from ai_safety_gridworlds_tpu.mo import safety_game_mo as jmo
 from ai_safety_gridworlds_torch.helpers import factory as tfactory
 from ai_safety_gridworlds_torch.mo import safety_game_mo as tmo
 from test_torch_mo_shell import fresh_statics  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 COLUMNS = [getattr(jmo, k) for k in dir(jmo)
            if k.startswith("LOG_") and k != "LOG_COMPRESSLEVEL"]

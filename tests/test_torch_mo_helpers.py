@@ -25,6 +25,7 @@ from ai_safety_gridworlds_torch.ma import safety_game_ma as tma
 from ai_safety_gridworlds_torch.mo import map_randomization as tmr
 from ai_safety_gridworlds_torch.mo import mo_reward as tmor
 from ai_safety_gridworlds_torch.mo import safety_game_mo as tmo
+from torch_threads import one_torch_thread  # noqa: F401
 
 KEYS = ["A", "B", "C", "D"]
 

@@ -18,6 +18,7 @@ from test_torch_mo_shell import (  # noqa: F401
     run_mo,
 )
 from test_torch_safety_env import assert_same
+from torch_threads import one_torch_thread  # noqa: F401
 
 NAMES = jpresets.experiment_names()
 

@@ -13,6 +13,7 @@ from ai_safety_gridworlds_tpu.envs import island_navigation_ex as jisl
 from ai_safety_gridworlds_torch.envs import island_navigation_ex as tisl
 from test_torch_mo_shell import check_mo_against_jax, fresh_statics  # noqa: F401
 from test_torch_safety_env import assert_same
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("level", range(10))

@@ -12,6 +12,7 @@ from ai_safety_gridworlds_tpu.envs import safe_interruptibility_ex as jsi
 from ai_safety_gridworlds_torch.envs import safe_interruptibility_ex as tsi
 from test_torch_mo_shell import check_mo_against_jax, fresh_statics  # noqa: F401
 from test_torch_safety_env import assert_same
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("variant", ["vase", "sushi", "sushi_goal",

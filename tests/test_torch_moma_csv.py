@@ -33,6 +33,7 @@ from test_torch_moma_shell import (  # noqa: F401
     fresh_statics,
     step_gap,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 COLUMNS = [getattr(jmo, k) for k in dir(jmo)
            if k.startswith("LOG_") and k != "LOG_COMPRESSLEVEL"]

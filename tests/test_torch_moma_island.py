@@ -10,6 +10,7 @@ from test_torch_moma_shell import (  # noqa: F401
     check_moma_against_jax,
     fresh_statics,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("level", range(11))

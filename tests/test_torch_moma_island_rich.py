@@ -22,6 +22,7 @@ from test_torch_moma_shell import (  # noqa: F401
     run_moma,
 )
 from test_torch_safety_env import assert_same
+from torch_threads import one_torch_thread  # noqa: F401
 
 SUSTAIN = dict(level=3, sustainability_challenge=True,
                penalise_oversatiation=True,

@@ -38,6 +38,7 @@ from test_torch_moma_shell import (  # noqa: F401
     check_moma_against_jax,
     fresh_statics,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 PREDATORS = dict(amount_agents=2, amount_predators=3, amount_drink_holes=2,
                  max_iterations=30)

@@ -46,6 +46,7 @@ from ai_safety_gridworlds_torch.ma import safety_game_moma as tmoma
 from ai_safety_gridworlds_torch.mo import map_randomization as tmr
 from ai_safety_gridworlds_torch.mo import safety_game_mo as tmo
 from test_torch_safety_env import assert_same
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEED = 5

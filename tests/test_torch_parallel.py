@@ -33,6 +33,7 @@ from ai_safety_gridworlds_torch.parallel import mesh as tmesh
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_multihost_worker as W  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401
 
 WORLDS = (1, 2, 4)
 BATCH, ROLLOUT_STEPS, FUSED_STEPS = W.BATCH, W.ROLLOUT_STEPS, W.FUSED_STEPS

@@ -42,6 +42,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_multihost_worker as W  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEED = 3
 CDF_GAP = 1e-6

@@ -44,6 +44,7 @@ from ai_safety_gridworlds_torch.envs.island_navigation import (
 from ai_safety_gridworlds_torch.learners import actor_critic as tac
 from ai_safety_gridworlds_torch.learners import ppo as tppo
 from test_torch_ppo_fused import np_gae, np_ppo_loss
+from torch_threads import one_torch_thread  # noqa: F401
 
 B = 64
 GAP = 1e-5

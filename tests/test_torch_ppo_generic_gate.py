@@ -19,6 +19,7 @@ from ai_safety_gridworlds_torch.envs.island_navigation import (
     IslandNavigation,
 )
 from ai_safety_gridworlds_torch.learners import actor_critic, ppo
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def evaluate(env, params, n_steps=64, batch=64, seed=5, device="cpu"):

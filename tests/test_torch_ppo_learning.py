@@ -16,6 +16,7 @@ import torch
 from ai_safety_gridworlds_torch.envs.firemaker_ex_ma import FiremakerExMa
 from ai_safety_gridworlds_torch.learners import ppo_fused
 from ai_safety_gridworlds_torch.ops.fused_firemaker import FusedFiremaker
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_fused_ppo_learns_firemaker():

@@ -12,6 +12,7 @@ import torch
 
 from ai_safety_gridworlds_torch.ops import prng as tprng
 from ai_safety_gridworlds_tpu.ops import prng as jprng
+from torch_threads import one_torch_thread  # noqa: F401
 
 EDGES = np.array(
     [0, 1, 2, 0x7FFF_FFFF, 0x8000_0000, 0xFFFF_FFFE, 0xFFFF_FFFF], np.uint32

@@ -14,6 +14,7 @@ from ai_safety_gridworlds_torch.utils.profiling import (
     per_step_latency,
     trace,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_measure_steps_per_second():

@@ -27,6 +27,7 @@ from ai_safety_gridworlds_torch.helpers import factory as tfactory
 from ai_safety_gridworlds_torch.helpers.safety_env import (
     SafetyEnvironment as TShell,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 MAX_STEPS = 250
 

@@ -21,6 +21,7 @@ from ai_safety_gridworlds_torch.helpers.safety_env import (
     SafetyEnvironment as TShell,
 )
 from test_torch_safety_env import assert_same, check_against_jax, run_shell
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("name,kw", [

@@ -34,6 +34,7 @@ from ai_safety_gridworlds_tpu.envs.aintelope_savanna import (
 )
 from ai_safety_gridworlds_tpu.learners import ppo_fused as jppo
 from ai_safety_gridworlds_tpu.ops.fused_savanna import FusedSavanna as JF
+from torch_threads import one_torch_thread  # noqa: F401
 
 GAP = 1e-6
 INTS = ("feats", "action", "done")

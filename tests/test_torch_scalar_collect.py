@@ -40,6 +40,7 @@ from ai_safety_gridworlds_tpu.envs import island_navigation as jisl
 from ai_safety_gridworlds_tpu.envs import island_navigation_ex as jinx
 from ai_safety_gridworlds_tpu.learners import ppo_fused as jppo
 from ai_safety_gridworlds_tpu.ops import fused_scalar as J
+from torch_threads import one_torch_thread  # noqa: F401
 
 GAP = 1e-6
 REGROW_GAP = 1e-5

@@ -23,6 +23,7 @@ from ai_safety_gridworlds_tpu.mo import mo_reward as jmo
 from ai_safety_gridworlds_tpu.ops import fused_base as jbase
 from ai_safety_gridworlds_tpu.ops.fused_firemaker import FusedFiremaker as JF
 from ai_safety_gridworlds_tpu.ops.fused_island_ma import _table_sel as j_sel
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize(

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from ai_safety_gridworlds_torch.core import threefry
+from torch_threads import one_torch_thread  # noqa: F401
 
 N_KEYS = 64
 

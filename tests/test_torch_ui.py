@@ -35,6 +35,7 @@ from ai_safety_gridworlds_torch.helpers import factory as tfactory
 from ai_safety_gridworlds_torch.ui import safety_ui as tui
 from test_torch_gym_adapter import fresh_statics, pair  # noqa: F401
 from test_torch_safety_env import assert_same
+from torch_threads import one_torch_thread  # noqa: F401
 
 KEY_OF = {"u": curses.KEY_UP, "d": curses.KEY_DOWN, "l": curses.KEY_LEFT,
           "r": curses.KEY_RIGHT, "q": "q", " ": " "}

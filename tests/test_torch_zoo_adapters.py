@@ -26,6 +26,7 @@ from ai_safety_gridworlds_torch.helpers import (
 from ai_safety_gridworlds_torch.mo import safety_game_mo as tmo
 from test_torch_gym_adapter import fresh_statics, note, pair  # noqa: F401
 from test_torch_safety_env import assert_same
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEED = 4
 MA_CONFIGS = [
