@@ -4,8 +4,8 @@ The JAX package's generic path draws with ``jax.random`` (threefry-2x32
 with ``jax_threefry_partitionable`` on, JAX's default since 0.5). The port
 reproduces the same key chain so that a port rollout equals a JAX rollout
 from the same seed: ``PRNGKey``, ``split``, ``fold_in``, ``random_bits``,
-``uniform``, ``bernoulli``, ``randint`` and ``permutation``, each on a
-batch of keys.
+``uniform``, ``bernoulli``, ``randint``, ``permutation`` and ``choice``,
+each on a batch of keys.
 
 A key is a ``[..., 2]`` int64 tensor holding two uint32 words (PyTorch's
 ``uint32`` lacks the shifts and the wrapping adds the hash needs); every
@@ -249,3 +249,112 @@ def permutation(keys: torch.Tensor, n: int) -> torch.Tensor:
         order = torch.sort(random_bits(sub, (n,)), dim=-1, stable=True).indices
         x = x.gather(-1, order)
     return x.contiguous()
+
+
+# XLA on the CPU rewrites a cumulative sum longer than this into tiles of
+# this many elements (its ``ReduceWindowRewriter``): a running sum within
+# each tile, the tiles' totals summed the same way, then added on.
+_SCAN_TILE = 16
+
+
+def cumsum_tiled(p: torch.Tensor) -> torch.Tensor:
+    """The running sums of ``p`` over its last axis, float32 add by float32
+    add in the order XLA's CPU pipeline adds ``jnp.cumsum``: in index order
+    within tiles of 16, each tile then offset by the running sum of the
+    tiles before it (recursively), so the sums equal JAX's bit for bit.
+    ``torch.cumsum`` adds in another order, and on the card in a parallel
+    scan whose rounding is not the CPU's; these adds round the same on
+    both."""
+    n = p.shape[-1]
+    if n <= _SCAN_TILE:
+        sums = [p[..., 0]]
+        for i in range(1, n):
+            sums.append(sums[-1] + p[..., i])
+        return torch.stack(sums, dim=-1)
+    k = -(-n // _SCAN_TILE)
+    x = torch.nn.functional.pad(p, (0, k * _SCAN_TILE - n))
+    inner = cumsum_tiled(x.reshape(p.shape[:-1] + (k, _SCAN_TILE)))
+    before = cumsum_tiled(inner[..., -1])[..., :-1]
+    offset = torch.nn.functional.pad(before, (1, 0))
+    out = inner + offset[..., None]
+    return out.reshape(p.shape[:-1] + (k * _SCAN_TILE,))[..., :n]
+
+
+def _choice_r(keys, p, shape):
+    """``choice``'s running sums of ``p`` and its uniform point ``r`` on
+    (0, total] for each draw: ``total * (1 - uniform)``."""
+    p = p.to(device=keys.device, dtype=torch.float32)
+    lead = keys.shape[:-1]
+    if p.shape[:-1] != lead:
+        p = p.expand(lead + p.shape[-1:])
+    p_cuml = cumsum_tiled(p)
+    u = uniform(keys, shape)
+    total = p_cuml[..., -1].reshape(lead + (1,) * len(shape))
+    return p_cuml.reshape(lead + (1,) * len(shape) + p.shape[-1:]), \
+        total * (1.0 - u)
+
+
+def choice(keys: torch.Tensor, a, shape=(), replace: bool = True,
+           p=None) -> torch.Tensor:
+    """``jax.random.choice(key, a, shape, replace, p)`` for each key.
+
+    ``a`` is an int ``n`` (draws from ``arange(n)``, int32) or a 1-D tensor
+    (its entries, in its dtype), the same for every key; ``p`` is ``None``
+    or float32 weights ``[..., n]`` (the same for every key, or one row per
+    key). The draws are ``[*keys.shape[:-1], *shape]``. JAX's branches:
+    without ``p``, ``randint`` (with replacement) or the head of a
+    ``permutation`` (without); with ``p`` and replacement, the first index
+    whose running sum of ``p`` reaches ``total * (1 - uniform)``
+    (``searchsorted``, left side), the sums from :func:`cumsum_tiled`.
+    All-zero weights draw index 0. ``p`` without replacement (JAX's
+    Gumbel top-k) is not ported: no module of the port draws so."""
+    shape = tuple(shape)
+    table = None
+    if isinstance(a, torch.Tensor) and a.dim() > 0:
+        table = a.to(keys.device)
+        n = table.shape[0]
+    else:
+        n = int(a)
+    n_draws = math.prod(shape)
+    if n <= 0:
+        raise ValueError("a must be greater than 0 unless no samples are "
+                         "taken")
+    if not replace and n_draws > n:
+        raise ValueError(
+            f"Cannot take a larger sample (size {n_draws}) than population "
+            f"(size {n}) when 'replace=False'")
+    if p is None:
+        if replace:
+            ind = randint(keys, shape, 0, n)
+        else:
+            ind = permutation(keys, n)[..., :n_draws].reshape(
+                keys.shape[:-1] + shape)
+    else:
+        if not replace:
+            raise NotImplementedError(
+                "choice(p=..., replace=False) (JAX's Gumbel top-k) is not "
+                "ported; ROADMAP.md lists it as still to come")
+        if p.shape[-1] != n:
+            raise ValueError(
+                "p must be None or a 1D vector with the same size as "
+                f"a.shape[axis]. p has shape {tuple(p.shape)} and "
+                f"a.shape[axis] is {n}.")
+        p_cuml, r = _choice_r(keys, p, shape)
+        ind = (p_cuml < r[..., None]).sum(dim=-1, dtype=torch.int32)
+    return ind if table is None else table[ind.long()]
+
+
+def choice_gap(keys: torch.Tensor, p: torch.Tensor, shape=()) -> torch.Tensor:
+    """For :func:`choice` with ``p`` and replacement on the same inputs: how
+    near each draw's point ``r`` came to a running sum of ``p``, in ulps of
+    the total (float64, ``inf`` where every weight is 0, which draws index
+    0 whatever the sums' rounding). A draw whose gap is a few ulps would
+    pick the neighbouring index under sums rounded in another order (an
+    XLA whose pipeline tiles ``cumsum`` otherwise than
+    :func:`cumsum_tiled`); a larger gap picks the same."""
+    p_cuml, r = _choice_r(keys, p, shape)
+    gap = (p_cuml.double() - r.double()[..., None]).abs().amin(dim=-1)
+    total = p_cuml[..., -1]
+    ulp = (torch.nextafter(total, torch.full_like(total, math.inf))
+           - total).double()
+    return torch.where(total > 0, gap / ulp, math.inf)

@@ -12,15 +12,29 @@ params, so that both packages run the same policy, and
 :func:`fused_ppo_state_from_numpy` a whole fused-PPO train state (params,
 Adam's moments and count, packed state), so that a JAX run resumes in the
 port. :func:`assert_consts_equal` checks that a port kernel's ``consts`` equal the
-JAX kernel's key by key.
+JAX kernel's key by key. :func:`env_state_from_numpy` and
+:func:`env_state_to_numpy` carry a functional game's batched state (the
+generic path's dataclass, e.g. a demo game's mid-episode state) field by
+field, so that both packages step on from the same state.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from ai_safety_gridworlds_torch.ops.fused_base import MLP_KEYS
+
+# A JAX env state's leaf dtypes (32-bit JAX) and the port's; the threefry
+# key's uint32 words live in int64 in the port (``core/threefry.py``).
+_ENV_DTYPES = {
+    np.dtype(np.bool_): torch.bool,
+    np.dtype(np.uint8): torch.uint8,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.float32): torch.float32,
+}
 
 
 def state_from_numpy(S_np: dict, device) -> dict:
@@ -493,3 +507,49 @@ def assert_consts_equal(port_consts: dict, jax_consts: dict) -> None:
             )
         if not np.array_equal(got, want):
             raise AssertionError(f"const {k!r} values differ")
+
+
+def env_state_from_numpy(state_cls, arrays, device):
+    """A JAX env state as the port's dataclass ``state_cls`` on ``device``.
+
+    ``arrays`` maps each field of ``state_cls`` to a numpy array with a
+    leading lane dim (``jax.vmap``'s layout), as a dict or as an object
+    with the fields as attributes (the JAX state after ``np.asarray`` of
+    its leaves). Every field must be there and no other; ``key`` must be
+    uint32 ``[B, 2]`` (it becomes int64), every other leaf bool, uint8,
+    int32 or float32 (kept)."""
+    names = [f.name for f in dataclasses.fields(state_cls)]
+    if not isinstance(arrays, dict):
+        arrays = {n: getattr(arrays, n) for n in names if hasattr(arrays, n)}
+    if set(arrays) != set(names):
+        raise ValueError(
+            f"{state_cls.__name__}: fields {sorted(arrays)} are not "
+            f"{sorted(names)}")
+    out, batch = {}, None
+    for name in names:
+        a = np.asarray(arrays[name])
+        if name == "key":
+            if a.dtype != np.uint32 or a.ndim != 2 or a.shape[1] != 2:
+                raise TypeError(
+                    f"key: uint32 [B, 2] expected, got {a.dtype}{a.shape}")
+            t = torch.from_numpy(a.astype(np.int64))
+        elif a.dtype in _ENV_DTYPES:
+            t = torch.from_numpy(np.array(a, order="C"))
+        else:
+            raise TypeError(f"{name}: dtype {a.dtype} is not a JAX state's")
+        if a.ndim == 0 or (batch is not None and a.shape[0] != batch):
+            raise ValueError(f"{name}: no leading lane dim of {batch}")
+        batch = a.shape[0]
+        out[name] = t.to(device)
+    return state_cls(**out)
+
+
+def env_state_to_numpy(state) -> dict:
+    """A port env state as numpy arrays by field with JAX's dtypes (the
+    key as uint32), on the host: the inverse of
+    :func:`env_state_from_numpy`."""
+    out = {}
+    for f in dataclasses.fields(state):
+        a = getattr(state, f.name).detach().cpu().numpy()
+        out[f.name] = a.astype(np.uint32) if f.name == "key" else a
+    return out

@@ -235,19 +235,19 @@ no kernel of the port); any failure exits non-zero before the last line:
    calls on the CPU over 2**16 numpy-seeded keys;
 37. ``BatchedEnv(name, 4096, backend="generic", device="cuda").rollout(64)``
    for boat_race and island_navigation (``kernel == "generic_torch"``, no
-   fused kernel launched), then the same call twice through
+   fused kernel launched), then the same call once through
    ``core.base.rollout`` with BatchedEnv's keys and policy and the board
-   observation rendered and summed each step, with env-steps/s; the first
+   observation rendered and summed each step, with env-steps/s; the
    call's final episode states (keys included) and stats equal to a CPU
    run from its key, and BatchedEnv's stats to both;
 38. ``BatchedEnv("firemaker_ex_ma", 1024, backend="generic",
-   device="cuda").rollout(64)`` twice with env-steps/s; then a
+   device="cuda").rollout(64)`` once with env-steps/s; then a
    64-step ``ma_rollout`` at B = 1024 on the card against the CPU, exact
    except on lanes with a spread draw within 1e-6 of its cum (at most 0.1%
    of lanes);
 39. the generic path's ATen ops (a dispatch counter), kernel launches,
    device events and busy time a step (``torch.profiler``) and the
-   device's idle share, each as 8 steps less 4 so that the set-up
+   device's idle share, each as 4 steps less 2 so that the set-up
    cancels (boat_race at B = 4096, firemaker at B = 1024), and the fused
    firemaker rollout(64) at B = 1024 against the generic one;
 40. the generic chains of the other 13 scalar envs (18 configurations,
@@ -267,16 +267,16 @@ no kernel of the port); any failure exits non-zero before the last line:
    of an integer, friend_foe's policies (within 4 ulps) and its
    auto-resets from a near-tie within 1e-6, and tomato's float returns
    (within 1e-5 relative): such lanes are exempt and counted (at most 1%);
-42. bench.py's three rows in phase 37's form (rollout(64) twice
+42. bench.py's three rows in phase 37's form (rollout(64) once
    with the board rendered and summed each step) and phase 39's count a
-   step (launches, fill kernels, device busy and idle share, 8 steps less
-   4);
+   step (launches, fill kernels, device busy and idle share, 4 steps less
+   2);
 43. the generic chains of island_navigation_ex_ma and aintelope_savanna
    (``GENERIC_MA_CHAINS``: island default, savanna default and under
    sustainability, the savanna's at ``max_iterations=40`` so that each call
    ends episodes and selects resets; a call that ends none fails):
    ``BatchedEnv(name, 4096, backend="generic",
-   device="cuda", **kw).rollout(64)`` twice each, ``kernel ==
+   device="cuda", **kw).rollout(64)`` once each, ``kernel ==
    "generic_torch"`` and no fused kernel launched (K6's and K8's counters
    read 0), with env-steps/s; then ``BatchedEnv("aintelope_savanna", 4096,
    amount_food_patches=200)`` on ``"auto"``: the top-up K8's packer refuses
@@ -290,7 +290,7 @@ no kernel of the port); any failure exits non-zero before the last line:
    and lanes whose regrown power came within 1e-5 of an integer, which are
    exempt and counted (at most 1%);
 45. phase 39's count for both chains at B = 4096 (ATen ops, launches, fill
-   kernels, device busy ms and idle share a step, 8 steps less 4), and the
+   kernels, device busy ms and idle share a step, 4 steps less 2), and the
    fused main path of phases 16 and 21 (``BatchedEnv(name, 4096,
    device="cuda").rollout(64)``, timed again here) over the generic one;
 46. the generic PPO learner: ``ppo.make_train_step(IslandNavigation(),
@@ -422,7 +422,25 @@ no kernel of the port); any failure exits non-zero before the last line:
    ``train_step``s, K9 once each). The build phase prints every K8/K9
    instantiation's registers and spill bytes and fails where a wide one
    spills;
-55. one JSON line of kernel results: ``kernels`` holds K1 with its launches
+55. the demo games (``core/cropping.py``, ``core/scrolling.py``,
+   ``core/storytelling.py``, ``threefry.choice`` and the five games on
+   them; no kernel): ``core.base.rollout(collect=True)`` at B = 1024 for
+   64 steps from one key on the card and on the CPU (the CPU's in a
+   process of its own, ``--demo-cpu DIR``) for extraterrestrial_marauders, tennis, better_scrolly_maze
+   levels 0-2 and t_maze levels 0-5 on their published boards, with
+   ``max_iterations=24`` (t_maze: actions 1-5 and 40) so that every lane
+   takes the reset branch: every state field, key, step type and output
+   equal on every lane, the lanes whose ``choice(p=)`` draw came within 4
+   ulps of a running sum counted (none exempt), the float sums over the
+   lanes within 1e-5 relative, each game's env-steps/s from the card's
+   call (host clock, ending in the fetch of its outputs); and, once a game
+   while the CPU's checks run, a step's ATen ops, launches and idle share
+   (phase 39's count; the uniform policy, the game's own
+   ``max_iterations``); no fused kernel launches; then the ordeal ``Story``
+   through its script (Kansas, the cavern and the sword, Kansas, the
+   castle and the battle won) on the card against the CPU, every
+   timestep, plot and chapter equal, with its steps/s;
+56. one JSON line of kernel results: ``kernels`` holds K1 with its launches
    on the main path (phase 5) and on the policy-search check (phase 6), K3
    with its launches on the training path (phase 8), K4 with its launches on
    the scalar main paths (phases 11, 26 and 30, by path and env), K5 with
@@ -440,8 +458,9 @@ no kernel of the port); any failure exits non-zero before the last line:
    ``generic`` holds phases 36-45's rates, launches, exempt lanes and
    idle shares, ``learners`` phases 46-49's, ``mo_shell`` phase 50's,
    ``moma_shell`` phase 51's, ``adapters`` phase 52's, ``scaleout`` phase
-   53's; each kernel also carries ``sharded_launches``, its launches on
-   phase 53's sharded paths summed over the ranks;
+   53's, ``demos`` phase 55's; each kernel also carries
+   ``sharded_launches``, its launches on phase 53's sharded paths summed
+   over the ranks;
    then the card's name and power limit and the last line ``{"ok": true,
    "device": {...}}``.
 
@@ -517,6 +536,11 @@ without building the kernels, and prints one JSON line.
 
 runs phase 52 (the Gym and PettingZoo adapters) alone, without building
 the kernels, and prints one JSON line.
+
+    python3 chip_smoke.py --demos
+
+runs phase 55 (the demo games) alone, without building the kernels, and
+prints one JSON line.
 
     python3 chip_smoke.py --scaleout
 
@@ -3193,13 +3217,16 @@ def scalar_lane_sweep(card, torch):
 
 GENERIC_SCALAR = ("boat_race", "island_navigation")
 GENERIC_SCALAR_STEPS = 64
-# Calls of each timed generic rollout (phases 37-39, 42, 43 and 45).
-GENERIC_CALLS = 2
+# Calls of each timed generic rollout (phases 37-39, 42, 43 and 45), and
+# the n of a profiled step's 2n steps less n (phases 39, 42, 45 and 55):
+# one call and n = 2 since phase 55 came (two and 4 before), to keep a
+# whole run near its length before it.
+GENERIC_CALLS = 1
 GENERIC_FM_BATCH = 1024
 GENERIC_FM_STEPS = 64
 GENERIC_FM_CHECK_STEPS = 64
 GENERIC_PRF_KEYS = 1 << 16
-GENERIC_PROFILE_STEPS = 4
+GENERIC_PROFILE_STEPS = 2
 # Phases 40-42: the per-env generic chains of the 13 scalar envs of the
 # thirteenth slice, (label, name, env kwargs, BatchedEnv backend):
 # human-player whisky_gold, which no fused kernel takes, through "auto".
@@ -6322,6 +6349,320 @@ def generic_only():
     print(json.dumps(out), flush=True)
 
 
+# ------------------------------------------------------- 55. the demo games
+# The five games on the demo-game core (``core/cropping.py``,
+# ``core/scrolling.py``, ``core/storytelling.py``, ``threefry.choice``):
+# plain PyTorch on the card, no kernel of their own, as JAX's are plain XLA.
+# Each batched game runs on its published board at DEMO_BATCH lanes.
+DEMO_BATCH = 1024
+DEMO_STEPS = 64
+# The checks end every episode this many steps in (``max_iterations``, an
+# attribute as the CPU tests set it), so that every lane takes the reset
+# branch on both devices.
+DEMO_MAX_ITERATIONS = 24
+# t_maze's checks move and stay only (actions 1-5) and end every episode at
+# step TMAZE_CHECK_MAX_ITERATIONS: an episode that quits draws a new
+# [77, 191] speckle pattern, which takes the CPU's threefry seconds at
+# B = 1024, and a uniform policy quits two frames in seven.
+TMAZE_CHECK_MAX_ITERATIONS = 40
+DEMO_GAMES = (
+    (("extraterrestrial_marauders", "extraterrestrial_marauders",
+      "ExtraterrestrialMarauders", {}),
+     ("tennis", "tennis", "Tennis", {}))
+    + tuple((f"better_scrolly_maze_{lv}", "better_scrolly_maze",
+             "BetterScrollyMaze", {"level": lv}) for lv in range(3))
+    + tuple((f"t_maze_{lv}", "t_maze", "TMaze", {"level": lv})
+            for lv in range(6)))
+# extraterrestrial_marauders draws its shooter column with
+# ``threefry.choice(p=)``; a draw whose point lies within DEMO_GAP_ULPS ulps
+# of the total from a running sum of the weights is one that sums rounded in
+# another order could move. Both devices add the sums in one fixed order
+# (``threefry.cumsum_tiled``), so such lanes are counted, not exempt.
+DEMO_GAP_ULPS = 4.0
+DEMO_MAX_NEAR_SHARE = 0.01
+# The float sums over the lanes (``sum_final_return``) add in another order
+# on the card; every lane's own values are exact.
+DEMO_SUM_RTOL = 1e-5
+# The CPU's checks run in a process of their own at this many threads,
+# within this many seconds.
+DEMO_CPU_THREADS = 6
+DEMO_CPU_TIMEOUT_S = 300
+# The ordeal Story's script (tests/test_torch_demo_ordeal.py): Kansas, east
+# into the cavern, the sword, west back to Kansas, north into the castle
+# and the battle, won with the sword.
+ORDEAL_SCRIPT = (
+    [0, 0] + [3] * 15 + [0] + [3] * 22 + [0] + [3] * 4 + [1] + [2] * 14
+    + [0, 0] + [2] * 15 + [0] + [2] * 16 + [0] * 8)
+
+
+def demo_game(module, cls, kw):
+    import importlib
+
+    mod = importlib.import_module(f"ai_safety_gridworlds_torch.envs.{module}")
+    return getattr(mod, cls)(**kw)
+
+
+def demo_check_run(module, cls, kw, device):
+    """One game's phase-55 check: ``core.base.rollout(collect=True)`` at
+    DEMO_BATCH lanes for DEMO_STEPS steps from SEED on ``device``. Returns,
+    on the host, (the final episodes, the stats, the outputs, the lanes
+    whose shooter draw came near a running sum or None, seconds)."""
+    import torch
+
+    from ai_safety_gridworlds_torch.core import base, threefry
+
+    raw = demo_game(module, cls, kw)
+    policy = None
+    if module == "t_maze":
+        raw.max_iterations = TMAZE_CHECK_MAX_ITERATIONS
+
+        def policy(k, eps):
+            return threefry.randint(threefry.split(k, DEMO_BATCH), (), 1, 6)
+    else:
+        raw.max_iterations = DEMO_MAX_ITERATIONS
+    if hasattr(raw, "shoot_gaps"):
+        raw.shoot_gaps = []
+    t0 = time.perf_counter()
+    eps, st, outs = base.rollout(raw, SEED, DEMO_STEPS, DEMO_BATCH,
+                                 policy=policy, collect=True, device=device)
+
+    def host(tree):
+        return base.tree_map(lambda x: x.cpu(), tree)
+
+    eps, outs = host(eps), host(outs)  # fetches: syncs
+    seconds = time.perf_counter() - t0
+    near = None
+    if hasattr(raw, "shoot_gaps"):
+        # One draw from the first reset, then each step's reset branch and
+        # step branch (both run on every lane).
+        gaps = [g.cpu() for g in raw.shoot_gaps]
+        near = gaps[0] <= DEMO_GAP_ULPS
+        for s in range(DEMO_STEPS):
+            resetting = outs.step.step_type[s] == 0
+            g = torch.where(resetting, gaps[1 + 2 * s], gaps[2 + 2 * s])
+            near |= g <= DEMO_GAP_ULPS
+    return eps, {k: v.cpu() for k, v in st.items()}, outs, near, seconds
+
+
+def named_leaves(tree, prefix=""):
+    """(dotted name, tensor) of each leaf of nested dataclasses."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from named_leaves(getattr(tree, f.name),
+                                    f"{prefix}{f.name}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def demo_lanes_differ(a, b, lane_dim, np):
+    """bool [B]: lanes where the card's tree ``b`` differs from the CPU's
+    ``a`` in any leaf, bit for bit (``lane_dim`` 0 for a state, 1 for the
+    outputs stacked over steps)."""
+    diff = None
+    for (name, x), (_, y) in zip(named_leaves(a), named_leaves(b)):
+        x, y = x.numpy(), y.numpy()
+        if x.shape != y.shape or x.dtype != y.dtype:
+            fail(f"{name}: {x.shape} {x.dtype} on the CPU, {y.shape} "
+                 f"{y.dtype} on the card")
+        bad = np.moveaxis(x != y, lane_dim, 0)
+        bad = bad.reshape(bad.shape[0], -1).any(axis=1)
+        diff = bad if diff is None else diff | bad
+    return diff
+
+
+def demo_story_trace(device):
+    """The ordeal Story through ORDEAL_SCRIPT on ``device``: each
+    TimeStep's (step type, reward, discount, observation), the plot and the
+    chapter, and the seconds the steps took."""
+    from ai_safety_gridworlds_torch.envs import ordeal
+
+    story = ordeal.make_ordeal_story(device=device)
+    trace = [(story.its_showtime(), {}, story.current_chapter)]
+    t0 = time.perf_counter()
+    for a in ORDEAL_SCRIPT:
+        if story.game_over:
+            break
+        ts = story.play(a)
+        trace.append((ts, dict(story.the_plot), story.current_chapter))
+    return trace, time.perf_counter() - t0, story.game_over
+
+
+def demo_same_story(cpu, card, np):
+    for i, ((a, pa, ca), (b, pb, cb)) in enumerate(zip(cpu, card)):
+        if (a.step_type != b.step_type or a.discount != b.discount
+                or not np.array_equal(np.asarray(a.reward),
+                                      np.asarray(b.reward))
+                or pa != pb or ca != cb or sorted(a.observation)
+                != sorted(b.observation)):
+            fail(f"ordeal story step {i}: the card's timestep, plot or "
+                 f"chapter differs from the CPU's ({ca!r} / {cb!r})")
+        for k, v in a.observation.items():
+            if isinstance(v, dict):
+                continue
+            x, y = np.asarray(v), np.asarray(b.observation[k])
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                fail(f"ordeal story step {i}: observation {k!r} differs")
+    if len(cpu) != len(card):
+        fail(f"ordeal story: {len(cpu)} timesteps on the CPU, {len(card)} "
+             "on the card")
+
+
+def demo_cpu_runs(out_dir):
+    """Phase 55's CPU checks, run by :func:`demo_phase` as its own process
+    (``--demo-cpu DIR``, so that they take other cores than the card's
+    driving thread and none of its GIL): each game's
+    :func:`demo_check_run` on the CPU, saved as ``DIR/<label>.pt``."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.set_num_threads(DEMO_CPU_THREADS)
+    for label, module, cls, kw in DEMO_GAMES:
+        torch.save(demo_check_run(module, cls, kw, "cpu"),
+                   os.path.join(out_dir, f"{label}.pt"))
+    print("demo cpu ok", flush=True)
+
+
+def demo_phase(torch, np, dev, card, reset_counts, counts):
+    """Phase 55: the demo games on the card against the CPU, their rates,
+    launches a step and idle share, and the ordeal Story."""
+    import tempfile
+
+    from ai_safety_gridworlds_torch.core import base
+
+    t_phase = time.perf_counter()
+    out = {}
+    B = DEMO_BATCH
+    log(f"== 55. the demo games: core.base.rollout at B={B} for "
+        f"{DEMO_STEPS} steps from one key on the card vs the CPU "
+        f"(max_iterations={DEMO_MAX_ITERATIONS}; t_maze moves and stays, "
+        f"max_iterations={TMAZE_CHECK_MAX_ITERATIONS}), the CPU's in a "
+        "process of its own")
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--demo-cpu", tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            # A short call first: the card's checks then time warm calls.
+            base.rollout(demo_game(*DEMO_GAMES[0][1:]), SEED, 2, B,
+                         device=dev)
+            card_runs = {label: demo_check_run(module, cls, kw, dev)
+                         for label, module, cls, kw in DEMO_GAMES}
+            # While the CPU's checks run: a step's launches and idle share,
+            # once a game (the levels run the same ops), with the uniform
+            # policy and the game's own max_iterations.
+            profiles = {}
+            for label, module, cls, kw in DEMO_GAMES:
+                if module not in {m for m, _ in profiles.values()}:
+                    profiles[label] = (module, step_profile(
+                        label, demo_game(module, cls, kw), base.rollout, B,
+                        dev, card, torch))
+            text, _ = cpu.communicate(timeout=DEMO_CPU_TIMEOUT_S)
+        except BaseException:
+            cpu.kill()
+            cpu.communicate()
+            raise
+        if cpu.returncode or "demo cpu ok" not in text:
+            fail(f"phase 55's CPU checks failed (exit {cpu.returncode}):\n"
+                 f"{text[-4000:]}")
+        cpu_runs = {label: torch.load(os.path.join(tmp, f"{label}.pt"),
+                                      weights_only=False)
+                    for label, _, _, _ in DEMO_GAMES}
+    for label, module, cls, kw in DEMO_GAMES:
+        ec, sc, oc, nc, tc = cpu_runs[label]
+        eg, sg, og, ng, tg = card_runs[label]
+        diff = (demo_lanes_differ(ec, eg, 0, np)
+                | demo_lanes_differ(oc, og, 1, np))
+        if diff.any():
+            fail(f"{label}: {int(diff.sum())} lanes differ from the CPU")
+        near = 0
+        if nc is not None:
+            if not torch.equal(nc, ng):
+                fail(f"{label}: the near draws differ between the devices")
+            near = int(nc.sum())
+            if near > DEMO_MAX_NEAR_SHARE * B:
+                fail(f"{label}: {near} lanes drew near a running sum")
+        resets = int((oc.step.step_type == 0).sum())
+        lanes_reset = int((oc.step.step_type == 0).any(dim=0).sum())
+        if lanes_reset != B:
+            fail(f"{label}: {B - lanes_reset} lanes never took the reset "
+                 "branch")
+        if int(sc["episodes"]) != int(sg["episodes"]):
+            fail(f"{label}: episodes {int(sg['episodes'])} on the card, "
+                 f"{int(sc['episodes'])} on the CPU")
+        for k in ("sum_final_return", "sum_final_hidden"):
+            if not torch.allclose(sg[k], sc[k], rtol=DEMO_SUM_RTOL, atol=0):
+                fail(f"{label}: {k} {sg[k].tolist()} on the card, "
+                     f"{sc[k].tolist()} on the CPU")
+        rate = B * DEMO_STEPS / tg
+        log(f"{label}: every lane equal to the CPU, {resets} resets "
+            f"selected, {int(sc['episodes'])} episodes ended"
+            + (f", {near} lanes drew within {DEMO_GAP_ULPS} ulps of a "
+               "running sum (none exempt)" if nc is not None else "")
+            + f"; rollout({DEMO_STEPS}, collect=True) {tg * 1e3:.1f} ms "
+            f"host clock on the card, {rate:.0f} env-steps/s (CPU "
+            f"{tc * 1e3:.1f} ms)  [{card}]")
+        out[label] = {"check_lanes": B, "check_diff_lanes": 0,
+                      "check_near_lanes": near, "check_resets": resets,
+                      "check_episodes": int(sc["episodes"]),
+                      "env_steps_per_s": rate, "card_s": tg, "cpu_s": tc}
+    for label, (_, profile) in profiles.items():
+        out[label]["profile"] = profile
+    launched = counts()
+    if any(launched.values()):
+        fail(f"phase 55 launched a fused kernel {launched}")
+
+    # The ordeal Story on the card against the CPU.
+    cpu, cpu_s, _ = demo_story_trace("cpu")
+    gpu, gpu_s, over = demo_story_trace(dev)
+    demo_same_story(cpu, gpu, np)
+    chapters = [c for _, _, c in gpu]
+    chapters = [c for i, c in enumerate(chapters)
+                if i == 0 or c != chapters[i - 1]]
+    won = gpu[-1][0].reward
+    if not over or chapters != ["kansas", "cavern", "kansas", "castle"] \
+            or won != 1.0:
+        fail(f"ordeal story: chapters {chapters}, over {over}, last reward "
+             f"{won}")
+    n = len(gpu) - 1
+    log(f"ordeal Story: {n} steps through {' -> '.join(chapters)}, won with "
+        f"the sword, every timestep, plot and chapter equal to the CPU's; "
+        f"{n / gpu_s:.1f} steps/s on the card, {n / cpu_s:.1f} on the CPU  "
+        f"[{card}]")
+    out["ordeal_story"] = {"steps": n, "chapters": chapters,
+                           "steps_per_s": n / gpu_s,
+                           "cpu_steps_per_s": n / cpu_s}
+    log(f"phase 55: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def demos_only():
+    """Phase 55 alone (the demo games; no kernel build): one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false; this run needs a card")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+
+    wrappers = kernel_wrappers()
+
+    def reset_counts():
+        for w in wrappers:
+            w.launches = 0
+
+    def counts():
+        return {w.__name__: w.launches for w in wrappers}
+
+    t0 = time.perf_counter()
+    out = demo_phase(torch, np, torch.device("cuda", 0), gpu_line(),
+                     reset_counts, counts)
+    out["run_seconds"] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+
+
 def time_firemaker(root):
     """K1 per rollout(MAIN_STEPS) and K3 per collect(COLLECT_STEPS) at
     H = HIDDEN, B = BATCH, from ``init_packed(SEED, BATCH)``, each at the
@@ -6376,6 +6717,10 @@ def main():
         return shells_only()
     if sys.argv[1:] == ["--adapters"]:
         return adapters_only()
+    if sys.argv[1:] == ["--demos"]:
+        return demos_only()
+    if len(sys.argv) == 3 and sys.argv[1] == "--demo-cpu":
+        return demo_cpu_runs(sys.argv[2])
     if sys.argv[1:] == ["--scaleout"]:
         return scaleout_only()
     if sys.argv[1:] == ["--trace-history"]:
@@ -6839,8 +7184,9 @@ def main():
                                     counts)
     learners.update(shell)
     scaleout = scaleout_phase(torch, np, card)
+    demos = demo_phase(torch, np, dev, card, reset_counts, counts)
 
-    # ---- 55. results
+    # ---- 56. results
     k2_bound_ms, k2_bound_by = bound(24 * n_words, 24 * n_words)
     kernels = [{
         "name": "fused_firemaker_rollout", "route": "cuda",
@@ -6877,7 +7223,8 @@ def main():
     log(json.dumps({"kernels": kernels, "checked_off_path": checked_off_path,
                     "generic": generic, "learners": learners,
                     "mo_shell": mo_shell, "moma_shell": moma_shell,
-                    "adapters": adapters, "scaleout": scaleout}))
+                    "adapters": adapters, "scaleout": scaleout,
+                    "demos": demos}))
     log(gpu_line())
     log(json.dumps({
         "ok": True,
